@@ -1,167 +1,735 @@
-// Fused SnakeBeta activation + dilated 1-D convolution, f32, for sm_90a.
+// Fused SnakeBeta activation + dilated 1-D convolution in f32 on Hopper's
+// tensor cores (sm_90a): an implicit GEMM in 3xTF32 on wgmma.
 //
 //   y[b,t,o] = bias[o] + sum_{j<k} sum_c snake(xpad[b, t + j*d, c]) * W[o,c,j]
 //   snake(x) = x + sin^2(alpha_c * x) / (beta_c + 1e-9)
 //
-// x is (B, T, C), W is (O, C, k) as torch's conv1d stores it, y is (B, T, O).
-// The pad is zero and `left` frames of it sit before t = 0 (causal: (k-1)d,
-// centered: ceil((k-1)d / 2)); the rest sits after T.  snake(0) == 0, so
-// activating the zero pad equals padding the activation.
+// x is (B, T, C) and y is (B, T, O).  The weight is read as two (k, O, Cw)
+// arrays, Cw >= C a multiple of 4 with zeros past C: w itself, whose top 19
+// bits the tensor cores read as its tf32 high part, and lo = tf32(w - that
+// high part), kept beside it by the caller.  Tap j's rows W[:, :, j] are then
+// K-major (channels contiguous), as tf32 wgmma needs.  The pad is zero and
+// `left` frames of it sit before t = 0 (causal: (k-1)d, centered:
+// ceil((k-1)d / 2)); snake(0) == 0, so activating the zero pad equals padding
+// the activation.
 //
 // Replaces the TPU kernel after_tpu/ops/pallas/fused_conv.py (_kernel,
 // launched by _pallas_forward from fused_snake_causal_conv).  Like it, the
-// activation is recomputed from x while the input window is staged on chip,
+// activation is computed from x while the input window is staged on chip,
 // so the snake output never goes to device memory.
 //
-// What bounds it: the codec's convs are compute-bound on this card.  At the
-// base codec's shapes one transfer is about 148 GFLOP of multiply-adds
-// (~36 per encode, twice, ~76 per decode) against a few hundred MB of
-// activations, so on the f32 CUDA cores (67 TFLOP/s on an H100 SXM, no tensor
-// cores) no run can take less than ~2.2 ms per transfer.
+// What bounds it: operations.  The base codec's 96 convs of one 524288-sample
+// transfer are 147.98 GFLOP against about 1.43 GB of traffic.  3xTF32 runs
+// three tf32 products per multiply-add, so at the H100's 495 TFLOP/s of TF32
+// no run can take less than 0.90 ms per transfer (the memory floor is
+// 0.43 ms; the f32 CUDA cores alone would need 2.22 ms).
 //
-// What the design does about it: each block computes a 64 (time) x 64
-// (output channel) tile and loops over the input channels in chunks of 16.
-// For each chunk it stages the activated halo window [t0 - left, t0 + 64 +
-// right) and the chunk's weights for all k taps in shared memory, so every
-// loaded value feeds 64 multiply-adds.  Each of the 256 threads keeps a 4x4
-// tile of sums in registers: its time rows are ty + 16i (a warp reads two
-// window rows, broadcast) and its output channels tx + 16i (a warp reads 16
-// consecutive words), so the inner loop has no bank conflicts.  Ragged T, C
-// and O are masked here, so the kernel takes any shape.  The arithmetic is
-// plain f32 FMA: parity with the f32 reference comes first; TF32 or bf16
-// wgmma, TMA staging and tuning are later work.
+// The GEMM: M is frames, N output channels, K channels x taps.  A block has
+// two warpgroups and computes 128 frames x BN output channels, the sums in
+// f32 registers.  It walks its share of the channel sum in stages of BK
+// channels x KT taps (KT = 3 for k = 3, else 1):
+//
+//  - Pipeline: a ring of three stages in shared memory.  Stage s + 2 is in
+//    flight while stage s runs: its weight tiles (hi and lo, one 2-D TMA box
+//    per tap, swizzled 32, 64 or 128 bytes to match BK) complete on an
+//    mbarrier, its raw input window [t0 - left, t0 + 128 + right) x BK
+//    channels, with the chunk's alpha and beta, comes by cp.async (16-byte
+//    copies, 4-byte ones when C is not a multiple of 4; zero fill past every
+//    edge).
+//  - Snake once per staged element: each window element is activated with
+//    the full-accuracy sinf and split once into hi = tf32(v), lo = tf32(v -
+//    hi) (cvt.rna), into a double buffer, then used by every tap and by all
+//    BN output channels.  Stage s + 1 is activated right after the MMAs of
+//    stage s are issued.
+//  - 3xTF32: for each 8-channel step of each tap, three wgmma m64nBNk8
+//    .tf32 into the same sums, small terms first: a_lo*b_hi, a_hi*b_lo,
+//    a_hi*b_hi.  That keeps f32 accuracy (the dropped a_lo*b_lo is 2^-22 of
+//    the product).
+//  - A from registers: tap j's A tile starts j*d rows into the window, and
+//    d = 1, 3, 9 is not a multiple of the 8-row core matrix, so no shared
+//    memory descriptor can point at it.  Each thread loads its fragments of
+//    the activated window with ld.shared instead (columns stored in the order
+//    that puts a thread's two columns side by side, rows padded so that a
+//    half-warp's 8-byte loads hit distinct banks), all of a stage's at once,
+//    and then issues the stage's MMAs as one group.  B (weights) is read by
+//    the tensor cores from the swizzled TMA tiles through descriptors.
+//  - Filling the card: BN is 64, 128 or 256 (as wide as O allows without
+//    doubling it), and the channel sum may be split over blocks (gridDim.z)
+//    that add into a zeroed y with atomics.  A cost model fitted to this
+//    kernel's times (make_plan) picks both per shape; it ends up filling one
+//    wave of about 128 blocks, which at the 1024-frame stages means
+//    splitting the sum 5 to 8 ways.
+//
+// Every shape runs this one kernel: ragged T, C and O are masked and any B
+// is taken.  A launch error is returned to the caller, which raises.
 
+#include <cuda.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int kTimeTile = 64;
-constexpr int kOutTile = 64;
-constexpr int kChanChunk = 16;
-constexpr int kThreads = 256;
-// padded row of the staged weights: the transposing store then spreads its
-// writes over the banks instead of hitting one
-constexpr int kOutTilePad = kOutTile + 1;
+constexpr int kThreads = 256;   // two warpgroups
+constexpr int kRows = 128;      // frames per block, 64 per warpgroup
+constexpr int kSMs = 132;       // H100 SXM
+constexpr int kMaxSmem = 232448;          // per block, opt-in
+constexpr int kRing = 3;                  // stages in flight
 
-__global__ void __launch_bounds__(kThreads)
-fused_snake_conv_kernel(const float* __restrict__ x,
-                        const float* __restrict__ alpha,
-                        const float* __restrict__ beta,
-                        const float* __restrict__ w,
-                        const float* __restrict__ bias,
-                        float* __restrict__ y,
-                        int T, int C, int O, int k, int dilation, int left) {
-  extern __shared__ float smem[];
-  const int win = kTimeTile + (k - 1) * dilation;
-  float* xs = smem;                          // [win][kChanChunk]
-  float* ws = smem + win * kChanChunk;       // [k][kChanChunk][kOutTilePad]
+struct Params {
+  const float* x;
+  const float* alpha;
+  const float* beta;
+  const float* bias;
+  float* y;
+  int T, C, O, k, dilation, left;
+  int win;              // window rows: kRows + (k - 1) * dilation
+  int groups;           // tap groups per channel chunk: k / KT
+  int n_stages;         // channel chunks x tap groups
+  int stages_per_split, splits;
+  int vec_x;            // 16-byte copies of x
+};
 
-  const int b = blockIdx.z;
-  const int t0 = blockIdx.x * kTimeTile;
-  const int o0 = blockIdx.y * kOutTile;
-  const int tx = threadIdx.x % 16;           // output-channel lane
-  const int ty = threadIdx.x / 16;           // time lane
-  const float* xb = x + (size_t)b * T * C;
+// row stride of the activated window: a multiple of 8 that is 8 or 24 mod
+// 32, so a half-warp's 8-byte fragment loads hit 16 distinct bank pairs
+__host__ __device__ constexpr int act_stride(int bk) {
+  return bk % 16 == 0 ? bk + 8 : bk;
+}
 
-  float acc[4][4];
+// column of channel cc inside its group of 8: (cc, cc + 4) side by side
+__device__ __forceinline__ int act_col(int cc) {
+  return (cc & ~7) + ((cc & 3) << 1) + ((cc >> 2) & 1);
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(ok ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(ok ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// all but the newest group of this thread's copies have landed
+__device__ __forceinline__ void cp_async_wait_prev() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_addr(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect(uint64_t* bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_addr(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred done;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      "@!done bra WAIT;\n"
+      "}\n" ::"r"(smem_addr(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// one 2-D box of a tensor map into shared memory, completing on `bar`
+__device__ __forceinline__ void tma_load_2d(float* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0),
+      "r"(c1)
+      : "memory");
+}
+
+__device__ __forceinline__ uint32_t to_tf32(float v) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(v));
+  return r;
+}
+
+__device__ __forceinline__ void split_tf32(float v, float& hi, float& lo) {
+  const uint32_t h = to_tf32(v);
+  hi = __uint_as_float(h);
+  lo = __uint_as_float(to_tf32(v - hi));
+}
+
+// K-major operand in the swizzled layout TMA writes: rows of `row_bytes`
+// (32, 64 or 128: the swizzle span), 8-row groups `8 * row_bytes` apart
+template <int RowBytes>
+__device__ __forceinline__ uint64_t make_desc(const float* p) {
+  constexpr uint64_t layout = RowBytes == 128 ? 1 : RowBytes == 64 ? 2 : 3;
+  return (uint64_t)((smem_addr(p) & 0x3FFFF) >> 4) | (1ull << 16) |
+         ((uint64_t)(8 * RowBytes >> 4) << 32) | (layout << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// keeps the compiler from moving accumulator reads or writes across the
+// asynchronous MMAs
+template <int R>
+__device__ __forceinline__ void fence_acc(float (&d)[R]) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int q = 0; q < 4; ++q) acc[i][q] = 0.f;
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
 
-  for (int c0 = 0; c0 < C; c0 += kChanChunk) {
-    // activated input window; neighbouring threads read neighbouring channels
-    for (int i = threadIdx.x; i < win * kChanChunk; i += kThreads) {
-      const int tp = i / kChanChunk;
-      const int c = c0 + i % kChanChunk;
-      const int t = t0 - left + tp;
-      float v = 0.f;
-      if (t >= 0 && t < T && c < C) {
-        const float xv = xb[(size_t)t * C + c];
-        const float s = sinf(xv * alpha[c]);
-        v = xv + (1.0f / (beta[c] + 1e-9f)) * (s * s);
+// wgmma.mma_async m64nNk8 .f32.tf32.tf32, A from registers, B from shared
+// memory, d += A * B; the operand lists are spelled out for each N
+
+__device__ __forceinline__ void wgmma_n64(float (&d)[32],
+                                          const uint32_t (&a)[4],
+                                          uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
+      " %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+        "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_n128(float (&d)[64],
+                                          const uint32_t (&a)[4],
+                                          uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
+      " %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35,"
+      " %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59,"
+      " %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+        "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_n256(float (&d)[128],
+                                          const uint32_t (&a)[4],
+                                          uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
+      " %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35,"
+      " %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59,"
+      " %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71,"
+      " %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83,"
+      " %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95,"
+      " %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107,"
+      " %108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119,"
+      " %120, %121, %122, %123, %124, %125, %126, %127}, "
+      "{%128, %129, %130, %131}, %132, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
+        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
+        "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]),
+        "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]),
+        "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
+        "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+        "r"(1));
+}
+
+template <int BN>
+__device__ __forceinline__ void wgmma_tf32(float (&d)[BN / 2],
+                                           const uint32_t (&a)[4],
+                                           uint64_t desc_b) {
+  if constexpr (BN == 64) wgmma_n64(d, a, desc_b);
+  else if constexpr (BN == 128) wgmma_n128(d, a, desc_b);
+  else wgmma_n256(d, a, desc_b);
+}
+
+// Shared memory of one instance, in bytes: the ring of weight tiles (hi and
+// lo) and raw windows (with the chunk's alpha and beta as two more rows),
+// the double-buffered activated window, the barriers.
+__host__ __device__ constexpr int weight_bytes(int bn, int bk, int kt) {
+  return 4 * kt * bk * bn;
+}
+
+size_t smem_bytes(int bn, int bk, int kt, int win) {
+  return 1024 +                                    // alignment
+         (size_t)kRing * 2 * weight_bytes(bn, bk, kt) +
+         (size_t)kRing * 4 * (win + 2) * bk +
+         (size_t)4 * 4 * win * act_stride(bk) + kRing * sizeof(uint64_t);
+}
+
+// One block: 128 frames x BN output channels.  A stage is BK channels x KT
+// taps; the stages of this block's share of the channel sum run in order.
+template <int BN, int BK, int KT>
+__global__ void __launch_bounds__(kThreads, 1)
+snake_conv_3xtf32(const __grid_constant__ CUtensorMap w_hi,
+                  const __grid_constant__ CUtensorMap w_lo, const Params p) {
+  constexpr int kq = BK / 4;                 // 16-byte pieces per row
+  constexpr int AS = act_stride(BK);
+  constexpr int WB = weight_bytes(BN, BK, KT);
+  constexpr int TAP = BN * BK;               // floats of one tap's tile
+  constexpr int KS = BK / 8;                 // 8-channel steps per tap
+  constexpr int STEPS = KT * KS;
+  static_assert(kThreads % BK == 0, "a thread keeps its channel");
+
+  extern __shared__ uint8_t smem_raw[];
+  // swizzled TMA tiles want 1024-byte alignment
+  uint8_t* const smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  const int xsz = (p.win + 2) * BK;           // window, alpha, beta
+  const int asz = p.win * AS;
+  float* const whi = reinterpret_cast<float*>(smem);          // [ring][WB]
+  float* const wlo = whi + kRing * WB / 4;                     // [ring][WB]
+  float* const xraw = wlo + kRing * WB / 4;                    // [ring][xsz]
+  float* const act = xraw + kRing * xsz;                       // [2][hi,lo]
+  uint64_t* const full = reinterpret_cast<uint64_t*>(act + 4 * asz);
+
+  const int tid = threadIdx.x;
+  const int t0 = blockIdx.x * kRows;
+  const int o0 = blockIdx.y * BN;
+  const int split = blockIdx.z % p.splits;
+  const int b = blockIdx.z / p.splits;
+  const int st0 = split * p.stages_per_split;
+  const int n = min(p.n_stages, st0 + p.stages_per_split) - st0;
+  const float* const xb = p.x + (size_t)b * p.T * p.C;
+
+  if (tid == 0) {
+    for (int s = 0; s < kRing; ++s) mbar_init(full + s, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // stage i of this block into ring slot i % kRing: the weights by TMA
+  // (thread 0), the raw window by every thread; one cp.async group per call
+  auto issue = [&](int i) {
+    if (i < n) {
+      const int st = st0 + i;
+      const int c0 = (st / p.groups) * BK;
+      const int j0 = (st % p.groups) * KT;
+      const int slot = i % kRing;
+      if (tid == 0) {
+        uint64_t* const bar = full + slot;
+        mbar_expect(bar, 2 * WB);
+#pragma unroll
+        for (int jj = 0; jj < KT; ++jj) {
+          const int row = (j0 + jj) * p.O + o0;
+          tma_load_2d(whi + slot * WB / 4 + jj * TAP, &w_hi, bar, c0, row);
+          tma_load_2d(wlo + slot * WB / 4 + jj * TAP, &w_lo, bar, c0, row);
+        }
       }
-      xs[i] = v;
-    }
-    // weights of this channel chunk for all taps; W rows (o, c, 0..k-1) are
-    // contiguous in device memory
-    const int per_o = kChanChunk * k;
-    for (int i = threadIdx.x; i < kOutTile * per_o; i += kThreads) {
-      const int o = i / per_o;
-      const int r = i % per_o;
-      const int c = r / k;
-      const int j = r % k;
-      const int oo = o0 + o;
-      const int cc = c0 + c;
-      float v = 0.f;
-      if (oo < O && cc < C) v = w[((size_t)oo * C + cc) * k + j];
-      ws[(j * kChanChunk + c) * kOutTilePad + o] = v;
-    }
-    __syncthreads();
-
-    for (int j = 0; j < k; ++j) {
-      const float* xj = xs + j * dilation * kChanChunk;
-      const float* wj = ws + j * kChanChunk * kOutTilePad;
-#pragma unroll
-      for (int c = 0; c < kChanChunk; ++c) {
-        float a[4], bw[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) a[i] = xj[(ty + 16 * i) * kChanChunk + c];
-#pragma unroll
-        for (int q = 0; q < 4; ++q) bw[q] = wj[c * kOutTilePad + tx + 16 * q];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int q = 0; q < 4; ++q) acc[i][q] = fmaf(a[i], bw[q], acc[i][q]);
+      float* const xdst = xraw + slot * xsz;
+      if (tid < 2 * BK) {
+        const int c = c0 + tid % BK;
+        const bool ok = c < p.C;
+        const float* src = tid < BK ? p.alpha : p.beta;
+        cp_async4(xdst + p.win * BK + tid, ok ? src + c : p.alpha, ok);
+      }
+      if (p.vec_x) {
+        for (int e = tid; e < p.win * kq; e += kThreads) {
+          const int q = e % kq;
+          const int r = e / kq;
+          const int t = t0 - p.left + r;
+          const int c = c0 + 4 * q;
+          const bool ok = t >= 0 && t < p.T && c < p.C;
+          cp_async16(xdst + r * BK + 4 * q,
+                     ok ? xb + (size_t)t * p.C + c : p.x, ok);
+        }
+      } else {
+        for (int e = tid; e < p.win * BK; e += kThreads) {
+          const int cc = e % BK;
+          const int r = e / BK;
+          const int t = t0 - p.left + r;
+          const int c = c0 + cc;
+          const bool ok = t >= 0 && t < p.T && c < p.C;
+          cp_async4(xdst + e, ok ? xb + (size_t)t * p.C + c : p.x, ok);
+        }
       }
     }
-    __syncthreads();
+    cp_async_commit();
+  };
+
+  // snake of stage i's window, split, into activated buffer i & 1; a
+  // thread keeps one channel
+  auto activate = [&](int i) {
+    const int st = st0 + i;
+    const int cc = tid % BK;
+    const int c = (st / p.groups) * BK + cc;
+    const bool live = c < p.C;
+    const float* const xr = xraw + (i % kRing) * xsz;
+    const float al = xr[p.win * BK + cc];
+    const float ib = 1.0f / (xr[(p.win + 1) * BK + cc] + 1e-9f);
+    float* const ah = act + (i & 1) * 2 * asz;
+    float* const alo = ah + asz;
+    const int col = act_col(cc);
+#pragma unroll 2
+    for (int r = tid / BK; r < p.win; r += kThreads / BK) {
+      const float xv = xr[r * BK + cc];
+      const float sn = sinf(xv * al);
+      const float v = live ? xv + ib * (sn * sn) : 0.f;
+      float hi, lo;
+      split_tf32(v, hi, lo);
+      ah[r * AS + col] = hi;
+      alo[r * AS + col] = lo;
+    }
+  };
+
+  // this thread's fragment rows: warp w of warpgroup g holds rows
+  // 64g + 16w + (lane / 4) and 8 below
+  const int lane = tid % 32;
+  const int row0 = (tid / 128) * 64 + ((tid / 32) % 4) * 16 + lane / 4;
+  const int tig = lane % 4;
+
+  float acc[BN / 2];
+#pragma unroll
+  for (int e = 0; e < BN / 2; ++e) acc[e] = 0.f;
+  fence_acc(acc);
+
+  // all fragments of stage i in registers, then its 3 x STEPS MMAs in one
+  // group, small terms first
+  auto mma = [&](int i) {
+    const int j0 = ((st0 + i) % p.groups) * KT;
+    const float* const ah = act + (i & 1) * 2 * asz;
+    const float* const alo = ah + asz;
+    uint32_t fh[STEPS][4], fl[STEPS][4];
+#pragma unroll
+    for (int u = 0; u < STEPS; ++u) {
+      const int off = (row0 + (j0 + u / KS) * p.dilation) * AS +
+                      8 * (u % KS) + 2 * tig;
+      const float2 h0 = *reinterpret_cast<const float2*>(ah + off);
+      const float2 h1 = *reinterpret_cast<const float2*>(ah + off + 8 * AS);
+      const float2 l0 = *reinterpret_cast<const float2*>(alo + off);
+      const float2 l1 = *reinterpret_cast<const float2*>(alo + off + 8 * AS);
+      fh[u][0] = __float_as_uint(h0.x);
+      fh[u][1] = __float_as_uint(h1.x);
+      fh[u][2] = __float_as_uint(h0.y);
+      fh[u][3] = __float_as_uint(h1.y);
+      fl[u][0] = __float_as_uint(l0.x);
+      fl[u][1] = __float_as_uint(l1.x);
+      fl[u][2] = __float_as_uint(l0.y);
+      fl[u][3] = __float_as_uint(l1.y);
+    }
+    const float* const bh = whi + (i % kRing) * WB / 4;
+    const float* const bl = wlo + (i % kRing) * WB / 4;
+    wgmma_fence();
+#pragma unroll
+    for (int u = 0; u < STEPS; ++u) {
+      // tap u / KS, channels 8 (u % KS) on: 32 bytes into the swizzled rows
+      const int off = (u / KS) * TAP + 8 * (u % KS);
+      const uint64_t dh = make_desc<BK * 4>(bh + off);
+      const uint64_t dl = make_desc<BK * 4>(bl + off);
+      wgmma_tf32<BN>(acc, fl[u], dh);
+      wgmma_tf32<BN>(acc, fh[u], dl);
+      wgmma_tf32<BN>(acc, fh[u], dh);
+    }
+    wgmma_commit();
+  };
+
+  issue(0);
+  issue(1);
+  cp_async_wait_prev();
+  __syncthreads();
+  mbar_wait(full, 0);
+  activate(0);
+  __syncthreads();
+  for (int i = 0; i < n; ++i) {
+    mma(i);
+    issue(i + 2);
+    if (i + 1 < n) {
+      cp_async_wait_prev();
+      __syncthreads();   // stage i + 1's window is in
+      mbar_wait(full + (i + 1) % kRing, ((i + 1) / kRing) & 1);
+      activate(i + 1);
+    }
+    wgmma_wait_all();
+    fence_acc(acc);
+    __syncthreads();     // stage i + 1 is activated; stage i's slot is free
   }
 
-  float* yb = y + (size_t)b * T * O;
+  // sums: d[4q + 2h + e] is row (lane / 4) + 8h, column 8q + 2 * tig + e
+  float* const yb = p.y + (size_t)b * p.T * p.O;
+  const bool atomic = p.splits > 1;
+  const bool pairs = !atomic && (p.O % 2 == 0);
 #pragma unroll
-  for (int q = 0; q < 4; ++q) {
-    const int o = o0 + tx + 16 * q;
-    if (o >= O) continue;
-    const float bo = bias[o];
+  for (int q = 0; q < BN / 8; ++q) {
+    const int o = o0 + 8 * q + 2 * tig;
+    if (o >= p.O) continue;
+    const bool has1 = o + 1 < p.O;
+    const bool with_bias = split == 0;
+    const float b0 = with_bias ? __ldg(p.bias + o) : 0.f;
+    const float b1 = with_bias && has1 ? __ldg(p.bias + o + 1) : 0.f;
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int t = t0 + ty + 16 * i;
-      if (t < T) yb[(size_t)t * O + o] = acc[i][q] + bo;
+    for (int h = 0; h < 2; ++h) {
+      const int t = t0 + row0 + 8 * h;
+      if (t >= p.T) continue;
+      float* dst = yb + (size_t)t * p.O + o;
+      const float v0 = acc[4 * q + 2 * h] + b0;
+      const float v1 = acc[4 * q + 2 * h + 1] + b1;
+      if (atomic) {
+        atomicAdd(dst, v0);
+        if (has1) atomicAdd(dst + 1, v1);
+      } else if (pairs) {
+        *reinterpret_cast<float2*>(dst) = make_float2(v0, v1);
+      } else {
+        dst[0] = v0;
+        if (has1) dst[1] = v1;
+      }
     }
   }
+}
+
+int ceil_div(int a, int b) { return (a + b - 1) / b; }
+
+// channels per stage of each instance: the most that fits beside the other
+// buffers at the main path's windows (146 rows at k = 3, d = 9)
+int stage_channels(int bn, int kt) {
+  if (kt == 3) return bn == 64 ? 16 : 8;
+  return bn == 64 ? 32 : 16;
+}
+
+struct Plan {
+  int bn, bk, kt, splits, stages_per_split, n_stages, groups;
+  size_t smem;
+};
+
+// Tile width and split of the channel sum for one shape, from a model fitted
+// to the kernel's times on an H100: a stage costs its MMA cycles plus its
+// activation cycles plus a fixed 600 (the activation does not hide behind
+// the MMAs in practice), a block costs its stages plus three for its
+// prologue and epilogue, and the grid costs whole waves over the 132 SMs.
+// The best plans fill one wave with about 128 blocks.
+int make_plan(int B, int T, int C, int O, int k, int dilation, Plan* plan) {
+  const int win = kRows + (k - 1) * dilation;
+  const int nt = ceil_div(T, kRows) * B;
+  const int kt = k % 3 == 0 ? 3 : 1;
+  double best = -1.0;
+  if (win > 256) return (int)cudaErrorInvalidValue;
+  for (int bn = 64; bn <= 256; bn *= 2) {
+    if (bn > 64 && ceil_div(O, bn) * bn >= 2 * O) continue;
+    const int bk = stage_channels(bn, kt);
+    const size_t smem = smem_bytes(bn, bk, kt, win);
+    if (smem > (size_t)kMaxSmem) continue;
+    const int groups = k / kt;
+    const int n_stages = ceil_div(C, bk) * groups;
+    const double stage = 3.0 * kt * bk / 8 * bn + 1.6 * win * bk + 600.0;
+    const int most = n_stages / 2 > 1 ? n_stages / 2 : 1;
+    for (int s = 1; s <= most; ++s) {
+      const int per = ceil_div(n_stages, s);
+      const int blocks = nt * ceil_div(O, bn) * ceil_div(n_stages, per);
+      const double cost = (double)ceil_div(blocks, kSMs) * (per + 3) *
+                          stage * (s > 1 ? 1.05 : 1.0);
+      if (best < 0 || cost < best) {
+        best = cost;
+        plan->bn = bn;
+        plan->bk = bk;
+        plan->kt = kt;
+        plan->groups = groups;
+        plan->n_stages = n_stages;
+        plan->stages_per_split = per;
+        plan->splits = ceil_div(n_stages, per);
+        plan->smem = smem;
+      }
+    }
+  }
+  return best < 0 ? (int)cudaErrorInvalidValue : 0;
+}
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+// (k * O, Cw) rows of a weight array, boxes of BK channels x BN rows
+int weight_map(CUtensorMap* map, const float* w, int rows, int Cw, int bk,
+               int bn) {
+  static EncodeTiled encode = nullptr;
+  if (encode == nullptr) {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found);
+    if (err != cudaSuccess) return (int)err;
+    if (found != cudaDriverEntryPointSuccess || fn == nullptr)
+      return (int)cudaErrorSymbolNotFound;
+    encode = reinterpret_cast<EncodeTiled>(fn);
+  }
+  const cuuint64_t dims[2] = {(cuuint64_t)Cw, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)Cw * sizeof(float)};
+  const cuuint32_t box[2] = {(cuuint32_t)bk, (cuuint32_t)bn};
+  const cuuint32_t estrides[2] = {1, 1};
+  const CUtensorMapSwizzle swizzle =
+      bk == 32 ? CU_TENSOR_MAP_SWIZZLE_128B
+               : bk == 16 ? CU_TENSOR_MAP_SWIZZLE_64B
+                          : CU_TENSOR_MAP_SWIZZLE_32B;
+  const CUresult res = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<float*>(w), dims,
+      strides, box, estrides, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+template <int BN, int BK, int KT>
+int launch(const float* w, const float* wlo, int Cw, const Params& p,
+           const Plan& plan, int B, cudaStream_t stream) {
+  static bool configured = false;
+  if (!configured) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        snake_conv_3xtf32<BN, BK, KT>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+    if (err != cudaSuccess) return (int)err;
+    configured = true;
+  }
+  CUtensorMap map_hi, map_lo;
+  int err = weight_map(&map_hi, w, p.k * p.O, Cw, BK, BN);
+  if (err == 0) err = weight_map(&map_lo, wlo, p.k * p.O, Cw, BK, BN);
+  if (err) return err;
+  dim3 grid(ceil_div(p.T, kRows), ceil_div(p.O, BN), B * plan.splits);
+  snake_conv_3xtf32<BN, BK, KT><<<grid, kThreads, plan.smem, stream>>>(
+      map_hi, map_lo, p);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
 
-// Shared memory one launch needs, in bytes.
-size_t fused_snake_conv_smem_bytes(int k, int dilation) {
-  const int win = kTimeTile + (k - 1) * dilation;
-  return sizeof(float) *
-         ((size_t)win * kChanChunk + (size_t)k * kChanChunk * kOutTilePad);
+// The tiling a launch of this shape takes: out[0..2] = output channels per
+// block, channels per stage, splits of the channel sum.
+int fused_snake_conv_plan(int B, int T, int C, int O, int k, int dilation,
+                          int* out) {
+  Plan plan;
+  const int err = make_plan(B, T, C, O, k, dilation, &plan);
+  if (err) return err;
+  out[0] = plan.bn;
+  out[1] = plan.bk;
+  out[2] = plan.splits;
+  return 0;
 }
 
-// Launches on `stream` and returns cudaGetLastError() (0 on success).
+// Launches on `stream` and returns a CUDA error code (0 on success).  w and
+// wlo are (k, O, Cw), Cw >= C a multiple of 4, 16-byte aligned.
 int fused_snake_conv_f32(const float* x, const float* alpha, const float* beta,
-                         const float* w, const float* bias, float* y, int B,
-                         int T, int C, int O, int k, int dilation, int left,
-                         void* stream) {
+                         const float* w, const float* wlo, const float* bias,
+                         float* y, int B, int T, int C, int O, int k,
+                         int dilation, int left, int Cw, void* stream) {
   if (B <= 0 || T <= 0 || C <= 0 || O <= 0 || k <= 0 || dilation <= 0 ||
-      left < 0 || left > (k - 1) * dilation)
+      left < 0 || left > (k - 1) * dilation || Cw < C || Cw % 4 != 0 ||
+      (uintptr_t)w % 16 != 0 || (uintptr_t)wlo % 16 != 0)
     return (int)cudaErrorInvalidValue;
-  const size_t smem = fused_snake_conv_smem_bytes(k, dilation);
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        fused_snake_conv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return (int)err;
+  Plan plan;
+  const int err = make_plan(B, T, C, O, k, dilation, &plan);
+  if (err) return err;
+  if ((long long)B * plan.splits > 65535) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (plan.splits > 1) {
+    const cudaError_t e =
+        cudaMemsetAsync(y, 0, sizeof(float) * B * T * O, s);
+    if (e != cudaSuccess) return (int)e;
   }
-  dim3 grid((T + kTimeTile - 1) / kTimeTile, (O + kOutTile - 1) / kOutTile, B);
-  fused_snake_conv_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      x, alpha, beta, w, bias, y, T, C, O, k, dilation, left);
-  return (int)cudaGetLastError();
+  Params p;
+  p.x = x;
+  p.alpha = alpha;
+  p.beta = beta;
+  p.bias = bias;
+  p.y = y;
+  p.T = T;
+  p.C = C;
+  p.O = O;
+  p.k = k;
+  p.dilation = dilation;
+  p.left = left;
+  p.win = kRows + (k - 1) * dilation;
+  p.groups = plan.groups;
+  p.n_stages = plan.n_stages;
+  p.stages_per_split = plan.stages_per_split;
+  p.splits = plan.splits;
+  p.vec_x = C % 4 == 0 && (uintptr_t)x % 16 == 0;
+  switch (plan.bn * 4 + plan.kt) {
+    case 64 * 4 + 3: return launch<64, 16, 3>(w, wlo, Cw, p, plan, B, s);
+    case 128 * 4 + 3: return launch<128, 8, 3>(w, wlo, Cw, p, plan, B, s);
+    case 256 * 4 + 3: return launch<256, 8, 3>(w, wlo, Cw, p, plan, B, s);
+    case 64 * 4 + 1: return launch<64, 32, 1>(w, wlo, Cw, p, plan, B, s);
+    case 128 * 4 + 1: return launch<128, 16, 1>(w, wlo, Cw, p, plan, B, s);
+    default: return launch<256, 16, 1>(w, wlo, Cw, p, plan, B, s);
+  }
 }
 
 }  // extern "C"

@@ -46,12 +46,13 @@ class ConvBlock1d(nn.Module):
         self.gn = StreamGroupNorm(in_c, num_groups) if use_norm else None
         self.act = SnakeBeta(in_c)
         self.conv = StreamConv1d(in_c, out_c, kernel_size, dilation=dilation,
-                                 mode=mode)
+                                 mode=mode, kernel_layout=True)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h = self.gn(x) if self.gn is not None else x
         # the kernel reads (B, T, C) rows; GroupNorm keeps a transposed
-        # input's strides, so make the layout explicit
+        # input's strides, so make the layout explicit.  The weight comes in
+        # the kernel's own layout (kernel_layout), so no call copies it.
         return fused_snake_conv(h.contiguous(), self.act.alpha, self.act.beta,
                                 self.conv.effective_weight(), self.conv.bias,
                                 self.conv.dilation, self.conv.mode)

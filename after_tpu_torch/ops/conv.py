@@ -47,10 +47,14 @@ class _WeightNormed(nn.Module):
     With gradients off (inference) the result is a constant, so it is kept
     until either parameter is moved or written in place (``init_weights``,
     ``load_jax`` and ``load_state_dict`` all write in place, which bumps the
-    tensor's version)."""
+    tensor's version).  A module with ``kernel_layout`` set keeps it as the
+    fused snake+conv kernel reads it: storage in (k, O, C) order behind an
+    (O, C, k) view, with its low tf32 half beside it as ``kernel_lo``
+    (ops/kernels/fused_conv.py: ``kernel_weight``)."""
 
     _wn = None
     _wn_key = None
+    kernel_layout = False
 
     def effective_weight(self) -> torch.Tensor:
         w, g = self.weight, self.g
@@ -58,7 +62,14 @@ class _WeightNormed(nn.Module):
             return weight_norm(w, g)
         key = (w.data_ptr(), w._version, g.data_ptr(), g._version)
         if key != self._wn_key:
-            self._wn = weight_norm(w, g)
+            wn = weight_norm(w, g)
+            if self.kernel_layout:
+                # imported here: ops/kernels/fused_conv.py imports this module
+                from .kernels.fused_conv import weight_low
+                wk = wn.permute(2, 0, 1).contiguous()
+                wn = wk.permute(1, 2, 0)
+                wn.kernel_lo = weight_low(wk)
+            self._wn = wn
             self._wn_key = key
         return self._wn
 
@@ -66,11 +77,15 @@ class _WeightNormed(nn.Module):
 class StreamConv1d(_WeightNormed):
     """Weight-normed 1-D conv over (B, T, C), offline.
 
-    Weight norm is per output channel: the norm runs over (C_in, k)."""
+    Weight norm is per output channel: the norm runs over (C_in, k).
+    ``kernel_layout`` keeps the inference weight in the fused snake+conv
+    kernel's layout (see ``_WeightNormed``)."""
 
     def __init__(self, in_features: int, features: int, kernel_size: int,
-                 stride: int = 1, dilation: int = 1, mode: str = "causal"):
+                 stride: int = 1, dilation: int = 1, mode: str = "causal",
+                 kernel_layout: bool = False):
         super().__init__()
+        self.kernel_layout = kernel_layout
         self.in_features = in_features
         self.features = features
         self.kernel_size = kernel_size

@@ -2,20 +2,26 @@
 plain PyTorch version.
 
 Counterpart of the TPU kernel in after_tpu/ops/pallas/fused_conv.py.  The
-kernel (csrc/fused_snake_conv.cu) computes
+kernel (csrc/fused_snake_conv.cu, 3xTF32 on Hopper's tensor cores) computes
 
     y[b, t, o] = bias[o] + sum_{j<k} sum_c snake(xpad[b, t + j*d, c]) * w[o, c, j]
 
-over (B, T, C) inputs with the weight in torch's conv1d layout (O, C, k).
-``fused_snake_conv`` launches it for CUDA tensors and runs the plain version
-(``snake_conv_reference``) for CPU tensors; there is no other choice and no
-fallback between the two.  The kernel is forward-only: inputs that need a
-gradient are refused on the card.
+over (B, T, C) inputs.  The weight has torch's conv1d shape (O, C, k); the
+kernel reads it as (k, O, C), together with its low tf32 half
+(``weight_low``).  A weight whose storage already has that order and that
+carries its low half as ``w.kernel_lo`` (``StreamConv1d(...,
+kernel_layout=True)`` keeps it so at inference) is passed as it is; any
+other is rearranged and split per call (``kernel_weight``).
+``fused_snake_conv`` launches the kernel for CUDA tensors and runs the plain
+version (``snake_conv_reference``) for CPU tensors; there is no other choice
+and no fallback between the two.  The kernel is forward-only: inputs that
+need a gradient are refused on the card.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import Tuple
 
 import torch
 import torch.nn.functional as F
@@ -47,11 +53,57 @@ def _lib():
         lib = load(SOURCE)
         p = ctypes.c_void_p
         i = ctypes.c_int
-        lib.fused_snake_conv_f32.argtypes = [p, p, p, p, p, p, i, i, i, i, i,
-                                             i, i, p]
+        lib.fused_snake_conv_f32.argtypes = [p] * 7 + [i] * 8 + [p]
         lib.fused_snake_conv_f32.restype = ctypes.c_int
+        lib.fused_snake_conv_plan.argtypes = [i] * 6 + [p]
+        lib.fused_snake_conv_plan.restype = ctypes.c_int
         _LIB = lib
     return _LIB
+
+
+def kernel_plan(B: int, T: int, C: int, O: int, k: int, dilation: int = 1
+                ) -> Tuple[int, int, int]:
+    """(output channels per block, channels per stage, splits of the
+    channel sum) that a launch at this shape takes; builds the kernel if
+    needed."""
+    out = (ctypes.c_int * 3)()
+    err = _lib().fused_snake_conv_plan(B, T, C, O, k, dilation,
+                                       ctypes.addressof(out))
+    if err != 0:
+        raise ValueError(f"no tiling for B={B} T={T} C={C} O={O} k={k} "
+                         f"d={dilation} (CUDA error {err})")
+    return tuple(out)
+
+
+def tf32_high(w: torch.Tensor) -> torch.Tensor:
+    """The tf32 value the tensor cores read from an f32 operand: its top 19
+    bits (sign, exponent, 10 mantissa bits)."""
+    return (w.view(torch.int32) & -8192).view(torch.float32)
+
+
+def weight_low(w: torch.Tensor) -> torch.Tensor:
+    """w - tf32_high(w), rounded to tf32 (to nearest, ties away from zero, as
+    cvt.rna does): tf32_high(w) + weight_low(w) is w within 2^-22 |w|."""
+    r = w - tf32_high(w)
+    return ((r.view(torch.int32) + 4096) & -8192).view(torch.float32)
+
+
+def kernel_weight(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """w (O, C, k) as the kernel reads it: (k, O, Cw) contiguous, Cw = C
+    rounded up to a multiple of 4, zeros past C, and its low tf32 half in the
+    same layout.  Views of ``w`` and ``w.kernel_lo`` where those already fit,
+    a copy and a split otherwise."""
+    O, C, k = w.shape
+    wk = w.permute(2, 0, 1)
+    lo = getattr(w, "kernel_lo", None)
+    if (lo is not None and C % 4 == 0 and wk.is_contiguous()
+            and lo.is_contiguous() and lo.shape == wk.shape
+            and lo.device == w.device and lo.dtype == w.dtype
+            and wk.data_ptr() % 16 == 0 and lo.data_ptr() % 16 == 0):
+        return wk, lo
+    hi = torch.zeros((k, O, -(-C // 4) * 4), dtype=w.dtype, device=w.device)
+    hi[:, :, :C] = wk
+    return hi, weight_low(hi)
 
 
 def _check(name: str, t: torch.Tensor, device: torch.device, shape) -> None:
@@ -74,7 +126,9 @@ def fused_snake_conv(x: torch.Tensor, alpha: torch.Tensor, beta: torch.Tensor,
 
     On a CUDA tensor this launches the kernel (and counts the launch in
     ``fused_snake_conv.launches``) or raises; on a CPU tensor it is the
-    plain version."""
+    plain version.  x, alpha, beta and b must be contiguous; w is
+    rearranged and split per call unless it comes in the kernel's layout
+    with its low half (``kernel_weight``)."""
     if x.device.type == "cpu":
         return snake_conv_reference(x, alpha, beta, w, b, dilation, mode)
     if x.device.type != "cuda":
@@ -87,20 +141,27 @@ def fused_snake_conv(x: torch.Tensor, alpha: torch.Tensor, beta: torch.Tensor,
     _check("x", x, x.device, (B, T, C))
     _check("alpha", alpha, x.device, (C,))
     _check("beta", beta, x.device, (C,))
-    _check("w", w, x.device, (O, C, k))
+    if w.device != x.device:
+        raise ValueError(f"w is on {w.device}, x on {x.device}")
+    if w.dtype != torch.float32:
+        raise TypeError(f"w must be float32, got {w.dtype}")
+    if w.shape[1] != C:
+        raise ValueError(f"w has shape {tuple(w.shape)}, expected "
+                         f"({O}, {C}, {k})")
     _check("b", b, x.device, (O,))
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (x, alpha, beta, w, b)):
         raise RuntimeError("fused_snake_conv has no backward kernel yet: "
                            "call it under torch.no_grad()")
     left, _ = get_padding(k, 1, dilation, mode)
+    wk, lo = kernel_weight(w)
     y = torch.empty((B, T, O), device=x.device, dtype=torch.float32)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _lib().fused_snake_conv_f32(
-            x.data_ptr(), alpha.data_ptr(), beta.data_ptr(), w.data_ptr(),
-            b.data_ptr(), y.data_ptr(),
-            B, T, C, O, k, dilation, left, stream)
+            x.data_ptr(), alpha.data_ptr(), beta.data_ptr(), wk.data_ptr(),
+            lo.data_ptr(), b.data_ptr(), y.data_ptr(),
+            B, T, C, O, k, dilation, left, wk.shape[2], stream)
     if err != 0:
         raise RuntimeError(f"fused_snake_conv kernel launch failed with CUDA "
                            f"error {err} (B={B} T={T} C={C} O={O} k={k} "

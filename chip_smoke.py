@@ -8,15 +8,19 @@ Phases, each printed before the last line:
 2. build: the CUDA kernel from its source in the checkout, with nvcc;
 3. kernels: each kernel against its plain PyTorch version at every shape
    the base codec gives it for a 524288-sample transfer, with times of the
-   kernel, the plain version and one library call, and the least time the
-   card could take (H100 SXM data sheet: 67 TFLOP/s f32 without tensor
-   cores, 3.35 TB/s);
+   kernel, the plain version and one library call, the least time the card
+   could take for the work (H100 SXM data sheet: 495 TFLOP/s TF32 on the
+   tensor cores, three TF32 products per multiply-add in 3xTF32, 3.35 TB/s;
+   the bound on the f32 CUDA cores, 67 TFLOP/s, printed beside it), the
+   kernel's TFLOP/s and share of its bound, and its error against a float64
+   plain version beside those of strict-f32 and TF32 F.conv1d (at most
+   2048 frames a shape; the kernel may be at most 4x strict F.conv1d);
 4. serving: the base config at full width, port-native random weights from
    a fixed seed, answering 3 transfer requests of 524288 samples (batch 1,
    20 Euler steps, guidance_timbre 2.0) with per-phase times, then one more
    transfer under torch.profiler: device busy time, idle share, launches,
    the kernels that took the most device time, and a check that no TF32
-   kernel ran;
+   kernel ran but the port's own 3xTF32 kernel;
 5. card vs CPU: the same port and weights on a 65536-sample clip, 4 steps,
    fixed x0, the card's output (kernels) against the CPU's (plain versions);
    the same comparison with TF32 allowed is printed beside it, as the
@@ -29,6 +33,7 @@ JAX or of after_tpu.
 
 from __future__ import annotations
 
+import gc
 import json
 import subprocess
 import sys
@@ -42,11 +47,17 @@ N_REQUESTS = 3
 SHORT_SAMPLES = 65536
 SHORT_STEPS = 4
 SEED = 0
+PEAK_TF32_FLOPS = 495e12     # H100 SXM, dense TF32 on the tensor cores
 PEAK_F32_FLOPS = 67e12       # H100 SXM, f32 outside the tensor cores
 PEAK_BYTES = 3.35e12         # H100 SXM HBM3
+F64_FRAMES = 2048            # frames per shape in the float64 check
+F64_RATIO = 4.0              # kernel error <= F64_RATIO * strict F.conv1d's
 KERNEL_TOL = 1e-4            # max abs error <= KERNEL_TOL * max |y|
 CARD_VS_CPU_TOL = 1e-4       # max abs error <= CARD_VS_CPU_TOL * max |y_cpu|
 TOP_KERNELS = 12
+# the port's kernels that use TF32 on purpose (3xTF32, held to float64 in
+# the kernel phase); any other kernel with "tf32" in its name fails the run
+PORT_TF32_KERNELS = ("snake_conv_3xtf32",)
 
 
 def log(msg: str) -> None:
@@ -67,15 +78,31 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
+def cuda_ms(fn, reps: int = 20, warmup: int = 3, graph: bool = True
+            ) -> float:
+    """Device time of one call of fn, in ms: CUDA events around reps calls
+    captured in a CUDA graph and replayed, so that host work between the
+    launches does not count (graph=False times eager calls instead)."""
     import torch
     for _ in range(warmup):
         fn()
+    torch.cuda.synchronize()
+    g = None
+    if graph:
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            for _ in range(reps):
+                fn()
+        g.replay()
+        torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
-    for _ in range(reps):
-        fn()
+    if graph:
+        g.replay()
+    else:
+        for _ in range(reps):
+            fn()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
@@ -110,6 +137,27 @@ def block_shape(block, T: int):
     return (c.kernel_size, c.dilation, c.in_features, c.features, T, c.mode)
 
 
+def f64_errors(x, alpha, beta, w, b, d, mode):
+    """Max abs errors against a float64 plain version on the first
+    F64_FRAMES frames: the kernel, strict-f32 F.conv1d and TF32 F.conv1d
+    (the last two through the plain version, snake in f32)."""
+    import torch
+    from after_tpu_torch.ops.kernels.fused_conv import (fused_snake_conv,
+                                                        snake_conv_reference)
+    from after_tpu_torch.utils.device import strict_f32
+
+    x = x[:, :F64_FRAMES].contiguous()
+    ref = snake_conv_reference(x.double(), alpha.double(), beta.double(),
+                               w.double(), b.double(), d, mode)
+    y = fused_snake_conv(x, alpha, beta, w, b, d, mode)
+    strict = snake_conv_reference(x, alpha, beta, w, b, d, mode)
+    torch.backends.cudnn.allow_tf32 = True
+    tf32 = snake_conv_reference(x, alpha, beta, w, b, d, mode)
+    strict_f32()
+    return tuple((t.double() - ref).abs().max().item()
+                 for t in (y, strict, tf32))
+
+
 def check_fused_conv(blocks_by_shape, path_counts):
     """Kernel vs plain version at every distinct shape; returns the summary
     row of the kernel table, its numbers summed over one transfer."""
@@ -117,21 +165,28 @@ def check_fused_conv(blocks_by_shape, path_counts):
     import torch.nn.functional as F
     from after_tpu_torch.ops.conv import get_padding
     from after_tpu_torch.ops.kernels.fused_conv import (fused_snake_conv,
+                                                        kernel_plan,
                                                         snake_conv_reference)
     from after_tpu_torch.ops.snake import snake_beta
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     total = Counter()
     worst = 0.0
+    f64_worst = (0.0, 0.0, 0.0)
+    log("kernels: device times from CUDA graphs of 20 calls each")
     log("kernels: fused_snake_conv, per shape (k d C O T mode: n/transfer, "
-        "max_abs_err, kernel/plain/F.conv1d/bound ms)")
+        "plan bn/bk/splits, max_abs_err; kernel/plain/F.conv1d/bound(3xTF32)/"
+        "bound(f32) ms; TFLOP/s, share of bound; float64 errors kernel/"
+        "F.conv1d/F.conv1d-TF32)")
     for shape, block in sorted(blocks_by_shape.items(),
                                key=lambda kv: str(kv[0])):
         k, d, C, O, T, mode = shape
         n = path_counts[shape]
         x = torch.randn((1, T, C), generator=gen, device="cuda")
         alpha, beta = block.act.alpha.detach(), block.act.beta.detach()
-        w = block.conv.effective_weight().detach()
+        # the kept weight, in the kernel's layout with its low tf32 half,
+        # as the main path passes it
+        w = block.conv.effective_weight()
         b = block.conv.bias.detach()
         y = fused_snake_conv(x, alpha, beta, w, b, d, mode)
         ref = snake_conv_reference(x, alpha, beta, w, b, d, mode)
@@ -142,33 +197,59 @@ def check_fused_conv(blocks_by_shape, path_counts):
             fail(f"fused_snake_conv {shape}: max abs err {err} > "
                  f"{KERNEL_TOL} * {scale}")
         worst = max(worst, err)
+        e64 = f64_errors(x, alpha, beta, w, b, d, mode)
+        if not (e64[0] <= F64_RATIO * e64[1]):
+            fail(f"fused_snake_conv {shape}: error against float64 {e64[0]} "
+                 f"> {F64_RATIO} x strict-f32 F.conv1d's {e64[1]}")
+        f64_worst = tuple(max(a, c) for a, c in zip(f64_worst, e64))
         left, right = get_padding(k, 1, d, mode)
         a = F.pad(snake_beta(x, alpha, beta).transpose(1, 2), (left, right))
+        wc = w.contiguous()
         ms = cuda_ms(lambda: fused_snake_conv(x, alpha, beta, w, b, d, mode))
+        eager_ms = cuda_ms(
+            lambda: fused_snake_conv(x, alpha, beta, w, b, d, mode),
+            graph=False)
         plain_ms = cuda_ms(
             lambda: snake_conv_reference(x, alpha, beta, w, b, d, mode))
-        lib_ms = cuda_ms(lambda: F.conv1d(a, w, b, dilation=d))
+        lib_ms = cuda_ms(lambda: F.conv1d(a, wc, b, dilation=d))
         flops = 2.0 * k * C * O * T
         nbytes = 4.0 * (T * C + 2 * C + O * C * k + O + T * O)
-        bound_ms = 1e3 * max(flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES)
-        total.update(ms=n * ms, plain_ms=n * plain_ms, library_ms=n * lib_ms,
-                     bound_ms=n * bound_ms, flops=n * flops,
-                     bytes=n * nbytes)
-        log(f"  {k} {d} {C} {O} {T} {mode}: {n}, {err:.3e}, {ms:.4f}/"
-            f"{plain_ms:.4f}/{lib_ms:.4f}/{bound_ms:.4f}")
-    bound_by = ("operations" if total["flops"] / PEAK_F32_FLOPS
+        bound_ms = 1e3 * max(3 * flops / PEAK_TF32_FLOPS, nbytes / PEAK_BYTES)
+        bound_f32_ms = 1e3 * max(flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES)
+        total.update(ms=n * ms, eager_ms=n * eager_ms, plain_ms=n * plain_ms,
+                     library_ms=n * lib_ms,
+                     bound_ms=n * bound_ms, bound_f32_ms=n * bound_f32_ms,
+                     flops=n * flops, bytes=n * nbytes)
+        plan = "/".join(map(str, kernel_plan(1, T, C, O, k, d)))
+        log(f"  {k} {d} {C} {O} {T} {mode}: {n}, {plan}, {err:.3e}; "
+            f"{ms:.4f}/{plain_ms:.4f}/{lib_ms:.4f}/{bound_ms:.4f}/"
+            f"{bound_f32_ms:.4f}; {flops / ms / 1e9:.1f}, "
+            f"{bound_ms / ms:.3f}; {e64[0]:.3e}/{e64[1]:.3e}/{e64[2]:.3e}")
+    bound_by = ("operations" if 3 * total["flops"] / PEAK_TF32_FLOPS
                 >= total["bytes"] / PEAK_BYTES else "bytes")
+    tflops = total["flops"] / total["ms"] / 1e9
+    share = total["bound_ms"] / total["ms"]
     log(f"kernels: fused_snake_conv per transfer ({sum(path_counts.values())}"
         f" launches, {total['flops'] / 1e9:.2f} GFLOP): kernel "
-        f"{total['ms']:.3f} ms, plain {total['plain_ms']:.3f} ms, F.conv1d "
+        f"{total['ms']:.3f} ms ({tflops:.1f} TFLOP/s, {share:.3f} of the "
+        f"bound; {total['eager_ms']:.3f} ms launched eagerly from Python), "
+        f"plain {total['plain_ms']:.3f} ms, F.conv1d "
         f"{total['library_ms']:.3f} ms, bound {total['bound_ms']:.3f} ms "
-        f"({bound_by}); max abs err {worst:.3e}")
+        f"(3xTF32 tensor cores, {bound_by}; on the f32 CUDA cores "
+        f"{total['bound_f32_ms']:.3f} ms); max abs err {worst:.3e}; against "
+        f"float64: kernel {f64_worst[0]:.3e}, F.conv1d {f64_worst[1]:.3e}, "
+        f"F.conv1d with TF32 {f64_worst[2]:.3e}")
     return {"name": "fused_snake_conv", "route": "cuda",
             "source": "after_tpu_torch/csrc/fused_snake_conv.cu",
             "replaces": "after_tpu/ops/pallas/fused_conv.py:129",
             "max_abs_err": worst, "ms": total["ms"],
             "plain_ms": total["plain_ms"], "bound_ms": total["bound_ms"],
-            "bound_by": bound_by, "library_ms": total["library_ms"]}
+            "bound_by": bound_by, "library_ms": total["library_ms"],
+            "bound_f32_ms": total["bound_f32_ms"], "tflops": tflops,
+            "eager_ms": total["eager_ms"],
+            "share_of_bound": share, "f64_err": f64_worst[0],
+            "f64_err_conv1d": f64_worst[1],
+            "f64_err_conv1d_tf32": f64_worst[2]}
 
 
 def profile_transfer(pipe, a, b) -> None:
@@ -213,7 +294,8 @@ def profile_transfer(pipe, a, b) -> None:
         f"name):")
     for name, us in by_name.most_common(TOP_KERNELS):
         log(f"  {count[name]:5d} {us / 1e3:8.3f}  {name[:110]}")
-    tf32 = [n for n in by_name if "tf32" in n.lower()]
+    tf32 = [n for n in by_name if "tf32" in n.lower()
+            and not any(k in n for k in PORT_TF32_KERNELS)]
     if tf32:
         fail(f"TF32 kernels ran on the main path: {tf32[:3]}")
 
@@ -255,9 +337,15 @@ def main() -> None:
     path = enc + enc + dec                         # two encodes, one decode
     path_counts = Counter(block_shape(b, T) for b, T in path)
     blocks_by_shape = {block_shape(b, T): b for b, T in path}
-    row = check_fused_conv(blocks_by_shape, path_counts)
+    with torch.no_grad():
+        row = check_fused_conv(blocks_by_shape, path_counts)
 
-    # 4. serving: 3 requests through the main path
+    # 4. serving: 3 requests through the main path; peak memory from here.
+    # The kernel phase's CUDA graphs leave garbage behind that slowed the
+    # serving phase's host time when left for the collector.
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
     rng = np.random.RandomState(SEED)
     requests = [(0.1 * rng.randn(1, N_SAMPLES, 1).astype(np.float32),
                  0.1 * rng.randn(1, N_SAMPLES, 1).astype(np.float32))

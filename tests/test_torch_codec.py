@@ -120,15 +120,18 @@ def test_codec_loader_rejects_mismatched_tree():
 
 def test_codec_hands_the_kernel_contiguous_rows(monkeypatch):
     """On the card the kernel refuses strided inputs; every ConvBlock1d must
-    pass contiguous f32 (B, T, C) tensors (checked here on the CPU)."""
+    pass contiguous f32 (B, T, C) tensors and its weight in the kernel's
+    layout (checked here on the CPU)."""
     import after_tpu_torch.models.autoencoder as ae
     from after_tpu_torch.ops.kernels.fused_conv import snake_conv_reference
 
     calls = []
 
     def checked(x, alpha, beta, w, b, dilation, mode):
-        for t in (x, alpha, beta, w, b):
+        for t in (x, alpha, beta, b):
             assert t.is_contiguous() and t.dtype == torch.float32
+        # the weight comes in the kernel's (k, O, C) layout: no copy per call
+        assert w.dtype == torch.float32 and w.permute(2, 0, 1).is_contiguous()
         calls.append(x.shape)
         return snake_conv_reference(x, alpha, beta, w, b, dilation, mode)
 
@@ -160,3 +163,39 @@ def test_weight_norm_is_kept_until_the_weights_change():
     np.testing.assert_allclose(pz.numpy(), np.asarray(z), **TOL)
     # with gradients on, the weight is recomputed and carries a graph
     assert conv.effective_weight().requires_grad
+
+
+def test_kernel_weight_is_split_and_refreshed_after_load_state_dict():
+    """A ConvBlock1d conv keeps its inference weight in the fused kernel's
+    (k, O, C) layout with its low tf32 half: the tf32 high part the tensor
+    cores read plus that low half is the weight within 2^-20 |W|, and loading
+    other weights with load_state_dict refreshes both."""
+    from after_tpu_torch.ops.kernels.fused_conv import tf32_high
+    from after_tpu_torch.ops.conv import weight_norm
+
+    _, variables, codec = _codec_pair()
+    _, _, other = _codec_pair()
+    load_module(other, _perturbed_numpy(variables, seed=7), "codec")
+    conv = codec.decoder.to_out.block1.conv
+    assert conv.kernel_layout
+
+    def check(w):
+        wk = w.permute(2, 0, 1)
+        assert wk.is_contiguous()
+        lo = w.kernel_lo
+        assert lo.shape == wk.shape
+        assert not (lo.view(torch.int32) & 0x1FFF).any()   # tf32 values
+        exact = weight_norm(conv.weight, conv.g).permute(2, 0, 1)
+        np.testing.assert_array_equal(wk.numpy(), exact.numpy())
+        err = (tf32_high(wk) + lo - exact).abs()
+        assert (err <= 2.0 ** -20 * exact.abs()).all()
+
+    with torch.no_grad():
+        kept = conv.effective_weight()
+        check(kept)
+        assert conv.effective_weight() is kept
+        codec.load_state_dict(other.state_dict())
+        fresh = conv.effective_weight()
+        assert fresh is not kept
+        assert not torch.equal(fresh.kernel_lo, kept.kernel_lo)
+        check(fresh)

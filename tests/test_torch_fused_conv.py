@@ -81,3 +81,36 @@ def test_padding_rule_matches_jax():
                 for mode in ("causal", "centered"):
                     assert (get_padding(k, s, d, mode)
                             == jax_get_padding(k, s, d, mode))
+
+
+@pytest.mark.parametrize("C", [33, 64])
+def test_kernel_weight_layout_and_split(C):
+    """kernel_weight gives the (k, O, Cw) layout the CUDA kernel reads, Cw
+    = C rounded up to 4 with zeros past C, and the low tf32 half: rounded
+    to tf32 and within 2^-22 |W| of the weight beside the tensor cores' high
+    part."""
+    from after_tpu_torch.ops.kernels.fused_conv import (kernel_weight,
+                                                        tf32_high,
+                                                        weight_low)
+
+    rng = np.random.RandomState(C)
+    w = torch.from_numpy((rng.randn(17, C, 3) * 10.0 ** rng.uniform(
+        -6, 2, (17, C, 3))).astype(np.float32))
+    hi, lo = kernel_weight(w)
+    Cw = -(-C // 4) * 4
+    assert hi.shape == lo.shape == (3, 17, Cw)
+    assert hi.is_contiguous() and lo.is_contiguous()
+    np.testing.assert_array_equal(hi[:, :, :C].numpy(),
+                                  w.permute(2, 0, 1).numpy())
+    assert not hi[:, :, C:].any() and not lo[:, :, C:].any()
+    assert not (tf32_high(hi).view(torch.int32) & 0x1FFF).any()
+    assert not (lo.view(torch.int32) & 0x1FFF).any()
+    err = (tf32_high(hi).double() + lo.double() - hi.double()).abs()
+    assert (err <= 2.0 ** -22 * hi.double().abs()).all()
+    np.testing.assert_array_equal(weight_low(hi).numpy(), lo.numpy())
+    # a weight kept in the kernel's layout with its low half is passed on
+    kept = hi.permute(1, 2, 0)[:, :C]
+    kept.kernel_lo = lo
+    if C % 4 == 0:
+        hi2, lo2 = kernel_weight(kept)
+        assert hi2.data_ptr() == hi.data_ptr() and lo2 is lo
