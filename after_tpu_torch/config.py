@@ -134,8 +134,8 @@ class AutoEncoderConfig:
     bottleneck_scale: float = 3.0       # ReluBottleneck scale (baseAE.gin:36-38)
     bottleneck_sigma: float = 0.01
     causal: bool = False                # baseAE.gin keeps centered padding (streaming uses crossfade)
-    # read by the JAX package only: the port's offline ConvBlock1d always
-    # takes the fused snake+conv op (ops/kernels/fused_conv.py)
+    # read by the JAX package only: the port's ConvBlock1d always takes the
+    # fused snake+conv op (ops/kernels/fused_conv.py) but on cached convs
     fused_kernels: bool = False
 
     @property

@@ -1,10 +1,11 @@
 """Rectified-flow timbre transfer, inference half (counterpart of
 after_tpu/diffusion/rectified_flow.py): the two conditioning encoders, the
-3-way classifier-free guidance and the Euler sampler.
+3-way classifier-free guidance, the Euler sampler and the streaming sampler.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -12,14 +13,25 @@ from ..config import AfterConfig
 from ..models.denoiser import Denoiser
 from ..models.ecapa import ECAPAEncoder
 from ..models.encoder import Encoder1D
+from ..streaming.state import Cache
+
+
+def _f32(value) -> np.float32:
+    """A Python number or a 0-d tensor as an f32 host scalar."""
+    return np.float32(float(value))
 
 
 class RectifiedFlow(nn.Module):
     """``net`` (the denoiser), ``encoder`` (timbre) and ``encoder_time``
     (structure, absent for midi configs).  The adversarial classifier is a
-    training-only model and waits for the training port."""
+    training-only model and waits for the training port.
 
-    def __init__(self, cfg: AfterConfig):
+    With ``streaming`` set, ``net`` and ``encoder_time`` are their streaming
+    forms (the timbre encoder always runs offline) and the sampler is
+    ``sample_stream``; its parameters have the same names as the offline
+    model's, so one state dict serves both."""
+
+    def __init__(self, cfg: AfterConfig, streaming: bool = False):
         super().__init__()
         if cfg.diffusion_type != "rectified":
             raise NotImplementedError(
@@ -27,9 +39,9 @@ class RectifiedFlow(nn.Module):
                 f"{cfg.diffusion_type!r}")
         self.cfg = cfg
         self.net = Denoiser(cfg.denoiser, cond_in=cfg.zt_channels,
-                            tcond_in=cfg.zs_channels)
+                            tcond_in=cfg.zs_channels, streaming=streaming)
         self.encoder = ECAPAEncoder(cfg.encoder)
-        self.encoder_time = (Encoder1D(cfg.encoder_time)
+        self.encoder_time = (Encoder1D(cfg.encoder_time, streaming)
                              if cfg.encoder_time is not None else None)
         self.drop_value = cfg.drop_value
 
@@ -55,17 +67,24 @@ class RectifiedFlow(nn.Module):
         return full_x, full_time, full_cond, full_tcond
 
     @staticmethod
-    def _cfg_mix(out, guidance_timbre: float, guidance_structure: float):
-        """Linear guidance mix of the 3 CFG rows."""
+    def _cfg_mix(out, guidance_timbre, guidance_structure):
+        """Linear guidance mix of the 3 CFG rows; the guidances (Python
+        numbers or 0-d tensors) are mixed in f32 on the host, as the JAX
+        package mixes them in f32."""
         o_full, o_tc, o_none = out.chunk(3, dim=0)
-        total = 0.5 * (guidance_structure + guidance_timbre)
-        factor = guidance_timbre / max(guidance_structure, 0.01)
-        return o_none + total * (o_tc + factor * (o_full - o_tc) - o_none)
+        gt, gs = _f32(guidance_timbre), _f32(guidance_structure)
+        total = np.float32(0.5) * (gs + gt)
+        factor = gt / np.maximum(gs, np.float32(0.01))
+        return o_none + float(total) * (o_tc + float(factor) * (o_full - o_tc)
+                                        - o_none)
 
-    def model_forward(self, x, time, cond, time_cond,
-                      guidance_timbre: float, guidance_structure: float):
-        """3-way CFG velocity in one batched forward of 3B rows."""
-        dx = self.net(*self._cfg_inputs(x, time, cond, time_cond))
+    def model_forward(self, x, time, cond, time_cond, guidance_timbre,
+                      guidance_structure, cache: Cache = None,
+                      cache_index: int = 0):
+        """3-way CFG velocity in one batched forward of 3B rows; a streaming
+        net takes its KV cache and the Euler step's slot."""
+        dx = self.net(*self._cfg_inputs(x, time, cond, time_cond),
+                      cache=cache, cache_index=cache_index)
         return self._cfg_mix(dx, guidance_timbre, guidance_structure)
 
     def sample(self, x0, cond, time_cond, nb_steps: int,
@@ -79,5 +98,28 @@ class RectifiedFlow(nn.Module):
             time = torch.full((x.shape[0],), t, dtype=x.dtype, device=x.device)
             dx = self.model_forward(x, time, cond, time_cond,
                                     guidance_timbre, guidance_structure)
+            x = x + dx * dt
+        return x
+
+    def sample_stream(self, cache: Cache, x0, cond, time_cond, nb_steps=1,
+                      guidance_timbre=1.0, guidance_structure=1.0):
+        """One streaming buffer: ``nb_steps`` Euler steps over x0's chunk of
+        frames, step i on KV slot i; the cache is updated in place.
+
+        ``nb_steps`` and the guidances are runtime values (Python numbers or
+        0-d tensors) that may change from one buffer to the next;
+        ``nb_steps`` is clipped to [1, max_diffusion_steps], the slots the
+        cache has.  The time grid t_i = i / n and the step 1 / n are f32, as
+        in the JAX sampler."""
+        nb = min(max(int(nb_steps), 1), self.cfg.denoiser.max_diffusion_steps)
+        nb_f = np.float32(nb)
+        dt = float(np.float32(1.0) / nb_f)
+        x = x0
+        for i in range(nb):
+            t = float(np.float32(i) / nb_f)
+            time = torch.full((x.shape[0],), t, dtype=x.dtype, device=x.device)
+            dx = self.model_forward(x, time, cond, time_cond, guidance_timbre,
+                                    guidance_structure, cache=cache,
+                                    cache_index=i)
             x = x + dx * dt
         return x

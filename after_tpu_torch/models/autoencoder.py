@@ -1,16 +1,28 @@
-"""Multiband audio codec, offline (counterpart of
+"""Multiband audio codec, offline and streaming (counterpart of
 after_tpu/models/autoencoder.py).
 
 waveform (B, T, 1) --PQMF--> bands (B, T/M, M) --conv encoder--> latents
 (B, T/ratio, z) --bottleneck--> z --conv decoder--> bands --inverse PQMF-->
-waveform.  Every ConvBlock1d runs its snake + conv as the fused snake+conv
-op (ops/kernels/fused_conv.py): the CUDA kernel on the card, the plain
-PyTorch version on the CPU.
+waveform.  Every ConvBlock1d that runs offline convs runs its snake + conv
+as the fused snake+conv op (ops/kernels/fused_conv.py): the CUDA kernel on
+the card, the plain PyTorch version on the CPU.
+
+``streaming`` takes the JAX package's three values:
+
+- ``False``: offline;
+- ``True``: cached causal convs, streaming PQMF, streaming transposed-conv
+  tails (a causal codec, norm-free, streams exactly);
+- ``"norm"``: GroupNorm streams its statistics over a pad of the previous
+  input while convs and PQMF run offline over the window they are given
+  (the crossfade path of a non-causal codec, streaming/crossfade.py).
+
+A streaming codec takes the cache (streaming/state.py) as the last argument
+of ``encode`` and ``decode``.
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence, Union
 
 import torch
 from torch import nn
@@ -21,38 +33,61 @@ from ..ops.kernels.fused_conv import fused_snake_conv
 from ..ops.norms import GroupNorm
 from ..ops.pqmf import PQMFAnalysis, PQMFSynthesis
 from ..ops.snake import SnakeBeta
+from ..streaming.state import Cache, Streaming, name_slots
+
+StreamMode = Union[bool, str]
 
 
-class StreamGroupNorm(nn.Module):
-    """Offline GroupNorm with min(C, num_groups) groups and eps 1e-5 (the
-    streaming pad buffer of the JAX module waits for the streaming port)."""
+class StreamGroupNorm(nn.Module, Streaming):
+    """GroupNorm with min(C, num_groups) groups and eps 1e-5.  Streaming, the
+    input is normalised together with the previous call's input (``pad``,
+    the shape of the input), which approximates the offline statistics."""
 
-    def __init__(self, num_channels: int, num_groups: int):
+    def __init__(self, num_channels: int, num_groups: int,
+                 streaming: bool = False):
         super().__init__()
         self.gn = GroupNorm(num_channels, min(num_channels, num_groups))
+        self.streaming = streaming
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.gn(x)
+    def forward(self, x: torch.Tensor,
+                cache: Optional[Cache] = None) -> torch.Tensor:
+        if not self.streaming:
+            return self.gn(x)
+        pad = self.slot(cache, "pad", lambda: torch.zeros_like(x))
+        full = torch.cat([pad, x], dim=1)
+        pad.copy_(x)
+        return self.gn(full)[:, full.shape[1] - x.shape[1]:]
 
 
 class ConvBlock1d(nn.Module):
-    """[GroupNorm] -> SnakeBeta -> weight-normed stride-1 conv, with the
-    snake and the conv fused into one op."""
+    """[GroupNorm] -> SnakeBeta -> weight-normed stride-1 conv.
+
+    Offline and in ``"norm"`` mode the snake and the conv are fused into one
+    op (the kernel on the card).  With ``streaming=True`` the conv is cached
+    and runs after the plain snake: the cache holds post-snake frames and
+    the kernel has one length for input and output."""
 
     def __init__(self, in_c: int, out_c: int, kernel_size: int = 3,
                  dilation: int = 1, num_groups: int = 8, use_norm: bool = True,
-                 mode: str = "centered"):
+                 mode: str = "centered", streaming: StreamMode = False):
         super().__init__()
-        self.gn = StreamGroupNorm(in_c, num_groups) if use_norm else None
+        self.gn = (StreamGroupNorm(in_c, num_groups, bool(streaming))
+                   if use_norm else None)
         self.act = SnakeBeta(in_c)
+        self.cached = streaming is True
         self.conv = StreamConv1d(in_c, out_c, kernel_size, dilation=dilation,
-                                 mode=mode, kernel_layout=True)
+                                 mode=mode, kernel_layout=not self.cached,
+                                 streaming=self.cached)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = self.gn(x) if self.gn is not None else x
+    def forward(self, x: torch.Tensor,
+                cache: Optional[Cache] = None) -> torch.Tensor:
+        h = self.gn(x, cache) if self.gn is not None else x
+        if self.cached:
+            return self.conv(self.act(h), cache)
         # the kernel reads (B, T, C) rows; GroupNorm keeps a transposed
-        # input's strides, so make the layout explicit.  The weight comes in
-        # the kernel's own layout (kernel_layout), so no call copies it.
+        # input's strides and a streaming GroupNorm returns a slice, so make
+        # the layout explicit.  The weight comes in the kernel's own layout
+        # (kernel_layout), so no call copies it.
         return fused_snake_conv(h.contiguous(), self.act.alpha, self.act.beta,
                                 self.conv.effective_weight(), self.conv.bias,
                                 self.conv.dilation, self.conv.mode)
@@ -63,18 +98,20 @@ class ResnetBlock1d(nn.Module):
 
     def __init__(self, in_c: int, out_c: int, kernel_size: int = 3,
                  dilation: int = 1, num_groups: int = 8, use_norm: bool = True,
-                 use_res: bool = True, mode: str = "centered"):
+                 use_res: bool = True, mode: str = "centered",
+                 streaming: StreamMode = False):
         super().__init__()
         self.block1 = ConvBlock1d(in_c, out_c, kernel_size, dilation,
-                                  num_groups, use_norm, mode)
+                                  num_groups, use_norm, mode, streaming)
         self.block2 = ConvBlock1d(out_c, out_c, 1, 1, num_groups, use_norm,
-                                  mode)
+                                  mode, streaming)
         self.use_res = use_res
         self.to_out = (StreamConv1d(in_c, out_c, 1, mode="valid")
                        if use_res and in_c != out_c else None)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = self.block2(self.block1(x))
+    def forward(self, x: torch.Tensor,
+                cache: Optional[Cache] = None) -> torch.Tensor:
+        h = self.block2(self.block1(x, cache), cache)
         if not self.use_res:
             return h
         res = self.to_out(x) if self.to_out is not None else x
@@ -86,21 +123,22 @@ class DownsampleBlock1d(nn.Module):
 
     def __init__(self, in_c: int, out_c: int, factor: int, num_layers: int,
                  dilations: Sequence[int], kernel_size: int, num_groups: int,
-                 use_norm: bool, mode: str):
+                 use_norm: bool, mode: str, streaming: StreamMode = False):
         super().__init__()
         for i in range(num_layers):
             self.add_module(f"res_{i}", ResnetBlock1d(
                 in_c, in_c, kernel_size, dilations[i], num_groups, use_norm,
-                True, mode))
+                True, mode, streaming))
         self.num_layers = num_layers
         self.act = SnakeBeta(in_c)
         self.down = StreamConv1d(in_c, out_c, 2 * factor, stride=factor,
-                                 mode=mode)
+                                 mode=mode, streaming=streaming is True)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                cache: Optional[Cache] = None) -> torch.Tensor:
         for i in range(self.num_layers):
-            x = getattr(self, f"res_{i}")(x)
-        return self.down(self.act(x))
+            x = getattr(self, f"res_{i}")(x, cache)
+        return self.down(self.act(x), cache)
 
 
 class UpsampleBlock1d(nn.Module):
@@ -108,20 +146,22 @@ class UpsampleBlock1d(nn.Module):
 
     def __init__(self, in_c: int, out_c: int, factor: int, num_layers: int,
                  dilations: Sequence[int], kernel_size: int, num_groups: int,
-                 use_norm: bool, mode: str):
+                 use_norm: bool, mode: str, streaming: StreamMode = False):
         super().__init__()
         self.act = SnakeBeta(in_c)
-        self.up = StreamConvTranspose1d(in_c, out_c, 2 * factor, factor)
+        self.up = StreamConvTranspose1d(in_c, out_c, 2 * factor, factor,
+                                        streaming=streaming is True)
         for i in range(num_layers):
             self.add_module(f"res_{i}", ResnetBlock1d(
                 out_c, out_c, kernel_size, dilations[i], num_groups, use_norm,
-                True, mode))
+                True, mode, streaming))
         self.num_layers = num_layers
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = self.up(self.act(x))
+    def forward(self, x: torch.Tensor,
+                cache: Optional[Cache] = None) -> torch.Tensor:
+        h = self.up(self.act(x), cache)
         for i in range(self.num_layers):
-            h = getattr(self, f"res_{i}")(h)
+            h = getattr(self, f"res_{i}")(h, cache)
         return h
 
 
@@ -132,7 +172,7 @@ def _mode(cfg: AutoEncoderConfig) -> str:
 class CodecEncoder(nn.Module):
     """Band signals (B, Tb, M) -> latents (B, Tb / prod(factors), z)."""
 
-    def __init__(self, cfg: AutoEncoderConfig):
+    def __init__(self, cfg: AutoEncoderConfig, streaming: StreamMode = False):
         super().__init__()
         mode = _mode(cfg)
         ch = cfg.base_channels
@@ -140,27 +180,30 @@ class CodecEncoder(nn.Module):
         out_channels = cfg.z_channels * (2 if cfg.bottleneck == "vae" else 1)
         widths = [ch * m for m in cfg.multipliers]
         self.to_in = ResnetBlock1d(in_c, widths[0], cfg.kernel_size, 1,
-                                   cfg.resnet_groups, cfg.use_norm, True, mode)
+                                   cfg.resnet_groups, cfg.use_norm, True, mode,
+                                   streaming)
         for i, f in enumerate(cfg.factors):
             self.add_module(f"down_{i}", DownsampleBlock1d(
                 widths[i], widths[i + 1], f, cfg.num_blocks_per_stage,
                 cfg.dilations, cfg.kernel_size, cfg.resnet_groups,
-                cfg.use_norm, mode))
+                cfg.use_norm, mode, streaming))
         self.n_down = len(cfg.factors)
         self.act = SnakeBeta(widths[-1])
-        self.to_out = StreamConv1d(widths[-1], out_channels, 3, mode=mode)
+        self.to_out = StreamConv1d(widths[-1], out_channels, 3, mode=mode,
+                                   streaming=streaming is True)
 
-    def forward(self, xb: torch.Tensor) -> torch.Tensor:
-        h = self.to_in(xb)
+    def forward(self, xb: torch.Tensor,
+                cache: Optional[Cache] = None) -> torch.Tensor:
+        h = self.to_in(xb, cache)
         for i in range(self.n_down):
-            h = getattr(self, f"down_{i}")(h)
-        return self.to_out(self.act(h))
+            h = getattr(self, f"down_{i}")(h, cache)
+        return self.to_out(self.act(h), cache)
 
 
 class CodecDecoder(nn.Module):
     """Latents (B, Tl, z) -> band signals (B, Tl * prod(factors), M)."""
 
-    def __init__(self, cfg: AutoEncoderConfig):
+    def __init__(self, cfg: AutoEncoderConfig, streaming: StreamMode = False):
         super().__init__()
         if cfg.use_noise:
             raise NotImplementedError(
@@ -172,45 +215,62 @@ class CodecDecoder(nn.Module):
         factors = cfg.factors[::-1]
         out_c = cfg.pqmf_bands if cfg.pqmf_bands > 1 else 1
         self.to_in = StreamConv1d(cfg.z_channels, widths[0], cfg.kernel_size,
-                                  mode=mode)
+                                  mode=mode, streaming=streaming is True)
         for i, f in enumerate(factors):
             self.add_module(f"up_{i}", UpsampleBlock1d(
                 widths[i], widths[i + 1], f, cfg.num_blocks_per_stage,
                 cfg.dilations, cfg.kernel_size, cfg.resnet_groups,
-                cfg.use_norm, mode))
+                cfg.use_norm, mode, streaming))
         self.n_up = len(factors)
         self.use_loudness = cfg.use_loudness
         self.to_out = ResnetBlock1d(
             widths[-1], out_c * 2 if cfg.use_loudness else out_c,
-            cfg.kernel_size, 1, cfg.resnet_groups, cfg.use_norm, False, mode)
+            cfg.kernel_size, 1, cfg.resnet_groups, cfg.use_norm, False, mode,
+            streaming)
 
-    def forward(self, z: torch.Tensor) -> torch.Tensor:
-        h = self.to_in(z)
+    def forward(self, z: torch.Tensor,
+                cache: Optional[Cache] = None) -> torch.Tensor:
+        h = self.to_in(z, cache)
         for i in range(self.n_up):
-            h = getattr(self, f"up_{i}")(h)
-        h = self.to_out(h)
+            h = getattr(self, f"up_{i}")(h, cache)
+        h = self.to_out(h, cache)
         if self.use_loudness:
             y, amp = h.chunk(2, dim=-1)
             h = y * torch.sigmoid(amp)
         return h
 
 
+def decoder_band_delay(cfg: AutoEncoderConfig) -> int:
+    """Streaming delay (band-rate frames) of the causal decoder against the
+    centered offline one: each transposed-conv upsample adds factor // 2
+    frames at its output rate; causal convs add none."""
+    d = 0
+    for f in cfg.factors[::-1]:
+        d = d * f + f // 2
+    return d
+
+
 class AudioCodec(nn.Module):
     """encode: (B, T, 1) waveform -> (B, T / ratio, z); decode: latents ->
-    waveform (T + M samples in centered mode, as in the JAX package)."""
+    waveform (T + M samples in centered mode, as in the JAX package).  A
+    streaming codec (``streaming`` True or ``"norm"``) takes its cache as
+    the last argument of both."""
 
-    def __init__(self, cfg: AutoEncoderConfig):
+    def __init__(self, cfg: AutoEncoderConfig, streaming: StreamMode = False):
         super().__init__()
         self.cfg = cfg
+        self.streaming = streaming
         if cfg.pqmf_bands > 1:
             self.pqmf = PQMFAnalysis(cfg.pqmf_attenuation, cfg.pqmf_bands,
-                                     cfg.causal)
-            self.pqmf_inv = PQMFSynthesis(cfg.pqmf_attenuation,
-                                          cfg.pqmf_bands, cfg.causal)
+                                     cfg.causal, streaming is True)
+            self.pqmf_inv = PQMFSynthesis(
+                cfg.pqmf_attenuation, cfg.pqmf_bands, cfg.causal,
+                streaming is True, parity=decoder_band_delay(cfg) % 2)
         else:
             self.pqmf = self.pqmf_inv = None
-        self.encoder = CodecEncoder(cfg)
-        self.decoder = CodecDecoder(cfg)
+        self.encoder = CodecEncoder(cfg, streaming)
+        self.decoder = CodecDecoder(cfg, streaming)
+        name_slots(self)
 
     def bottleneck(self, z: torch.Tensor) -> torch.Tensor:
         """Inference bottleneck: no noise is drawn."""
@@ -223,10 +283,12 @@ class AudioCodec(nn.Module):
             return z.chunk(2, dim=-1)[0]
         return z
 
-    def encode(self, x: torch.Tensor) -> torch.Tensor:
-        xb = self.pqmf(x) if self.pqmf is not None else x
-        return self.bottleneck(self.encoder(xb))
+    def encode(self, x: torch.Tensor,
+               cache: Optional[Cache] = None) -> torch.Tensor:
+        xb = self.pqmf(x, cache) if self.pqmf is not None else x
+        return self.bottleneck(self.encoder(xb, cache))
 
-    def decode(self, z: torch.Tensor) -> torch.Tensor:
-        yb = self.decoder(z)
-        return self.pqmf_inv(yb) if self.pqmf_inv is not None else yb
+    def decode(self, z: torch.Tensor,
+               cache: Optional[Cache] = None) -> torch.Tensor:
+        yb = self.decoder(z, cache)
+        return self.pqmf_inv(yb, cache) if self.pqmf_inv is not None else yb

@@ -1,9 +1,16 @@
-"""DiT-style chunk-wise causal denoiser DenoiserV2, offline (counterpart of
-after_tpu/models/denoiser.py).
+"""DiT-style chunk-wise causal denoiser DenoiserV2, offline and streaming
+(counterpart of after_tpu/models/denoiser.py).
 
 Layout is (B, T, C) throughout.  Attention is a plain masked softmax over
 ``torch.matmul`` products, as the JAX package leaves it to XLA; it has no
 output projection.  LayerNorms use flax's eps of 1e-6 and GELU is exact.
+
+Streaming (``streaming=True``): each attention layer keeps one KV slot per
+Euler step, ``k`` and ``v`` of shape (B, max_diffusion_steps, heads,
+local_attention_size, head_dim), and a per-step count of the slots written
+so far, ``filled`` (max_diffusion_steps,), shared across the batch.  A call
+with ``cache_index`` i attends over slot i followed by its own frames,
+masks the slots not written yet, then rolls its keys into slot i.
 """
 
 from __future__ import annotations
@@ -16,8 +23,10 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..config import DenoiserConfig
-from ..ops.masks import mask_bias, sliding_chunkwise_mask
+from ..ops.masks import (NEG_INF, mask_bias, sliding_chunkwise_mask,
+                         streaming_mask)
 from ..ops.rotary import apply_rotary, rotary_angles
+from ..streaming.state import Cache, Streaming, name_slots
 
 LN_EPS = 1e-6
 
@@ -47,44 +56,79 @@ class MLP(nn.Module):
         return self.Dense_1(F.gelu(self.Dense_0(x)))
 
 
-class ChunkCausalAttention(nn.Module):
+class ChunkCausalAttention(nn.Module, Streaming):
     """Multi-head self-attention with the chunk-wise causal sliding-window
-    mask and rotary positions on the first ``rotary_dim`` head features."""
+    mask and rotary positions on the first ``rotary_dim`` head features;
+    streaming, with the per-step KV caches described above."""
 
-    def __init__(self, cfg: DenoiserConfig):
+    def __init__(self, cfg: DenoiserConfig, streaming: bool = False):
         super().__init__()
         self.cfg = cfg
+        self.streaming = streaming
         self.qkv = nn.Linear(cfg.embed_dim, 3 * cfg.embed_dim, bias=False)
-        self._consts: Dict[Tuple[int, torch.device], tuple] = {}
+        self._consts: Dict[Tuple[int, int, torch.device], tuple] = {}
 
-    def _constants(self, T: int, device: torch.device):
-        key = (T, device)
+    def _constants(self, q_len: int, k_len: int, device: torch.device):
+        """(mask bias (q_len, k_len) or None, query angles, key angles, key
+        positions) of q_len queries ending a k_len-long key sequence."""
+        key = (q_len, k_len, device)
         if key not in self._consts:
             cfg = self.cfg
-            bias = (torch.from_numpy(mask_bias(sliding_chunkwise_mask(
-                T, cfg.attention_chunk_size, cfg.local_attention_size)))
-                .to(device) if cfg.causal else None)
-            ang = (torch.from_numpy(rotary_angles(
-                np.arange(T, dtype=np.float64), cfg.rotary_dim)).to(device)
-                if cfg.pos_emb_type == "rotary" else None)
-            self._consts[key] = (bias, ang)
+            if self.streaming:
+                mask = streaming_mask(q_len, k_len, cfg.attention_chunk_size,
+                                      cfg.local_attention_size)
+            elif cfg.causal:
+                mask = sliding_chunkwise_mask(k_len, cfg.attention_chunk_size,
+                                              cfg.local_attention_size)
+            else:
+                mask = None
+            bias = (torch.from_numpy(mask_bias(mask)).to(device)
+                    if mask is not None else None)
+            q_ang = k_ang = None
+            if cfg.pos_emb_type == "rotary":
+                pos = np.arange(k_len, dtype=np.float64)
+                k_ang = torch.from_numpy(
+                    rotary_angles(pos, cfg.rotary_dim)).to(device)
+                q_ang = k_ang[k_len - q_len:]
+            self._consts[key] = (bias, q_ang, k_ang,
+                                 torch.arange(k_len, device=device))
         return self._consts[key]
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, cache: Optional[Cache] = None,
+                cache_index: int = 0) -> torch.Tensor:
         cfg = self.cfg
         B, T, E = x.shape
         H, D = E // cfg.head_dim, cfg.head_dim
         q, k, v = self.qkv(x).chunk(3, dim=-1)
         q, k, v = (y.reshape(B, T, H, D).transpose(1, 2) for y in (q, k, v))
-        bias, ang = self._constants(T, x.device)
-        if ang is not None:
-            q = apply_rotary(q, ang)
-            k = apply_rotary(k, ang)
-        logits = torch.matmul(q, k.transpose(-1, -2)) * (1.0 / np.sqrt(D))
+        if self.streaming:
+            C, S = cfg.local_attention_size, cfg.max_diffusion_steps
+            kc = self.slot(cache, "k", lambda: x.new_zeros((B, S, H, C, D)))
+            vc = self.slot(cache, "v", lambda: x.new_zeros((B, S, H, C, D)))
+            filled = self.slot(cache, "filled", lambda: torch.zeros(
+                (S,), dtype=torch.int32, device=x.device))
+            kc, vc = kc[:, cache_index], vc[:, cache_index]    # B H C D
+            full_k = torch.cat([kc, k], dim=2)
+            full_v = torch.cat([vc, v], dim=2)
+            bias, q_ang, k_ang, key_pos = self._constants(T, C + T, x.device)
+            # mask the slots of this step not written yet
+            n_filled = filled[cache_index]
+            bias = torch.where(key_pos >= C - n_filled, bias, NEG_INF)
+            # roll-write: shift this step's slot left by T, append the keys
+            kc.copy_(full_k[:, :, T:] if T < C else k[:, :, T - C:])
+            vc.copy_(full_v[:, :, T:] if T < C else v[:, :, T - C:])
+            filled[cache_index] = torch.clamp(n_filled + T, max=C)
+        else:
+            full_k, full_v = k, v
+            bias, q_ang, k_ang, _ = self._constants(T, T, x.device)
+        if k_ang is not None:
+            q = apply_rotary(q, q_ang)
+            full_k = apply_rotary(full_k, k_ang)
+        logits = torch.matmul(q, full_k.transpose(-1, -2)) * (1.0 / np.sqrt(D))
         if bias is not None:
             logits = logits + bias
         probs = torch.softmax(logits, dim=-1)
-        out = torch.matmul(probs, v)
+        out = torch.matmul(probs, full_v)
         return out.transpose(1, 2).reshape(B, T, E)
 
 
@@ -92,25 +136,27 @@ class DecoderBlock(nn.Module):
     """AdaLN(tcond) -> self-attn + res -> AdaLN(cond) -> MLP + res.  The
     AdaLN modulations replace x rather than adding a residual branch."""
 
-    def __init__(self, cfg: DenoiserConfig, with_cond: bool = True):
+    def __init__(self, cfg: DenoiserConfig, with_cond: bool = True,
+                 streaming: bool = False):
         super().__init__()
         E = cfg.embed_dim
         self.tcond_linear = (nn.Linear(cfg.tcond_dim, 2 * E)
                              if cfg.tcond_dim > 0 else None)
         self.norm1 = nn.LayerNorm(E, eps=LN_EPS)
-        self.attn = ChunkCausalAttention(cfg)
+        self.attn = ChunkCausalAttention(cfg, streaming)
         self.cond_linear = nn.Linear(E, 2 * E) if with_cond else None
         self.norm3 = nn.LayerNorm(E, eps=LN_EPS)
         self.mlp = MLP(E, cfg.mlp_multiplier)
 
     def forward(self, x: torch.Tensor, cond: Optional[torch.Tensor],
-                tcond: Optional[torch.Tensor]) -> torch.Tensor:
+                tcond: Optional[torch.Tensor], cache: Optional[Cache] = None,
+                cache_index: int = 0) -> torch.Tensor:
         E = x.shape[-1]
         if self.tcond_linear is not None and tcond is not None:
             x = F.layer_norm(x, (E,), eps=LN_EPS)
             alpha, beta = self.tcond_linear(tcond).chunk(2, dim=-1)
             x = x * (1 + alpha) + beta
-        x = self.attn(self.norm1(x)) + x
+        x = self.attn(self.norm1(x), cache, cache_index) + x
         if cond is not None:
             x = F.layer_norm(x, (E,), eps=LN_EPS)
             alpha, beta = self.cond_linear(cond).chunk(2, dim=-1)
@@ -119,18 +165,25 @@ class DecoderBlock(nn.Module):
 
 
 class Denoiser(nn.Module):
-    """Rectified-flow velocity field v(x_t, t, timbre, structure), offline.
+    """Rectified-flow velocity field v(x_t, t, timbre, structure).
 
     ``cond_in`` and ``tcond_in`` are the widths of the timbre vector and of
     the structure codes fed to it (``zt_channels`` and ``zs_channels`` of the
-    run's AfterConfig); they need not equal ``cond_dim`` / ``tcond_dim``."""
+    run's AfterConfig); they need not equal ``cond_dim`` / ``tcond_dim``.
+    A streaming denoiser takes (B, chunk, C) steps with the KV cache and the
+    Euler step's ``cache_index``."""
 
     def __init__(self, cfg: DenoiserConfig, cond_in: Optional[int] = None,
-                 tcond_in: Optional[int] = None):
+                 tcond_in: Optional[int] = None, streaming: bool = False):
         super().__init__()
         if cfg.arch != "v2":
             raise NotImplementedError(
                 f"the port has only the v2 denoiser, not {cfg.arch!r}")
+        if streaming and cfg.pos_emb_type == "learnable":
+            # a chunk would restart at position 0 against keys cached at
+            # earlier positions; rotary positions re-phase the cached keys
+            raise ValueError("pos_emb_type='learnable' is not streamable; "
+                             "use 'rotary' for streaming models")
         self.cfg = cfg
         E = cfg.embed_dim
         cond_in = cfg.cond_dim if cond_in is None else cond_in
@@ -145,12 +198,16 @@ class Denoiser(nn.Module):
         self.tcond_patchify = (nn.Linear(tcond_in, cfg.tcond_dim)
                                if cfg.tcond_dim > 0 else None)
         for i in range(cfg.n_layers):
-            self.add_module(f"block_{i}", DecoderBlock(cfg, self.use_cond))
+            self.add_module(f"block_{i}",
+                            DecoderBlock(cfg, self.use_cond, streaming))
         self.out_proj = nn.Linear(E, cfg.n_channels)
+        name_slots(self)
 
     def forward(self, x: torch.Tensor, time: torch.Tensor,
                 cond: Optional[torch.Tensor] = None,
-                time_cond: Optional[torch.Tensor] = None) -> torch.Tensor:
+                time_cond: Optional[torch.Tensor] = None,
+                cache: Optional[Cache] = None,
+                cache_index: int = 0) -> torch.Tensor:
         cfg = self.cfg
         noise_level = fourier_features(time, cfg.noise_embed_dims)
         if self.use_cond and cond is not None:
@@ -166,5 +223,6 @@ class Denoiser(nn.Module):
         else:
             tc = None
         for i in range(cfg.n_layers):
-            h = getattr(self, f"block_{i}")(h, features, tc)
+            h = getattr(self, f"block_{i}")(h, features, tc, cache,
+                                            cache_index)
         return self.out_proj(h)

@@ -1,13 +1,16 @@
-"""Structure encoder Encoder1D, inference (counterpart of
-after_tpu/models/encoder.py).
+"""Structure encoder Encoder1D, inference, offline and streaming
+(counterpart of after_tpu/models/encoder.py).
 
 A stack of BatchNorm + SiLU + weight-normed causal convs over codec latents
 (B, T, in_size) -> structure codes (B, T / prod(ratios), channels[-1]), then
 the ``ac`` reparametrisation and optional FSQ.  BatchNorm runs on its running
-statistics; dropout is the identity.
+statistics; dropout is the identity.  With ``streaming`` set every conv but
+the 1x1 pools is cached (ops/conv.py) and each call takes the cache.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -17,21 +20,26 @@ from ..config import Encoder1DConfig
 from ..ops.conv import StreamConv1d
 from ..ops.fsq import FSQ
 from ..ops.norms import BatchNorm
+from ..streaming.state import Cache, name_slots
 
 
 class V2ConvBlock1D(nn.Module):
     """BN -> SiLU -> conv -> BN -> SiLU -> conv, residual add."""
 
-    def __init__(self, in_c: int, out_c: int, kernel_size: int, mode: str):
+    def __init__(self, in_c: int, out_c: int, kernel_size: int, mode: str,
+                 streaming: bool = False):
         super().__init__()
         self.bn1 = BatchNorm(in_c)
-        self.conv1 = StreamConv1d(in_c, out_c, kernel_size, mode=mode)
+        self.conv1 = StreamConv1d(in_c, out_c, kernel_size, mode=mode,
+                                  streaming=streaming)
         self.bn2 = BatchNorm(out_c)
-        self.conv2 = StreamConv1d(out_c, out_c, kernel_size, mode=mode)
+        self.conv2 = StreamConv1d(out_c, out_c, kernel_size, mode=mode,
+                                  streaming=streaming)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = self.conv1(F.silu(self.bn1(x)))
-        h = self.conv2(F.silu(self.bn2(h)))
+    def forward(self, x: torch.Tensor,
+                cache: Optional[Cache] = None) -> torch.Tensor:
+        h = self.conv1(F.silu(self.bn1(x)), cache)
+        h = self.conv2(F.silu(self.bn2(h)), cache)
         return h + x
 
 
@@ -39,23 +47,24 @@ class V2EncoderBlock1D(nn.Module):
     """Conv block + pool conv: 1x1 ``valid`` at ratio 1, strided otherwise."""
 
     def __init__(self, in_c: int, out_c: int, kernel_size: int, ratio: int,
-                 mode: str):
+                 mode: str, streaming: bool = False):
         super().__init__()
-        self.conv = V2ConvBlock1D(in_c, in_c, kernel_size, mode)
+        self.conv = V2ConvBlock1D(in_c, in_c, kernel_size, mode, streaming)
         if ratio != 1:
             self.pool = StreamConv1d(in_c, out_c, 2 * ratio, stride=ratio,
-                                     mode=mode)
+                                     mode=mode, streaming=streaming)
         else:
             self.pool = StreamConv1d(in_c, out_c, 1, mode="valid")
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.pool(self.conv(x))
+    def forward(self, x: torch.Tensor,
+                cache: Optional[Cache] = None) -> torch.Tensor:
+        return self.pool(self.conv(x, cache), cache)
 
 
 class Encoder1D(nn.Module):
     """(B, T, in_size) -> (z, mean, reg) with z (B, T', channels[-1])."""
 
-    def __init__(self, cfg: Encoder1DConfig):
+    def __init__(self, cfg: Encoder1DConfig, streaming: bool = False):
         super().__init__()
         if cfg.upscale_out or cfg.vae_regularisation:
             raise NotImplementedError(
@@ -69,23 +78,24 @@ class Encoder1D(nn.Module):
         for i in range(len(channels)):
             r = ratios[i] if i < len(ratios) else 1
             self.add_module(f"block_{i}", V2EncoderBlock1D(
-                widths[i], channels[i], cfg.kernel_size, r, mode))
+                widths[i], channels[i], cfg.kernel_size, r, mode, streaming))
         self.n_blocks = len(channels)
         self.out_block = V2ConvBlock1D(channels[-1], channels[-1],
-                                       cfg.kernel_size, mode)
+                                       cfg.kernel_size, mode, streaming)
         if cfg.quantizer_levels:
             assert len(cfg.quantizer_levels) == channels[-1], \
                 (cfg.quantizer_levels, channels[-1])
             self.fsq = FSQ(cfg.quantizer_levels)
         else:
             self.fsq = None
+        name_slots(self)
 
-    def forward(self, x: torch.Tensor):
+    def forward(self, x: torch.Tensor, cache: Optional[Cache] = None):
         cfg = self.cfg
         h = x
         for i in range(self.n_blocks):
-            h = getattr(self, f"block_{i}")(h)
-        h = self.out_block(h)
+            h = getattr(self, f"block_{i}")(h, cache)
+        h = self.out_block(h, cache)
         if cfg.average_out:
             h = h.mean(dim=1)
         if cfg.spherical_normalization:

@@ -1,11 +1,18 @@
-"""Offline 1-D convolutions over (B, T, C) with weight norm
-(counterpart of after_tpu/ops/conv.py, offline half).
+"""1-D convolutions over (B, T, C) with weight norm, offline and streaming
+(counterpart of after_tpu/ops/conv.py).
 
 Padding rule, as in the JAX package:
     total = (kernel - 1) * dilation + 1 - stride
     causal   -> (total, 0)
     centered -> (ceil, floor)
     valid    -> (0, 0)
+
+Streaming (``streaming=True``, a cache passed to each call): a conv keeps the
+last ``left + right`` input frames (``carry``) and runs a valid conv over
+them and the new chunk, so successive chunks reproduce the offline causal
+output (a centered conv streams with a delay of ``right`` frames); a
+transposed conv keeps the overlap tail of its un-trimmed output
+(``overlap``) and emits causally.
 
 Weights are kept in torch's layouts: (O, C, k) for a conv and
 (C_in, C_out, k) for a transposed conv.  Every conv has a bias and weight
@@ -15,11 +22,13 @@ separate parameters, as torch.nn.utils.weight_norm(dim=0) does.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ..streaming.state import Cache, Streaming
 
 
 def get_padding(kernel_size: int, stride: int = 1, dilation: int = 1,
@@ -74,18 +83,21 @@ class _WeightNormed(nn.Module):
         return self._wn
 
 
-class StreamConv1d(_WeightNormed):
-    """Weight-normed 1-D conv over (B, T, C), offline.
+class StreamConv1d(_WeightNormed, Streaming):
+    """Weight-normed 1-D conv over (B, T, C).
 
     Weight norm is per output channel: the norm runs over (C_in, k).
     ``kernel_layout`` keeps the inference weight in the fused snake+conv
-    kernel's layout (see ``_WeightNormed``)."""
+    kernel's layout (see ``_WeightNormed``).  With ``streaming`` set, a
+    causal or centered conv keeps its left context in the cache
+    (``carry``, (B, left + right, C_in)); a valid conv needs none."""
 
     def __init__(self, in_features: int, features: int, kernel_size: int,
                  stride: int = 1, dilation: int = 1, mode: str = "causal",
-                 kernel_layout: bool = False):
+                 kernel_layout: bool = False, streaming: bool = False):
         super().__init__()
         self.kernel_layout = kernel_layout
+        self.streaming = streaming
         self.in_features = in_features
         self.features = features
         self.kernel_size = kernel_size
@@ -97,27 +109,41 @@ class StreamConv1d(_WeightNormed):
         self.g = nn.Parameter(torch.empty(features))
         self.bias = nn.Parameter(torch.empty(features))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = x.transpose(1, 2)
-        if self.mode != "valid":
-            h = F.pad(h, get_padding(self.kernel_size, self.stride,
-                                     self.dilation, self.mode))
+    def forward(self, x: torch.Tensor,
+                cache: Optional[Cache] = None) -> torch.Tensor:
+        if self.streaming and self.mode != "valid":
+            context = sum(get_padding(self.kernel_size, self.stride,
+                                      self.dilation, self.mode))
+            carry = self.slot(cache, "carry", lambda: x.new_zeros(
+                (x.shape[0], context, x.shape[2])))
+            h = torch.cat([carry, x], dim=1)
+            carry.copy_(h[:, h.shape[1] - context:])
+            h = h.transpose(1, 2)
+        else:
+            h = x.transpose(1, 2)
+            if self.mode != "valid":
+                h = F.pad(h, get_padding(self.kernel_size, self.stride,
+                                         self.dilation, self.mode))
         y = F.conv1d(h, self.effective_weight(), self.bias,
                      stride=self.stride, dilation=self.dilation)
         return y.transpose(1, 2)
 
 
-class StreamConvTranspose1d(_WeightNormed):
-    """Weight-normed transposed 1-D conv (upsampler) over (B, T, C), offline.
+class StreamConvTranspose1d(_WeightNormed, Streaming):
+    """Weight-normed transposed 1-D conv (upsampler) over (B, T, C).
 
-    Matches the JAX package's centered form: out_len = in_len * stride, the
-    un-trimmed output cut by stride // 2 frames on the left.  Weight norm is
-    per input channel (torch weight_norm(dim=0) on the (C_in, C_out, k)
-    weight)."""
+    Offline it matches the JAX package's centered form: out_len = in_len *
+    stride, the un-trimmed output cut by stride // 2 frames on the left.
+    Streaming, the un-trimmed output (length in_len * stride + k - stride,
+    without bias) gets the previous call's overlap tail added to its head;
+    its last k - stride frames become the new tail (``overlap``) and the
+    rest, plus bias, is emitted.  Weight norm is per input channel (torch
+    weight_norm(dim=0) on the (C_in, C_out, k) weight)."""
 
     def __init__(self, in_features: int, features: int, kernel_size: int,
-                 stride: int):
+                 stride: int, streaming: bool = False):
         super().__init__()
+        self.streaming = streaming
         self.in_features = in_features
         self.features = features
         self.kernel_size = kernel_size
@@ -127,9 +153,21 @@ class StreamConvTranspose1d(_WeightNormed):
         self.g = nn.Parameter(torch.empty(in_features))
         self.bias = nn.Parameter(torch.empty(features))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                cache: Optional[Cache] = None) -> torch.Tensor:
         T = x.shape[1]
         f = self.stride
+        if not self.streaming:
+            y = F.conv_transpose1d(x.transpose(1, 2), self.effective_weight(),
+                                   self.bias, stride=f, padding=f // 2)
+            return y[:, :, :T * f].transpose(1, 2)
+        tail = self.kernel_size - f
         y = F.conv_transpose1d(x.transpose(1, 2), self.effective_weight(),
-                               self.bias, stride=f, padding=f // 2)
-        return y[:, :, :T * f].transpose(1, 2)
+                               stride=f).transpose(1, 2)
+        overlap = self.slot(cache, "overlap", lambda: x.new_zeros(
+            (x.shape[0], tail, self.features)))
+        if tail > 0:
+            y = torch.cat([y[:, :tail] + overlap, y[:, tail:]], dim=1)
+            overlap.copy_(y[:, y.shape[1] - tail:])
+            y = y[:, :y.shape[1] - tail]
+        return y + self.bias

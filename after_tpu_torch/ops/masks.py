@@ -1,5 +1,5 @@
 """Static attention masks for the chunk-wise causal denoiser (a copy of
-after_tpu/ops/masks.py's offline half).
+after_tpu/ops/masks.py).
 
 - full attention *within* each `chunk_size` block of frames;
 - causal attention to previous frames, limited to a sliding window of
@@ -44,3 +44,12 @@ def sliding_chunkwise_mask(seq_len: int, chunk_size: int,
 def mask_bias(mask: np.ndarray, dtype=np.float32) -> np.ndarray:
     """Boolean mask -> additive attention bias (0 attend / -1e9 masked)."""
     return np.where(mask, np.array(0.0, dtype), np.array(NEG_INF, dtype))
+
+
+@lru_cache(maxsize=64)
+def streaming_mask(q_len: int, k_len: int, chunk_size: int,
+                   window_size: int) -> np.ndarray:
+    """Mask of a streaming step: q_len new frames attending over
+    (k_len - q_len) cached frames followed by themselves; the trailing q_len
+    rows of the full mask over k_len positions."""
+    return sliding_chunkwise_mask(k_len, chunk_size, window_size)[-q_len:]

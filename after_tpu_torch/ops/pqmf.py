@@ -1,4 +1,4 @@
-"""Pseudo-QMF multiband analysis and synthesis, offline
+"""Pseudo-QMF multiband analysis and synthesis, offline and streaming
 (counterpart of after_tpu/ops/pqmf.py).
 
 The filter design runs once on the host with scipy: a Kaiser-window lowpass
@@ -10,7 +10,11 @@ directions are one polyphase conv of L/M taps with M channels in and out:
 - synthesis: bands    (B, T/M, M) -> waveform
 
 The sample alignment, the sign mask and the trims are those of the JAX
-package, so a ported codec sees the same band signals.
+package, so a ported codec sees the same band signals.  The causal forms
+stream: each keeps its last K - 1 polyphase frames (``carry``) and runs a
+valid conv over them and the new chunk, whose band frames must be even so
+that the sign mask keeps its phase.  Streamed synthesis applies the mask
+with the ``parity`` of the upstream band-frame delay.
 """
 
 from __future__ import annotations
@@ -24,6 +28,8 @@ import torch.nn.functional as F
 from scipy.optimize import fmin
 from scipy.signal import firwin, kaiserord
 from torch import nn
+
+from ..streaming.state import Streaming
 
 
 def _kaiser_filter(wc: float, atten: float, N: int = None) -> np.ndarray:
@@ -87,31 +93,52 @@ def pqmf_kernels(attenuation: float, n_band: int):
     return (np.ascontiguousarray(ana), np.ascontiguousarray(syn), mask)
 
 
-def _apply_mask(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+def _apply_mask(x: torch.Tensor, mask: torch.Tensor,
+                parity: int = 0) -> torch.Tensor:
+    """reverse_half sign mask over (B, T, M); ``parity`` shifts its period-2
+    time pattern."""
     T = x.shape[1]
-    m = mask.repeat((T + 1) // 2, 1)[:T]
+    m = mask.repeat((T + 3) // 2, 1)[parity:parity + T]
     return x * m[None]
 
 
-class PQMFAnalysis(nn.Module):
+def _streaming_pad(module: Streaming, cache, x: torch.Tensor) -> torch.Tensor:
+    """(B, M, T) polyphase frames behind the module's K - 1 cached ones; the
+    cache keeps the last K - 1 of them."""
+    K = module.kernel.shape[-1]
+    B, M, T = x.shape
+    if T % 2:
+        raise ValueError(f"streaming PQMF needs even chunk frames, got {T}")
+    carry = module.slot(cache, "carry", lambda: x.new_zeros((B, K - 1, M)))
+    full = torch.cat([carry, x.transpose(1, 2)], dim=1)
+    carry.copy_(full[:, full.shape[1] - (K - 1):])
+    return full.transpose(1, 2)
+
+
+class PQMFAnalysis(nn.Module, Streaming):
     """Waveform (B, T, 1) -> bands (B, T/M, M); centered (offline parity with
-    the reference PQMF) or causal."""
+    the reference PQMF) or causal, which may stream."""
 
     def __init__(self, attenuation: float = 100, n_band: int = 16,
-                 causal: bool = False):
+                 causal: bool = False, streaming: bool = False):
         super().__init__()
+        if streaming and not causal:
+            raise ValueError("streaming PQMF analysis requires causal=True")
         self.n_band = n_band
         self.causal = causal
+        self.streaming = streaming
         ana, _, mask = pqmf_kernels(attenuation, n_band)
         self.register_buffer("kernel", torch.from_numpy(ana), persistent=False)
         self.register_buffer("mask", torch.from_numpy(mask), persistent=False)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, cache=None) -> torch.Tensor:
         B, T, _ = x.shape
         M = self.n_band
         K = self.kernel.shape[-1]
         xp = x.reshape(B, T // M, M).transpose(1, 2)
-        if self.causal:
+        if self.streaming:
+            y = F.conv1d(_streaming_pad(self, cache, xp), self.kernel)
+        elif self.causal:
             y = F.conv1d(F.pad(xp, (K - 1, 0)), self.kernel)
         else:
             p = K // 2
@@ -119,25 +146,33 @@ class PQMFAnalysis(nn.Module):
         return _apply_mask(y.transpose(1, 2), self.mask)
 
 
-class PQMFSynthesis(nn.Module):
+class PQMFSynthesis(nn.Module, Streaming):
     """Bands (B, T/M, M) -> waveform (B, T', 1).  Centered mode keeps the
-    reference's alignment (T' = T + M); causal mode returns T samples."""
+    reference's alignment (T' = T + M); causal mode returns T samples and
+    may stream, with the sign mask shifted by ``parity``."""
 
     def __init__(self, attenuation: float = 100, n_band: int = 16,
-                 causal: bool = False):
+                 causal: bool = False, streaming: bool = False,
+                 parity: int = 0):
         super().__init__()
+        if streaming and not causal:
+            raise ValueError("streaming PQMF synthesis requires causal=True")
         self.n_band = n_band
         self.causal = causal
+        self.streaming = streaming
+        self.parity = parity if streaming else 0
         _, syn, mask = pqmf_kernels(attenuation, n_band)
         self.register_buffer("kernel", torch.from_numpy(syn), persistent=False)
         self.register_buffer("mask", torch.from_numpy(mask), persistent=False)
 
-    def forward(self, xb: torch.Tensor) -> torch.Tensor:
+    def forward(self, xb: torch.Tensor, cache=None) -> torch.Tensor:
         B = xb.shape[0]
         M = self.n_band
         K = self.kernel.shape[-1]
-        x = _apply_mask(xb, self.mask).transpose(1, 2)
-        if self.causal:
+        x = _apply_mask(xb, self.mask, self.parity).transpose(1, 2)
+        if self.streaming:
+            y = F.conv1d(_streaming_pad(self, cache, x), self.kernel) * M
+        elif self.causal:
             y = F.conv1d(F.pad(x, (K - 1, 0)), self.kernel) * M
         else:
             pad = K // 2 + 1

@@ -23,6 +23,10 @@ A denoiser stored with ``scan_layers`` (``blocks/block`` with a leading
 layer axis) is unstacked into ``block_i`` first.  Every flax leaf must land
 on a tensor of the same shape and every tensor of the port must be set, or
 loading raises.
+
+``load_stream_state`` carries a JAX ``StreamState`` across in the same way:
+both states flatten to flax cache paths (streaming/state.py), and every leaf
+is copied into the port's state in place.
 """
 
 from __future__ import annotations
@@ -36,6 +40,7 @@ from torch import nn
 from ..ops.conv import StreamConv1d, StreamConvTranspose1d
 from ..ops.norms import BatchNorm, GroupNorm
 from ..ops.snake import SnakeBeta
+from ..streaming.state import StreamState, flatten_state
 
 
 def _set(t: torch.Tensor, value: np.ndarray, path: str) -> None:
@@ -161,3 +166,35 @@ def load_pipeline(pipeline, variables: Mapping[str, Any]) -> None:
     load_module(rf.encoder, dv["encoder"], "encoder")
     if rf.encoder_time is not None:
         load_module(rf.encoder_time, dv["encoder_time"], "encoder_time")
+
+
+def load_stream_state(streamer, state: StreamState, jax_state: Any) -> None:
+    """Copy a JAX ``StreamState`` (its fields as nested dicts, tuples and
+    dataclasses of numpy arrays; a ``scan_layers`` denoiser cache is
+    unstacked) into ``state``, a state of ``streamer``, in place.  Every
+    leaf must land on a tensor of the same shape and every tensor of the
+    port's state must be set, or loading raises."""
+    ours = flatten_state(state)
+    theirs: Dict[str, Any] = {}
+    for f in ("codec_struct", "codec_timbre", "codec_dec", "enc_time",
+              "denoiser", "prev_timbre"):
+        node = (jax_state[f] if isinstance(jax_state, Mapping)
+                else getattr(jax_state, f))
+        if f == "denoiser":
+            node = unstack_scan_blocks(node)
+        theirs.update(flatten_state(node, f))
+    missing = sorted(ours.keys() - theirs.keys())
+    extra = sorted(theirs.keys() - ours.keys())
+    if missing or extra:
+        raise ValueError(f"stream states differ: missing from the JAX state "
+                         f"{missing}, with no place in the port {extra}")
+    with torch.no_grad():
+        for path, t in ours.items():
+            if t.device != streamer.device:
+                raise ValueError(f"{path} is on {t.device}, the streamer on "
+                                 f"{streamer.device}")
+            value = np.array(theirs[path])
+            if tuple(t.shape) != value.shape:
+                raise ValueError(f"{path}: port shape {tuple(t.shape)} != "
+                                 f"JAX shape {value.shape}")
+            t.copy_(torch.from_numpy(value).to(t.dtype))

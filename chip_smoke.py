@@ -7,14 +7,15 @@ Phases, each printed before the last line:
 1. card: name and power limit (nvidia-smi), torch and CUDA versions;
 2. build: the CUDA kernel from its source in the checkout, with nvcc;
 3. kernels: each kernel against its plain PyTorch version at every shape
-   the base codec gives it for a 524288-sample transfer, with times of the
-   kernel, the plain version and one library call, the least time the card
-   could take for the work (H100 SXM data sheet: 495 TFLOP/s TF32 on the
-   tensor cores, three TF32 products per multiply-add in 3xTF32, 3.35 TB/s;
-   the bound on the f32 CUDA cores, 67 TFLOP/s, printed beside it), the
-   kernel's TFLOP/s and share of its bound, and its error against a float64
-   plain version beside those of strict-f32 and TF32 F.conv1d (at most
-   2048 frames a shape; the kernel may be at most 4x strict F.conv1d);
+   the base codec gives it for a 524288-sample transfer and for one
+   streamed buffer (the crossfade windows of 16384 samples), with times of
+   the kernel, the plain version and one library call, the least time the
+   card could take for the work (H100 SXM data sheet: 495 TFLOP/s TF32 on
+   the tensor cores, three TF32 products per multiply-add in 3xTF32,
+   3.35 TB/s; the bound on the f32 CUDA cores, 67 TFLOP/s, printed beside
+   it), the kernel's TFLOP/s and share of its bound, and its error against a
+   float64 plain version beside those of strict-f32 and TF32 F.conv1d (at
+   most 2048 frames a shape; the kernel may be at most 4x strict F.conv1d);
 4. serving: the base config at full width, port-native random weights from
    a fixed seed, answering 3 transfer requests of 524288 samples (batch 1,
    20 Euler steps, guidance_timbre 2.0) with per-phase times, then one more
@@ -24,7 +25,21 @@ Phases, each printed before the last line:
 5. card vs CPU: the same port and weights on a 65536-sample clip, 4 steps,
    fixed x0, the card's output (kernels) against the CPU's (plain versions);
    the same comparison with TF32 allowed is printed beside it, as the
-   reading that the limit must stay below.
+   reading that the limit must stay below;
+6. streaming: the same weights through ``Streamer(chunk_size=4,
+   n_fade=4)`` (the crossfade path, the kernel on every conv window), batch
+   1, guidance_timbre 2.0: 2 warm-up buffers, then phase 4's first request
+   as 64 buffers of 8192 samples (185.76 ms of audio each) at nb_steps 1
+   and at 4, each buffer timed on the host clock around ``forward`` ending
+   in a synchronize (median, p90, max, real-time factor), 96 kernel
+   launches a buffer, each output finite and of shape (1, 8192, 1), the
+   state's tensors at fixed addresses; one more buffer under torch.profiler
+   as in phase 4;
+7. streaming card vs CPU: 8 buffers of two voices with fixed x0, card
+   against CPU within phase 5's limit (the TF32 reading beside it), for the
+   base config and for the causal, norm-free ``get_config("base",
+   "streaming")`` with port-native weights, which streams through cached
+   convs and launches no kernel.
 
 Any failure exits non-zero.  The line before the last is the kernel table as
 JSON; the last line is ``{"ok": true, "device": {...}}``.  Imports nothing of
@@ -35,6 +50,7 @@ from __future__ import annotations
 
 import gc
 import json
+import math
 import subprocess
 import sys
 import time
@@ -47,6 +63,11 @@ N_REQUESTS = 3
 SHORT_SAMPLES = 65536
 SHORT_STEPS = 4
 SEED = 0
+CHUNK = 4                    # latent frames per streamed buffer
+N_FADE = 4                   # crossfade overlap, latent frames
+STREAM_STEPS = (1, 4)        # nb_steps of the two timed streams
+STREAM_WARMUP = 2
+STREAM_VS_CPU_BUFFERS = 8
 PEAK_TF32_FLOPS = 495e12     # H100 SXM, dense TF32 on the tensor cores
 PEAK_F32_FLOPS = 67e12       # H100 SXM, f32 outside the tensor cores
 PEAK_BYTES = 3.35e12         # H100 SXM HBM3
@@ -158,9 +179,10 @@ def f64_errors(x, alpha, beta, w, b, d, mode):
                  for t in (y, strict, tf32))
 
 
-def check_fused_conv(blocks_by_shape, path_counts):
-    """Kernel vs plain version at every distinct shape; returns the summary
-    row of the kernel table, its numbers summed over one transfer."""
+def check_fused_conv(path, unit):
+    """Kernel vs plain version at every distinct shape of ``path``, a list of
+    (ConvBlock1d, T) in the order one ``unit`` (a transfer, a buffer) runs
+    them; returns its numbers summed over one unit."""
     import torch
     import torch.nn.functional as F
     from after_tpu_torch.ops.conv import get_padding
@@ -169,12 +191,14 @@ def check_fused_conv(blocks_by_shape, path_counts):
                                                         snake_conv_reference)
     from after_tpu_torch.ops.snake import snake_beta
 
+    path_counts = Counter(block_shape(b, T) for b, T in path)
+    blocks_by_shape = {block_shape(b, T): b for b, T in path}
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     total = Counter()
     worst = 0.0
     f64_worst = (0.0, 0.0, 0.0)
     log("kernels: device times from CUDA graphs of 20 calls each")
-    log("kernels: fused_snake_conv, per shape (k d C O T mode: n/transfer, "
+    log(f"kernels: fused_snake_conv, per shape (k d C O T mode: n/{unit}, "
         "plan bn/bk/splits, max_abs_err; kernel/plain/F.conv1d/bound(3xTF32)/"
         "bound(f32) ms; TFLOP/s, share of bound; float64 errors kernel/"
         "F.conv1d/F.conv1d-TF32)")
@@ -225,35 +249,57 @@ def check_fused_conv(blocks_by_shape, path_counts):
             f"{ms:.4f}/{plain_ms:.4f}/{lib_ms:.4f}/{bound_ms:.4f}/"
             f"{bound_f32_ms:.4f}; {flops / ms / 1e9:.1f}, "
             f"{bound_ms / ms:.3f}; {e64[0]:.3e}/{e64[1]:.3e}/{e64[2]:.3e}")
-    bound_by = ("operations" if 3 * total["flops"] / PEAK_TF32_FLOPS
-                >= total["bytes"] / PEAK_BYTES else "bytes")
-    tflops = total["flops"] / total["ms"] / 1e9
-    share = total["bound_ms"] / total["ms"]
-    log(f"kernels: fused_snake_conv per transfer ({sum(path_counts.values())}"
-        f" launches, {total['flops'] / 1e9:.2f} GFLOP): kernel "
-        f"{total['ms']:.3f} ms ({tflops:.1f} TFLOP/s, {share:.3f} of the "
+    total["launches"] = len(path)
+    total["bound_by"] = ("operations" if 3 * total["flops"] / PEAK_TF32_FLOPS
+                         >= total["bytes"] / PEAK_BYTES else "bytes")
+    total["tflops"] = total["flops"] / total["ms"] / 1e9
+    total["share"] = total["bound_ms"] / total["ms"]
+    total["max_abs_err"] = worst
+    total["f64"] = f64_worst
+    log(f"kernels: fused_snake_conv per {unit} ({len(path)} launches, "
+        f"{total['flops'] / 1e9:.2f} GFLOP): kernel {total['ms']:.3f} ms "
+        f"({total['tflops']:.1f} TFLOP/s, {total['share']:.3f} of the "
         f"bound; {total['eager_ms']:.3f} ms launched eagerly from Python), "
         f"plain {total['plain_ms']:.3f} ms, F.conv1d "
-        f"{total['library_ms']:.3f} ms, bound {total['bound_ms']:.3f} ms "
-        f"(3xTF32 tensor cores, {bound_by}; on the f32 CUDA cores "
-        f"{total['bound_f32_ms']:.3f} ms); max abs err {worst:.3e}; against "
+        f"{total['library_ms']:.3f} ms, bound {total['bound_ms']:.4f} ms "
+        f"(3xTF32 tensor cores, {total['bound_by']}; on the f32 CUDA cores "
+        f"{total['bound_f32_ms']:.4f} ms); max abs err {worst:.3e}; against "
         f"float64: kernel {f64_worst[0]:.3e}, F.conv1d {f64_worst[1]:.3e}, "
         f"F.conv1d with TF32 {f64_worst[2]:.3e}")
+    return total
+
+
+def kernel_row(per_transfer, per_buffer):
+    """The kernel table's row: per transfer (the offline path) and per
+    streamed buffer."""
+    f64 = tuple(max(a, b) for a, b in zip(per_transfer["f64"],
+                                          per_buffer["f64"]))
     return {"name": "fused_snake_conv", "route": "cuda",
             "source": "after_tpu_torch/csrc/fused_snake_conv.cu",
             "replaces": "after_tpu/ops/pallas/fused_conv.py:129",
-            "max_abs_err": worst, "ms": total["ms"],
-            "plain_ms": total["plain_ms"], "bound_ms": total["bound_ms"],
-            "bound_by": bound_by, "library_ms": total["library_ms"],
-            "bound_f32_ms": total["bound_f32_ms"], "tflops": tflops,
-            "eager_ms": total["eager_ms"],
-            "share_of_bound": share, "f64_err": f64_worst[0],
-            "f64_err_conv1d": f64_worst[1],
-            "f64_err_conv1d_tf32": f64_worst[2]}
+            "max_abs_err": max(per_transfer["max_abs_err"],
+                               per_buffer["max_abs_err"]),
+            "ms": per_transfer["ms"], "plain_ms": per_transfer["plain_ms"],
+            "bound_ms": per_transfer["bound_ms"],
+            "bound_by": per_transfer["bound_by"],
+            "library_ms": per_transfer["library_ms"],
+            "bound_f32_ms": per_transfer["bound_f32_ms"],
+            "tflops": per_transfer["tflops"],
+            "eager_ms": per_transfer["eager_ms"],
+            "share_of_bound": per_transfer["share"],
+            "launches_per_buffer": per_buffer["launches"],
+            "ms_per_buffer": per_buffer["ms"],
+            "bound_ms_per_buffer": per_buffer["bound_ms"],
+            "bound_by_per_buffer": per_buffer["bound_by"],
+            "library_ms_per_buffer": per_buffer["library_ms"],
+            "plain_ms_per_buffer": per_buffer["plain_ms"],
+            "eager_ms_per_buffer": per_buffer["eager_ms"],
+            "f64_err": f64[0], "f64_err_conv1d": f64[1],
+            "f64_err_conv1d_tf32": f64[2]}
 
 
-def profile_transfer(pipe, a, b) -> None:
-    """One transfer under torch.profiler: wall time, device busy time (the
+def profile_call(label: str, fn) -> None:
+    """One call of fn under torch.profiler: wall time, device busy time (the
     union of kernel intervals), idle share, kernel launches and the kernels
     that took the most device time.  Fails if a TF32 kernel ran."""
     import torch
@@ -262,14 +308,14 @@ def profile_transfer(pipe, a, b) -> None:
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        pipe.transfer(a, b, nb_steps=NB_STEPS, guidance_timbre=GUIDANCE_TIMBRE)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = [e for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA
                and e.time_range.elapsed_us() > 0]
     if not kernels:
-        log(f"profile: wall {wall_ms:.2f} ms; the profiler recorded no "
+        log(f"profile: {label}: wall {wall_ms:.2f} ms; the profiler recorded no "
             f"device time, so device busy and idle share are not measured")
         return
     busy_us, cur_s, cur_e = 0.0, None, None
@@ -287,7 +333,7 @@ def profile_transfer(pipe, a, b) -> None:
     for e in kernels:
         by_name[e.name] += e.time_range.elapsed_us()
         count[e.name] += 1
-    log(f"profile: one transfer (profiled): wall {wall_ms:.2f} ms, "
+    log(f"profile: {label} (profiled): wall {wall_ms:.2f} ms, "
         f"{len(kernels)} kernel launches, device busy {busy_us / 1e3:.2f} ms, "
         f"idle share {1 - busy_us / 1e3 / wall_ms:.3f}")
     log(f"profile: top {TOP_KERNELS} kernels by device time (launches, ms, "
@@ -297,7 +343,88 @@ def profile_transfer(pipe, a, b) -> None:
     tf32 = [n for n in by_name if "tf32" in n.lower()
             and not any(k in n for k in PORT_TF32_KERNELS)]
     if tf32:
-        fail(f"TF32 kernels ran on the main path: {tf32[:3]}")
+        fail(f"TF32 kernels ran in {label}: {tf32[:3]}")
+
+
+def percentile(values, q: float) -> float:
+    """The q-quantile of values (nearest rank)."""
+    v = sorted(values)
+    return v[max(0, math.ceil(q * len(v)) - 1)]
+
+
+def stream_audio(streamer, state, a, b, nb_steps: int):
+    """Stream (a, b) buffer by buffer from ``state``; returns the host times
+    of the buffers.  Checks every output and that the state's tensors keep
+    their addresses."""
+    import torch
+    from after_tpu_torch.streaming.state import flatten_state
+
+    A = streamer.audio_chunk
+    ptrs = {k: t.data_ptr() for k, t in flatten_state(state).items()}
+    times = []
+    for i in range(a.shape[1] // A):
+        s = slice(i * A, (i + 1) * A)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        y, state = streamer.forward(state, a[:, s], b[:, s],
+                                    nb_steps=nb_steps,
+                                    guidance_timbre=GUIDANCE_TIMBRE)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        if tuple(y.shape) != (a.shape[0], A, 1):
+            fail(f"stream buffer {i}: output shape {tuple(y.shape)}")
+        if not torch.isfinite(y).all():
+            fail(f"stream buffer {i}: non-finite output")
+    if ptrs != {k: t.data_ptr() for k, t in flatten_state(state).items()}:
+        fail("the stream state's tensors moved between buffers")
+    return times
+
+
+def stream_card_vs_cpu(label, card, cpu, n_buffers: int, seed: int):
+    """The same two-voice stream on the card and on the CPU, fixed x0 per
+    buffer; the largest difference over all buffers against the limit, and
+    the same with TF32 allowed.  Returns the card's kernel launches."""
+    import numpy as np
+    import torch
+    from after_tpu_torch.ops.kernels.fused_conv import fused_snake_conv
+    from after_tpu_torch.utils.device import strict_f32
+
+    rng = np.random.RandomState(seed)
+    A = card.audio_chunk
+    n = n_buffers * A
+    a = 0.1 * rng.randn(2, n, 1).astype(np.float32)
+    b = 0.1 * rng.randn(2, n, 1).astype(np.float32)
+    x0 = rng.randn(n_buffers, 2, CHUNK,
+                   card.cfg.denoiser.n_channels).astype(np.float32)
+
+    def run(streamer, state):
+        ys = []
+        for i in range(n_buffers):
+            s = slice(i * A, (i + 1) * A)
+            y, state = streamer.forward(state, a[:, s], b[:, s], 2,
+                                        GUIDANCE_TIMBRE, x0=x0[i])
+            ys.append(y.cpu())
+        return torch.cat(ys, dim=1)
+
+    state = card.init_state(2)
+    fused_snake_conv.launches = 0
+    y_card = run(card, state)
+    launches = fused_snake_conv.launches
+    y_cpu = run(cpu, cpu.init_state(2))
+    err = (y_card - y_cpu).abs().max().item()
+    scale = y_cpu.abs().max().item()
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    err_tf32 = (run(card, card.init_state(2)) - y_cpu).abs().max().item()
+    strict_f32()
+    log(f"streaming card vs CPU, {label}: {n_buffers} buffers of 2 voices, "
+        f"max abs err {err:.3e} (with TF32 allowed: {err_tf32:.3e}), max |y| "
+        f"{scale:.4f}, tolerance {CARD_VS_CPU_TOL} * max |y| = "
+        f"{CARD_VS_CPU_TOL * scale:.3e}; fused_snake_conv launches on the "
+        f"card {launches}")
+    if not (torch.isfinite(y_card).all() and err <= CARD_VS_CPU_TOL * scale):
+        fail(f"streaming, {label}: card and CPU disagree")
+    return launches
 
 
 def main() -> None:
@@ -309,6 +436,7 @@ def main() -> None:
     import numpy as np
     from after_tpu_torch import TransferPipeline, get_config
     from after_tpu_torch.models.autoencoder import ConvBlock1d
+    from after_tpu_torch.streaming import Streamer
     from after_tpu_torch.ops.kernels.build import load
     from after_tpu_torch.ops.kernels.fused_conv import SOURCE, fused_snake_conv
     from after_tpu_torch.utils.device import strict_f32
@@ -332,13 +460,19 @@ def main() -> None:
     log(f"serving: base config, port-native init (seed {SEED}) in "
         f"{time.perf_counter() - t0:.2f} s")
 
-    # 3. kernels against their plain versions at the main path's shapes
+    # 3. kernels against their plain versions at the main paths' shapes:
+    # a transfer (two encodes, one decode) and a streamed buffer (two
+    # encodes and one decode of a window of n_fade + chunk latent frames)
     enc, dec = codec_conv_blocks(pipe.codec, N_SAMPLES)
-    path = enc + enc + dec                         # two encodes, one decode
+    path = enc + enc + dec
     path_counts = Counter(block_shape(b, T) for b, T in path)
-    blocks_by_shape = {block_shape(b, T): b for b, T in path}
+    window = (N_FADE + CHUNK) * cfg.autoencoder.ratio
+    enc_w, dec_w = codec_conv_blocks(pipe.codec, window)
+    stream_path = enc_w + enc_w + dec_w
     with torch.no_grad():
-        row = check_fused_conv(blocks_by_shape, path_counts)
+        per_transfer = check_fused_conv(path, "transfer")
+        per_buffer = check_fused_conv(stream_path, "buffer")
+    row = kernel_row(per_transfer, per_buffer)
 
     # 4. serving: 3 requests through the main path; peak memory from here.
     # The kernel phase's CUDA graphs leave garbage behind that slowed the
@@ -426,7 +560,8 @@ def main() -> None:
         + f", sum {sum(phases.values()):.2f}")
     log(f"serving: peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
-    profile_transfer(pipe, a, b)
+    profile_call("one transfer", lambda: pipe.transfer(
+        a, b, nb_steps=NB_STEPS, guidance_timbre=GUIDANCE_TIMBRE))
 
     # 5. card vs CPU on a short clip, same weights
     cpu = TransferPipeline(cfg, device="cpu")
@@ -454,6 +589,70 @@ def main() -> None:
         f"{CARD_VS_CPU_TOL * scale:.3e}")
     if not (torch.isfinite(y_card).all() and err <= CARD_VS_CPU_TOL * scale):
         fail("card and CPU disagree")
+
+    # 6. streaming: phase 4's first request, buffer by buffer
+    streamer = Streamer(cfg, chunk_size=CHUNK, n_fade=N_FADE, pipeline=pipe)
+    a, b = requests[1]
+    A = streamer.audio_chunk
+    buffer_ms = A / cfg.sr * 1e3
+    stream_audio(streamer, streamer.init_state(1), a[:, :STREAM_WARMUP * A],
+                 b[:, :STREAM_WARMUP * A], STREAM_STEPS[-1])     # warm-up
+    n_buffers = N_SAMPLES // A
+    want = Counter({s: n_buffers * n for s, n in Counter(
+        block_shape(blk, T) for blk, T in stream_path).items()})
+    launches_streaming = 0
+    for nb in STREAM_STEPS:
+        state = streamer.init_state(1)
+        seen.clear()
+        hooks = [m.register_forward_pre_hook(lambda mod, args: seen.update(
+            [block_shape(mod, args[0].shape[1])]))
+            for m in streamer.codec.modules() if isinstance(m, ConvBlock1d)]
+        fused_snake_conv.launches = 0
+        times = stream_audio(streamer, state, a, b, nb)
+        launches = fused_snake_conv.launches
+        for h in hooks:
+            h.remove()
+        launches_streaming += launches
+        if launches != len(stream_path) * n_buffers:
+            fail(f"streaming: fused_snake_conv launched {launches} times in "
+                 f"{n_buffers} buffers, expected {len(stream_path)} a buffer")
+        if seen != want:
+            fail("the ConvBlock1d shapes of the streaming path differ from "
+                 "the checked ones")
+        med = sorted(times)[len(times) // 2]
+        log(f"streaming: nb_steps {nb}, {n_buffers} buffers of {A} samples "
+            f"({buffer_ms:.2f} ms of audio each): median "
+            f"{med * 1e3:.2f} ms, p90 {percentile(times, 0.9) * 1e3:.2f} ms, "
+            f"max {max(times) * 1e3:.2f} ms per buffer; real-time factor "
+            f"{buffer_ms / (med * 1e3):.2f}x; fused_snake_conv launches "
+            f"{launches / n_buffers:g} a buffer")
+    # launches in the two streamed runs (2 x 64 buffers); the *_per_buffer
+    # times are those of one buffer's 96 launches
+    row["launches_streaming"] = launches_streaming
+    state = streamer.init_state(1)
+    profile_call(f"one streamed buffer at nb_steps {STREAM_STEPS[-1]}",
+                 lambda: streamer.forward(state, a[:, :A], b[:, :A],
+                                          nb_steps=STREAM_STEPS[-1],
+                                          guidance_timbre=GUIDANCE_TIMBRE))
+
+    # 7. streaming card vs CPU, for the base config and the causal one
+    stream_card_vs_cpu(
+        "base (crossfade)", streamer,
+        Streamer(cfg, CHUNK, N_FADE, pipeline=cpu), STREAM_VS_CPU_BUFFERS,
+        SEED + 2)
+    ccfg = get_config("base", "streaming")
+    ccfg = ccfg.resolved(in_size=ccfg.autoencoder.z_channels,
+                         n_signal=N_SAMPLES // ccfg.autoencoder.ratio)
+    ccard = TransferPipeline(ccfg, device="cuda").init(SEED)
+    ccpu = TransferPipeline(ccfg, device="cpu")
+    ccpu.codec.load_state_dict(ccard.codec.state_dict())
+    ccpu.rf.load_state_dict(ccard.rf.state_dict())
+    if stream_card_vs_cpu(
+            "base + streaming (causal, cached convs)",
+            Streamer(ccfg, CHUNK, pipeline=ccard),
+            Streamer(ccfg, CHUNK, pipeline=ccpu), STREAM_VS_CPU_BUFFERS,
+            SEED + 3):
+        fail("the causal codec launched the kernel on its cached convs")
 
     print(json.dumps({"kernels": [row]}), flush=True)
     print(json.dumps({"ok": True, "device": {

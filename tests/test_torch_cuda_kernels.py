@@ -1,4 +1,5 @@
-"""The port's CUDA kernels on the card, each against its plain PyTorch version.
+"""The port's CUDA kernels on the card, each against its plain PyTorch version,
+and the streamer on the card against the same stream on the CPU.
 
 These tests need a CUDA card and skip without one.  The machine with the
 card has no JAX, so run them there without the suite's conftest:
@@ -8,7 +9,8 @@ card has no JAX, so run them there without the suite's conftest:
 Tolerance: max abs error <= 1e-4 * max |y| (3xTF32 on the tensor cores in
 another summation order than cuDNN's strict f32, TF32 off in cuDNN).  Against
 a float64 plain version the kernel's error may be at most 4x that of
-strict-f32 F.conv1d.
+strict-f32 F.conv1d.  The streamed waveform on the card is within
+1e-4 * max |y| of the CPU's.
 """
 
 import numpy as np
@@ -109,3 +111,75 @@ def test_kept_weight_is_passed_as_it_is(cuda):
     # a split channel sum adds with atomics, in an order that varies
     err = (y - y_plain_layout).abs().max().item()
     assert err <= 1e-6 * y.abs().max().item(), err
+
+
+# (B, T, C, O, k, d) of the base config's crossfade windows: 16384 samples,
+# so T 1024 band frames down to 32 in the encoder and back up in the decoder
+STREAMING_SHAPES = [
+    (1, 1024, 16, 64, 3, 1), (1, 1024, 64, 64, 3, 9), (1, 512, 128, 128, 3, 3),
+    (1, 256, 256, 256, 3, 9), (1, 128, 256, 256, 1, 1),
+    (1, 32, 512, 512, 3, 9), (1, 32, 512, 512, 1, 1),
+    (1, 32, 768, 768, 3, 1), (1, 32, 768, 768, 3, 9), (1, 32, 768, 768, 1, 1),
+    (1, 128, 384, 384, 3, 3), (1, 512, 192, 192, 3, 9),
+    (1, 1024, 96, 96, 3, 1), (1, 1024, 96, 32, 3, 1), (1, 1024, 32, 32, 1, 1),
+    # two voices
+    (2, 32, 768, 768, 3, 9), (2, 1024, 96, 96, 3, 3)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,C,O,k,d", STREAMING_SHAPES)
+def test_kernel_at_streaming_shapes(cuda, B, T, C, O, k, d):
+    """The crossfade path's shapes: against the plain version, and against
+    float64 at most 4x the error of strict-f32 F.conv1d."""
+    x, alpha, beta, w, b = _inputs(5, B, T, C, O, k, cuda)
+    w = w / (C * k) ** 0.5
+    y = fused_snake_conv(x, alpha, beta, w, b, d, "centered")
+    strict = snake_conv_reference(x, alpha, beta, w, b, d, "centered")
+    err = (y - strict).abs().max().item()
+    assert err <= 1e-4 * strict.abs().max().item(), err
+    ref = snake_conv_reference(*(t.double() for t in (x, alpha, beta, w, b)),
+                               d, "centered")
+    err64 = (y.double() - ref).abs().max().item()
+    err_conv1d = (strict.double() - ref).abs().max().item()
+    assert err64 <= 4 * err_conv1d, (err64, err_conv1d)
+
+
+@pytest.mark.cuda
+def test_streamer_on_the_card_matches_the_cpu(cuda):
+    """Four buffers of two voices through the crossfade path of a small
+    codec, on the card (the kernel on every conv window) and on the CPU."""
+    from after_tpu_torch import TransferPipeline, get_config
+    from after_tpu_torch.streaming import Streamer
+
+    cfg = get_config("base", **{
+        "autoencoder.pqmf_bands": 4, "autoencoder.z_channels": 8,
+        "autoencoder.base_channels": 8, "autoencoder.multipliers": (1, 2, 2),
+        "autoencoder.factors": (2, 2), "autoencoder.dilations": (1, 3),
+        "autoencoder.num_blocks_per_stage": 1,
+        "encoder.channels": (32, 32, 32, 64), "encoder.se_channels": 8,
+        "encoder.attention_channels": 8, "encoder_time.channels": (8, 16, 12),
+        "denoiser.embed_dim": 64, "denoiser.n_layers": 2,
+        "denoiser.head_dim": 32, "denoiser.rotary_dim": 16,
+    }).resolved(in_size=8, n_signal=32)
+    cpu = TransferPipeline(cfg, device="cpu").init(0)
+    card = TransferPipeline(cfg, device=cuda)
+    card.codec.load_state_dict(cpu.codec.state_dict())
+    card.rf.load_state_dict(cpu.rf.state_dict())
+    streamers = [Streamer(cfg, pipeline=p) for p in (cpu, card)]
+    states = [s.init_state(2) for s in streamers]
+    rng = np.random.RandomState(7)
+    A = streamers[0].audio_chunk
+    for i in range(4):
+        a, b = (0.3 * rng.randn(2, A, 1)).astype(np.float32), \
+            (0.3 * rng.randn(2, A, 1)).astype(np.float32)
+        x0 = rng.randn(2, 4, 8).astype(np.float32)
+        before = fused_snake_conv.launches
+        y_card, states[1] = streamers[1].forward(states[1], a, b, 2, 2.0,
+                                                 x0=x0)
+        torch.cuda.synchronize()
+        # 3 resnets of 2 conv blocks in each encode and in the decode
+        assert fused_snake_conv.launches - before == 18
+        y_cpu, states[0] = streamers[0].forward(states[0], a, b, 2, 2.0,
+                                                x0=x0)
+        err = (y_card.cpu() - y_cpu).abs().max().item()
+        assert err <= 1e-4 * y_cpu.abs().max().item(), (i, err)
