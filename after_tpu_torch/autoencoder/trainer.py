@@ -1,0 +1,313 @@
+"""Codec GAN trainer (counterpart of after_tpu/autoencoder/trainer.py).
+
+- generator step: MR-STFT reconstruction (weight-decayed after the GAN
+  warmup) + bottleneck regularisation (warmup-ramped) + the
+  discriminator's feature-matching / adversarial terms once the warmup has
+  elapsed;
+- discriminator step every ``update_discriminator_every`` steps after the
+  warmup, hinge loss;
+- AdamW (0.9, 0.999) for the codec and (0.8, 0.9) for the discriminator,
+  weight decay 0.01, learning rate ``lr * lr_decay ** count``, global-norm
+  clip, and no update (moments and count kept) from gradients that are not
+  finite: the JAX package's optax chain, update for update (``AdamW``).
+
+Each step differentiates only what it trains (``torch.autograd.grad`` over
+that model's parameters), so no ``.grad`` is kept between steps.  The
+bottleneck noise is an argument of every step; without it the trainer
+draws it from its own seeded ``torch.Generator``.  Everything runs on the
+trainer's device, the CUDA card unless the caller passes ``device="cpu"``,
+in strict f32.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import (Any, Callable, Dict, Iterable, List, Mapping, Optional,
+                    Tuple, Union)
+
+import numpy as np
+import torch
+
+from ..config import AETrainConfig, AutoEncoderConfig, DiscriminatorConfig
+from ..models.autoencoder import AudioCodec
+from ..models.discriminator import EncodecDiscriminator
+from ..utils.device import resolve_device, strict_f32
+from .losses import multi_resolution_stft_loss, spectral_distance
+
+ArrayLike = Union[torch.Tensor, np.ndarray]
+
+
+class AdamW:
+    """``optax.apply_if_finite(optax.chain(optax.clip_by_global_norm(clip),
+    optax.adamw(exponential_decay(lr, 1, lr_decay), b1, b2,
+    weight_decay=0.01)), max_consecutive_errors)`` over a list of
+    parameters, which ``step`` updates in place.
+
+    - clip: g stays below the global norm ``clip``, else becomes
+      g / norm * clip;
+    - Adam with bias correction, eps 1e-8 outside the square root;
+    - decoupled weight decay 0.01 * p, scaled by the learning rate with the
+      Adam update;
+    - the learning rate of the n-th applied update is lr * lr_decay ** n;
+    - gradients that are not all finite leave the parameters, moments and
+      count as they are (``total_notfinite`` counts them), unless more than
+      ``max_consecutive_errors`` came in a row."""
+
+    weight_decay = 0.01
+    eps = 1e-8
+    max_consecutive_errors = 10000
+
+    def __init__(self, params: Iterable[torch.Tensor], lr: float,
+                 lr_decay: float, b1: float, b2: float, clip: float):
+        self.params = list(params)
+        self.lr, self.lr_decay, self.b1, self.b2 = lr, lr_decay, b1, b2
+        self.clip = clip
+        self.mu = [torch.zeros_like(p) for p in self.params]
+        self.nu = [torch.zeros_like(p) for p in self.params]
+        self.count = 0                 # applied updates
+        self.notfinite_count = 0       # non-finite gradients in a row
+        self.total_notfinite = 0
+
+    @torch.no_grad()
+    def step(self, grads: List[torch.Tensor]) -> bool:
+        """Apply one update from ``grads`` (one per parameter); False when
+        it was skipped."""
+        if len(grads) != len(self.params):
+            raise ValueError(f"{len(grads)} gradients for "
+                             f"{len(self.params)} parameters")
+        norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+        norm_value = norm.item()
+        # a finite global norm means finite gradients; an infinite one may
+        # still come from finite values whose squares overflow
+        finite = math.isfinite(norm_value) or all(
+            bool(torch.isfinite(g).all()) for g in grads)
+        self.notfinite_count = 0 if finite else self.notfinite_count + 1
+        if not finite:
+            self.total_notfinite += 1
+            if self.notfinite_count <= self.max_consecutive_errors:
+                return False
+        if not norm_value < self.clip:
+            grads = torch._foreach_div(grads, norm)
+            torch._foreach_mul_(grads, self.clip)
+        lr = self.lr * self.lr_decay ** self.count
+        self.count += 1
+        b1, b2 = self.b1, self.b2
+        torch._foreach_mul_(self.mu, b1)
+        torch._foreach_add_(self.mu, grads, alpha=1 - b1)
+        torch._foreach_mul_(self.nu, b2)
+        torch._foreach_addcmul_(self.nu, grads, grads, value=1 - b2)
+        mu_hat = torch._foreach_div(self.mu, 1 - b1 ** self.count)
+        denom = torch._foreach_div(self.nu, 1 - b2 ** self.count)
+        torch._foreach_sqrt_(denom)
+        torch._foreach_add_(denom, self.eps)
+        update = torch._foreach_div(mu_hat, denom)
+        torch._foreach_add_(update, self.params, alpha=self.weight_decay)
+        torch._foreach_add_(self.params, update, alpha=-lr)
+        return True
+
+
+class AutoencoderTrainer:
+    """The codec and its discriminator with their optimizers and the step
+    count; ``fit`` alternates generator and discriminator steps as the JAX
+    trainer does."""
+
+    def __init__(self, ae_cfg: AutoEncoderConfig,
+                 train_cfg: Optional[AETrainConfig] = None,
+                 disc_cfg: Optional[DiscriminatorConfig] = None,
+                 device: Optional[Union[str, torch.device]] = None,
+                 seed: int = 0):
+        self.cfg = ae_cfg
+        self.tc = train_cfg or AETrainConfig()
+        self.dcfg = disc_cfg or DiscriminatorConfig()
+        if self.tc.compute_dtype is not None or self.tc.stft_bf16_dft:
+            raise NotImplementedError(
+                "the port trains in f32 only (compute_dtype=None, "
+                "stft_bf16_dft=False)")
+        self.device = resolve_device(device)
+        strict_f32()
+        self.codec = AudioCodec(ae_cfg).to(self.device)
+        self.disc = EncodecDiscriminator(self.dcfg).to(self.device)
+        self.generator = torch.Generator(self.device).manual_seed(seed)
+        self.step = 0
+        self._new_optimizers()
+
+    def _new_optimizers(self) -> None:
+        tc = self.tc
+        self.optimizer = AdamW(self.codec.parameters(), tc.lr, tc.lr_decay,
+                               0.9, 0.999, tc.grad_clip)
+        self.disc_optimizer = AdamW(self.disc.parameters(), tc.lr,
+                                    tc.lr_decay, 0.8, 0.9, tc.grad_clip_disc)
+
+    def init(self, seed: int = 0) -> "AutoencoderTrainer":
+        """Port-native random weights from ``seed`` (utils/init.py), fresh
+        optimizer states and step 0."""
+        from ..utils.init import init_weights
+        init_weights(self.codec, seed)
+        init_weights(self.disc, seed + 1)
+        self._new_optimizers()
+        self.step = 0
+        return self
+
+    def load_jax(self, codec_vars: Mapping[str, Any],
+                 disc_vars: Mapping[str, Any]) -> "AutoencoderTrainer":
+        """Weights of the JAX trainer's codec and discriminator, as nested
+        dicts of numpy arrays."""
+        from ..utils.from_jax import load_discriminator, load_module
+        load_module(self.codec, codec_vars, "codec")
+        load_discriminator(self.disc, disc_vars)
+        return self
+
+    # ------------------------------------------------------------------
+
+    def _tensor(self, x: ArrayLike) -> torch.Tensor:
+        return torch.as_tensor(x, dtype=torch.float32, device=self.device)
+
+    def _noise(self, x: torch.Tensor, noise: Optional[ArrayLike],
+               generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """The bottleneck's standard normal draw for waveforms x, (B, T /
+        ratio, z_channels): ``noise`` when given, else drawn from
+        ``generator`` (the trainer's own by default)."""
+        shape = (x.shape[0], x.shape[1] // self.cfg.ratio, self.cfg.z_channels)
+        if noise is None:
+            return torch.randn(shape, generator=generator or self.generator,
+                               device=self.device)
+        noise = self._tensor(noise)
+        if tuple(noise.shape) != shape:
+            raise ValueError(f"noise has shape {tuple(noise.shape)}, "
+                             f"expected {shape}")
+        return noise
+
+    def _recon_weights(self, step: int) -> Tuple[float, float]:
+        tc = self.tc
+        w_wave = (1.0 if step < tc.warmup_steps
+                  else tc.rec_loss_decay ** (step - tc.warmup_steps))
+        w_reg = (min(step / tc.warmup_regularisation_loss, 1.0)
+                 * tc.weight_regularisation_loss)
+        return w_wave, w_reg
+
+    def _reconstruction(self, x: torch.Tensor, y: torch.Tensor,
+                        prefix: str = "") -> Dict[str, torch.Tensor]:
+        n = min(x.shape[1], y.shape[1])
+        xa, ya = x[:, :n], y[:, :n]
+        out = {prefix + "mrstft": multi_resolution_stft_loss(
+            xa, ya, self.tc, self.cfg.sr)}
+        if self.tc.spectral_distance_weight > 0:
+            out[prefix + "spectral_distance"] = spectral_distance(
+                xa, ya, self.cfg.sr, self.tc.spectral_scales,
+                self.tc.spectral_mels)
+        return out
+
+    def gen_grads(self, x: ArrayLike, use_gan: bool, w_wave: float,
+                  w_reg: float, noise: Optional[ArrayLike] = None
+                  ) -> Tuple[Dict[str, torch.Tensor], List[torch.Tensor]]:
+        """The generator step's metrics and the gradients of its loss for
+        each codec parameter (in ``codec.parameters()`` order)."""
+        x = self._tensor(x)
+        y, _, _, regloss, _ = self.codec(x, self._noise(x, noise))
+        metrics = self._reconstruction(x, y)
+        loss = w_wave * metrics["mrstft"] + w_reg * regloss
+        metrics["regularisation_loss"] = regloss
+        if "spectral_distance" in metrics:
+            loss = loss + (w_wave * self.tc.spectral_distance_weight
+                           * metrics["spectral_distance"])
+        if use_gan:
+            n = min(x.shape[1], y.shape[1])
+            loss_gen, _, dmetrics = self.disc(x[:, :n], y[:, :n])
+            loss = loss + loss_gen
+            metrics["feature_matching"] = dmetrics["feature_matching"]
+            metrics["adversarial"] = dmetrics["adversarial"]
+        metrics["total_loss"] = loss
+        grads = torch.autograd.grad(loss, list(self.codec.parameters()))
+        return {k: v.detach() for k, v in metrics.items()}, list(grads)
+
+    def gen_step(self, x: ArrayLike, use_gan: bool, w_wave: float,
+                 w_reg: float, noise: Optional[ArrayLike] = None
+                 ) -> Dict[str, Any]:
+        """One generator update of the codec; its metrics, with the count
+        of skipped non-finite updates (``skipped_nonfinite``)."""
+        metrics, grads = self.gen_grads(x, use_gan, w_wave, w_reg, noise)
+        self.optimizer.step(grads)
+        metrics["skipped_nonfinite"] = self.optimizer.total_notfinite
+        return metrics
+
+    def disc_grads(self, x: ArrayLike, noise: Optional[ArrayLike] = None
+                   ) -> Tuple[Dict[str, torch.Tensor], List[torch.Tensor]]:
+        """The discriminator step's metrics and the gradients of its hinge
+        loss for each discriminator parameter; the codec runs without
+        gradients but draws its bottleneck noise."""
+        x = self._tensor(x)
+        with torch.no_grad():
+            y = self.codec(x, self._noise(x, noise))[0]
+        n = min(x.shape[1], y.shape[1])
+        _, loss_dis, metrics = self.disc(x[:, :n], y[:, :n],
+                                         batched=self.tc.disc_batched)
+        grads = torch.autograd.grad(loss_dis, list(self.disc.parameters()))
+        return {k: v.detach() for k, v in metrics.items()}, list(grads)
+
+    def disc_step(self, x: ArrayLike, noise: Optional[ArrayLike] = None
+                  ) -> Dict[str, torch.Tensor]:
+        """One update of the discriminator; its metrics."""
+        metrics, grads = self.disc_grads(x, noise)
+        self.disc_optimizer.step(grads)
+        return metrics
+
+    @torch.no_grad()
+    def val_step(self, x: ArrayLike, noise: Optional[ArrayLike] = None
+                 ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
+        """Reconstruction losses and audio on a validation batch, no GAN
+        terms: (metrics, reconstruction cut to the input's length)."""
+        x = self._tensor(x)
+        y, _, _, regloss, _ = self.codec(x, self._noise(x, noise))
+        metrics = self._reconstruction(x, y, "val_")
+        metrics["val_regularisation_loss"] = regloss
+        metrics["val_total_loss"] = metrics["val_mrstft"] + regloss
+        return metrics, y[:, :x.shape[1]]
+
+    def validate(self, val_batches: Iterable[ArrayLike]):
+        """Average ``val_step`` losses over fixed batches, batch i with the
+        noise of a generator seeded i; returns (losses, (x, y) of the last
+        batch as numpy arrays)."""
+        sums: Dict[str, float] = {}
+        count = 0
+        x = y = None
+        for i, batch in enumerate(val_batches):
+            x = self._tensor(batch)
+            gen = torch.Generator(self.device).manual_seed(i)
+            metrics, y = self.val_step(x, self._noise(x, None, gen))
+            for k, v in metrics.items():
+                sums[k] = sums.get(k, 0.0) + float(v)
+            count += 1
+        losses = {k: v / max(count, 1) for k, v in sums.items()}
+        return losses, (x.cpu().numpy(), y.cpu().numpy())
+
+    # ------------------------------------------------------------------
+
+    def step_kind(self, step: int) -> str:
+        """"disc", "gan" (generator with GAN terms) or "warmup" (generator
+        alone): what ``fit`` runs at ``step``."""
+        tc = self.tc
+        if step > tc.warmup_steps:
+            return "disc" if step % tc.update_discriminator_every == 0 \
+                else "gan"
+        return "warmup"
+
+    def fit(self, batches: Iterable[ArrayLike], max_steps: Optional[int] = None,
+            callback: Optional[Callable[["AutoencoderTrainer", Dict], None]]
+            = None) -> "AutoencoderTrainer":
+        """Train on ``batches`` of (B, num_signal, 1) waveforms until
+        ``max_steps`` (``train_cfg.max_steps`` by default); ``callback(self,
+        metrics)`` after each step, with the metrics as device tensors."""
+        max_steps = max_steps if max_steps is not None else self.tc.max_steps
+        for x in batches:
+            if self.step >= max_steps:
+                break
+            kind = self.step_kind(self.step)
+            if kind == "disc":
+                metrics = self.disc_step(x)
+            else:
+                w_wave, w_reg = self._recon_weights(self.step)
+                metrics = self.gen_step(x, kind == "gan", w_wave, w_reg)
+            self.step += 1
+            if callback is not None:
+                callback(self, metrics)
+        return self

@@ -9,8 +9,12 @@ packages:
 - dotted-path overrides (``with_overrides(cfg, {"denoiser.embed_dim": 256})``),
 - JSON round-trip (``to_json`` / ``from_json``).
 
-Fields that only the JAX package reads (training knobs, ``fused_kernels``)
-are kept so that the JSON form stays identical.
+The codec's training configs (``DiscriminatorConfig``, ``AETrainConfig``)
+drive ``after_tpu_torch.autoencoder.AutoencoderTrainer``.  Fields that only
+the JAX package reads (the diffusion trainer's knobs, ``fused_kernels``) and
+those the port refuses for now (``AETrainConfig.compute_dtype``,
+``stft_bf16_dft``, ``DiscriminatorConfig(kind="descript")``) are kept so
+that the JSON form stays identical.
 """
 
 from __future__ import annotations
@@ -147,6 +151,29 @@ class AutoEncoderConfig:
         return r
 
 
+@dataclass(frozen=True)
+class DiscriminatorConfig:
+    """Encodec multi-scale STFT discriminator (reference: encodec_discriminator.py:217 + baseAE.gin:56-66).
+
+    kind="descript" selects the DAC-style MPD/MSD/MRD discriminator instead
+    (not ported yet: the trainer raises NotImplementedError)."""
+
+    kind: str = "encodec"           # "encodec" | "descript"
+    filters: int = 64
+    n_ffts: Tuple[int, ...] = (206, 334, 542, 876, 1418, 2296)
+    hop_lengths: Tuple[int, ...] = (103, 167, 271, 438, 709, 1148)
+    win_lengths: Tuple[int, ...] = (206, 334, 542, 876, 1418, 2296)
+    normalize_losses: bool = True
+    spec_scale_pow: float = 0.5
+    weight_feature_matching: float = 20.0
+    weight_adversarial: float = 0.0
+    # kind="descript" knobs, kept for the shared JSON form
+    descript_periods: Tuple[int, ...] = (2, 3, 5, 7, 11)
+    descript_fft_sizes: Tuple[int, ...] = (2048, 1024, 512)
+    descript_weight_feature_matching: float = 15.0
+    descript_weight_adversarial: float = 1.0
+
+
 # ---------------------------------------------------------------------------
 # Training configs
 # ---------------------------------------------------------------------------
@@ -204,6 +231,48 @@ class DiffusionTrainConfig:
     # training knobs of the JAX trainer, kept for the shared JSON form
     rng_impl: Optional[str] = None
     steps_per_call: int = 1
+
+
+@dataclass(frozen=True)
+class AETrainConfig:
+    """Codec GAN trainer knobs (reference: trainer.py + baseAE.gin:24-105)."""
+
+    max_steps: int = 1_000_000
+    warmup_steps: int = 200_000         # GAN warmup
+    lr: float = 1e-4
+    lr_decay: float = 0.999996          # ExponentialLR gamma (trainer.py:126-134)
+    batch_size: int = 8
+    num_signal: int = 131072            # waveform samples per crop (train_autoencoder.py:31)
+    update_discriminator_every: int = 4
+    freeze_encoder_step: int = 1_500_000
+    rec_loss_decay: float = 0.99998     # waveform-loss exponential decay (baseAE.gin:103)
+    weight_regularisation_loss: float = 0.1
+    warmup_regularisation_loss: int = 100_000
+    grad_clip: float = 2.0
+    grad_clip_disc: float = 2.0
+    # disc_step: one [x ‖ y] conv chain per scale instead of two (identical
+    # math; the discriminator's gradients need both chains anyway)
+    disc_batched: bool = False
+    steps_display: int = 100
+    steps_valid: int = 10_000
+    steps_save: int = 50_000
+    # multi-resolution STFT loss (baseAE.gin:87-100)
+    stft_fft_sizes: Tuple[int, ...] = (2048, 1024, 512, 256, 128, 64, 32)
+    stft_hop_sizes: Tuple[int, ...] = (512, 256, 128, 64, 32, 16, 8)
+    stft_win_lengths: Tuple[int, ...] = (2048, 1024, 512, 256, 128, 64, 32)
+    stft_w_sc: float = 1.0
+    stft_w_log_mag: float = 1.0
+    stft_w_lin_mag: float = 0.0
+    perceptual_weighting: bool = True
+    # optional extra multiscale (mel-)spectrogram distance
+    # (reference SpectralDistance, gin-selectable in waveform_losses)
+    spectral_distance_weight: float = 0.0
+    spectral_scales: Tuple[int, ...] = (2048, 1024, 512, 256)
+    spectral_mels: Tuple[int, ...] = (320, 160, 80, 40)
+    # bf16 codec / discriminator and bf16 MR-STFT products: not ported yet
+    # (the trainer raises NotImplementedError unless None / False)
+    compute_dtype: Optional[str] = None
+    stft_bf16_dft: bool = False
 
 
 @dataclass(frozen=True)
@@ -433,3 +502,28 @@ def get_config(*names: str, **overrides: Any) -> AfterConfig:
     return cfg
 
 
+def get_ae_config(**overrides: Any) -> AutoEncoderConfig:
+    """Codec preset (reference: configs/baseAE.gin)."""
+    cfg = AutoEncoderConfig()
+    if overrides:
+        cfg = with_overrides(cfg, overrides)
+    return cfg
+
+
+def ae_to_json(cfg: AutoEncoderConfig) -> str:
+    return json.dumps(dataclasses.asdict(cfg), indent=2)
+
+
+def ae_from_json(s: str) -> AutoEncoderConfig:
+    return _build(AutoEncoderConfig, json.loads(s))
+
+
+def load_codec_config(ckpt_dir: str) -> AutoEncoderConfig:
+    """Codec architecture config stored next to a codec checkpoint
+    (the baseAE preset when there is none)."""
+    import os
+    path = os.path.join(ckpt_dir, "config.json")
+    if os.path.exists(path):
+        with open(path) as f:
+            return ae_from_json(f.read())
+    return AutoEncoderConfig()

@@ -18,13 +18,18 @@ the card, the plain PyTorch version on the CPU.
 
 A streaming codec takes the cache (streaming/state.py) as the last argument
 of ``encode`` and ``decode``.
+
+``AudioCodec.forward`` is the training forward (counterpart of the JAX
+``AudioCodec.__call__``): it returns (y, y_bands, z, reg, x_bands) with the
+regularising bottleneck, whose noise is an argument.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Union
+from typing import Optional, Sequence, Tuple, Union
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..config import AutoEncoderConfig
@@ -250,6 +255,11 @@ def decoder_band_delay(cfg: AutoEncoderConfig) -> int:
     return d
 
 
+def relu_bottleneck_reg(z: torch.Tensor, scale: float = 3.0) -> torch.Tensor:
+    """SimpleLatentReg: ELU(|z| - scale).mean() + 1 (core.py:189-198)."""
+    return torch.mean(F.elu(z.abs() - scale)) + 1.0
+
+
 class AudioCodec(nn.Module):
     """encode: (B, T, 1) waveform -> (B, T / ratio, z); decode: latents ->
     waveform (T + M samples in centered mode, as in the JAX package).  A
@@ -282,6 +292,45 @@ class AudioCodec(nn.Module):
         if kind == "vae":
             return z.chunk(2, dim=-1)[0]
         return z
+
+    def regularise(self, z: torch.Tensor, noise: Optional[torch.Tensor] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Training bottleneck: (latents, regularisation loss).  ``noise`` is
+        a standard normal draw of shape (B, T / ratio, z_channels): added at
+        ``bottleneck_sigma`` to a relu or tanh bottleneck, the VAE's sample
+        noise; without it no noise is applied (the VAE returns its mean)."""
+        cfg = self.cfg
+        kind = cfg.bottleneck
+        if kind == "relu":
+            reg = relu_bottleneck_reg(z, cfg.bottleneck_scale)
+            if noise is not None:
+                z = z + cfg.bottleneck_sigma * noise
+            return z, reg
+        if kind == "tanh":
+            z = cfg.bottleneck_scale * torch.tanh(z)
+            if noise is not None:
+                z = z + cfg.bottleneck_sigma * noise
+            return z, z.new_zeros(())
+        if kind == "vae":
+            mean, scale = z.chunk(2, dim=-1)
+            std = F.softplus(scale) + 1e-2
+            var = std * std
+            z = mean + std * noise if noise is not None else mean
+            kl = torch.mean(torch.sum(mean * mean + var - torch.log(var) - 1,
+                                      dim=-1))
+            return z, kl
+        return z, z.new_zeros(())
+
+    def forward(self, x: torch.Tensor, noise: Optional[torch.Tensor] = None):
+        """Training forward of an offline codec: (B, T, 1) waveform ->
+        (y, y_bands, z, reg, x_bands), the JAX ``AudioCodec.__call__``."""
+        if self.streaming:
+            raise ValueError("the training forward runs on an offline codec")
+        xb = self.pqmf(x) if self.pqmf is not None else x
+        z, reg = self.regularise(self.encoder(xb), noise)
+        yb = self.decoder(z)
+        y = self.pqmf_inv(yb) if self.pqmf_inv is not None else yb
+        return y, yb, z, reg, xb
 
     def encode(self, x: torch.Tensor,
                cache: Optional[Cache] = None) -> torch.Tensor:

@@ -14,8 +14,13 @@ kernel_layout=True)`` keeps it so at inference) is passed as it is; any
 other is rearranged and split per call (``kernel_weight``).
 ``fused_snake_conv`` launches the kernel for CUDA tensors and runs the plain
 version (``snake_conv_reference``) for CPU tensors; there is no other choice
-and no fallback between the two.  The kernel is forward-only: inputs that
-need a gradient are refused on the card.
+and no fallback between the two.
+
+The op is differentiable, as the JAX package's custom VJP makes its kernel
+(``_fused_with_vjp``): on the card, inputs that need a gradient go through
+``SnakeConvFunction``, whose forward launches the kernel and whose backward
+is the VJP of the plain version, recomputed from the saved inputs (x, alpha,
+beta, w, b).  There is no backward kernel, as the JAX package has none.
 """
 
 from __future__ import annotations
@@ -118,21 +123,11 @@ def _check(name: str, t: torch.Tensor, device: torch.device, shape) -> None:
                          f"expected {tuple(shape)}")
 
 
-def fused_snake_conv(x: torch.Tensor, alpha: torch.Tensor, beta: torch.Tensor,
-                     w: torch.Tensor, b: torch.Tensor, dilation: int = 1,
-                     mode: str = "causal") -> torch.Tensor:
-    """conv(snake_beta(x)): x (B, T, C), alpha/beta (C,), w (O, C, k),
-    b (O,) -> (B, T, O).
-
-    On a CUDA tensor this launches the kernel (and counts the launch in
-    ``fused_snake_conv.launches``) or raises; on a CPU tensor it is the
-    plain version.  x, alpha, beta and b must be contiguous; w is
-    rearranged and split per call unless it comes in the kernel's layout
-    with its low half (``kernel_weight``)."""
-    if x.device.type == "cpu":
-        return snake_conv_reference(x, alpha, beta, w, b, dilation, mode)
-    if x.device.type != "cuda":
-        raise ValueError(f"fused_snake_conv runs on cuda or cpu, not {x.device}")
+def _launch(x: torch.Tensor, alpha: torch.Tensor, beta: torch.Tensor,
+            w: torch.Tensor, b: torch.Tensor, dilation: int, mode: str
+            ) -> torch.Tensor:
+    """Checks the inputs, launches the kernel on x's device and counts the
+    launch in ``fused_snake_conv.launches``."""
     if x.dim() != 3 or w.dim() != 3:
         raise ValueError(f"x must be (B, T, C) and w (O, C, k); got "
                          f"{tuple(x.shape)} and {tuple(w.shape)}")
@@ -149,10 +144,6 @@ def fused_snake_conv(x: torch.Tensor, alpha: torch.Tensor, beta: torch.Tensor,
         raise ValueError(f"w has shape {tuple(w.shape)}, expected "
                          f"({O}, {C}, {k})")
     _check("b", b, x.device, (O,))
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (x, alpha, beta, w, b)):
-        raise RuntimeError("fused_snake_conv has no backward kernel yet: "
-                           "call it under torch.no_grad()")
     left, _ = get_padding(k, 1, dilation, mode)
     wk, lo = kernel_weight(w)
     y = torch.empty((B, T, O), device=x.device, dtype=torch.float32)
@@ -168,6 +159,53 @@ def fused_snake_conv(x: torch.Tensor, alpha: torch.Tensor, beta: torch.Tensor,
                            f"d={dilation} mode={mode})")
     fused_snake_conv.launches += 1
     return y
+
+
+class SnakeConvFunction(torch.autograd.Function):
+    """The kernel with a gradient: counterpart of ``_fused_with_vjp``.
+
+    Forward launches the kernel and saves its five inputs; backward
+    recomputes the plain version from them with autograd on and returns its
+    VJP for the inputs that need one (w in torch's (O, C, k) shape)."""
+
+    @staticmethod
+    def forward(ctx, x, alpha, beta, w, b, dilation, mode):
+        ctx.save_for_backward(x, alpha, beta, w, b)
+        ctx.dilation, ctx.mode = dilation, mode
+        return _launch(x, alpha, beta, w, b, dilation, mode)
+
+    @staticmethod
+    def backward(ctx, g):
+        saved = [t.detach().requires_grad_(need) for t, need in
+                 zip(ctx.saved_tensors, ctx.needs_input_grad)]
+        wanted = [t for t in saved if t.requires_grad]
+        with torch.enable_grad():
+            y = snake_conv_reference(*saved, ctx.dilation, ctx.mode)
+            grads = iter(torch.autograd.grad(y, wanted, g))
+        return tuple(next(grads) if t.requires_grad else None
+                     for t in saved) + (None, None)
+
+
+def fused_snake_conv(x: torch.Tensor, alpha: torch.Tensor, beta: torch.Tensor,
+                     w: torch.Tensor, b: torch.Tensor, dilation: int = 1,
+                     mode: str = "causal") -> torch.Tensor:
+    """conv(snake_beta(x)): x (B, T, C), alpha/beta (C,), w (O, C, k),
+    b (O,) -> (B, T, O).
+
+    On a CUDA tensor this launches the kernel (and counts the launch in
+    ``fused_snake_conv.launches``) or raises, through ``SnakeConvFunction``
+    when an input needs a gradient; on a CPU tensor it is the plain version.
+    x, alpha, beta and b must be contiguous; w is rearranged and split per
+    call unless it comes in the kernel's layout with its low half
+    (``kernel_weight``)."""
+    if x.device.type == "cpu":
+        return snake_conv_reference(x, alpha, beta, w, b, dilation, mode)
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_snake_conv runs on cuda or cpu, not {x.device}")
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, alpha, beta, w, b)):
+        return SnakeConvFunction.apply(x, alpha, beta, w, b, dilation, mode)
+    return _launch(x, alpha, beta, w, b, dilation, mode)
 
 
 fused_snake_conv.launches = 0

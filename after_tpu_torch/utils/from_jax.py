@@ -24,6 +24,12 @@ layer axis) is unstacked into ``block_i`` first.  Every flax leaf must land
 on a tensor of the same shape and every tensor of the port must be set, or
 loading raises.
 
+``load_discriminator`` loads the JAX ``EncodecDiscriminator``, whose tree
+puts each weight-normed conv's kernel and bias under flax's auto-names
+(``disc_i/Conv_j``) and its scale under the wrapper's name
+(``disc_i/conv_in/"Conv_0/kernel/scale"``); the HWIO kernel becomes an OIHW
+weight.
+
 ``load_stream_state`` carries a JAX ``StreamState`` across in the same way:
 both states flatten to flax cache paths (streaming/state.py), and every leaf
 is copied into the port's state in place.
@@ -166,6 +172,39 @@ def load_pipeline(pipeline, variables: Mapping[str, Any]) -> None:
     load_module(rf.encoder, dv["encoder"], "encoder")
     if rf.encoder_time is not None:
         load_module(rf.encoder_time, dv["encoder_time"], "encoder_time")
+
+
+def load_discriminator(disc: nn.Module, variables: Mapping[str, Any]) -> None:
+    """Load an ``EncodecDiscriminator``'s variables ({"params": ...}); every
+    JAX leaf must land on a tensor of the same shape and every tensor of the
+    port must be set, or loading raises."""
+    params = {k: dict(v) for k, v in variables["params"].items()}
+    for name, scale in disc.named_children():
+        if name not in params:
+            raise KeyError(f"{name} missing from the JAX variables")
+        p = {k: dict(v) for k, v in params.pop(name).items()}
+        for j, (wrapper, conv) in enumerate(scale.named_children()):
+            path = f"{name}/Conv_{j}"
+            if f"Conv_{j}" not in p or wrapper not in p:
+                raise KeyError(f"{path} or {name}/{wrapper} missing from the "
+                               f"JAX variables")
+            leaf = p.pop(f"Conv_{j}")
+            _set(conv.weight, np.asarray(leaf.pop("kernel")).transpose(
+                3, 2, 0, 1), path + "/kernel")
+            _set(conv.bias, leaf.pop("bias"), path + "/bias")
+            wn = p.pop(wrapper)
+            _set(conv.scale, wn.pop(f"Conv_{j}/kernel/scale"),
+                 f"{name}/{wrapper}/Conv_{j}/kernel/scale")
+            if leaf or wn:
+                raise ValueError("JAX variables with no place in the port: "
+                                 + ", ".join(f"{path}/{k}" for k in
+                                             list(leaf) + list(wn)))
+        if p:
+            raise ValueError("JAX variables with no place in the port: "
+                             + ", ".join(f"{name}/{k}" for k in sorted(p)))
+    if params:
+        raise ValueError("JAX variables with no place in the port: "
+                         + ", ".join(sorted(params)))
 
 
 def load_stream_state(streamer, state: StreamState, jax_state: Any) -> None:

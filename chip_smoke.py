@@ -41,6 +41,32 @@ Phases, each printed before the last line:
    "streaming")`` with port-native weights, which streams through cached
    convs and launches no kernel.
 
+8. codec training: ``AutoencoderTrainer`` with the base codec
+   (``get_ae_config()``), the default discriminator (6 scales, 64 filters)
+   and ``AETrainConfig()`` at its defaults (batch 8 x 131072 samples, 7
+   MR-STFT scales with A-weighting) but ``warmup_steps=2``, port-native
+   weights from the seed, 10 steps of ``fit`` on synthetic audio (a few
+   sinusoids plus noise, made on the card from the seed): 3 warm-up
+   generator steps, GAN generator steps 3, 5, 6, 7 and 9, discriminator
+   steps 4 and 8; each step's host time ending in a synchronize and the
+   median of each kind without its first step; every metric finite, no
+   skipped update, the codec's parameters changed by each generator step
+   and the discriminator's by each discriminator step, 64 kernel launches
+   a step (one codec forward); one more GAN generator step under
+   torch.profiler as in phase 4 (no TF32 kernel but the port's own); peak
+   device memory; the cost of weight norm and of the kernel's weight split
+   per codec forward; then the kernel at every shape of a training codec
+   forward (batch 8), as in phase 3, and its autograd Function's gradients
+   for x, alpha, beta, w and b against plain autograd (each within
+   GRAD_TOL x max |g| of its tensor), with the backward's time per
+   generator step;
+9. training card vs CPU: the same weights at batch 1 and 16384 samples,
+   fixed bottleneck noise, one GAN generator step's and one discriminator
+   step's losses (within CARD_VS_CPU_TOL) and gradients (each tensor within
+   TRAIN_GRAD_TOL of its model x the larger of its max |g| and 1e-3 x the
+   model's largest gradient, the median over tensors within
+   TRAIN_GRAD_MEDIAN_TOL), with the reading with TF32 allowed beside them.
+
 Any failure exits non-zero.  The line before the last is the kernel table as
 JSON; the last line is ``{"ok": true, "device": {...}}``.  Imports nothing of
 JAX or of after_tpu.
@@ -71,7 +97,8 @@ STREAM_VS_CPU_BUFFERS = 8
 PEAK_TF32_FLOPS = 495e12     # H100 SXM, dense TF32 on the tensor cores
 PEAK_F32_FLOPS = 67e12       # H100 SXM, f32 outside the tensor cores
 PEAK_BYTES = 3.35e12         # H100 SXM HBM3
-F64_FRAMES = 2048            # frames per shape in the float64 check
+F64_FRAMES = 2048            # frames per shape in the float64 check, over
+                             # the batch: a max over more frames is larger
 F64_RATIO = 4.0              # kernel error <= F64_RATIO * strict F.conv1d's
 KERNEL_TOL = 1e-4            # max abs error <= KERNEL_TOL * max |y|
 CARD_VS_CPU_TOL = 1e-4       # max abs error <= CARD_VS_CPU_TOL * max |y_cpu|
@@ -79,6 +106,20 @@ TOP_KERNELS = 12
 # the port's kernels that use TF32 on purpose (3xTF32, held to float64 in
 # the kernel phase); any other kernel with "tf32" in its name fails the run
 PORT_TF32_KERNELS = ("snake_conv_3xtf32",)
+TRAIN_STEPS = 10
+TRAIN_WARMUP = 2             # AETrainConfig.warmup_steps in phase 8
+TRAIN_KINDS = ["warmup"] * 3 + ["gan", "disc", "gan", "gan", "gan", "disc",
+                                "gan"]
+GRAD_TOL = 1e-4              # Function vs plain autograd, x max |g|
+TRAIN_VS_CPU_SAMPLES = 16384
+# card vs CPU gradients in phase 9, per tensor, x the larger of its max |g|
+# and 1e-3 x the model's largest gradient: the worst tensor and the median
+# over tensors of each model.  The discriminator's hinge gradients are the
+# difference of a real and a generated chain of similar size, so in f32
+# both devices stand 1e-2 from float64 on its worst tensors
+# (scripts/torch_train_grads_f64.py)
+TRAIN_GRAD_TOL = {"codec": 2e-3, "disc": 5e-2}
+TRAIN_GRAD_MEDIAN_TOL = 2e-3
 
 
 def log(msg: str) -> None:
@@ -159,15 +200,16 @@ def block_shape(block, T: int):
 
 
 def f64_errors(x, alpha, beta, w, b, d, mode):
-    """Max abs errors against a float64 plain version on the first
-    F64_FRAMES frames: the kernel, strict-f32 F.conv1d and TF32 F.conv1d
-    (the last two through the plain version, snake in f32)."""
+    """Max abs errors against a float64 plain version on F64_FRAMES frames
+    (the first F64_FRAMES / B of each of the B signals): the kernel,
+    strict-f32 F.conv1d and TF32 F.conv1d (the last two through the plain
+    version, snake in f32)."""
     import torch
     from after_tpu_torch.ops.kernels.fused_conv import (fused_snake_conv,
                                                         snake_conv_reference)
     from after_tpu_torch.utils.device import strict_f32
 
-    x = x[:, :F64_FRAMES].contiguous()
+    x = x[:, :max(1, F64_FRAMES // x.shape[0])].contiguous()
     ref = snake_conv_reference(x.double(), alpha.double(), beta.double(),
                                w.double(), b.double(), d, mode)
     y = fused_snake_conv(x, alpha, beta, w, b, d, mode)
@@ -179,10 +221,11 @@ def f64_errors(x, alpha, beta, w, b, d, mode):
                  for t in (y, strict, tf32))
 
 
-def check_fused_conv(path, unit):
+def check_fused_conv(path, unit, batch: int = 1):
     """Kernel vs plain version at every distinct shape of ``path``, a list of
-    (ConvBlock1d, T) in the order one ``unit`` (a transfer, a buffer) runs
-    them; returns its numbers summed over one unit."""
+    (ConvBlock1d, T) in the order one ``unit`` (a transfer, a buffer, a
+    training codec forward) runs them at ``batch``; returns its numbers
+    summed over one unit."""
     import torch
     import torch.nn.functional as F
     from after_tpu_torch.ops.conv import get_padding
@@ -198,7 +241,8 @@ def check_fused_conv(path, unit):
     worst = 0.0
     f64_worst = (0.0, 0.0, 0.0)
     log("kernels: device times from CUDA graphs of 20 calls each")
-    log(f"kernels: fused_snake_conv, per shape (k d C O T mode: n/{unit}, "
+    log(f"kernels: fused_snake_conv at batch {batch}, per shape (k d C O T "
+        f"mode: n/{unit}, "
         "plan bn/bk/splits, max_abs_err; kernel/plain/F.conv1d/bound(3xTF32)/"
         "bound(f32) ms; TFLOP/s, share of bound; float64 errors kernel/"
         "F.conv1d/F.conv1d-TF32)")
@@ -206,7 +250,7 @@ def check_fused_conv(path, unit):
                                key=lambda kv: str(kv[0])):
         k, d, C, O, T, mode = shape
         n = path_counts[shape]
-        x = torch.randn((1, T, C), generator=gen, device="cuda")
+        x = torch.randn((batch, T, C), generator=gen, device="cuda")
         alpha, beta = block.act.alpha.detach(), block.act.beta.detach()
         # the kept weight, in the kernel's layout with its low tf32 half,
         # as the main path passes it
@@ -236,15 +280,16 @@ def check_fused_conv(path, unit):
         plain_ms = cuda_ms(
             lambda: snake_conv_reference(x, alpha, beta, w, b, d, mode))
         lib_ms = cuda_ms(lambda: F.conv1d(a, wc, b, dilation=d))
-        flops = 2.0 * k * C * O * T
-        nbytes = 4.0 * (T * C + 2 * C + O * C * k + O + T * O)
+        flops = 2.0 * k * C * O * T * batch
+        nbytes = 4.0 * (batch * T * C + 2 * C + O * C * k + O
+                        + batch * T * O)
         bound_ms = 1e3 * max(3 * flops / PEAK_TF32_FLOPS, nbytes / PEAK_BYTES)
         bound_f32_ms = 1e3 * max(flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES)
         total.update(ms=n * ms, eager_ms=n * eager_ms, plain_ms=n * plain_ms,
                      library_ms=n * lib_ms,
                      bound_ms=n * bound_ms, bound_f32_ms=n * bound_f32_ms,
                      flops=n * flops, bytes=n * nbytes)
-        plan = "/".join(map(str, kernel_plan(1, T, C, O, k, d)))
+        plan = "/".join(map(str, kernel_plan(batch, T, C, O, k, d)))
         log(f"  {k} {d} {C} {O} {T} {mode}: {n}, {plan}, {err:.3e}; "
             f"{ms:.4f}/{plain_ms:.4f}/{lib_ms:.4f}/{bound_ms:.4f}/"
             f"{bound_f32_ms:.4f}; {flops / ms / 1e9:.1f}, "
@@ -267,6 +312,290 @@ def check_fused_conv(path, unit):
         f"float64: kernel {f64_worst[0]:.3e}, F.conv1d {f64_worst[1]:.3e}, "
         f"F.conv1d with TF32 {f64_worst[2]:.3e}")
     return total
+
+
+def check_gradients(path, batch: int):
+    """The autograd Function (kernel forward, plain version's VJP backward)
+    against plain autograd at every distinct shape of ``path`` at
+    ``batch``: each input's gradient within GRAD_TOL x its max |g|.
+    Returns the worst ratio and the backward's time summed over one codec
+    forward's launches, with its operations (recompute, dgrad, wgrad)."""
+    import torch
+    from after_tpu_torch.ops.conv import weight_norm
+    from after_tpu_torch.ops.kernels.fused_conv import (fused_snake_conv,
+                                                        snake_conv_reference)
+
+    counts = Counter(block_shape(b, T) for b, T in path)
+    blocks = {block_shape(b, T): b for b, T in path}
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    worst, bwd_ms, bwd_flops = 0.0, 0.0, 0.0
+    log(f"gradients: SnakeConvFunction vs plain autograd at batch {batch} "
+        "(k d C O T mode: n, worst |g - g_plain| / max|g_plain| over x "
+        "alpha beta w b; backward ms, eager)")
+    for shape, block in sorted(blocks.items(), key=lambda kv: str(kv[0])):
+        k, d, C, O, T, mode = shape
+        with torch.no_grad():
+            w = weight_norm(block.conv.weight, block.conv.g)
+        args = [torch.randn((batch, T, C), generator=gen, device="cuda"),
+                block.act.alpha.detach(), block.act.beta.detach(), w,
+                block.conv.bias.detach()]
+        gy = torch.randn((batch, T, O), generator=gen, device="cuda")
+        ours = [a.clone().requires_grad_() for a in args]
+        y = fused_snake_conv(*ours, d, mode)
+        g_ours = torch.autograd.grad(y, ours, gy, retain_graph=True)
+        plain = [a.clone().requires_grad_() for a in args]
+        g_plain = torch.autograd.grad(snake_conv_reference(*plain, d, mode),
+                                      plain, gy)
+        ratio = max((a - p).abs().max().item() / p.abs().max().item()
+                    for a, p in zip(g_ours, g_plain))
+        if not ratio <= GRAD_TOL:
+            fail(f"SnakeConvFunction {shape}: gradients differ from plain "
+                 f"autograd by {ratio:.3e} x max|g| > {GRAD_TOL}")
+        worst = max(worst, ratio)
+        ms = cuda_ms(lambda: torch.autograd.grad(y, ours, gy,
+                                                 retain_graph=True),
+                     reps=5, warmup=1, graph=False)
+        n = counts[shape]
+        bwd_ms += n * ms
+        bwd_flops += n * 3 * 2.0 * k * C * O * T * batch
+        log(f"  {k} {d} {C} {O} {T} {mode}: {n}, {ratio:.3e}; {ms:.4f}")
+    bound_ms = 1e3 * bwd_flops / PEAK_F32_FLOPS
+    log(f"gradients: worst {worst:.3e} x max|g| (limit {GRAD_TOL}); backward "
+        f"per generator step ({len(path)} launches' VJPs) {bwd_ms:.3f} ms "
+        f"eager, {bwd_flops / 1e9:.1f} GFLOP (recompute + dgrad + wgrad in "
+        f"strict f32; bound on the f32 CUDA cores {bound_ms:.3f} ms)")
+    return worst, bwd_ms, bound_ms
+
+
+def synthetic_audio(gen, batch: int, n: int, sr: int):
+    """(batch, n, 1) waveforms on the card: three sinusoids of random
+    frequency (110-1760 Hz), phase and level, plus noise; peaks near 0.2."""
+    import torch
+    t = torch.arange(n, device="cuda") / sr
+    f = 110.0 * 2.0 ** (4.0 * torch.rand((batch, 3, 1), generator=gen,
+                                         device="cuda"))
+    phase = 2 * math.pi * torch.rand((batch, 3, 1), generator=gen,
+                                     device="cuda")
+    level = 0.03 + 0.04 * torch.rand((batch, 3, 1), generator=gen,
+                                     device="cuda")
+    x = (level * torch.sin(2 * math.pi * f * t + phase)).sum(1)
+    x = x + 0.02 * torch.randn((batch, n), generator=gen, device="cuda")
+    return x[..., None]
+
+
+def flat_params(module):
+    import torch
+    return torch.cat([p.detach().reshape(-1) for p in module.parameters()])
+
+
+def train_phase(row) -> None:
+    """Phase 8: codec training at full width (see the module docstring)."""
+    import torch
+    from after_tpu_torch.autoencoder import AutoencoderTrainer
+    from after_tpu_torch.config import (AETrainConfig, DiscriminatorConfig,
+                                        get_ae_config)
+    from after_tpu_torch.ops.kernels.fused_conv import (fused_snake_conv,
+                                                        kernel_weight)
+
+    ae = get_ae_config()
+    tc = AETrainConfig(warmup_steps=TRAIN_WARMUP)
+    t0 = time.perf_counter()
+    trainer = AutoencoderTrainer(ae, tc, DiscriminatorConfig(),
+                                 device="cuda", seed=SEED).init(SEED)
+    torch.cuda.synchronize()
+    n_codec = sum(p.numel() for p in trainer.codec.parameters())
+    n_disc = sum(p.numel() for p in trainer.disc.parameters())
+    log(f"training: base codec ({n_codec} parameters) and discriminator "
+        f"({n_disc}), port-native init (seed {SEED}) in "
+        f"{time.perf_counter() - t0:.2f} s; batch {tc.batch_size} x "
+        f"{tc.num_signal} samples, {len(tc.stft_fft_sizes)} MR-STFT scales, "
+        f"warmup_steps {tc.warmup_steps}")
+    kinds = [trainer.step_kind(i) for i in range(TRAIN_STEPS)]
+    if kinds != TRAIN_KINDS:
+        fail(f"fit's schedule {kinds} differs from {TRAIN_KINDS}")
+    enc, dec = codec_conv_blocks(trainer.codec, tc.num_signal)
+    per_forward = len(enc) + len(dec)
+    gen = torch.Generator("cuda").manual_seed(SEED)
+    batches = [synthetic_audio(gen, tc.batch_size, tc.num_signal, ae.sr)
+               for _ in range(TRAIN_STEPS + 1)]
+
+    records = []
+    snap = {"codec": flat_params(trainer.codec),
+            "disc": flat_params(trainer.disc)}
+
+    def callback(tr, metrics):
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - snap["t0"]
+        kind = kinds[tr.step - 1]
+        launches = fused_snake_conv.launches - snap["launches"]
+        values = {k: float(v) for k, v in metrics.items()}
+        codec, disc = flat_params(tr.codec), flat_params(tr.disc)
+        moved = (not torch.equal(codec, snap["codec"]),
+                 not torch.equal(disc, snap["disc"]))
+        records.append((kind, dt, launches, values, moved))
+        log(f"training: step {tr.step - 1} ({kind}): {dt * 1e3:.2f} ms, "
+            f"fused_snake_conv launches +{launches}, " + ", ".join(
+                f"{k} {v:.5g}" for k, v in values.items()))
+        snap.update(codec=codec, disc=disc,
+                    launches=fused_snake_conv.launches)
+        torch.cuda.synchronize()
+        snap["t0"] = time.perf_counter()
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    fused_snake_conv.launches = 0
+    snap["launches"] = 0
+    torch.cuda.synchronize()
+    snap["t0"] = time.perf_counter()
+    trainer.fit(iter(batches[:TRAIN_STEPS]), max_steps=TRAIN_STEPS,
+                callback=callback)
+    launches = fused_snake_conv.launches
+    peak = torch.cuda.max_memory_allocated()
+    if launches == 0 or len(records) != TRAIN_STEPS:
+        fail(f"fit ran {len(records)} steps with {launches} kernel launches")
+    for i, (kind, _, n, values, (codec_moved, disc_moved)) in enumerate(
+            records):
+        if n != per_forward:
+            fail(f"training step {i}: {n} kernel launches, expected "
+                 f"{per_forward} (one codec forward)")
+        if not all(math.isfinite(v) for v in values.values()):
+            fail(f"training step {i}: non-finite metrics {values}")
+        if values.get("skipped_nonfinite", 0) != 0:
+            fail(f"training step {i}: a generator update was skipped")
+        want = (True, False) if kind != "disc" else (False, True)
+        if (codec_moved, disc_moved) != want:
+            fail(f"training step {i} ({kind}): codec moved {codec_moved}, "
+                 f"discriminator moved {disc_moved}")
+    if trainer.disc_optimizer.total_notfinite:
+        fail("a discriminator update was skipped")
+    medians = {}
+    for kind in ("warmup", "gan", "disc"):
+        times = [dt for k, dt, *_ in records if k == kind][1:]
+        medians[kind] = sorted(times)[len(times) // 2] * 1e3
+    log(f"training: {TRAIN_STEPS} steps, {launches} kernel launches "
+        f"({per_forward} a step); median host ms without each kind's first "
+        f"step: warm-up generator {medians['warmup']:.2f}, GAN generator "
+        f"{medians['gan']:.2f}, discriminator {medians['disc']:.2f}; peak "
+        f"device memory {peak / 2**30:.2f} GiB")
+    w_wave, w_reg = trainer._recon_weights(trainer.step)
+    profile_call("one GAN generator step", lambda: trainer.gen_step(
+        batches[-1], True, w_wave, w_reg))
+
+    blocks = [b for b, _ in enc + dec]
+
+    def split_weights():
+        with torch.enable_grad():
+            for b in blocks:
+                kernel_weight(b.conv.effective_weight())
+    wn_ms = cuda_ms(split_weights, reps=5, warmup=1, graph=False)
+    log(f"training: weight norm + the kernel's weight split per codec "
+        f"forward ({len(blocks)} convs, eager): {wn_ms:.3f} ms")
+
+    with torch.no_grad():
+        per_forward_k = check_fused_conv(enc + dec, "training codec forward",
+                                         tc.batch_size)
+    grad_worst, bwd_ms, bwd_bound = check_gradients(enc + dec, tc.batch_size)
+    row.update({
+        "launches_training": launches,
+        "launches_per_gen_step": per_forward,
+        "launches_per_disc_step": per_forward,
+        "ms_per_codec_forward_training": per_forward_k["ms"],
+        "bound_ms_per_codec_forward_training": per_forward_k["bound_ms"],
+        "bound_by_training": per_forward_k["bound_by"],
+        "plain_ms_per_codec_forward_training": per_forward_k["plain_ms"],
+        "library_ms_per_codec_forward_training": per_forward_k["library_ms"],
+        "tflops_training": per_forward_k["tflops"],
+        "backward_ms_per_gen_step": bwd_ms,
+        "backward_bound_f32_ms_per_gen_step": bwd_bound,
+        "grad_err_training": grad_worst,
+        "weight_split_ms_per_codec_forward": wn_ms,
+        "step_ms_median": medians,
+        "training_peak_memory_gib": peak / 2**30,
+        "max_abs_err": max(row["max_abs_err"], per_forward_k["max_abs_err"]),
+        "f64_err": max(row["f64_err"], per_forward_k["f64"][0]),
+        "f64_err_conv1d": max(row["f64_err_conv1d"], per_forward_k["f64"][1]),
+        "f64_err_conv1d_tf32": max(row["f64_err_conv1d_tf32"],
+                                   per_forward_k["f64"][2]),
+    })
+    del trainer, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def train_card_vs_cpu() -> None:
+    """Phase 9: one GAN generator step and one discriminator step on the
+    card and on the CPU, same weights, batch and noise."""
+    import numpy as np
+    import torch
+    from after_tpu_torch.autoencoder import AutoencoderTrainer
+    from after_tpu_torch.config import (AETrainConfig, DiscriminatorConfig,
+                                        get_ae_config)
+    from after_tpu_torch.utils.device import strict_f32
+
+    ae = get_ae_config()
+    tc = AETrainConfig(warmup_steps=TRAIN_WARMUP, batch_size=1,
+                       num_signal=TRAIN_VS_CPU_SAMPLES)
+    card = AutoencoderTrainer(ae, tc, DiscriminatorConfig(), device="cuda"
+                              ).init(SEED)
+    cpu = AutoencoderTrainer(ae, tc, DiscriminatorConfig(), device="cpu")
+    cpu.codec.load_state_dict(card.codec.state_dict())
+    cpu.disc.load_state_dict(card.disc.state_dict())
+    gen = torch.Generator("cuda").manual_seed(SEED + 4)
+    x = synthetic_audio(gen, 1, TRAIN_VS_CPU_SAMPLES, ae.sr).cpu().numpy()
+    noise = np.random.RandomState(SEED + 4).randn(
+        1, TRAIN_VS_CPU_SAMPLES // ae.ratio, ae.z_channels).astype(np.float32)
+    w_wave, w_reg = card._recon_weights(TRAIN_WARMUP + 1)
+
+    def run(tr):
+        gm, gg = tr.gen_grads(x, True, w_wave, w_reg, noise)
+        dm, dg = tr.disc_grads(x, noise)
+        return ({**{k: float(v) for k, v in gm.items()},
+                 **{"disc_" + k: float(v) for k, v in dm.items()}},
+                [g.cpu() for g in gg], [g.cpu() for g in dg])
+
+    def compare(a, b):
+        """Run a against run b (the CPU's): the worst relative loss error,
+        and per model the worst tensor's gradient ratio, its name and the
+        median ratio over tensors."""
+        loss = max(abs(a[0][k] - v) / max(abs(v), 1e-2)
+                   for k, v in b[0].items())
+        grads = {}
+        for model, module, ga, gb in (("codec", card.codec, a[1], b[1]),
+                                      ("disc", card.disc, a[2], b[2])):
+            floor = 1e-3 * max(g.abs().max().item() for g in gb)
+            ratios = sorted(
+                ((p - q).abs().max().item() / max(q.abs().max().item(),
+                                                  floor), n)
+                for (n, _), p, q in zip(module.named_parameters(), ga, gb))
+            grads[model] = (*ratios[-1], ratios[len(ratios) // 2][0])
+        return loss, grads
+
+    on_cpu = run(cpu)
+    loss, grads = compare(run(card), on_cpu)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    loss_tf32, grads_tf32 = compare(run(card), on_cpu)
+    strict_f32()
+    log(f"training card vs CPU: {TRAIN_VS_CPU_SAMPLES} samples, GAN "
+        f"generator and discriminator step, fixed noise: losses within "
+        f"{loss:.3e} x max(|loss|, 0.01) (limit {CARD_VS_CPU_TOL}; with TF32 "
+        f"allowed {loss_tf32:.3e}); " + ", ".join(
+            f"{k} {v:.5g}" for k, v in on_cpu[0].items()))
+    ok = loss <= CARD_VS_CPU_TOL
+    for model in ("codec", "disc"):
+        worst, name, median = grads[model]
+        worst_t, name_t, median_t = grads_tf32[model]
+        log(f"training card vs CPU, {model} gradients (x max(max|g|, 1e-3 x "
+            f"the model's largest)): worst {worst:.3e} ({name}; limit "
+            f"{TRAIN_GRAD_TOL[model]}), median {median:.3e} (limit "
+            f"{TRAIN_GRAD_MEDIAN_TOL}); with TF32 allowed worst {worst_t:.3e} "
+            f"({name_t}), median {median_t:.3e}")
+        ok = (ok and worst <= TRAIN_GRAD_TOL[model]
+              and median <= TRAIN_GRAD_MEDIAN_TOL)
+    if not ok:
+        fail("training: card and CPU disagree")
+    return grads
 
 
 def kernel_row(per_transfer, per_buffer):
@@ -653,6 +982,14 @@ def main() -> None:
             Streamer(ccfg, CHUNK, pipeline=ccpu), STREAM_VS_CPU_BUFFERS,
             SEED + 3):
         fail("the causal codec launched the kernel on its cached convs")
+
+    # 8. codec training at full width; 9. training card vs CPU
+    del streamer, ccard, ccpu, cpu
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_phase(row)
+    grads = train_card_vs_cpu()
+    row["grad_card_vs_cpu_training"] = {m: g[0] for m, g in grads.items()}
 
     print(json.dumps({"kernels": [row]}), flush=True)
     print(json.dumps({"ok": True, "device": {

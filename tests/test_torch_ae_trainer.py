@@ -1,0 +1,268 @@
+"""The port's codec trainer against the JAX trainer.
+
+A micro codec (4 PQMF bands, 8 base channels, two stages), MR-STFT at
+(256, 64) and one discriminator scale (n_fft 206, 4 filters) on 2048-sample
+batches.  The JAX trainer's weights, perturbed so that every weight-norm,
+snake, norm and scale parameter is non-trivial, are carried into the port
+with utils.from_jax; the bottleneck noise is drawn in JAX as ``fit`` draws
+it and handed to the port.
+
+The JAX steps' gradients are read by running them with an identity
+optimizer whose "update" replaces the parameters (``optax.apply_updates``
+patched for the duration), so they come from the JAX trainer's own loss.
+
+Tolerances: metrics rtol 1e-4; each parameter's gradient within 1e-3 x
+max |g| of its tensor, or of 1e-3 x the largest gradient of the model where
+that is more (f32 on both sides; the port's STFT is an FFT where the JAX
+package multiplies by DFT matrices, and the sums run in other orders; with
+8 channels and 8 groups the GroupNorm after a conv makes that conv's bias
+and g gradients zero in exact arithmetic, so theirs are rounding noise);
+the optimizer's parameters within 1e-6.
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import optax
+import pytest
+import torch
+
+from after_tpu import config as jax_config
+from after_tpu.autoencoder import AutoencoderTrainer as JaxTrainer
+from after_tpu_torch import config as port_config
+from after_tpu_torch.autoencoder import AdamW, AutoencoderTrainer
+from after_tpu_torch.models.autoencoder import AudioCodec
+from after_tpu_torch.models.discriminator import EncodecDiscriminator
+from after_tpu_torch.utils.from_jax import load_discriminator, load_module
+
+AE = dict(pqmf_bands=4, z_channels=8, base_channels=8, multipliers=(1, 2, 2),
+          factors=(2, 2), dilations=(1, 3), num_blocks_per_stage=1)
+TC = dict(num_signal=2048, warmup_steps=2, update_discriminator_every=2,
+          stft_fft_sizes=(256, 64), stft_hop_sizes=(64, 16),
+          stft_win_lengths=(256, 64))
+DC = dict(filters=4, n_ffts=(206,), hop_lengths=(103,), win_lengths=(206,))
+GAN_STEP = 3
+METRIC_RTOL = 1e-4
+GRAD_TOL = 1e-3
+
+
+def _perturbed_numpy(variables, seed):
+    rng = np.random.RandomState(seed)
+
+    def f(v):
+        v = np.asarray(v, dtype=np.float32)
+        return (v * (1 + 0.2 * rng.uniform(-1, 1, v.shape))
+                + 0.02 * rng.randn(*v.shape)).astype(np.float32)
+    return jax.tree_util.tree_map(f, variables)
+
+
+def _configs(package):
+    return (package.AutoEncoderConfig(**AE), package.AETrainConfig(**TC),
+            package.DiscriminatorConfig(**DC))
+
+
+@pytest.fixture(scope="module")
+def jax_steps():
+    """One warm-up generator step, one GAN generator step and one
+    discriminator step of the JAX trainer from the same weights and batch:
+    their metrics and gradients, with the weights, batch and noise."""
+    jtr = JaxTrainer(*_configs(jax_config))
+    identity = optax.apply_if_finite(optax.identity(), 10000)
+    jtr.optimizer = jtr.disc_optimizer = identity
+    state = jtr.init(jax.random.PRNGKey(0), 1)
+    codec_vars = _perturbed_numpy(state.codec_vars, 1)
+    disc_vars = _perturbed_numpy(state.disc_vars, 2)
+    x = (0.1 * np.random.RandomState(3).randn(1, TC["num_signal"], 1)
+         ).astype(np.float32)
+    # the key of fit's first step
+    _, krng = jax.random.split(jax.random.PRNGKey(0))
+    ratio = port_config.AutoEncoderConfig(**AE).ratio
+    noise = np.array(jax.random.normal(
+        krng, (1, TC["num_signal"] // ratio, AE["z_channels"])))
+    w_gan = jtr._recon_weights(GAN_STEP)
+
+    def fresh(opt_state):
+        # the steps donate their state: each gets its own copy
+        return jax.tree_util.tree_map(lambda a: jnp.array(a, copy=True),
+                                      (codec_vars, disc_vars, opt_state))
+
+    out = {}
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(optax, "apply_updates", lambda params, updates: updates)
+        for name, use_gan, w in (("warmup", False, jtr._recon_weights(0)),
+                                 ("gan", True, w_gan)):
+            (g, _, _), m = jtr.gen_step(fresh(state.opt_state),
+                                        jnp.asarray(x), krng, use_gan, *w)
+            out[name] = (m, g["params"], w)
+        (_, g, _), m = jtr.disc_step(fresh(state.disc_opt_state),
+                                     jnp.asarray(x), krng)
+        out["disc"] = (m, g["params"], None)
+    out = jax.tree_util.tree_map(np.asarray, out)
+    return codec_vars, disc_vars, x, noise, out
+
+
+@pytest.fixture(scope="module")
+def port_trainer(jax_steps):
+    codec_vars, disc_vars, *_ = jax_steps
+    return AutoencoderTrainer(*_configs(port_config), device="cpu").load_jax(
+        codec_vars, disc_vars)
+
+
+def _check_metrics(ours, theirs):
+    assert set(ours) == set(theirs), (sorted(ours), sorted(theirs))
+    for k, v in theirs.items():
+        np.testing.assert_allclose(float(ours[k]), float(v),
+                                   rtol=METRIC_RTOL, atol=1e-7, err_msg=k)
+
+
+def _check_grads(module, grads, jax_grads, load):
+    """The JAX gradients, loaded into a fresh module of the port's kind
+    (the loader's layout changes are linear), against ours by name."""
+    load(module, {"params": jax_grads})
+    named = [(n, p.detach().numpy()) for n, p in module.named_parameters()]
+    assert len(named) == len(grads)
+    floor = GRAD_TOL * max(np.abs(g).max() for _, g in named)
+    for (name, theirs), ours in zip(named, grads):
+        err = np.abs(ours.numpy() - theirs).max()
+        assert err <= GRAD_TOL * max(np.abs(theirs).max(), floor), (name, err)
+
+
+@pytest.mark.parametrize("kind", ["warmup", "gan"])
+def test_generator_step_matches_jax(jax_steps, port_trainer, kind):
+    _, _, x, noise, out = jax_steps
+    jax_metrics, jax_grads, (w_wave, w_reg) = out[kind]
+    metrics, grads = port_trainer.gen_grads(x, kind == "gan", float(w_wave),
+                                            float(w_reg), noise)
+    jax_metrics = dict(jax_metrics)
+    assert jax_metrics.pop("skipped_nonfinite") == 0
+    _check_metrics(metrics, jax_metrics)
+    _check_grads(AudioCodec(port_trainer.cfg), grads, jax_grads,
+                 lambda m, v: load_module(m, v, "codec"))
+
+
+def test_discriminator_step_matches_jax(jax_steps, port_trainer):
+    _, _, x, noise, out = jax_steps
+    jax_metrics, jax_grads, _ = out["disc"]
+    metrics, grads = port_trainer.disc_grads(x, noise)
+    _check_metrics(metrics, jax_metrics)
+    _check_grads(EncodecDiscriminator(port_trainer.dcfg), grads, jax_grads,
+                 load_discriminator)
+
+
+def test_optimizer_update_rule_matches_optax():
+    """The same gradients into the port's AdamW and into the JAX trainer's
+    optax chains (apply_if_finite(clip + adamw with exponential decay)), at
+    a large learning rate and decay so that each term shows: an ordinary
+    step, one that clips, one whose gradients are not finite (skipped:
+    parameters, moments and schedule kept), and two more."""
+    tc = dataclasses.replace(jax_config.AETrainConfig(**TC), lr=1e-2,
+                             lr_decay=0.9)
+    jtr = JaxTrainer(jax_config.AutoEncoderConfig(**AE), tc,
+                     jax_config.DiscriminatorConfig(**DC))
+    rng = np.random.RandomState(4)
+    shapes = [(3, 4, 2), (5,), (7, 1)]
+    params = [rng.randn(*s).astype(np.float32) for s in shapes]
+    scales = [0.1, 50.0, np.nan, 0.3, 1.0]      # 50: clipped; nan: skipped
+    for jax_opt, (b1, b2, clip) in ((jtr.optimizer, (0.9, 0.999, tc.grad_clip)),
+                                    (jtr.disc_optimizer,
+                                     (0.8, 0.9, tc.grad_clip_disc))):
+        ours = [torch.from_numpy(p.copy()) for p in params]
+        opt = AdamW(ours, tc.lr, tc.lr_decay, b1, b2, clip)
+        theirs = [jnp.asarray(p) for p in params]
+        state = jax_opt.init(theirs)
+        for i, scale in enumerate(scales):
+            grads = [(scale * rng.randn(*s)).astype(np.float32)
+                     for s in shapes]
+            updates, state = jax_opt.update([jnp.asarray(g) for g in grads],
+                                            state, theirs)
+            theirs = optax.apply_updates(theirs, updates)
+            applied = opt.step([torch.from_numpy(g) for g in grads])
+            assert applied == np.isfinite(scale)
+            assert opt.total_notfinite == int(state.total_notfinite)
+            for a, b in zip(ours, theirs):
+                np.testing.assert_allclose(a.numpy(), np.asarray(b),
+                                           rtol=0, atol=1e-6, err_msg=str(i))
+        assert opt.count == len(scales) - 1
+
+
+def test_fit_runs_the_schedule_of_step_kinds():
+    """warmup_steps 2 and a discriminator step every 2: steps 0-2 warm-up
+    generator steps, then GAN generator and discriminator steps by turns,
+    as the JAX fit branches (step > warmup_steps, step % every == 0)."""
+    ae, tc, dc = _configs(port_config)
+    tr = AutoencoderTrainer(ae, tc, dc, device="cpu").init(0)
+    expected = []
+    for step in range(7):
+        warm = step > tc.warmup_steps
+        expected.append("disc" if warm and step % tc.update_discriminator_every
+                        == 0 else "gan" if warm else "warmup")
+    assert [tr.step_kind(s) for s in range(7)] == expected
+    log = []
+    rng = np.random.RandomState(5)
+    batches = ((0.1 * rng.randn(1, TC["num_signal"], 1)).astype(np.float32)
+               for _ in range(10))
+    codec0 = [p.detach().clone() for p in tr.codec.parameters()]
+    tr.fit(batches, max_steps=7, callback=lambda t, m: log.append(
+        (t.step, {k: float(v) for k, v in m.items()})))
+    assert [s for s, _ in log] == list(range(1, 8))
+    seen = ["disc" if "discriminator" in m else
+            "gan" if "feature_matching" in m else "warmup" for _, m in log]
+    assert seen == expected
+    for _, m in log:
+        assert all(np.isfinite(v) for v in m.values())
+        assert m.get("skipped_nonfinite", 0) == 0
+    assert tr.optimizer.count == expected.count("warmup") + expected.count(
+        "gan")
+    assert tr.disc_optimizer.count == expected.count("disc")
+    assert not all(torch.equal(a, b) for a, b in zip(
+        codec0, tr.codec.parameters()))
+    losses, (x, y) = tr.validate(
+        [(0.1 * rng.randn(1, TC["num_signal"], 1)).astype(np.float32)])
+    assert x.shape == y.shape
+    assert set(losses) == {"val_mrstft", "val_regularisation_loss",
+                           "val_total_loss"}
+
+
+@pytest.mark.parametrize("package_kind", ["ae", "train", "disc"])
+def test_codec_configs_share_the_json_form(package_kind):
+    import json
+    if package_kind == "ae":
+        assert (port_config.ae_to_json(port_config.get_ae_config())
+                == jax_config.ae_to_json(jax_config.get_ae_config()))
+        over = dict(bottleneck="vae", multipliers=(1, 2))
+        s = port_config.ae_to_json(port_config.get_ae_config(**over))
+        assert s == jax_config.ae_to_json(jax_config.get_ae_config(**over))
+        assert port_config.ae_from_json(s) == port_config.get_ae_config(**over)
+        return
+    cls = {"train": "AETrainConfig", "disc": "DiscriminatorConfig"}[
+        package_kind]
+    ours = dataclasses.asdict(getattr(port_config, cls)())
+    theirs = dataclasses.asdict(getattr(jax_config, cls)())
+    assert json.dumps(ours) == json.dumps(theirs)
+
+
+def test_load_codec_config(tmp_path):
+    cfg = port_config.get_ae_config(z_channels=16)
+    assert port_config.load_codec_config(str(tmp_path)) == \
+        port_config.AutoEncoderConfig()
+    (tmp_path / "config.json").write_text(jax_config.ae_to_json(
+        jax_config.get_ae_config(z_channels=16)))
+    assert port_config.load_codec_config(str(tmp_path)) == cfg
+
+
+def test_trainer_refuses_what_is_not_ported():
+    ae, tc, dc = _configs(port_config)
+    with pytest.raises(NotImplementedError):
+        AutoencoderTrainer(ae, dataclasses.replace(
+            tc, compute_dtype="bfloat16"), dc, device="cpu")
+    with pytest.raises(NotImplementedError):
+        AutoencoderTrainer(ae, dataclasses.replace(tc, stft_bf16_dft=True),
+                           dc, device="cpu")
+    with pytest.raises(NotImplementedError):
+        AutoencoderTrainer(ae, tc, dataclasses.replace(dc, kind="descript"),
+                           device="cpu")
+    with pytest.raises(NotImplementedError):
+        AutoencoderTrainer(dataclasses.replace(ae, use_noise=True), tc, dc,
+                           device="cpu")

@@ -199,3 +199,64 @@ def test_kernel_weight_is_split_and_refreshed_after_load_state_dict():
         assert fresh is not kept
         assert not torch.equal(fresh.kernel_lo, kept.kernel_lo)
         check(fresh)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(),
+    dict(causal=True, use_norm=False),
+    dict(use_loudness=False, bottleneck="tanh"),
+    dict(pqmf_bands=1, bottleneck="vae"),
+    dict(bottleneck="none"),
+])
+def test_training_forward_matches_jax(kw):
+    """AudioCodec.forward (y, y_bands, z, reg, x_bands) against the JAX
+    AudioCodec.__call__ with its rng; the port gets the normal draw JAX's
+    bottleneck makes from that rng."""
+    jcodec, variables, codec = _codec_pair(**kw)
+    rng = np.random.RandomState(3)
+    x = (0.3 * rng.randn(2, 1024, 1)).astype(np.float32)
+    key = jax.random.PRNGKey(7)
+    outs = jax.jit(lambda v, a: jcodec.apply(v, a, rng=key))(
+        variables, jnp.asarray(x))
+    noise = np.array(jax.random.normal(
+        key, (2, 1024 // codec.cfg.ratio, codec.cfg.z_channels)))
+    ours = codec(torch.from_numpy(x), torch.from_numpy(noise))
+    for name, a, t in zip(("y", "y_bands", "z", "reg", "x_bands"), ours,
+                          outs):
+        t = np.asarray(t)
+        assert tuple(a.shape) == t.shape, name
+        np.testing.assert_allclose(a.detach().numpy(), t, err_msg=name, **TOL)
+    # without noise: the bottleneck's mean / clean latents
+    outs = jax.jit(lambda v, a: jcodec.apply(v, a))(variables, jnp.asarray(x))
+    z = codec(torch.from_numpy(x))[2]
+    np.testing.assert_allclose(z.detach().numpy(), np.asarray(outs[2]), **TOL)
+
+
+def test_optimizer_step_reaches_the_kept_inference_weight():
+    """A trainer's in-place update bumps each parameter's version, so the
+    weight a conv keeps for inference (in the kernel's layout) is made
+    anew from the updated parameters."""
+    from after_tpu_torch.autoencoder import AdamW
+    from after_tpu_torch.ops.conv import weight_norm
+
+    _, _, codec = _codec_pair()
+    conv = codec.decoder.to_out.block1.conv
+    with torch.no_grad():
+        kept = conv.effective_weight()
+    params = list(codec.parameters())
+    opt = AdamW(params, 1e-2, 1.0, 0.9, 0.999, 2.0)
+    x = torch.from_numpy((0.3 * np.random.RandomState(4).randn(
+        1, 1024, 1)).astype(np.float32))
+    loss = codec(x)[0].square().mean()
+    assert opt.step(list(torch.autograd.grad(loss, params)))
+    with torch.no_grad():
+        fresh = conv.effective_weight()
+        assert fresh is not kept
+        np.testing.assert_array_equal(
+            fresh.numpy(), weight_norm(conv.weight, conv.g).numpy())
+        assert not torch.equal(fresh, kept)
+        z = codec.encode(x)
+    # the inference path sees the new weights: it agrees with the training
+    # forward, which recomputes every weight
+    np.testing.assert_allclose(z.numpy(), codec(x)[2].detach().numpy(),
+                               atol=1e-6)

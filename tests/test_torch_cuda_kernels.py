@@ -7,7 +7,9 @@ card has no JAX, so run them there without the suite's conftest:
     python -m pytest --noconftest -q tests/test_torch_cuda_kernels.py
 
 Tolerance: max abs error <= 1e-4 * max |y| (3xTF32 on the tensor cores in
-another summation order than cuDNN's strict f32, TF32 off in cuDNN).  Against
+another summation order than cuDNN's strict f32, TF32 off in cuDNN).  The
+autograd Function's gradients (the plain version's VJP, recomputed) are
+within 1e-4 * max |g| of plain autograd's for each input.  Against
 a float64 plain version the kernel's error may be at most 4x that of
 strict-f32 F.conv1d.  The streamed waveform on the card is within
 1e-4 * max |y| of the CPU's.
@@ -71,8 +73,10 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(cuda):
                          alpha, beta, w, b)
     with pytest.raises(ValueError):
         fused_snake_conv(x, alpha, beta, w, b.cpu())
-    with pytest.raises(RuntimeError, match="no backward"):
-        fused_snake_conv(x, alpha, beta, w.requires_grad_(), b)
+    # an input that needs a gradient is taken (SnakeConvFunction) and the
+    # same checks hold
+    with pytest.raises(TypeError):
+        fused_snake_conv(x.double(), alpha, beta, w.requires_grad_(), b)
 
 
 @pytest.mark.cuda
@@ -111,6 +115,35 @@ def test_kept_weight_is_passed_as_it_is(cuda):
     # a split channel sum adds with atomics, in an order that varies
     err = (y - y_plain_layout).abs().max().item()
     assert err <= 1e-6 * y.abs().max().item(), err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,C,O,k,d,mode", [
+    (1, 512, 64, 64, 3, 9, "centered"), (2, 700, 96, 300, 3, 3, "causal"),
+    (8, 1000, 64, 64, 3, 1, "centered"), (8, 256, 512, 512, 1, 1, "centered"),
+    (8, 333, 384, 384, 3, 9, "centered"), (2, 37, 130, 70, 1, 1, "causal")])
+def test_function_gradients_match_plain_autograd(cuda, B, T, C, O, k, d,
+                                                 mode):
+    """Inputs that need a gradient launch the kernel once through
+    SnakeConvFunction; its gradients for x, alpha, beta, w and b against
+    autograd through the plain version, each within 1e-4 x max |g|."""
+    args = _inputs(6, B, T, C, O, k, cuda)
+    args[3] = args[3] / (C * k) ** 0.5
+    gy = torch.randn((B, T, O), device=cuda,
+                     generator=torch.Generator(cuda).manual_seed(0))
+    ours = [a.clone().requires_grad_() for a in args]
+    before = fused_snake_conv.launches
+    y = fused_snake_conv(*ours, d, mode)
+    assert fused_snake_conv.launches == before + 1
+    g_ours = torch.autograd.grad(y, ours, gy)
+    plain = [a.clone().requires_grad_() for a in args]
+    g_plain = torch.autograd.grad(
+        snake_conv_reference(*plain, d, mode), plain, gy)
+    assert fused_snake_conv.launches == before + 1
+    for name, a, p in zip("x alpha beta w b".split(), g_ours, g_plain):
+        assert a.shape == p.shape, name
+        err = (a - p).abs().max().item()
+        assert err <= 1e-4 * p.abs().max().item(), (name, err)
 
 
 # (B, T, C, O, k, d) of the base config's crossfade windows: 16384 samples,

@@ -4,8 +4,12 @@ On the CPU the port's wrapper runs its plain version (snake_beta + F.conv1d);
 it is held to the JAX Pallas kernel in interpret mode, at the shapes of
 tests/test_pallas.py, and to the JAX lax reference on ragged shapes.
 Tolerance: atol 2e-4, as tests/test_pallas.py holds the Pallas kernel.
+Gradients for x, alpha, beta, w and b are held to ``jax.grad`` through the
+Pallas kernel's custom VJP at rtol 1e-4 and atol 1e-3, as
+tests/test_pallas.py holds that VJP.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -114,3 +118,65 @@ def test_kernel_weight_layout_and_split(C):
     if C % 4 == 0:
         hi2, lo2 = kernel_weight(kept)
         assert hi2.data_ptr() == hi.data_ptr() and lo2 is lo
+
+
+def _grads_jax(x, alpha, beta, w, b, d, mode, gy):
+    def loss(*args):
+        y = fused_snake_causal_conv(*args, dilation=d, t_tile=32, mode=mode,
+                                    interpret=True)
+        return jnp.sum(y * gy)
+    return jax.grad(loss, argnums=(0, 1, 2, 3, 4))(
+        *(jnp.asarray(a) for a in (x, alpha, beta, w, b)))
+
+
+def _grads_port(fn, x, alpha, beta, w, b, d, mode, gy):
+    args = [torch.from_numpy(a).requires_grad_() for a in
+            (x, alpha, beta, np.ascontiguousarray(w.transpose(2, 1, 0)), b)]
+    y = fn(*args, d, mode)
+    grads = torch.autograd.grad(y, args, torch.from_numpy(gy))
+    # w's gradient in torch's (O, C, k) shape -> JAX's (k, C, O)
+    return [g.numpy() for g in grads[:3]] + [
+        grads[3].numpy().transpose(2, 1, 0), grads[4].numpy()]
+
+
+@pytest.mark.parametrize("mode", ["causal", "centered"])
+@pytest.mark.parametrize("d", [1, 3])
+def test_gradients_match_the_pallas_kernels_vjp(d, mode):
+    """On the CPU the port's op differentiates through its plain version;
+    its gradients for all five inputs against jax.grad through the Pallas
+    kernel (interpret mode) and its custom VJP."""
+    x, alpha, beta, w, b = _inputs(3, 2, 64, 16, 16, 3)
+    gy = np.random.RandomState(4).randn(2, 64, 16).astype(np.float32)
+    theirs = _grads_jax(x, alpha, beta, w, b, d, mode, gy)
+    ours = _grads_port(fused_snake_conv, x, alpha, beta, w, b, d, mode, gy)
+    for name, a, t in zip("x alpha beta w b".split(), ours, theirs):
+        np.testing.assert_allclose(a, np.asarray(t), rtol=1e-4, atol=1e-3,
+                                   err_msg=name)
+
+
+def test_function_backward_is_the_plain_versions_vjp(monkeypatch):
+    """SnakeConvFunction (the card's path for inputs that need a gradient)
+    with its launch replaced by the plain version, so that it runs here: its
+    backward returns the plain version's VJP for each input that needs one,
+    and None for the others."""
+    from after_tpu_torch.ops.kernels import fused_conv
+
+    monkeypatch.setattr(fused_conv, "_launch", snake_conv_reference)
+    x, alpha, beta, w, b = _inputs(5, 2, 40, 12, 20, 3)
+    gy = np.random.RandomState(6).randn(2, 40, 20).astype(np.float32)
+    for mode in ("causal", "centered"):
+        fn = fused_conv.SnakeConvFunction.apply
+        ours = _grads_port(fn, x, alpha, beta, w, b, 3, mode, gy)
+        plain = _grads_port(snake_conv_reference, x, alpha, beta, w, b, 3,
+                            mode, gy)
+        for a, p in zip(ours, plain):
+            np.testing.assert_array_equal(a, p)
+    xt = torch.from_numpy(x)
+    wt = torch.from_numpy(np.ascontiguousarray(w.transpose(2, 1, 0)))
+    wt.requires_grad_()
+    y = fused_conv.SnakeConvFunction.apply(
+        xt, torch.from_numpy(alpha), torch.from_numpy(beta), wt,
+        torch.from_numpy(b), 1, "causal")
+    y.sum().backward()
+    assert wt.grad is not None and wt.grad.shape == wt.shape
+    assert xt.grad is None
