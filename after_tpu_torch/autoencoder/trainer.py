@@ -9,7 +9,8 @@
 - AdamW (0.9, 0.999) for the codec and (0.8, 0.9) for the discriminator,
   weight decay 0.01, learning rate ``lr * lr_decay ** count``, global-norm
   clip, and no update (moments and count kept) from gradients that are not
-  finite: the JAX package's optax chain, update for update (``AdamW``).
+  finite: the JAX package's optax chain, update for update
+  (``utils/optim.py:AdamW``).
 
 Each step differentiates only what it trains (``torch.autograd.grad`` over
 that model's parameters), so no ``.grad`` is kept between steps.  The
@@ -21,7 +22,6 @@ in strict f32.
 
 from __future__ import annotations
 
-import math
 from typing import (Any, Callable, Dict, Iterable, List, Mapping, Optional,
                     Tuple, Union)
 
@@ -32,78 +32,10 @@ from ..config import AETrainConfig, AutoEncoderConfig, DiscriminatorConfig
 from ..models.autoencoder import AudioCodec
 from ..models.discriminator import EncodecDiscriminator
 from ..utils.device import resolve_device, strict_f32
+from ..utils.optim import AdamW
 from .losses import multi_resolution_stft_loss, spectral_distance
 
 ArrayLike = Union[torch.Tensor, np.ndarray]
-
-
-class AdamW:
-    """``optax.apply_if_finite(optax.chain(optax.clip_by_global_norm(clip),
-    optax.adamw(exponential_decay(lr, 1, lr_decay), b1, b2,
-    weight_decay=0.01)), max_consecutive_errors)`` over a list of
-    parameters, which ``step`` updates in place.
-
-    - clip: g stays below the global norm ``clip``, else becomes
-      g / norm * clip;
-    - Adam with bias correction, eps 1e-8 outside the square root;
-    - decoupled weight decay 0.01 * p, scaled by the learning rate with the
-      Adam update;
-    - the learning rate of the n-th applied update is lr * lr_decay ** n;
-    - gradients that are not all finite leave the parameters, moments and
-      count as they are (``total_notfinite`` counts them), unless more than
-      ``max_consecutive_errors`` came in a row."""
-
-    weight_decay = 0.01
-    eps = 1e-8
-    max_consecutive_errors = 10000
-
-    def __init__(self, params: Iterable[torch.Tensor], lr: float,
-                 lr_decay: float, b1: float, b2: float, clip: float):
-        self.params = list(params)
-        self.lr, self.lr_decay, self.b1, self.b2 = lr, lr_decay, b1, b2
-        self.clip = clip
-        self.mu = [torch.zeros_like(p) for p in self.params]
-        self.nu = [torch.zeros_like(p) for p in self.params]
-        self.count = 0                 # applied updates
-        self.notfinite_count = 0       # non-finite gradients in a row
-        self.total_notfinite = 0
-
-    @torch.no_grad()
-    def step(self, grads: List[torch.Tensor]) -> bool:
-        """Apply one update from ``grads`` (one per parameter); False when
-        it was skipped."""
-        if len(grads) != len(self.params):
-            raise ValueError(f"{len(grads)} gradients for "
-                             f"{len(self.params)} parameters")
-        norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
-        norm_value = norm.item()
-        # a finite global norm means finite gradients; an infinite one may
-        # still come from finite values whose squares overflow
-        finite = math.isfinite(norm_value) or all(
-            bool(torch.isfinite(g).all()) for g in grads)
-        self.notfinite_count = 0 if finite else self.notfinite_count + 1
-        if not finite:
-            self.total_notfinite += 1
-            if self.notfinite_count <= self.max_consecutive_errors:
-                return False
-        if not norm_value < self.clip:
-            grads = torch._foreach_div(grads, norm)
-            torch._foreach_mul_(grads, self.clip)
-        lr = self.lr * self.lr_decay ** self.count
-        self.count += 1
-        b1, b2 = self.b1, self.b2
-        torch._foreach_mul_(self.mu, b1)
-        torch._foreach_add_(self.mu, grads, alpha=1 - b1)
-        torch._foreach_mul_(self.nu, b2)
-        torch._foreach_addcmul_(self.nu, grads, grads, value=1 - b2)
-        mu_hat = torch._foreach_div(self.mu, 1 - b1 ** self.count)
-        denom = torch._foreach_div(self.nu, 1 - b2 ** self.count)
-        torch._foreach_sqrt_(denom)
-        torch._foreach_add_(denom, self.eps)
-        update = torch._foreach_div(mu_hat, denom)
-        torch._foreach_add_(update, self.params, alpha=self.weight_decay)
-        torch._foreach_add_(self.params, update, alpha=-lr)
-        return True
 
 
 class AutoencoderTrainer:

@@ -10,11 +10,13 @@ packages:
 - JSON round-trip (``to_json`` / ``from_json``).
 
 The codec's training configs (``DiscriminatorConfig``, ``AETrainConfig``)
-drive ``after_tpu_torch.autoencoder.AutoencoderTrainer``.  Fields that only
-the JAX package reads (the diffusion trainer's knobs, ``fused_kernels``) and
-those the port refuses for now (``AETrainConfig.compute_dtype``,
-``stft_bf16_dft``, ``DiscriminatorConfig(kind="descript")``) are kept so
-that the JSON form stays identical.
+drive ``after_tpu_torch.autoencoder.AutoencoderTrainer``, and
+``DiffusionTrainConfig`` drives ``after_tpu_torch.diffusion.trainer.
+DiffusionTrainer``.  Fields that only the JAX package reads
+(``fused_kernels``, ``rng_impl``) and those the port refuses for now
+(``compute_dtype`` of both trainers, ``steps_per_call > 1``,
+``stft_bf16_dft``, ``DiscriminatorConfig(kind="descript")``,
+``diffusion_type="edm"``) are kept so that the JSON form stays identical.
 """
 
 from __future__ import annotations
@@ -228,7 +230,8 @@ class DiffusionTrainConfig:
     # master params / optimizer / EMA / losses / norm statistics stay f32
     # (norm statistics in f32). None = pure f32.
     compute_dtype: Optional[str] = None
-    # training knobs of the JAX trainer, kept for the shared JSON form
+    # the JAX trainer's random generator and its steps per XLA call: the
+    # port ignores the first and refuses steps_per_call > 1
     rng_impl: Optional[str] = None
     steps_per_call: int = 1
 

@@ -1,9 +1,12 @@
-"""Rectified-flow timbre transfer, inference half (counterpart of
-after_tpu/diffusion/rectified_flow.py): the two conditioning encoders, the
+"""Rectified-flow timbre transfer (counterpart of
+after_tpu/diffusion/rectified_flow.py): the two conditioning encoders and the
+adversarial classifier, the training loss with its condition dropout, the
 3-way classifier-free guidance, the Euler sampler and the streaming sampler.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import numpy as np
 import torch
@@ -13,6 +16,7 @@ from ..config import AfterConfig
 from ..models.denoiser import Denoiser
 from ..models.ecapa import ECAPAEncoder
 from ..models.encoder import Encoder1D
+from ..ops.train_mode import TrainMode
 from ..streaming.state import Cache
 
 
@@ -22,14 +26,15 @@ def _f32(value) -> np.float32:
 
 
 class RectifiedFlow(nn.Module):
-    """``net`` (the denoiser), ``encoder`` (timbre) and ``encoder_time``
-    (structure, absent for midi configs).  The adversarial classifier is a
-    training-only model and waits for the training port.
+    """``net`` (the denoiser), ``encoder`` (timbre), ``encoder_time``
+    (structure, absent for midi configs) and ``classifier`` (the adversarial
+    classifier that predicts the timbre vector from the structure codes,
+    when ``cfg.classifier`` is set; only training runs it).
 
     With ``streaming`` set, ``net`` and ``encoder_time`` are their streaming
-    forms (the timbre encoder always runs offline) and the sampler is
-    ``sample_stream``; its parameters have the same names as the offline
-    model's, so one state dict serves both."""
+    forms (the timbre encoder and the classifier always run offline) and the
+    sampler is ``sample_stream``; its parameters have the same names as the
+    offline model's, so one state dict serves both."""
 
     def __init__(self, cfg: AfterConfig, streaming: bool = False):
         super().__init__()
@@ -43,6 +48,8 @@ class RectifiedFlow(nn.Module):
         self.encoder = ECAPAEncoder(cfg.encoder)
         self.encoder_time = (Encoder1D(cfg.encoder_time, streaming)
                              if cfg.encoder_time is not None else None)
+        self.classifier = (Encoder1D(cfg.classifier)
+                           if cfg.classifier is not None else None)
         self.drop_value = cfg.drop_value
 
     def encode_timbre(self, x: torch.Tensor):
@@ -54,6 +61,44 @@ class RectifiedFlow(nn.Module):
         if self.encoder_time is None:
             return x, x, x.new_zeros(())
         return self.encoder_time(x)
+
+    def cfgdrop(self, datas, drop_targets, drop_rate: float,
+                draw: torch.Tensor):
+        """Condition dropout for CFG training.  ``draw`` is one uniform
+        draw per sample (B,): below ``drop_rate`` every condition is
+        replaced by ``drop_value``; condition i in ``drop_targets`` is also
+        replaced where the draw lies in (drop_rate * (i + 1), drop_rate *
+        (i + 2)).  ``None`` entries stay ``None``."""
+        drop_all = draw < drop_rate
+        out = []
+        for i, d in enumerate(datas):
+            if d is None:
+                out.append(None)
+                continue
+            drop_i = (draw > drop_rate * (i + 1)) & (draw < drop_rate * (i + 2))
+            drop = (drop_all | drop_i) if i in tuple(drop_targets) else drop_all
+            shape = (d.shape[0],) + (1,) * (d.dim() - 1)
+            out.append(torch.where(drop.reshape(shape), self.drop_value, d))
+        return out
+
+    def diffusion_loss(self, x1, time_cond, cond, x0: torch.Tensor,
+                       t: torch.Tensor, train: Optional[TrainMode] = None):
+        """Rectified-flow MSE on the velocity field, from the noise ``x0``
+        (x1's shape) and the times ``t`` (B,) in [0, 1): returns (loss,
+        (interpolant, t as (B, 1, 1))).  The denoiser runs in training form
+        (dropout) with ``train``."""
+        target = x1 - x0
+        tb = t[:, None, None]
+        interpolant = (1 - tb) * x0 + tb * x1
+        out = self.net(interpolant, t, cond, time_cond, train=train)
+        return torch.mean(torch.square(out - target)), (interpolant, tb)
+
+    def transfer_estimate(self, interpolant, t, cond, tcond):
+        """One-shot estimate of the clean target from a noised batch, for
+        the trainer's cycle step: integrate the velocity field from t (the
+        (B, 1, 1) times ``diffusion_loss`` returns) straight to 1."""
+        v = self.net(interpolant, t[:, 0, 0], cond, tcond)
+        return interpolant + (1 - t) * v
 
     def _cfg_inputs(self, x, time, cond, time_cond):
         """Tile (x, time) 3x and build the [full | structure-only |

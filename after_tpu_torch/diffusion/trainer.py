@@ -1,0 +1,561 @@
+"""Diffusion trainer (counterpart of after_tpu/diffusion/trainer.py): the
+two-phase curriculum, the adversarial classifier, cycle consistency, CFG
+dropout, frozen encoders and the EMA of the denoiser.
+
+``fit`` picks each step's kind from the step count (``step_kind``):
+
+- ``phase1`` (step < timbre_warmup): a diffusion step with the structure
+  dropped whole (codes at ``drop_value``) and no adversarial term;
+- ``classifier`` (after phase 1, step % update_classifier_every != 0): the
+  adversarial classifier learns to predict the timbre vector from the
+  structure codes of both encoders at inference;
+- ``diffusion`` or, after ``cycle_start_step``, ``cycle``: the rectified-flow
+  loss minus the weighted classifier loss (its gradient reaches the
+  structure encoder through the classifier, whose own parameters get
+  none), plus the encoders' regularisation and the cycle losses.
+
+The timbre encoder trains until ``stop_training_encoder_step``, the
+structure encoder until ``stop_training_encoder_time_step``; a frozen
+encoder runs without gradients, its gradients count as zeros in the
+optimizer and its parameters keep still (``AdamW``'s keep mask), while its
+BatchNorm statistics still move.  A diffusion step keeps the batch
+statistics of its first encoder pass only, and only when its gradients are
+finite; the classifier's pass inside it and the cycle pass keep none.  The
+EMA of the denoiser follows every diffusion step.
+
+Randomness: each step takes ``draws``, a dict of the values the JAX step
+draws from its keys (``DRAWS``); a value left out is drawn from the
+trainer's seeded ``torch.Generator`` on its device, and so are dropout
+masks.  ``train.rng_impl`` names the JAX trainer's random generator and is
+kept for the shared JSON form only.  Everything runs on the trainer's
+device, the CUDA card unless the caller passes ``device="cpu"``, in strict
+f32.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import copy
+from typing import (Any, Callable, Dict, Iterable, List, Mapping, Optional,
+                    Sequence, Tuple, Union)
+
+import numpy as np
+import torch
+
+from ..config import AfterConfig
+from ..ops.train_mode import TrainMode
+from ..utils.device import resolve_device, strict_f32
+from ..utils.optim import AdamW
+from .factory import make_model
+
+ArrayLike = Union[torch.Tensor, np.ndarray]
+
+# the values a diffusion step draws (a classifier step draws "shuffle"):
+# shuffle     (B, T) int: the time-chunk shuffle's frame index map
+# cond_noise  (B, zt): normal, the timbre vector's noise augmentation
+# time_cond_noise  (B, T, zs): normal, the structure codes' augmentation
+# cfg_uniform (B,): uniform, the condition dropout's draw
+# x0, t       x's shape normal and (B,) uniform: the flow's noise and times
+# cycle_perm  (B,) int: the cycle step's permutation of the batch
+# fsq         the structure encoder's FSQ noise dropout (FSQ.draw)
+DRAWS = ("shuffle", "cond_noise", "time_cond_noise", "cfg_uniform", "x0",
+         "t", "cycle_perm", "fsq")
+
+
+def shuffle_index(batch: int, length: int, sizes: Sequence[int],
+                  generator: Optional[torch.Generator],
+                  device: torch.device) -> torch.Tensor:
+    """(batch, length) frame index map of the timbre stream's chunk
+    shuffle: each row picks a chunk size from ``sizes`` and permutes its
+    time axis in chunks of that size (a tail shorter than a chunk stays)."""
+    variants = []
+    for s in sizes:
+        n = length // s
+        perms = torch.argsort(torch.rand((batch, n), generator=generator,
+                                         device=device), dim=1)
+        idx = (perms[:, :, None] * s
+               + torch.arange(s, device=device)).reshape(batch, n * s)
+        if n * s < length:
+            tail = torch.arange(n * s, length, device=device)
+            idx = torch.cat([idx, tail.expand(batch, -1)], dim=1)
+        variants.append(idx)
+    choice = torch.randint(len(sizes), (batch,), generator=generator,
+                           device=device)
+    return torch.stack(variants)[choice, torch.arange(batch, device=device)]
+
+
+def shuffle_time_chunks(x: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
+    """x (B, T, C) gathered along time by an index map (``shuffle_index``)."""
+    return x.gather(1, index[:, :, None].expand(-1, -1, x.shape[2]))
+
+
+def _cos_loss(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    num = torch.sum(a * b, dim=1)
+    den = (torch.linalg.vector_norm(a, dim=1)
+           * torch.linalg.vector_norm(b, dim=1) + 1e-8)
+    return torch.mean(1 - num / den)
+
+
+class DiffusionTrainer:
+    """The diffusion model (``rf``), its optimizers, the EMA of the
+    denoiser's parameters (``ema``, in ``rf.net.parameters()`` order) and
+    the step count."""
+
+    def __init__(self, cfg: AfterConfig,
+                 device: Optional[Union[str, torch.device]] = None,
+                 seed: int = 0):
+        tc = cfg.train
+        if tc.compute_dtype is not None:
+            raise NotImplementedError(
+                "the port trains in f32 only: train.compute_dtype is not "
+                "ported")
+        if int(tc.steps_per_call or 1) > 1:
+            raise NotImplementedError(
+                "train.steps_per_call > 1 (several steps in one call) is not "
+                "ported")
+        self.cfg, self.tc = cfg, tc
+        self.device = resolve_device(device)
+        strict_f32()
+        self.rf = make_model(cfg).eval().to(self.device)
+        self.generator = torch.Generator(self.device).manual_seed(seed)
+        # the models the main optimizer trains, in its parameter order
+        self.groups = {"net": self.rf.net, "encoder": self.rf.encoder}
+        if self.rf.encoder_time is not None:
+            self.groups["encoder_time"] = self.rf.encoder_time
+        self._new_state()
+
+    def _new_state(self) -> None:
+        tc, rf = self.tc, self.rf
+        self.params = [p for m in self.groups.values() for p in m.parameters()]
+        self._group_of = [name for name, m in self.groups.items()
+                          for _ in m.parameters()]
+        self.optimizer = AdamW(self.params, tc.lr, 1.0, 0.9, 0.999,
+                               tc.grad_clip)
+        self.cls_optimizer = (AdamW(rf.classifier.parameters(), tc.lr, 1.0,
+                                    0.9, 0.999, None)
+                              if rf.classifier is not None else None)
+        self.ema = [p.detach().clone() for p in rf.net.parameters()]
+        self.step = 0
+
+    def init(self, seed: int = 0) -> "DiffusionTrainer":
+        """Port-native random weights from ``seed`` (utils/init.py), fresh
+        optimizer states, the EMA at the weights and step 0."""
+        from ..utils.init import init_weights
+        init_weights(self.rf, seed)
+        self._new_state()
+        return self
+
+    def load_jax(self, variables: Mapping[str, Any],
+                 ema_params: Optional[Mapping[str, Any]] = None
+                 ) -> "DiffusionTrainer":
+        """Weights of the JAX trainer's ``variables`` (``net``, ``encoder``,
+        ``encoder_time``, ``classifier``, with their batch statistics) and
+        its EMA tree (``ema_params``, the EMA at the weights when absent),
+        as nested dicts of numpy arrays; fresh optimizers and step 0."""
+        from ..utils.from_jax import load_denoiser, load_diffusion
+        load_diffusion(self.rf, variables)
+        self._new_state()
+        if ema_params is not None:
+            net = copy.deepcopy(self.rf.net)
+            load_denoiser(net, {"params": ema_params})
+            with torch.no_grad():
+                for e, p in zip(self.ema, net.parameters()):
+                    e.copy_(p)
+        return self
+
+    @contextlib.contextmanager
+    def ema_weights(self):
+        """Inside the block the denoiser holds the EMA weights (copied in
+        and back out, so the tensors stay the same)."""
+        params = list(self.rf.net.parameters())
+        with torch.no_grad():
+            saved = [p.detach().clone() for p in params]
+            for p, e in zip(params, self.ema):
+                p.copy_(e)
+        try:
+            yield
+        finally:
+            with torch.no_grad():
+                for p, s in zip(params, saved):
+                    p.copy_(s)
+
+    # ------------------------------------------------------------------
+
+    def upload(self, batch: Mapping[str, ArrayLike]) -> Dict[str, torch.Tensor]:
+        """A batch {"x", "x_cond", "x_time_cond"} of (B, T, C) latents as
+        f32 tensors on the device; an array that several keys share (the
+        audio collate aliases x_time_cond to x) is uploaded once."""
+        memo: Dict[int, torch.Tensor] = {}
+        for v in batch.values():
+            if id(v) not in memo:
+                memo[id(v)] = torch.as_tensor(v, dtype=torch.float32,
+                                              device=self.device)
+        return {k: memo[id(v)] for k, v in batch.items()}
+
+    def _taker(self, draws: Optional[Mapping[str, Any]]
+               ) -> Callable[[str, Callable[[], Any]], Any]:
+        """take(name, make): ``draws[name]`` on the device when given, else
+        make()."""
+        if draws:
+            unknown = set(draws) - set(DRAWS)
+            if unknown:
+                raise KeyError(f"unknown draws {sorted(unknown)}; known: "
+                               f"{DRAWS}")
+
+        def convert(v):
+            if isinstance(v, (tuple, list)):
+                return tuple(convert(u) for u in v)
+            if isinstance(v, np.ndarray):
+                v = np.array(v)        # a writable copy
+            v = torch.as_tensor(v, device=self.device)
+            return v.long() if not v.is_floating_point() else v.float()
+
+        def take(name, make):
+            if draws is not None and name in draws:
+                return convert(draws[name])
+            return make()
+        return take
+
+    def _shuffled(self, x: torch.Tensor, take) -> torch.Tensor:
+        sizes = tuple(self.tc.shuffle_zsem)
+        if not sizes:
+            return x
+        index = take("shuffle", lambda: shuffle_index(
+            x.shape[0], x.shape[1], sizes, self.generator, self.device))
+        return shuffle_time_chunks(x, index)
+
+    def _adversarial_loss(self, pred: torch.Tensor,
+                          target: torch.Tensor) -> torch.Tensor:
+        if self.tc.adversarial_loss == "cosine":
+            return _cos_loss(pred, target)
+        return torch.mean(torch.square(pred - target))
+
+    # ------------------------------------------------------------------
+    # the diffusion step
+    # ------------------------------------------------------------------
+
+    def _loss(self, batch, take, phase1: bool, train_encoder: bool,
+              train_encoder_time: bool, use_cycle: bool,
+              adversarial_weight: float, regularisation_weight: float):
+        """(loss, metrics, the batch statistics the step keeps)."""
+        cfg, tc, rf = self.cfg, self.tc, self.rf
+        gen, dev = self.generator, self.device
+        x1, x1_time_cond = batch["x"], batch["x_time_cond"]
+        B = x1.shape[0]
+        kept = TrainMode(gen)
+
+        # timbre stream: shuffled chunks -> ECAPA -> noise augmentation
+        x1_cond = self._shuffled(batch["x_cond"], take)
+        with torch.set_grad_enabled(train_encoder):
+            cond, _, cond_reg = rf.encoder(x1_cond, train=kept)
+        cond = cond + tc.zsem_noise_aug * take("cond_noise", lambda: (
+            torch.randn(cond.shape, generator=gen, device=dev)))
+
+        # structure stream
+        if rf.encoder_time is not None and not phase1:
+            fsq_draws = take("fsq", lambda: None)
+            with torch.set_grad_enabled(train_encoder_time):
+                time_cond, _, time_cond_reg = rf.encoder_time(
+                    x1_time_cond, train=kept, fsq_draws=fsq_draws)
+        elif rf.encoder_time is None:
+            time_cond, time_cond_reg = x1_time_cond, x1.new_zeros(())
+        else:  # phase 1: the structure is dropped whole
+            time_cond = x1.new_full((B, x1.shape[1], cfg.zs_channels),
+                                    cfg.drop_value)
+            time_cond_reg = x1.new_zeros(())
+        time_cond = time_cond + tc.time_cond_noise_aug * take(
+            "time_cond_noise", lambda: torch.randn(
+                time_cond.shape, generator=gen, device=dev))
+
+        # CFG dropout (phase 1 drops no condition on its own)
+        targets = () if phase1 else tuple(tc.drop_targets)
+        cond_drop, time_cond_drop = rf.cfgdrop(
+            [cond, time_cond], targets, cfg.drop_rate,
+            take("cfg_uniform", lambda: torch.rand(
+                (B,), generator=gen, device=dev)))
+        if phase1:
+            time_cond_drop = torch.full_like(time_cond_drop, cfg.drop_value)
+
+        # the adversarial term: its gradient reaches encoder_time through
+        # the classifier; the classifier's statistics are not kept
+        if rf.classifier is not None and not phase1:
+            cond_pred = rf.classifier(time_cond, train=TrainMode(gen))[0]
+            classifier_loss = self._adversarial_loss(cond_pred, cond.detach())
+        else:
+            classifier_loss = x1.new_zeros(())
+
+        x0 = take("x0", lambda: torch.randn(x1.shape, generator=gen,
+                                            device=dev))
+        t = take("t", lambda: torch.rand((B,), generator=gen, device=dev))
+        diffusion_loss, (interpolant, tb) = rf.diffusion_loss(
+            x1, time_cond_drop, cond_drop, x0, t, train=kept)
+
+        if use_cycle:
+            cond_cycle, tcond_cycle = self._cycle_losses(
+                interpolant, tb, time_cond, cond, take)
+        else:
+            cond_cycle = tcond_cycle = x1.new_zeros(())
+
+        cw = tuple(tc.cycle_weights) if use_cycle else (0.0, 0.0)
+        loss = (diffusion_loss
+                - adversarial_weight * classifier_loss
+                + cw[0] * cond_cycle + cw[1] * tcond_cycle
+                + regularisation_weight * torch.mean(cond_reg)
+                + regularisation_weight * torch.mean(time_cond_reg))
+        metrics = {
+            "diffusion_loss": diffusion_loss,
+            "adversarial_loss": classifier_loss,
+            "cond_reg": torch.mean(cond_reg),
+            "time_cond_reg": torch.mean(time_cond_reg),
+            "cycle_cond": cond_cycle,
+            "cycle_time_cond": tcond_cycle,
+            "loss": loss,
+        }
+        return loss, metrics, kept
+
+    def _cycle_losses(self, interpolant, t, time_cond, cond, take):
+        """Cycle consistency, interpolant mode: a one-shot transfer toward
+        swapped conditions, re-encoded by both encoders (training form,
+        statistics not kept) against the detached targets."""
+        tc, rf, dev = self.tc, self.rf, self.device
+        B = cond.shape[0]
+        perm = take("cycle_perm", lambda: torch.randperm(
+            B, generator=self.generator, device=dev))
+        if tc.cycle_swap_target == "cond":
+            cond_t, tcond_t = cond[perm], time_cond
+        elif tc.cycle_swap_target == "time_cond":
+            cond_t, tcond_t = cond, time_cond[perm]
+        else:  # alternate
+            sel = torch.arange(B, device=dev) < B // 2
+            cond_t = torch.where(sel[:, None], cond, cond[perm])
+            tcond_t = torch.where(sel[:, None, None], time_cond[perm],
+                                  time_cond)
+        cond_t, tcond_t = cond_t.detach(), tcond_t.detach()
+
+        x_transfer = rf.transfer_estimate(interpolant, t, cond_t, tcond_t)
+        scratch = TrainMode(self.generator)
+        cond_rec = rf.encoder(x_transfer, train=scratch)[0]
+        tcond_rec = rf.encoder_time(x_transfer, train=scratch)[0]
+
+        lt = tc.cycle_loss_type
+        if lt == "cosine":
+            c_loss = _cos_loss(cond_rec, cond_t)
+            t_loss = _cos_loss(tcond_rec, tcond_t)
+        elif lt.startswith("mse_margin"):
+            margin = float(lt.split("_")[-1])
+            c_loss = torch.clamp_min(torch.square(cond_rec - cond_t), margin)
+            t_loss = torch.clamp_min(torch.square(tcond_rec - tcond_t), margin)
+        else:  # mse
+            c_loss = torch.square(cond_rec - cond_t)
+            t_loss = torch.square(tcond_rec - tcond_t)
+        if tc.cycle_scaling == "ramps" and c_loss.dim() > 0:
+            scale = 0.5 * (1 + torch.tanh(7 * (0.4 - t[:, 0, 0])))
+            c_loss = scale[:, None] * c_loss
+        return torch.mean(c_loss), torch.mean(t_loss)
+
+    def _keep(self, phase1: bool, train_encoder: bool,
+              train_encoder_time: bool) -> Dict[str, bool]:
+        return {"net": True, "encoder": train_encoder,
+                "encoder_time": (not phase1) and train_encoder_time}
+
+    def train_grads(self, batch: Mapping[str, ArrayLike], phase1: bool,
+                    train_encoder: bool, train_encoder_time: bool,
+                    use_cycle: bool, adversarial_weight: float,
+                    regularisation_weight: float,
+                    draws: Optional[Mapping[str, Any]] = None
+                    ) -> Tuple[Dict[str, torch.Tensor],
+                               Dict[str, List[torch.Tensor]], TrainMode]:
+        """A diffusion step without its update: (metrics, the gradients of
+        each trained model's parameters by model name, in ``parameters()``
+        order, zeros for a frozen model, the step's pending batch
+        statistics)."""
+        batch = self.upload(batch)
+        keep = self._keep(phase1, train_encoder, train_encoder_time)
+        loss, metrics, kept = self._loss(
+            batch, self._taker(draws), phase1, train_encoder,
+            train_encoder_time, use_cycle, adversarial_weight,
+            regularisation_weight)
+        wanted = [p for p, g in zip(self.params, self._group_of) if keep[g]]
+        got = iter(torch.autograd.grad(loss, wanted, allow_unused=True))
+        grads: Dict[str, List[torch.Tensor]] = {}
+        for name, module in self.groups.items():
+            grads[name] = []
+            for p in module.parameters():
+                g = next(got) if keep[name] else None
+                grads[name].append(torch.zeros_like(p) if g is None else g)
+        return {k: v.detach() for k, v in metrics.items()}, grads, kept
+
+    def train_step(self, batch: Mapping[str, ArrayLike], phase1: bool,
+                   train_encoder: bool, train_encoder_time: bool,
+                   use_cycle: bool, adversarial_weight: float,
+                   regularisation_weight: float,
+                   draws: Optional[Mapping[str, Any]] = None
+                   ) -> Dict[str, Any]:
+        """One diffusion step: the update of the trained models, their
+        batch statistics when the gradients are finite, the EMA; returns the
+        metrics with the count of skipped updates (``skipped_nonfinite``)."""
+        metrics, grads, kept = self.train_grads(
+            batch, phase1, train_encoder, train_encoder_time, use_cycle,
+            adversarial_weight, regularisation_weight, draws)
+        keep = self._keep(phase1, train_encoder, train_encoder_time)
+        self.optimizer.step([g for name in self.groups for g in grads[name]],
+                            [keep[g] for g in self._group_of])
+        metrics["skipped_nonfinite"] = self.optimizer.total_notfinite
+        if self.optimizer.finite:
+            kept.commit()
+        decay = self.tc.ema_decay
+        with torch.no_grad():
+            torch._foreach_mul_(self.ema, decay)
+            torch._foreach_add_(self.ema, list(self.rf.net.parameters()),
+                                alpha=1 - decay)
+        return metrics
+
+    # ------------------------------------------------------------------
+    # the classifier step
+    # ------------------------------------------------------------------
+
+    def classifier_grads(self, batch: Mapping[str, ArrayLike],
+                         draws: Optional[Mapping[str, Any]] = None
+                         ) -> Tuple[Dict[str, torch.Tensor],
+                                    List[torch.Tensor], TrainMode]:
+        """A classifier step without its update: (metrics, the gradients of
+        the classifier's parameters, its pending batch statistics).  Both
+        encoders run at inference, without gradients."""
+        rf = self.rf
+        if rf.classifier is None:
+            raise ValueError("the config has no adversarial classifier")
+        batch = self.upload(batch)
+        take = self._taker(draws)
+        with torch.no_grad():
+            cond = rf.encoder(self._shuffled(batch["x_cond"], take))[0]
+            time_cond = rf.encoder_time(batch["x_time_cond"])[0]
+        kept = TrainMode(self.generator)
+        pred = rf.classifier(time_cond, train=kept)[0]
+        loss = self._adversarial_loss(pred, cond)
+        grads = torch.autograd.grad(loss, list(rf.classifier.parameters()))
+        return {"classifier_loss": loss.detach()}, list(grads), kept
+
+    def classifier_step(self, batch: Mapping[str, ArrayLike],
+                        draws: Optional[Mapping[str, Any]] = None
+                        ) -> Dict[str, torch.Tensor]:
+        """One update of the classifier (and its batch statistics when the
+        gradients are finite); its metrics."""
+        metrics, grads, kept = self.classifier_grads(batch, draws)
+        self.cls_optimizer.step(grads)
+        if self.cls_optimizer.finite:
+            kept.commit()
+        return metrics
+
+    # ------------------------------------------------------------------
+    # the loop
+    # ------------------------------------------------------------------
+
+    def schedule_weights(self, step: int) -> Tuple[float, float]:
+        """(adversarial, regularisation) weights at ``step``: linear ramps
+        after the timbre warm-up and from step 0."""
+        tc = self.tc
+        adv = min(tc.adversarial_weight * max(step - tc.timbre_warmup, 0)
+                  / tc.adversarial_warmup, tc.adversarial_weight)
+        reg = min(tc.regularisation_weight * step
+                  / max(tc.regularisation_warmup, 1),
+                  tc.regularisation_weight)
+        return adv, reg
+
+    def step_flags(self, step: int) -> Tuple[bool, bool, bool, bool]:
+        """(phase1, train_encoder, train_encoder_time, use_cycle) of a
+        diffusion step at ``step``."""
+        tc = self.tc
+        return (step < tc.timbre_warmup,
+                tc.train_encoder and step <= tc.stop_training_encoder_step,
+                (tc.train_encoder_time
+                 and step <= tc.stop_training_encoder_time_step),
+                tc.cycle_consistency and step > tc.cycle_start_step)
+
+    def step_kind(self, step: int) -> str:
+        """What ``fit`` runs at ``step``: "phase1", "classifier", "cycle" or
+        "diffusion"."""
+        phase1, _, _, use_cycle = self.step_flags(step)
+        if phase1:
+            return "phase1"
+        if (self.rf.classifier is not None
+                and step % self.tc.update_classifier_every != 0):
+            return "classifier"
+        return "cycle" if use_cycle else "diffusion"
+
+    def fit(self, batches: Iterable[Mapping[str, ArrayLike]],
+            max_steps: Optional[int] = None,
+            callback: Optional[Callable[["DiffusionTrainer", Dict], None]]
+            = None, mesh=None) -> "DiffusionTrainer":
+        """Train on ``batches`` of latent crops {"x", "x_cond",
+        "x_time_cond"} until ``max_steps`` (``train.max_steps`` by
+        default); ``callback(self, metrics)`` after each step, with the
+        metrics as device tensors.  Training across devices (``mesh``) is
+        not ported."""
+        if mesh is not None:
+            raise NotImplementedError(
+                "the port trains on one device: no mesh or DDP yet")
+        max_steps = max_steps if max_steps is not None else self.tc.max_steps
+        for batch in batches:
+            if self.step >= max_steps:
+                break
+            step = self.step
+            if self.step_kind(step) == "classifier":
+                metrics = self.classifier_step(batch)
+            else:
+                metrics = self.train_step(batch, *self.step_flags(step),
+                                          *self.schedule_weights(step))
+            self.step += 1
+            if callback is not None:
+                callback(self, metrics)
+        return self
+
+    # ------------------------------------------------------------------
+    # checkpoints
+    # ------------------------------------------------------------------
+
+    def _models(self) -> Dict[str, torch.nn.Module]:
+        models = dict(self.groups)
+        if self.rf.classifier is not None:
+            models["classifier"] = self.rf.classifier
+        return models
+
+    def state_tree(self) -> Dict[str, Any]:
+        """The whole train state for ``utils.checkpoint.save_checkpoint``:
+        the models' state dicts (``variables``), the EMA by parameter name,
+        both optimizer states and the step."""
+        names = [n for n, _ in self.rf.net.named_parameters()]
+        tree = {"variables": {n: m.state_dict()
+                              for n, m in self._models().items()},
+                "ema_params": dict(zip(names, self.ema)),
+                "opt_state": self.optimizer.state_dict(),
+                "step": self.step}
+        if self.cls_optimizer is not None:
+            tree["cls_opt_state"] = self.cls_optimizer.state_dict()
+        return tree
+
+    def load_state_tree(self, tree: Mapping[str, Any],
+                        load_encoders=(True, True, True)) -> None:
+        """Restart from a ``state_tree``, as the JAX CLI restarts: the models
+        through ``filter_partial_load`` (``load_encoders`` masks encoder,
+        encoder_time, net), the EMA and each optimizer state only where
+        they still fit the current models, else fresh."""
+        from ..utils.checkpoint import filter_partial_load, shapes_compatible
+        models = self._models()
+        variables = filter_partial_load(
+            tree["variables"], {n: m.state_dict() for n, m in models.items()},
+            load_encoders)
+        for name, module in models.items():
+            module.load_state_dict(variables[name])
+        self._new_state()
+        ema = tree.get("ema_params")
+        if ema is not None and shapes_compatible(ema, self.ema):
+            with torch.no_grad():
+                for e, v in zip(self.ema, ema.values()):
+                    e.copy_(v)
+        for key, opt in (("opt_state", self.optimizer),
+                         ("cls_opt_state", self.cls_optimizer)):
+            state = tree.get(key)
+            if (opt is not None and state is not None
+                    and shapes_compatible(state, opt.state_dict())):
+                opt.load_state_dict(state)
+        self.step = int(tree["step"])

@@ -4,6 +4,8 @@
 Layout is (B, T, C) throughout.  Attention is a plain masked softmax over
 ``torch.matmul`` products, as the JAX package leaves it to XLA; it has no
 output projection.  LayerNorms use flax's eps of 1e-6 and GELU is exact.
+A training forward (``train``, ops/train_mode.py) applies dropout to the
+attention probabilities and to the MLP's output; without it there is none.
 
 Streaming (``streaming=True``): each attention layer keeps one KV slot per
 Euler step, ``k`` and ``v`` of shape (B, max_diffusion_steps, heads,
@@ -26,6 +28,7 @@ from ..config import DenoiserConfig
 from ..ops.masks import (NEG_INF, mask_bias, sliding_chunkwise_mask,
                          streaming_mask)
 from ..ops.rotary import apply_rotary, rotary_angles
+from ..ops.train_mode import TrainMode, dropout
 from ..streaming.state import Cache, Streaming, name_slots
 
 LN_EPS = 1e-6
@@ -47,13 +50,17 @@ def fourier_features(t: torch.Tensor, num_channels: int,
 
 class MLP(nn.Module):
 
-    def __init__(self, embed_dim: int, mlp_multiplier: int):
+    def __init__(self, embed_dim: int, mlp_multiplier: int,
+                 dropout: float = 0.0):
         super().__init__()
+        self.dropout = dropout
         self.Dense_0 = nn.Linear(embed_dim, mlp_multiplier * embed_dim)
         self.Dense_1 = nn.Linear(mlp_multiplier * embed_dim, embed_dim)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.Dense_1(F.gelu(self.Dense_0(x)))
+    def forward(self, x: torch.Tensor,
+                train: Optional[TrainMode] = None) -> torch.Tensor:
+        return dropout(self.Dense_1(F.gelu(self.Dense_0(x))), self.dropout,
+                       train)
 
 
 class ChunkCausalAttention(nn.Module, Streaming):
@@ -95,7 +102,8 @@ class ChunkCausalAttention(nn.Module, Streaming):
         return self._consts[key]
 
     def forward(self, x: torch.Tensor, cache: Optional[Cache] = None,
-                cache_index: int = 0) -> torch.Tensor:
+                cache_index: int = 0,
+                train: Optional[TrainMode] = None) -> torch.Tensor:
         cfg = self.cfg
         B, T, E = x.shape
         H, D = E // cfg.head_dim, cfg.head_dim
@@ -127,7 +135,7 @@ class ChunkCausalAttention(nn.Module, Streaming):
         logits = torch.matmul(q, full_k.transpose(-1, -2)) * (1.0 / np.sqrt(D))
         if bias is not None:
             logits = logits + bias
-        probs = torch.softmax(logits, dim=-1)
+        probs = dropout(torch.softmax(logits, dim=-1), cfg.dropout, train)
         out = torch.matmul(probs, full_v)
         return out.transpose(1, 2).reshape(B, T, E)
 
@@ -146,22 +154,23 @@ class DecoderBlock(nn.Module):
         self.attn = ChunkCausalAttention(cfg, streaming)
         self.cond_linear = nn.Linear(E, 2 * E) if with_cond else None
         self.norm3 = nn.LayerNorm(E, eps=LN_EPS)
-        self.mlp = MLP(E, cfg.mlp_multiplier)
+        self.mlp = MLP(E, cfg.mlp_multiplier, cfg.dropout)
 
     def forward(self, x: torch.Tensor, cond: Optional[torch.Tensor],
                 tcond: Optional[torch.Tensor], cache: Optional[Cache] = None,
-                cache_index: int = 0) -> torch.Tensor:
+                cache_index: int = 0,
+                train: Optional[TrainMode] = None) -> torch.Tensor:
         E = x.shape[-1]
         if self.tcond_linear is not None and tcond is not None:
             x = F.layer_norm(x, (E,), eps=LN_EPS)
             alpha, beta = self.tcond_linear(tcond).chunk(2, dim=-1)
             x = x * (1 + alpha) + beta
-        x = self.attn(self.norm1(x), cache, cache_index) + x
+        x = self.attn(self.norm1(x), cache, cache_index, train) + x
         if cond is not None:
             x = F.layer_norm(x, (E,), eps=LN_EPS)
             alpha, beta = self.cond_linear(cond).chunk(2, dim=-1)
             x = x * (1 + alpha[:, None]) + beta[:, None]
-        return self.mlp(self.norm3(x)) + x
+        return self.mlp(self.norm3(x), train) + x
 
 
 class Denoiser(nn.Module):
@@ -206,8 +215,8 @@ class Denoiser(nn.Module):
     def forward(self, x: torch.Tensor, time: torch.Tensor,
                 cond: Optional[torch.Tensor] = None,
                 time_cond: Optional[torch.Tensor] = None,
-                cache: Optional[Cache] = None,
-                cache_index: int = 0) -> torch.Tensor:
+                cache: Optional[Cache] = None, cache_index: int = 0,
+                train: Optional[TrainMode] = None) -> torch.Tensor:
         cfg = self.cfg
         noise_level = fourier_features(time, cfg.noise_embed_dims)
         if self.use_cond and cond is not None:
@@ -224,5 +233,5 @@ class Denoiser(nn.Module):
             tc = None
         for i in range(cfg.n_layers):
             h = getattr(self, f"block_{i}")(h, features, tc, cache,
-                                            cache_index)
+                                            cache_index, train)
         return self.out_proj(h)

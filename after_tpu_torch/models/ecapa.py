@@ -1,11 +1,14 @@
-"""ECAPA-TDNN timbre encoder, inference (counterpart of
-after_tpu/models/ecapa.py).
+"""ECAPA-TDNN timbre encoder (counterpart of after_tpu/models/ecapa.py).
 
 Codec latents (B, T, in_size) -> timbre vector (B, out_dim).  Convs use
-'same' reflect padding, BatchNorm runs on running statistics.
+'same' reflect padding.  BatchNorm runs on its running statistics at
+inference and on the batch's in a training forward (``train``,
+ops/train_mode.py).
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -13,6 +16,7 @@ from torch import nn
 
 from ..config import ECAPAConfig
 from ..ops.norms import BatchNorm
+from ..ops.train_mode import TrainMode
 
 
 class ReflectConv(nn.Module):
@@ -43,8 +47,9 @@ class TDNNBlock(nn.Module):
         self.conv = ReflectConv(in_c, features, kernel_size, dilation, groups)
         self.bn = BatchNorm(features)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.bn(torch.relu(self.conv(x)))
+    def forward(self, x: torch.Tensor,
+                train: Optional[TrainMode] = None) -> torch.Tensor:
+        return self.bn(torch.relu(self.conv(x)), train)
 
 
 class Res2NetBlock(nn.Module):
@@ -60,13 +65,14 @@ class Res2NetBlock(nn.Module):
             self.add_module(f"tdnn_{i}", TDNNBlock(hidden, hidden, kernel_size,
                                                    dilation))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                train: Optional[TrainMode] = None) -> torch.Tensor:
         chunks = x.chunk(self.scale, dim=-1)
         y = [chunks[0]]
         y_i = None
         for i in range(self.scale - 1):
             inp = chunks[i + 1] if i == 0 else chunks[i + 1] + y_i
-            y_i = getattr(self, f"tdnn_{i}")(inp)
+            y_i = getattr(self, f"tdnn_{i}")(inp, train)
             y.append(y_i)
         return torch.cat(y, dim=-1)
 
@@ -99,9 +105,10 @@ class SERes2NetBlock(nn.Module):
         self.tdnn2 = TDNNBlock(features, features, 1, 1, groups)
         self.se = SEBlock(features, se_channels, features)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                train: Optional[TrainMode] = None) -> torch.Tensor:
         residual = self.shortcut(x) if self.shortcut is not None else x
-        h = self.tdnn2(self.res2net(self.tdnn1(x)))
+        h = self.tdnn2(self.res2net(self.tdnn1(x, train), train), train)
         return self.se(h) + residual
 
 
@@ -123,7 +130,8 @@ class AttentiveStatisticsPooling(nn.Module):
         self.tdnn = TDNNBlock(in_c, attention_channels, 1, 1)
         self.conv = nn.Linear(attention_channels, channels)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                train: Optional[TrainMode] = None) -> torch.Tensor:
         B, T, C = x.shape
         if self.global_context:
             mean, std = _stats(x.new_full((B, T, 1), 1.0 / T), x)
@@ -131,7 +139,7 @@ class AttentiveStatisticsPooling(nn.Module):
                                  std[:, None].expand(B, T, C)], dim=-1)
         else:
             attn_in = x
-        a = self.conv(torch.tanh(self.tdnn(attn_in)))
+        a = self.conv(torch.tanh(self.tdnn(attn_in, train)))
         a = torch.softmax(a, dim=1)
         mean, std = _stats(a, x)
         return torch.cat([mean, std], dim=-1)
@@ -166,16 +174,16 @@ class ECAPAEncoder(nn.Module):
             fc_in = ch[-1]
         self.fc = nn.Linear(fc_in, cfg.out_dim)
 
-    def forward(self, x: torch.Tensor):
+    def forward(self, x: torch.Tensor, train: Optional[TrainMode] = None):
         cfg = self.cfg
-        h = self.block_0(x)
+        h = self.block_0(x, train)
         feats = []
         for i in range(1, self.n_blocks):
-            h = getattr(self, f"block_{i}")(h)
+            h = getattr(self, f"block_{i}")(h, train)
             feats.append(h)
-        h = self.mfa(torch.cat(feats, dim=-1))
+        h = self.mfa(torch.cat(feats, dim=-1), train)
         if self.asp is not None:
-            h = self.asp_bn(self.asp(h))
+            h = self.asp_bn(self.asp(h, train), train)
         z = self.fc(h)
         if cfg.use_tanh:
             z = torch.tanh(z)

@@ -1,17 +1,20 @@
-"""Finite Scalar Quantization, inference half (counterpart of
-after_tpu/ops/fsq.py without the training-time noise dropout)."""
+"""Finite Scalar Quantization (counterpart of after_tpu/ops/fsq.py), with
+the training-time noise dropout."""
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence, Tuple
 
 import torch
+
+FSQDraws = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
 
 class FSQ:
 
-    def __init__(self, levels: Sequence[int]):
+    def __init__(self, levels: Sequence[int], noise_dropout: float = 0.0):
         self.levels = tuple(int(v) for v in levels)
+        self.noise_dropout = noise_dropout
         self.dim = len(self.levels)
 
     def _bound(self, z: torch.Tensor, eps: float = 1e-3) -> torch.Tensor:
@@ -22,10 +25,35 @@ class FSQ:
         shift = torch.atanh(offset / half_l)
         return torch.tanh(z + shift) * half_l - offset
 
-    def quantize(self, z: torch.Tensor) -> torch.Tensor:
-        """(..., dim) -> (..., dim) quantized codes, normalised to [-1, 1]."""
+    @staticmethod
+    def draw(shape, generator: Optional[torch.Generator],
+             device: torch.device) -> FSQDraws:
+        """The noise dropout's uniform draws for codes of ``shape``: the
+        per-sample masks (B, 1, ...) that substitute the raw input and the
+        noisy input, and the noise (``shape``)."""
+        mshape = (shape[0],) + (1,) * (len(shape) - 1)
+        return tuple(torch.rand(s, generator=generator, device=device)
+                     for s in (mshape, mshape, shape))
+
+    def quantize(self, z: torch.Tensor,
+                 draws: Optional[FSQDraws] = None) -> torch.Tensor:
+        """(..., dim) -> (..., dim) quantized codes, normalised to [-1, 1],
+        with straight-through gradients.
+
+        With ``draws`` (``draw``) the reference's two-stage per-sample noise
+        dropout follows: where the first mask's draw is below
+        ``noise_dropout`` the code is the raw z, where the second's is, z +
+        (noise - 0.5) / half_width."""
         bounded = self._bound(z)
         levels = torch.tensor(self.levels, dtype=z.dtype, device=z.device)
         half_width = torch.floor(levels / 2)
         # the straight-through sum of the JAX package, kept for its rounding
-        return (bounded + (torch.round(bounded) - bounded)) / half_width
+        quantized = (bounded + (torch.round(bounded) - bounded).detach()
+                     ) / half_width
+        if draws is not None:
+            u_raw, u_noisy, noise = draws
+            p = self.noise_dropout
+            quantized = torch.where(u_raw < p, z, quantized)
+            quantized = torch.where(u_noisy < p,
+                                    z + (noise - 0.5) / half_width, quantized)
+        return quantized

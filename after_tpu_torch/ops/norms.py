@@ -4,8 +4,12 @@ BatchNorm's default 1e-5)."""
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 from torch import nn
+
+from .train_mode import TrainMode
 
 
 class GroupNorm(nn.Module):
@@ -27,7 +31,16 @@ class GroupNorm(nn.Module):
 
 
 class BatchNorm(nn.Module):
-    """BatchNorm on running statistics (inference) over the last axis."""
+    """flax ``nn.BatchNorm(momentum=0.9)`` over the last axis.
+
+    Without ``train`` it normalises with the running statistics.  With a
+    ``TrainMode`` it normalises with the batch's, over every axis but the
+    last (the biased variance, E[x^2] - E[x]^2 clamped at 0, as flax computes
+    it), and records them in ``train``; the running statistics move only
+    when the caller commits them (``update_running``: 0.9 * old + 0.1 *
+    batch)."""
+
+    momentum = 0.9
 
     def __init__(self, num_features: int, eps: float = 1e-5):
         super().__init__()
@@ -37,6 +50,20 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(num_features))
         self.register_buffer("running_var", torch.ones(num_features))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        mul = torch.rsqrt(self.running_var + self.eps) * self.weight
-        return (x - self.running_mean) * mul + self.bias
+    def forward(self, x: torch.Tensor,
+                train: Optional[TrainMode] = None) -> torch.Tensor:
+        if train is None:
+            mean, var = self.running_mean, self.running_var
+        else:
+            axes = tuple(range(x.dim() - 1))
+            mean = x.mean(axes)
+            var = torch.clamp_min((x * x).mean(axes) - mean * mean, 0.0)
+            train.batch_stats[self] = (mean.detach(), var.detach())
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        return (x - mean) * mul + self.bias
+
+    @torch.no_grad()
+    def update_running(self, mean: torch.Tensor, var: torch.Tensor) -> None:
+        m = self.momentum
+        self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
+        self.running_var.copy_(m * self.running_var + (1 - m) * var)

@@ -7,7 +7,10 @@ JAX.  The layout is the JAX pipeline's::
     {"codec": {"params": ...},
      "diffusion": {"net": {"params": ...},
                    "encoder": {"params": ..., "batch_stats": ...},
-                   "encoder_time": {"params": ..., "batch_stats": ...}}}
+                   "encoder_time": {"params": ..., "batch_stats": ...},
+                   "classifier": {"params": ..., "batch_stats": ...}}}
+
+(``diffusion`` alone is the diffusion trainer's ``variables``.)
 
 The port's submodules carry the flax names (``down_2/res_1/block1/conv``,
 ``block_0/attn/qkv``, ...), so loading is a walk over both trees.  Leaf
@@ -50,7 +53,7 @@ from ..streaming.state import StreamState, flatten_state
 
 
 def _set(t: torch.Tensor, value: np.ndarray, path: str) -> None:
-    value = np.asarray(value, dtype=np.float32)
+    value = np.array(value, dtype=np.float32)     # a writable copy
     if tuple(t.shape) != value.shape:
         raise ValueError(f"{path}: port shape {tuple(t.shape)} != "
                          f"JAX shape {value.shape}")
@@ -163,15 +166,26 @@ def load_denoiser(net: nn.Module, variables: Mapping[str, Any]) -> None:
                 "net")
 
 
+def load_diffusion(rf: nn.Module, variables: Mapping[str, Any],
+                   classifier: bool = True) -> None:
+    """Load a RectifiedFlow's models from the JAX ``variables``: the
+    denoiser, both encoders and, with ``classifier``, the adversarial
+    classifier (which the JAX variables then must hold)."""
+    load_denoiser(rf.net, variables["net"])
+    load_module(rf.encoder, variables["encoder"], "encoder")
+    if rf.encoder_time is not None:
+        load_module(rf.encoder_time, variables["encoder_time"], "encoder_time")
+    if classifier and rf.classifier is not None:
+        load_module(rf.classifier, variables["classifier"], "classifier")
+
+
 def load_pipeline(pipeline, variables: Mapping[str, Any]) -> None:
-    """Load a TransferPipeline's codec and diffusion models."""
+    """Load a TransferPipeline's codec and diffusion models (the
+    classifier too where the JAX variables hold one; inference never runs
+    it)."""
     load_module(pipeline.codec, variables["codec"], "codec")
     dv = variables["diffusion"]
-    rf = pipeline.rf
-    load_denoiser(rf.net, dv["net"])
-    load_module(rf.encoder, dv["encoder"], "encoder")
-    if rf.encoder_time is not None:
-        load_module(rf.encoder_time, dv["encoder_time"], "encoder_time")
+    load_diffusion(pipeline.rf, dv, classifier="classifier" in dv)
 
 
 def load_discriminator(disc: nn.Module, variables: Mapping[str, Any]) -> None:

@@ -10,7 +10,10 @@
   mean 0 and var 1, learnable positions N(0, 1).
 
 Weights are drawn on the CPU from one ``torch.Generator``, so a seed gives
-the same weights whatever device the model then moves to.
+the same weights whatever device the model then moves to.  The modules are
+visited in registration order, so a module registered last (the diffusion
+model's adversarial classifier, whose strided pools are StreamConv1d too)
+leaves the draws of those before it unchanged.
 """
 
 from __future__ import annotations

@@ -65,7 +65,34 @@ Phases, each printed before the last line:
    step's losses (within CARD_VS_CPU_TOL) and gradients (each tensor within
    TRAIN_GRAD_TOL of its model x the larger of its max |g| and 1e-3 x the
    model's largest gradient, the median over tensors within
-   TRAIN_GRAD_MEDIAN_TOL), with the reading with TF32 allowed beside them.
+   TRAIN_GRAD_MEDIAN_TOL), with the reading with TF32 allowed beside them;
+10. diffusion training: ``DiffusionTrainer`` with ``get_config("base",
+   "cycle")`` resolved to ``in_size=64, n_signal=128`` at batch 32 (every
+   dropout on), port-native weights from the seed, the curriculum cut so
+   that 15 steps of ``fit`` run every kind (DIFF_SCHEDULE: phase-1 steps
+   0-2, phase-2 diffusion steps 3 and 6, cycle steps 9 and 12 with the
+   timbre encoder frozen from step 10, classifier steps between them); the
+   first DIFF_COLLATE_STEPS batches from the port's collate over synthetic
+   (64, 4096) latent records made from the seed, the rest from a
+   ``DeviceLatentBank`` of the same records on the card.  Each step's host
+   time ending in a synchronize and the median of each kind without its
+   first step; every metric finite, no skipped update, each diffusion step
+   moving the denoiser, each encoder only while it trains (the frozen
+   timbre encoder's BatchNorm statistics still moving), the classifier
+   only in classifier steps and the EMA only in diffusion steps; one
+   phase-2 diffusion step under torch.profiler as in phase 4; peak device
+   memory; a checkpoint saved and restored under build/ with equal tensors;
+   ``validate``, then ``val_transfer_margin`` with the base codec of phase
+   4 through ``make_codec_coder`` (20 steps; its round trip decodes and
+   encodes 16 rows of 128 frames), the kernel's launches in it counted and
+   each launch held to its plain version, its time at those shapes as in
+   phase 3;
+11. diffusion training card vs CPU: the same base weights at batch 4, every
+   dropout 0, fixed draws: one cycle diffusion step's and one classifier
+   step's metrics (within CARD_VS_CPU_TOL) and gradients (each tensor
+   within DIFF_GRAD_TOL x the larger of its max |g| and 1e-3 x its model's
+   largest gradient, the median over each model's tensors within
+   DIFF_GRAD_MEDIAN_TOL), the reading with TF32 allowed beside them.
 
 Any failure exits non-zero.  The line before the last is the kernel table as
 JSON; the last line is ``{"ok": true, "device": {...}}``.  Imports nothing of
@@ -120,6 +147,30 @@ TRAIN_VS_CPU_SAMPLES = 16384
 # (scripts/torch_train_grads_f64.py)
 TRAIN_GRAD_TOL = {"codec": 2e-3, "disc": 5e-2}
 TRAIN_GRAD_MEDIAN_TOL = 2e-3
+DIFF_STEPS = 15
+DIFF_BATCH = 32
+DIFF_FRAMES = 128            # latent frames a crop (n_signal)
+DIFF_SCHEDULE = {"train.timbre_warmup": 3, "train.adversarial_warmup": 4,
+                 "train.update_classifier_every": 3,
+                 "train.cycle_start_step": 6,
+                 "train.stop_training_encoder_step": 9}
+DIFF_KINDS = (["phase1"] * 3 + ["diffusion", "classifier", "classifier",
+                                "diffusion", "classifier", "classifier",
+                                "cycle", "classifier", "classifier", "cycle",
+                                "classifier", "classifier"])
+DIFF_COLLATE_STEPS = 5       # batches from the host collate, then the bank
+DIFF_RECORDS = 32            # synthetic latent records of (64, 4096)
+DIFF_RECORD_FRAMES = 4096
+DIFF_VAL_BATCHES = 2
+DIFF_VS_CPU_BATCH = 4
+# card vs CPU gradients in phase 11, per tensor, x the larger of its max |g|
+# and 1e-3 x its model's largest gradient: the worst tensor of any model
+# and the median over each model's tensors.  Read on an H100 in strict f32:
+# worst 1.06e-02 (an ECAPA conv, whose gradients sum nearly cancelling
+# terms), medians up to 1.06e-03; with TF32 allowed 1.31e-01, medians
+# 2.9e-03 to 5.7e-02
+DIFF_GRAD_TOL = 3e-2
+DIFF_GRAD_MEDIAN_TOL = 2e-3
 
 
 def log(msg: str) -> None:
@@ -598,6 +649,353 @@ def train_card_vs_cpu() -> None:
     return grads
 
 
+def synthetic_latents(n: int, channels: int, frames: int, seed: int):
+    """n latent records (channels, frames), float32 numpy: three sinusoids
+    of random slow frequency, phase and level a channel, plus noise."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    t = np.arange(frames)
+    out = []
+    for _ in range(n):
+        f = rng.uniform(0.002, 0.05, (channels, 3, 1))
+        phase = rng.uniform(0, 2 * np.pi, (channels, 3, 1))
+        level = rng.uniform(0.3, 1.0, (channels, 3, 1))
+        z = (level * np.sin(2 * np.pi * f * t + phase)).sum(1)
+        out.append((z + 0.3 * rng.randn(channels, frames)).astype(np.float32))
+    return out
+
+
+def diffusion_config(**overrides):
+    from after_tpu_torch.config import get_config, with_overrides
+    cfg = get_config("base", "cycle").resolved(in_size=64,
+                                               n_signal=DIFF_FRAMES)
+    return with_overrides(cfg, {**DIFF_SCHEDULE,
+                                "train.batch_size": DIFF_BATCH, **overrides})
+
+
+def diffusion_phase(row, codec) -> None:
+    """Phase 10: diffusion training at full width (see the module
+    docstring); ``codec`` is the base codec whose checkpoint the validation
+    round trip loads."""
+    import itertools
+    import os
+
+    import numpy as np
+    import torch
+    from after_tpu_torch.cli.train import (make_codec_coder,
+                                           val_transfer_margin, validate)
+    from after_tpu_torch.config import ae_to_json, to_json
+    from after_tpu_torch.dataset import DeviceLatentBank, make_collate_fn
+    from after_tpu_torch.diffusion.trainer import DiffusionTrainer
+    from after_tpu_torch.models.autoencoder import ConvBlock1d
+    from after_tpu_torch.ops.kernels.fused_conv import (fused_snake_conv,
+                                                        snake_conv_reference)
+    from after_tpu_torch.ops.norms import BatchNorm
+    from after_tpu_torch.utils.checkpoint import (restore_checkpoint,
+                                                  save_checkpoint)
+    from torch.nn.modules.module import (register_module_forward_hook,
+                                         register_module_forward_pre_hook)
+
+    cfg = diffusion_config()
+    t0 = time.perf_counter()
+    tr = DiffusionTrainer(cfg, device="cuda", seed=SEED).init(SEED)
+    torch.cuda.synchronize()
+    counts = {n: sum(p.numel() for p in m.parameters())
+              for n, m in tr._models().items()}
+    log(f"diffusion: base + cycle config, n_signal {DIFF_FRAMES}, batch "
+        f"{DIFF_BATCH}, parameters {counts}, port-native init (seed {SEED}) "
+        f"in {time.perf_counter() - t0:.2f} s")
+    kinds = [tr.step_kind(i) for i in range(DIFF_STEPS)]
+    if kinds != DIFF_KINDS:
+        fail(f"fit's schedule {kinds} differs from {DIFF_KINDS}")
+
+    items = [{"z": z} for z in synthetic_latents(
+        DIFF_RECORDS, cfg.denoiser.n_channels, DIFF_RECORD_FRAMES, SEED)]
+    collate = make_collate_fn(DIFF_FRAMES, seed=SEED)
+    pick = np.random.RandomState(SEED)
+
+    def host_batch(collate_fn, batch=DIFF_BATCH):
+        return collate_fn([items[i] for i in
+                           pick.randint(0, len(items), batch)])
+
+    bank = DeviceLatentBank(items, DIFF_FRAMES, device="cuda")
+    batches = itertools.chain(
+        (host_batch(collate) for _ in range(DIFF_COLLATE_STEPS)),
+        bank.batches(DIFF_BATCH, seed=SEED))
+    log(f"diffusion: {DIFF_RECORDS} synthetic latent records of "
+        f"({cfg.denoiser.n_channels}, {DIFF_RECORD_FRAMES}); steps 0-"
+        f"{DIFF_COLLATE_STEPS - 1} from the host collate, the rest from a "
+        f"DeviceLatentBank of {bank.nbytes / 2**20:.1f} MiB on the card")
+
+    def bn_stats(module):
+        return torch.cat([m.running_mean for m in module.modules()
+                          if isinstance(m, BatchNorm)])
+
+    def snapshot(t):
+        return {"net": flat_params(t.rf.net), "encoder": flat_params(
+            t.rf.encoder), "encoder_time": flat_params(t.rf.encoder_time),
+            "classifier": flat_params(t.rf.classifier),
+            "ema": torch.cat([e.reshape(-1) for e in t.ema]),
+            "encoder_stats": bn_stats(t.rf.encoder)}
+
+    records = []
+    snap = {"state": snapshot(tr)}
+
+    def callback(t, metrics):
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - snap["t0"]
+        step = t.step - 1
+        values = {k: float(v) for k, v in metrics.items()}
+        state = snapshot(t)
+        moved = {k: not torch.equal(v, snap["state"][k])
+                 for k, v in state.items()}
+        records.append((kinds[step], dt, values, moved))
+        log(f"diffusion: step {step} ({kinds[step]}): {dt * 1e3:.2f} ms, "
+            "moved " + ",".join(k for k, m in moved.items() if m) + "; "
+            + ", ".join(f"{k} {v:.5g}" for k, v in values.items()))
+        snap["state"] = state
+        torch.cuda.synchronize()
+        snap["t0"] = time.perf_counter()
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    snap["t0"] = time.perf_counter()
+    tr.fit(batches, max_steps=DIFF_STEPS, callback=callback)
+    peak = torch.cuda.max_memory_allocated()
+    if len(records) != DIFF_STEPS:
+        fail(f"fit ran {len(records)} steps, expected {DIFF_STEPS}")
+    for step, (kind, _, values, moved) in enumerate(records):
+        if not all(math.isfinite(v) for v in values.values()):
+            fail(f"diffusion step {step}: non-finite metrics {values}")
+        if values.get("skipped_nonfinite", 0) != 0:
+            fail(f"diffusion step {step}: an update was skipped")
+        if kind == "classifier":
+            want = {"net": False, "encoder": False, "encoder_time": False,
+                    "classifier": True, "ema": False,
+                    "encoder_stats": False}
+        else:
+            phase1, train_enc, train_enc_t, _ = tr.step_flags(step)
+            want = {"net": True, "encoder": train_enc,
+                    "encoder_time": train_enc_t and not phase1,
+                    "classifier": False, "ema": True, "encoder_stats": True}
+        if moved != want:
+            fail(f"diffusion step {step} ({kind}): moved {moved}, "
+                 f"expected {want}")
+    if tr.cls_optimizer.total_notfinite:
+        fail("a classifier update was skipped")
+    medians = {}
+    for kind in ("phase1", "diffusion", "cycle", "classifier"):
+        times = [dt for k, dt, *_ in records if k == kind]
+        rest = times[1:]
+        medians[kind] = sorted(rest)[len(rest) // 2] * 1e3
+        log(f"diffusion: {kind} steps: first {times[0] * 1e3:.2f} ms, "
+            f"median of the rest {medians[kind]:.2f} ms ({len(rest)})")
+    log(f"diffusion: peak device memory {peak / 2**30:.2f} GiB")
+    batch = tr.upload(next(batches))
+    step = DIFF_SCHEDULE["train.timbre_warmup"]
+    profile_call("one phase-2 diffusion step", lambda: tr.train_step(
+        batch, *tr.step_flags(step), *tr.schedule_weights(step)))
+
+    # checkpoint under build/
+    ckpt = os.path.join("build", "diffusion_ckpt")
+    t0 = time.perf_counter()
+    save_checkpoint(ckpt, tr.step, tr.state_tree(), to_json(cfg))
+    restored = restore_checkpoint(ckpt)
+    ckpt_s = time.perf_counter() - t0
+
+    def equal(a, b):
+        if isinstance(a, dict):
+            return a.keys() == b.keys() and all(equal(a[k], b[k]) for k in a)
+        if isinstance(a, (list, tuple)):
+            return len(a) == len(b) and all(map(equal, a, b))
+        if isinstance(a, torch.Tensor):
+            return torch.equal(a.cpu(), b)
+        return a == b
+
+    if not equal(tr.state_tree(), restored):
+        fail("the restored checkpoint differs from the train state")
+    size = sum(os.path.getsize(os.path.join(d, f))
+               for d, _, fs in os.walk(ckpt) for f in fs)
+    log(f"diffusion: checkpoint of step {tr.step} saved and restored in "
+        f"{ckpt_s:.2f} s ({size / 2**20:.1f} MiB), every tensor equal")
+
+    # validation: loss, then the transfer margin across the codec
+    val_collate = make_collate_fn(DIFF_FRAMES, seed=SEED + 1)
+    val_batches = [host_batch(val_collate) for _ in range(DIFF_VAL_BATCHES)]
+    t0 = time.perf_counter()
+    vloss = validate(tr, val_batches)
+    torch.cuda.synchronize()
+    val_ms = (time.perf_counter() - t0) * 1e3
+    codec_dir = os.path.join("build", "codec_ckpt")
+    save_checkpoint(codec_dir, 0, {"codec_vars": codec.state_dict()},
+                    ae_to_json(codec.cfg))
+    decode, encode = make_codec_coder(codec_dir, device="cuda")
+    seen_z = []
+
+    def dec(z):
+        seen_z.append(z)
+        return decode(z)
+
+    # the coder's codec is its own: its blocks are found by a global hook
+    path = []
+
+    def record(mod, args):
+        if isinstance(mod, ConvBlock1d):
+            path.append((mod, args[0].shape[1]))
+
+    hook = register_module_forward_pre_hook(record)
+    torch.cuda.synchronize()
+    fused_snake_conv.launches = 0
+    t0 = time.perf_counter()
+    margins = val_transfer_margin(tr, val_batches, codec=(dec, encode))
+    torch.cuda.synchronize()
+    margin_ms = (time.perf_counter() - t0) * 1e3
+    launches = fused_snake_conv.launches
+    hook.remove()
+    if launches == 0 or launches != len(path):
+        fail(f"the validation round trip launched fused_snake_conv "
+             f"{launches} times for {len(path)} ConvBlock1d calls")
+    if not (math.isfinite(vloss)
+            and all(math.isfinite(v) for v in margins.values())):
+        fail(f"non-finite validation: loss {vloss}, {margins}")
+    log(f"diffusion: validate over {DIFF_VAL_BATCHES} batches {vloss:.5g} "
+        f"({val_ms:.2f} ms); val_transfer_margin (20 steps, round trip of "
+        f"{tuple(seen_z[0].shape)} latents) " + ", ".join(
+            f"{k} {v:+.5f}" for k, v in margins.items())
+        + f" in {margin_ms:.2f} ms; fused_snake_conv launches {launches}")
+
+    # each launch of the round trip against its plain version
+    worst = [0.0]
+
+    def check(mod, args, out):
+        if not isinstance(mod, ConvBlock1d):
+            return
+        h = mod.gn(args[0]) if mod.gn is not None else args[0]
+        ref = snake_conv_reference(h.contiguous(), mod.act.alpha,
+                                   mod.act.beta, mod.conv.effective_weight(),
+                                   mod.conv.bias, mod.conv.dilation,
+                                   mod.conv.mode)
+        err = (out - ref).abs().max().item()
+        scale = ref.abs().max().item()
+        if not err <= KERNEL_TOL * scale:
+            fail(f"round trip: fused_snake_conv at {tuple(h.shape)} off its "
+                 f"plain version by {err} > {KERNEL_TOL} * {scale}")
+        worst[0] = max(worst[0], err / scale)
+
+    hook = register_module_forward_hook(check)
+    encode(decode(seen_z[0]))
+    hook.remove()
+    log(f"diffusion: each of the round trip's {launches} launches within "
+        f"{worst[0]:.3e} x max|y| of its plain version (limit {KERNEL_TOL})")
+    with torch.no_grad():
+        per_trip = check_fused_conv(path, "validation round trip",
+                                    seen_z[0].shape[0])
+    row.update({
+        "launches_validation": launches,
+        "ms_per_validation_round_trip": per_trip["ms"],
+        "bound_ms_per_validation_round_trip": per_trip["bound_ms"],
+        "bound_by_validation_round_trip": per_trip["bound_by"],
+        "plain_ms_per_validation_round_trip": per_trip["plain_ms"],
+        "library_ms_per_validation_round_trip": per_trip["library_ms"],
+        "diffusion_step_ms_median": medians,
+        "diffusion_peak_memory_gib": peak / 2**30,
+        "max_abs_err": max(row["max_abs_err"], per_trip["max_abs_err"]),
+        "f64_err": max(row["f64_err"], per_trip["f64"][0]),
+        "f64_err_conv1d": max(row["f64_err_conv1d"], per_trip["f64"][1]),
+        "f64_err_conv1d_tf32": max(row["f64_err_conv1d_tf32"],
+                                   per_trip["f64"][2]),
+    })
+    del tr, bank, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def diffusion_card_vs_cpu():
+    """Phase 11: one cycle diffusion step and one classifier step on the
+    card and on the CPU, same weights, batch and draws, dropouts 0."""
+    import numpy as np
+    import torch
+    from after_tpu_torch.dataset import make_collate_fn
+    from after_tpu_torch.diffusion.trainer import (DiffusionTrainer,
+                                                   shuffle_index)
+    from after_tpu_torch.utils.device import strict_f32
+
+    cfg = diffusion_config(**{"denoiser.dropout": 0.0,
+                              "encoder_time.dropout": 0.0,
+                              "classifier.dropout": 0.0,
+                              "train.batch_size": DIFF_VS_CPU_BATCH})
+    card = DiffusionTrainer(cfg, device="cuda").init(SEED)
+    cpu = DiffusionTrainer(cfg, device="cpu")
+    cpu.rf.load_state_dict(card.rf.state_dict())
+    B, T, C = DIFF_VS_CPU_BATCH, DIFF_FRAMES, cfg.denoiser.n_channels
+    items = [{"z": z} for z in synthetic_latents(B, C, 512, SEED + 5)]
+    batch = make_collate_fn(T, seed=SEED + 5)(items)
+    rng = np.random.RandomState(SEED + 5)
+    shuffle = shuffle_index(B, T, tuple(cfg.train.shuffle_zsem),
+                            torch.Generator().manual_seed(SEED + 5),
+                            torch.device("cpu")).numpy()
+    draws = {"shuffle": shuffle,
+             "cond_noise": rng.randn(B, cfg.zt_channels),
+             "time_cond_noise": rng.randn(B, T, cfg.zs_channels),
+             "cfg_uniform": rng.uniform(size=B),
+             "x0": rng.randn(B, T, C), "t": rng.uniform(size=B),
+             "cycle_perm": rng.permutation(B)}
+    step = DIFF_SCHEDULE["train.stop_training_encoder_step"]  # a cycle step
+    flags, weights = card.step_flags(step), card.schedule_weights(step)
+    if card.step_kind(step) != "cycle":
+        fail(f"step {step} is not a cycle step")
+
+    def run(tr):
+        dm, dg, _ = tr.train_grads(batch, *flags, *weights, draws=draws)
+        cm, cg, _ = tr.classifier_grads(batch, {"shuffle": shuffle})
+        grads = {n: [g.cpu() for g in gs] for n, gs in dg.items()}
+        grads["classifier"] = [g.cpu() for g in cg]
+        return {**{k: float(v) for k, v in dm.items()},
+                **{k: float(v) for k, v in cm.items()}}, grads
+
+    def compare(a, b):
+        loss = max(abs(a[0][k] - v) / max(abs(v), 1e-2)
+                   for k, v in b[0].items())
+        worst, medians = (0.0, ""), {}
+        for model, gb in b[1].items():
+            floor = 1e-3 * max(g.abs().max().item() for g in gb)
+            if floor == 0:
+                continue
+            names = [n for n, _ in getattr(
+                card.rf, model).named_parameters()]
+            ratios = sorted(
+                ((p - q).abs().max().item() / max(q.abs().max().item(),
+                                                  floor), n)
+                for n, p, q in zip(names, a[1][model], gb))
+            worst = max(worst, (ratios[-1][0], f"{model}.{ratios[-1][1]}"))
+            medians[model] = ratios[len(ratios) // 2][0]
+        return loss, worst, medians
+
+    on_cpu = run(cpu)
+    loss, worst, medians = compare(run(card), on_cpu)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    loss_t, worst_t, medians_t = compare(run(card), on_cpu)
+    strict_f32()
+    log(f"diffusion card vs CPU: batch {B}, a cycle step (step {step}) and "
+        f"a classifier step, fixed draws: metrics within {loss:.3e} x "
+        f"max(|v|, 0.01) (limit {CARD_VS_CPU_TOL}; with TF32 allowed "
+        f"{loss_t:.3e}); " + ", ".join(f"{k} {v:.5g}"
+                                      for k, v in on_cpu[0].items()))
+    log(f"diffusion card vs CPU gradients (x max(max|g|, 1e-3 x the model's "
+        f"largest)): worst {worst[0]:.3e} ({worst[1]}; limit {DIFF_GRAD_TOL})"
+        f", medians " + ", ".join(f"{k} {v:.3e}" for k, v in medians.items())
+        + f" (limit {DIFF_GRAD_MEDIAN_TOL}); with TF32 allowed worst "
+        f"{worst_t[0]:.3e} ({worst_t[1]}), medians " + ", ".join(
+            f"{k} {v:.3e}" for k, v in medians_t.items()))
+    if not (loss <= CARD_VS_CPU_TOL and worst[0] <= DIFF_GRAD_TOL
+            and max(medians.values()) <= DIFF_GRAD_MEDIAN_TOL):
+        fail("diffusion training: card and CPU disagree")
+    return worst[0], max(medians.values())
+
+
 def kernel_row(per_transfer, per_buffer):
     """The kernel table's row: per transfer (the offline path) and per
     streamed buffer."""
@@ -990,6 +1388,10 @@ def main() -> None:
     train_phase(row)
     grads = train_card_vs_cpu()
     row["grad_card_vs_cpu_training"] = {m: g[0] for m, g in grads.items()}
+
+    # 10. diffusion training at full width; 11. its card vs CPU
+    diffusion_phase(row, pipe.codec)
+    row["grad_card_vs_cpu_diffusion"] = diffusion_card_vs_cpu()
 
     print(json.dumps({"kernels": [row]}), flush=True)
     print(json.dumps({"ok": True, "device": {
