@@ -54,14 +54,21 @@
 //    and then issues the stage's MMAs as one group.  B (weights) is read by
 //    the tensor cores from the swizzled TMA tiles through descriptors.
 //  - Filling the card: BN is 64, 128 or 256 (as wide as O allows without
-//    doubling it), and the channel sum may be split over blocks (gridDim.z)
-//    that add into a zeroed y with atomics.  A cost model fitted to this
-//    kernel's times (make_plan) picks both per shape; it ends up filling one
-//    wave of about 128 blocks, which at the 1024-frame stages means
-//    splitting the sum 5 to 8 ways.
+//    doubling it), and the channel sum may be split over blocks (gridDim.z).
+//    A cost model fitted to this kernel's times (make_plan) picks both per
+//    shape; it ends up filling one wave of about 128 blocks, which at the
+//    1024-frame stages means splitting the sum 5 to 8 ways.  Split blocks
+//    store their partial sums in a scratch buffer (the caller's ``ws``, one
+//    (B, T, O) slab per split), and a second kernel (sum_splits) adds the
+//    slabs in split order: the output does not depend on the order the
+//    blocks run in, so every launch of a shape, eager or replayed from a
+//    CUDA graph, gives the same bits.
 //
 // Every shape runs this one kernel: ragged T, C and O are masked and any B
-// is taken.  A launch error is returned to the caller, which raises.
+// is taken.  A launch error is returned to the caller, which raises.  Each
+// kernel adds one to a device counter the caller passes (from one thread of
+// its first block), so launches replayed from a CUDA graph are counted as
+// eager ones are.
 
 #include <cuda.h>
 #include <cuda_runtime.h>
@@ -81,6 +88,8 @@ struct Params {
   const float* beta;
   const float* bias;
   float* y;
+  float* ws;            // (splits, B, T, O) partial sums when splits > 1
+  unsigned long long* count;   // launches of this kernel, or null
   int T, C, O, k, dilation, left;
   int win;              // window rows: kRows + (k - 1) * dilation
   int groups;           // tap groups per channel chunk: k / KT
@@ -370,6 +379,11 @@ snake_conv_3xtf32(const __grid_constant__ CUtensorMap w_hi,
   const int n = min(p.n_stages, st0 + p.stages_per_split) - st0;
   const float* const xb = p.x + (size_t)b * p.T * p.C;
 
+  // one block counts the launch, on the device: replays of a CUDA graph
+  // count as eager launches do
+  if (p.count != nullptr && tid == 0 && blockIdx.x == 0 && blockIdx.y == 0 &&
+      blockIdx.z == 0)
+    atomicAdd(p.count, 1ull);
   if (tid == 0) {
     for (int s = 0; s < kRing; ++s) mbar_init(full + s, 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
@@ -522,10 +536,13 @@ snake_conv_3xtf32(const __grid_constant__ CUtensorMap w_hi,
     __syncthreads();     // stage i + 1 is activated; stage i's slot is free
   }
 
-  // sums: d[4q + 2h + e] is row (lane / 4) + 8h, column 8q + 2 * tig + e
-  float* const yb = p.y + (size_t)b * p.T * p.O;
-  const bool atomic = p.splits > 1;
-  const bool pairs = !atomic && (p.O % 2 == 0);
+  // sums: d[4q + 2h + e] is row (lane / 4) + 8h, column 8q + 2 * tig + e;
+  // a split block writes its partial sums to its own slab of ws
+  const int batch = gridDim.z / p.splits;
+  float* const yb =
+      p.splits > 1 ? p.ws + ((size_t)split * batch + b) * p.T * p.O
+                   : p.y + (size_t)b * p.T * p.O;
+  const bool pairs = p.O % 2 == 0;
 #pragma unroll
   for (int q = 0; q < BN / 8; ++q) {
     const int o = o0 + 8 * q + 2 * tig;
@@ -541,16 +558,28 @@ snake_conv_3xtf32(const __grid_constant__ CUtensorMap w_hi,
       float* dst = yb + (size_t)t * p.O + o;
       const float v0 = acc[4 * q + 2 * h] + b0;
       const float v1 = acc[4 * q + 2 * h + 1] + b1;
-      if (atomic) {
-        atomicAdd(dst, v0);
-        if (has1) atomicAdd(dst + 1, v1);
-      } else if (pairs) {
+      if (pairs) {
         *reinterpret_cast<float2*>(dst) = make_float2(v0, v1);
       } else {
         dst[0] = v0;
         if (has1) dst[1] = v1;
       }
     }
+  }
+}
+
+// y[i] = ws[0][i] + ws[1][i] + ... in split order, over n = B * T * O;
+// block 0 counts the launch in *count when it is not null
+__global__ void sum_splits(const float* __restrict__ ws, float* __restrict__ y,
+                           long long n, int splits,
+                           unsigned long long* count) {
+  if (count != nullptr && blockIdx.x == 0 && threadIdx.x == 0)
+    atomicAdd(count, 1ull);
+  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < n;
+       i += (long long)gridDim.x * blockDim.x) {
+    float v = ws[i];
+    for (int s = 1; s < splits; ++s) v += ws[s * n + i];
+    y[i] = v;
   }
 }
 
@@ -685,11 +714,16 @@ int fused_snake_conv_plan(int B, int T, int C, int O, int k, int dilation,
 }
 
 // Launches on `stream` and returns a CUDA error code (0 on success).  w and
-// wlo are (k, O, Cw), Cw >= C a multiple of 4, 16-byte aligned.
+// wlo are (k, O, Cw), Cw >= C a multiple of 4, 16-byte aligned; ws holds
+// splits * B * T * O floats when the plan splits the channel sum (else it
+// may be null).  counts, when not null, is two device counters to which
+// the launched kernels add one each: counts[0] the conv kernel's launches,
+// counts[1] those of sum_splits.
 int fused_snake_conv_f32(const float* x, const float* alpha, const float* beta,
                          const float* w, const float* wlo, const float* bias,
-                         float* y, int B, int T, int C, int O, int k,
-                         int dilation, int left, int Cw, void* stream) {
+                         float* y, float* ws, int B, int T, int C, int O,
+                         int k, int dilation, int left, int Cw,
+                         unsigned long long* counts, void* stream) {
   if (B <= 0 || T <= 0 || C <= 0 || O <= 0 || k <= 0 || dilation <= 0 ||
       left < 0 || left > (k - 1) * dilation || Cw < C || Cw % 4 != 0 ||
       (uintptr_t)w % 16 != 0 || (uintptr_t)wlo % 16 != 0)
@@ -698,18 +732,17 @@ int fused_snake_conv_f32(const float* x, const float* alpha, const float* beta,
   const int err = make_plan(B, T, C, O, k, dilation, &plan);
   if (err) return err;
   if ((long long)B * plan.splits > 65535) return (int)cudaErrorInvalidValue;
+  if (plan.splits > 1 && (ws == nullptr || (uintptr_t)ws % 8 != 0))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  if (plan.splits > 1) {
-    const cudaError_t e =
-        cudaMemsetAsync(y, 0, sizeof(float) * B * T * O, s);
-    if (e != cudaSuccess) return (int)e;
-  }
   Params p;
   p.x = x;
   p.alpha = alpha;
   p.beta = beta;
   p.bias = bias;
   p.y = y;
+  p.ws = ws;
+  p.count = counts;
   p.T = T;
   p.C = C;
   p.O = O;
@@ -722,14 +755,22 @@ int fused_snake_conv_f32(const float* x, const float* alpha, const float* beta,
   p.stages_per_split = plan.stages_per_split;
   p.splits = plan.splits;
   p.vec_x = C % 4 == 0 && (uintptr_t)x % 16 == 0;
+  int e;
   switch (plan.bn * 4 + plan.kt) {
-    case 64 * 4 + 3: return launch<64, 16, 3>(w, wlo, Cw, p, plan, B, s);
-    case 128 * 4 + 3: return launch<128, 8, 3>(w, wlo, Cw, p, plan, B, s);
-    case 256 * 4 + 3: return launch<256, 8, 3>(w, wlo, Cw, p, plan, B, s);
-    case 64 * 4 + 1: return launch<64, 32, 1>(w, wlo, Cw, p, plan, B, s);
-    case 128 * 4 + 1: return launch<128, 16, 1>(w, wlo, Cw, p, plan, B, s);
-    default: return launch<256, 16, 1>(w, wlo, Cw, p, plan, B, s);
+    case 64 * 4 + 3: e = launch<64, 16, 3>(w, wlo, Cw, p, plan, B, s); break;
+    case 128 * 4 + 3: e = launch<128, 8, 3>(w, wlo, Cw, p, plan, B, s); break;
+    case 256 * 4 + 3: e = launch<256, 8, 3>(w, wlo, Cw, p, plan, B, s); break;
+    case 64 * 4 + 1: e = launch<64, 32, 1>(w, wlo, Cw, p, plan, B, s); break;
+    case 128 * 4 + 1: e = launch<128, 16, 1>(w, wlo, Cw, p, plan, B, s); break;
+    default: e = launch<256, 16, 1>(w, wlo, Cw, p, plan, B, s);
   }
+  if (e != 0 || plan.splits == 1) return e;
+  const long long n = (long long)B * T * O;
+  const long long most = (long long)kSMs * 8;
+  const int blocks = (int)((n + 255) / 256 < most ? (n + 255) / 256 : most);
+  sum_splits<<<blocks, 256, 0, s>>>(ws, y, n, plan.splits,
+                                    counts == nullptr ? nullptr : counts + 1);
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

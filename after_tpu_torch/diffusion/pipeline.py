@@ -5,34 +5,57 @@ after_tpu/diffusion/pipeline.py).
 with 3-way CFG -> decode``.  Every entry point runs on the pipeline's device,
 which is the CUDA card unless the caller passes ``device="cpu"``.  Inputs and
 outputs keep the JAX package's (B, T, C) layout.
+
+On the card each entry point runs as a CUDA graph, as the JAX package jits
+each of them: keyed by its input shapes (and ``nb_steps`` for ``diffuse``
+and ``transfer``, static as in JAX), captured on the first call with a new
+key (utils/graphs.py) and replayed after that, with the inputs copied into
+its static buffers and the guidances in static device scalars, so they may
+change from call to call.  The sampler's noise, when not given, is drawn
+with ``generator`` outside the graph and copied in as an input.  Outputs are
+copies, not the graph's buffers.  ``eager=True`` (or setting
+``pipeline.eager``) runs the same calls op by op instead; on the CPU they
+always run so.
 """
 
 from __future__ import annotations
 
-from typing import Any, Mapping, Optional, Union
+from typing import Any, Callable, Dict, Mapping, Optional, Sequence, Union
 
 import numpy as np
 import torch
 
 from ..config import AfterConfig
 from ..models.autoencoder import AudioCodec
-from ..utils.device import resolve_device, strict_f32
-from .rectified_flow import RectifiedFlow
+from ..utils.device import (copy_from_host, resolve_device, strict_f32,
+                            to_device)
+from ..utils.graphs import GraphPool, capture_key
+from .rectified_flow import RectifiedFlow, guidance_mix
 
 ArrayLike = Union[torch.Tensor, np.ndarray]
+
+
+def _shape(x) -> tuple:
+    return tuple(x.shape) if hasattr(x, "shape") else np.shape(x)
 
 
 class TransferPipeline:
     """Codec + diffusion models for offline timbre transfer."""
 
     def __init__(self, cfg: AfterConfig,
-                 device: Optional[Union[str, torch.device]] = None):
+                 device: Optional[Union[str, torch.device]] = None, *,
+                 eager: bool = False):
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.eager = eager
         # every matmul and convolution in strict f32 (no TF32 on the card)
         strict_f32()
         self.codec = AudioCodec(cfg.autoencoder).eval().to(self.device)
         self.rf = RectifiedFlow(cfg).eval().to(self.device)
+        # the CUDA graphs, made at the first capture: {key: (capture key,
+        # graph, static inputs)}
+        self.graphs: Optional[GraphPool] = None
+        self._graphs: Dict[tuple, tuple] = {}
 
     def init(self, seed: int = 0) -> "TransferPipeline":
         """Port-native random weights from ``seed`` (utils/init.py)."""
@@ -48,31 +71,66 @@ class TransferPipeline:
         return self
 
     def _tensor(self, x: ArrayLike) -> torch.Tensor:
-        return torch.as_tensor(x, dtype=torch.float32, device=self.device)
+        return to_device(x, self.device)
+
+    @property
+    def graphed(self) -> bool:
+        """Whether the entry points run as CUDA graphs (on the card, unless
+        ``eager``)."""
+        return self.device.type == "cuda" and not self.eager
+
+    def _pool(self) -> GraphPool:
+        if self.graphs is None:
+            self.graphs = GraphPool(self.device)
+        return self.graphs
+
+    def _run(self, name: str, fn: Callable[..., torch.Tensor],
+             inputs: Sequence[Any], static: tuple = ()) -> torch.Tensor:
+        """fn(*inputs) on the pipeline's device: eagerly, or as the graph of
+        (name, the inputs' shapes, ``static``) with the inputs copied into
+        its static buffers; returns a copy of its output.  The graph is
+        captured, after a warm-up, on the first call with its key, and
+        again if the weights or the TF32 switches changed since."""
+        if not self.graphed:
+            return fn(*(self._tensor(x) for x in inputs))
+        key = (name, *(_shape(x) for x in inputs), *static)
+        check = capture_key(self.codec, self.rf)
+        entry = self._graphs.get(key)
+        statics = entry[2] if entry is not None else [
+            torch.empty(_shape(x), device=self.device) for x in inputs]
+        for buf, x in zip(statics, inputs):
+            copy_from_host(buf, x)
+        if entry is None or entry[0] != check:
+            pool = self._pool()
+            pool.warm(lambda: fn(*statics))
+            entry = self._graphs[key] = (
+                check, pool.capture(lambda: fn(*statics)), statics)
+        return entry[1].replay().clone()
 
     # -- codec entry points ------------------------------------------------
 
     @torch.inference_mode()
     def encode(self, audio: ArrayLike) -> torch.Tensor:
         """(B, T, 1) waveform -> (B, T / ratio, z) codec latents."""
-        return self.codec.encode(self._tensor(audio))
+        return self._run("encode", self.codec.encode, [audio])
 
     @torch.inference_mode()
     def decode(self, z: ArrayLike) -> torch.Tensor:
         """(B, Tl, z) latents -> waveform (B, Tl * ratio (+ M centered), 1)."""
-        return self.codec.decode(self._tensor(z))
+        return self._run("decode", self.codec.decode, [z])
 
     # -- conditioning entry points ----------------------------------------
 
     @torch.inference_mode()
     def timbre(self, z: ArrayLike) -> torch.Tensor:
         """Codec latents -> global timbre vector (B, zt)."""
-        return self.rf.encode_timbre(self._tensor(z))[0]
+        return self._run("timbre", lambda x: self.rf.encode_timbre(x)[0], [z])
 
     @torch.inference_mode()
     def structure(self, z: ArrayLike) -> torch.Tensor:
         """Codec latents -> per-frame structure codes (B, T, zs)."""
-        return self.rf.encode_structure(self._tensor(z))[0]
+        return self._run("structure",
+                         lambda x: self.rf.encode_structure(x)[0], [z])
 
     # -- generation --------------------------------------------------------
 
@@ -80,9 +138,23 @@ class TransferPipeline:
     def diffuse(self, x0: ArrayLike, cond: ArrayLike, time_cond: ArrayLike,
                 nb_steps: int = 20, guidance_timbre: float = 1.0,
                 guidance_structure: float = 1.0) -> torch.Tensor:
-        return self.rf.sample(self._tensor(x0), self._tensor(cond),
-                              self._tensor(time_cond), nb_steps,
-                              guidance_timbre, guidance_structure)
+        """The Euler sampler from x0; ``nb_steps`` is static (one graph for
+        each), the guidances are runtime values."""
+        return self._run(
+            "diffuse", lambda x, c, tc, mix: self.rf.sample(
+                x, c, tc, nb_steps, mix=mix),
+            [x0, cond, time_cond,
+             guidance_mix(guidance_timbre, guidance_structure)], (nb_steps,))
+
+    def _transfer(self, audio_structure, audio_timbre, x0, mix, nb_steps):
+        """The transfer's chain on device tensors, from the sampler's noise
+        ``x0``."""
+        z_struct = self.codec.encode(audio_structure)
+        z_timbre = self.codec.encode(audio_timbre)
+        time_cond = self.rf.encode_structure(z_struct)[0]
+        cond = self.rf.encode_timbre(z_timbre)[0]
+        z_out = self.rf.sample(x0, cond, time_cond, nb_steps, mix=mix)
+        return self.codec.decode(z_out)
 
     @torch.inference_mode()
     def transfer(self, audio_structure: ArrayLike, audio_timbre: ArrayLike,
@@ -94,17 +166,22 @@ class TransferPipeline:
 
         ``audio_structure`` supplies the time-varying content, ``audio_timbre``
         the target timbre.  The sampler starts from ``x0`` when given, else
-        from normal noise drawn with ``generator`` (a generator on the
-        pipeline's device; seeded 0 when absent)."""
-        z_struct = self.encode(audio_structure)
-        z_timbre = self.encode(audio_timbre)
-        time_cond = self.structure(z_struct)
-        cond = self.timbre(z_timbre)
+        from normal noise of the structure latents' shape (B, T / ratio, z)
+        drawn with ``generator`` (a generator on the pipeline's device;
+        seeded 0 when absent).  On the card this is one CUDA graph per
+        (input shapes, ``nb_steps``)."""
         if x0 is None:
             if generator is None:
                 generator = torch.Generator(self.device).manual_seed(0)
-            x0 = torch.randn(z_struct.shape, generator=generator,
-                             device=self.device)
-        z_out = self.diffuse(x0, cond, time_cond, nb_steps, guidance_timbre,
-                             guidance_structure)
-        return self.decode(z_out)
+            B, T = _shape(audio_structure)[:2]
+            ratio = self.cfg.autoencoder.ratio
+            if T % ratio:
+                raise ValueError(f"{T} samples: a transfer takes a multiple "
+                                 f"of the codec's ratio {ratio}")
+            x0 = torch.randn((B, T // ratio, self.cfg.autoencoder.z_channels),
+                             generator=generator, device=self.device)
+        return self._run(
+            "transfer", lambda a, b, noise, mix: self._transfer(
+                a, b, noise, mix, nb_steps),
+            [audio_structure, audio_timbre, x0,
+             guidance_mix(guidance_timbre, guidance_structure)], (nb_steps,))

@@ -6,7 +6,7 @@ adversarial classifier, the training loss with its condition dropout, the
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -18,11 +18,23 @@ from ..models.ecapa import ECAPAEncoder
 from ..models.encoder import Encoder1D
 from ..ops.train_mode import TrainMode
 from ..streaming.state import Cache
+from ..utils.device import to_device
 
 
 def _f32(value) -> np.float32:
     """A Python number or a 0-d tensor as an f32 host scalar."""
     return np.float32(float(value))
+
+
+def guidance_mix(guidance_timbre, guidance_structure) -> np.ndarray:
+    """[total, factor] of the 3-way CFG mix as f32 host values, computed in
+    f32 as the JAX package computes them on the device: total = (gs + gt) /
+    2 and factor = gt / max(gs, 0.01).  The guidances are Python numbers or
+    0-d tensors."""
+    gt, gs = _f32(guidance_timbre), _f32(guidance_structure)
+    total = np.float32(0.5) * (gs + gt)
+    factor = gt / np.maximum(gs, np.float32(0.01))
+    return np.array([total, factor], dtype=np.float32)
 
 
 class RectifiedFlow(nn.Module):
@@ -112,59 +124,82 @@ class RectifiedFlow(nn.Module):
         return full_x, full_time, full_cond, full_tcond
 
     @staticmethod
-    def _cfg_mix(out, guidance_timbre, guidance_structure):
-        """Linear guidance mix of the 3 CFG rows; the guidances (Python
-        numbers or 0-d tensors) are mixed in f32 on the host, as the JAX
-        package mixes them in f32."""
+    def _cfg_mix(out, total, factor):
+        """Linear guidance mix of the 3 CFG rows, with ``total`` and
+        ``factor`` of ``guidance_mix`` as 0-d tensors (device scalars that
+        a CUDA graph reads at replay) or numbers."""
         o_full, o_tc, o_none = out.chunk(3, dim=0)
-        gt, gs = _f32(guidance_timbre), _f32(guidance_structure)
-        total = np.float32(0.5) * (gs + gt)
-        factor = gt / np.maximum(gs, np.float32(0.01))
-        return o_none + float(total) * (o_tc + float(factor) * (o_full - o_tc)
-                                        - o_none)
+        return o_none + total * (o_tc + factor * (o_full - o_tc) - o_none)
 
-    def model_forward(self, x, time, cond, time_cond, guidance_timbre,
-                      guidance_structure, cache: Cache = None,
-                      cache_index: int = 0):
-        """3-way CFG velocity in one batched forward of 3B rows; a streaming
-        net takes its KV cache and the Euler step's slot."""
+    def model_forward(self, x, time, cond, time_cond, mix: torch.Tensor,
+                      cache: Cache = None, cache_index: int = 0):
+        """3-way CFG velocity in one batched forward of 3B rows, mixed with
+        ``mix`` = [total, factor] (``guidance_mix``) on x's device; a
+        streaming net takes its KV cache and the Euler step's slot."""
         dx = self.net(*self._cfg_inputs(x, time, cond, time_cond),
                       cache=cache, cache_index=cache_index)
-        return self._cfg_mix(dx, guidance_timbre, guidance_structure)
+        return self._cfg_mix(dx, mix[0], mix[1])
 
     def sample(self, x0, cond, time_cond, nb_steps: int,
-               guidance_timbre: float = 1.0, guidance_structure: float = 1.0):
+               guidance_timbre: float = 1.0, guidance_structure: float = 1.0,
+               mix: Optional[torch.Tensor] = None):
         """Euler integration from noise x0 at t = 0 to t = 1 on the exact
-        grid t_i = i / n."""
+        grid t_i = i / n.  ``nb_steps`` is fixed, as it is static in the JAX
+        sampler; the guidances are runtime values: ``mix`` (``guidance_mix``
+        on x0's device, a CUDA graph's static input) when given, else made
+        from ``guidance_timbre`` and ``guidance_structure``."""
+        if mix is None:
+            mix = to_device(guidance_mix(guidance_timbre, guidance_structure),
+                            x0.device)
         dt = 1.0 / nb_steps
         t_values = torch.arange(nb_steps, dtype=torch.float32) / nb_steps
         x = x0
         for t in t_values.tolist():
             time = torch.full((x.shape[0],), t, dtype=x.dtype, device=x.device)
-            dx = self.model_forward(x, time, cond, time_cond,
-                                    guidance_timbre, guidance_structure)
+            dx = self.model_forward(x, time, cond, time_cond, mix)
             x = x + dx * dt
         return x
+
+    def stream_scalars(self, nb_steps=1, guidance_timbre=1.0,
+                       guidance_structure=1.0) -> Tuple[int, np.ndarray]:
+        """(nb, scalars) of one streaming buffer: ``nb_steps`` clipped to
+        [1, max_diffusion_steps] (the slots the KV cache has), and the f32
+        vector [t_0 .. t_{S-1}, dt, total, factor] that its Euler steps read
+        (S = max_diffusion_steps): t_i = i / nb and dt = 1 / nb in f32, as
+        in the JAX sampler (t_i for i >= nb unused), then ``guidance_mix``.
+        The arguments are Python numbers or 0-d tensors."""
+        S = self.cfg.denoiser.max_diffusion_steps
+        nb = min(max(int(nb_steps), 1), S)
+        nb_f = np.float32(nb)
+        t = np.arange(S, dtype=np.float32) / nb_f
+        return nb, np.concatenate([
+            t, [np.float32(1.0) / nb_f],
+            guidance_mix(guidance_timbre, guidance_structure)]
+        ).astype(np.float32)
+
+    def stream_step(self, cache: Cache, i: int, x, cond, time_cond,
+                    scalars: torch.Tensor):
+        """Euler step i of a streaming buffer, on KV slot i: x + v * dt, with
+        t_i, dt and the guidance mix read from ``scalars``
+        (``stream_scalars``, on x's device); the cache is updated in place.
+        A CUDA graph of each slot serves every nb_steps."""
+        S = self.cfg.denoiser.max_diffusion_steps
+        time = scalars[i].expand(x.shape[0])
+        dx = self.model_forward(x, time, cond, time_cond, scalars[S + 1:],
+                                cache=cache, cache_index=i)
+        return x + dx * scalars[S]
 
     def sample_stream(self, cache: Cache, x0, cond, time_cond, nb_steps=1,
                       guidance_timbre=1.0, guidance_structure=1.0):
         """One streaming buffer: ``nb_steps`` Euler steps over x0's chunk of
-        frames, step i on KV slot i; the cache is updated in place.
-
-        ``nb_steps`` and the guidances are runtime values (Python numbers or
-        0-d tensors) that may change from one buffer to the next;
-        ``nb_steps`` is clipped to [1, max_diffusion_steps], the slots the
-        cache has.  The time grid t_i = i / n and the step 1 / n are f32, as
-        in the JAX sampler."""
-        nb = min(max(int(nb_steps), 1), self.cfg.denoiser.max_diffusion_steps)
-        nb_f = np.float32(nb)
-        dt = float(np.float32(1.0) / nb_f)
+        frames, step i on KV slot i (``stream_step``); the cache is updated
+        in place.  ``nb_steps`` and the guidances are runtime values (Python
+        numbers or 0-d tensors) that may change from one buffer to the
+        next (``stream_scalars``)."""
+        nb, values = self.stream_scalars(nb_steps, guidance_timbre,
+                                         guidance_structure)
+        scalars = to_device(values, x0.device)
         x = x0
         for i in range(nb):
-            t = float(np.float32(i) / nb_f)
-            time = torch.full((x.shape[0],), t, dtype=x.dtype, device=x.device)
-            dx = self.model_forward(x, time, cond, time_cond, guidance_timbre,
-                                    guidance_structure, cache=cache,
-                                    cache_index=i)
-            x = x + dx * dt
+            x = self.stream_step(cache, i, x, cond, time_cond, scalars)
         return x

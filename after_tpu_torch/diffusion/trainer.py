@@ -113,6 +113,20 @@ class DiffusionTrainer:
             raise NotImplementedError(
                 "train.steps_per_call > 1 (several steps in one call) is not "
                 "ported")
+        et = cfg.encoder_time
+        if (tc.cycle_consistency and et is not None and et.quantizer_levels
+                and et.quantizer_noise_dropout > 0):
+            # the JAX trainer re-encodes the cycle's estimate in training
+            # with only a "dropout" rng, and its Encoder1D's FSQ noise
+            # dropout then asks for a "sample" rng: flax raises
+            # InvalidRngError at the first cycle step
+            # (after_tpu/diffusion/trainer.py:313-316,
+            # after_tpu/models/encoder.py:141-146)
+            raise ValueError(
+                "train.cycle_consistency with "
+                "encoder_time.quantizer_noise_dropout > 0: the reference "
+                "trainer cannot run this (its cycle re-encode raises flax's "
+                "InvalidRngError), so the port refuses it")
         self.cfg, self.tc = cfg, tc
         self.device = resolve_device(device)
         strict_f32()

@@ -34,16 +34,32 @@ from ..streaming.state import Cache, Streaming, name_slots
 LN_EPS = 1e-6
 
 
+_FREQS: Dict[Tuple[int, float, torch.device], torch.Tensor] = {}
+
+
+def _freqs(half: int, max_positions: float,
+           device: torch.device) -> torch.Tensor:
+    """(half,) frequencies max_positions^(-i / half), made once per device:
+    a copy from the host on every call would stall the card and could not
+    be captured in a CUDA graph."""
+    key = (half, max_positions, device)
+    if key not in _FREQS:
+        with torch.inference_mode(False), torch.no_grad():
+            exponent = torch.arange(half, dtype=torch.float32,
+                                    device=device) / half
+            _FREQS[key] = torch.pow(torch.tensor(
+                1.0 / max_positions, dtype=torch.float32, device=device),
+                exponent)
+    return _FREQS[key]
+
+
 def fourier_features(t: torch.Tensor, num_channels: int,
                      max_positions: float = 10_000.0,
                      factor: float = 100.0) -> torch.Tensor:
     """Noise-level embedding: (B,) times in [0, 1] -> (B, num_channels)
     [cos | sin] features."""
     t = t.reshape(-1).to(torch.float32) * factor
-    half = num_channels // 2
-    freqs = torch.arange(half, dtype=torch.float32, device=t.device) / half
-    freqs = torch.pow(torch.tensor(1.0 / max_positions, dtype=torch.float32,
-                                   device=t.device), freqs)
+    freqs = _freqs(num_channels // 2, max_positions, t.device)
     ang = t[:, None] * freqs[None, :]
     return torch.cat([torch.cos(ang), torch.sin(ang)], dim=-1)
 

@@ -3,7 +3,7 @@ the training-time noise dropout."""
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -16,10 +16,22 @@ class FSQ:
         self.levels = tuple(int(v) for v in levels)
         self.noise_dropout = noise_dropout
         self.dim = len(self.levels)
+        self._levels: Dict[Tuple[torch.dtype, torch.device],
+                           torch.Tensor] = {}
+
+    def _levels_on(self, z: torch.Tensor) -> torch.Tensor:
+        """The levels as a tensor of z's type on z's device, made once per
+        device (no copy from the host on every call)."""
+        key = (z.dtype, z.device)
+        if key not in self._levels:
+            with torch.inference_mode(False):
+                self._levels[key] = torch.tensor(self.levels, dtype=z.dtype,
+                                                 device=z.device)
+        return self._levels[key]
 
     def _bound(self, z: torch.Tensor, eps: float = 1e-3) -> torch.Tensor:
         """Tanh-bound each channel into its quantization range."""
-        levels = torch.tensor(self.levels, dtype=z.dtype, device=z.device)
+        levels = self._levels_on(z)
         half_l = (levels - 1) * (1 - eps) / 2
         offset = torch.where(levels % 2 == 0, 0.5, 0.0).to(z.dtype)
         shift = torch.atanh(offset / half_l)
@@ -45,7 +57,7 @@ class FSQ:
         ``noise_dropout`` the code is the raw z, where the second's is, z +
         (noise - 0.5) / half_width."""
         bounded = self._bound(z)
-        levels = torch.tensor(self.levels, dtype=z.dtype, device=z.device)
+        levels = self._levels_on(z)
         half_width = torch.floor(levels / 2)
         # the straight-through sum of the JAX package, kept for its rounding
         quantized = (bounded + (torch.round(bounded) - bounded).detach()

@@ -14,7 +14,16 @@ kernel_layout=True)`` keeps it so at inference) is passed as it is; any
 other is rearranged and split per call (``kernel_weight``).
 ``fused_snake_conv`` launches the kernel for CUDA tensors and runs the plain
 version (``snake_conv_reference``) for CPU tensors; there is no other choice
-and no fallback between the two.
+and no fallback between the two.  Where the kernel's plan splits the channel
+sum over blocks, the wrapper hands it a scratch buffer for the partial
+sums, which the kernel adds in a fixed order: its output has the same bits
+from launch to launch, eager or replayed in a CUDA graph.
+
+Two counts of launches: ``fused_snake_conv.launches`` counts the wrapper's
+calls on the card (an eager launch, or one recorded by a CUDA graph
+capture; a replay runs no Python and adds nothing), and the kernels count
+their own launches on the device (``device_launches``,
+``reset_device_launches``), replays included.
 
 The op is differentiable, as the JAX package's custom VJP makes its kernel
 (``_fused_with_vjp``): on the card, inputs that need a gradient go through
@@ -26,7 +35,7 @@ beta, w, b).  There is no backward kernel, as the JAX package has none.
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Dict, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -58,7 +67,7 @@ def _lib():
         lib = load(SOURCE)
         p = ctypes.c_void_p
         i = ctypes.c_int
-        lib.fused_snake_conv_f32.argtypes = [p] * 7 + [i] * 8 + [p]
+        lib.fused_snake_conv_f32.argtypes = [p] * 8 + [i] * 8 + [p, p]
         lib.fused_snake_conv_f32.restype = ctypes.c_int
         lib.fused_snake_conv_plan.argtypes = [i] * 6 + [p]
         lib.fused_snake_conv_plan.restype = ctypes.c_int
@@ -66,18 +75,61 @@ def _lib():
     return _LIB
 
 
+_PLANS: Dict[Tuple[int, ...], Tuple[int, int, int]] = {}
+
+
 def kernel_plan(B: int, T: int, C: int, O: int, k: int, dilation: int = 1
                 ) -> Tuple[int, int, int]:
     """(output channels per block, channels per stage, splits of the
     channel sum) that a launch at this shape takes; builds the kernel if
     needed."""
-    out = (ctypes.c_int * 3)()
-    err = _lib().fused_snake_conv_plan(B, T, C, O, k, dilation,
-                                       ctypes.addressof(out))
-    if err != 0:
-        raise ValueError(f"no tiling for B={B} T={T} C={C} O={O} k={k} "
-                         f"d={dilation} (CUDA error {err})")
-    return tuple(out)
+    key = (B, T, C, O, k, dilation)
+    if key not in _PLANS:
+        out = (ctypes.c_int * 3)()
+        err = _lib().fused_snake_conv_plan(B, T, C, O, k, dilation,
+                                           ctypes.addressof(out))
+        if err != 0:
+            raise ValueError(f"no tiling for B={B} T={T} C={C} O={O} k={k} "
+                             f"d={dilation} (CUDA error {err})")
+        _PLANS[key] = tuple(out)
+    return _PLANS[key]
+
+
+_COUNTS: Dict[torch.device, torch.Tensor] = {}
+
+
+def _device_counts(device: torch.device) -> torch.Tensor:
+    """The two int64 launch counters on ``device`` that the kernels add to
+    (the conv kernel's, then the split sum's), made at the first launch; a
+    first launch inside a CUDA graph capture raises, since the counters
+    must not come from the graph's pool."""
+    device = torch.device("cuda", torch.cuda.current_device()
+                          if device.index is None else device.index)
+    counts = _COUNTS.get(device)
+    if counts is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("fused_snake_conv's launch counters are made "
+                               "at its first launch, which must not be "
+                               "inside a CUDA graph capture")
+        # a normal tensor even under inference mode, so that it can be
+        # reset outside it
+        with torch.inference_mode(False):
+            counts = _COUNTS[device] = torch.zeros(2, dtype=torch.int64,
+                                                   device=device)
+    return counts
+
+
+def device_launches(device="cuda") -> Tuple[int, int]:
+    """(launches of the snake+conv kernel, launches of its split-sum
+    kernel) on ``device`` since the last ``reset_device_launches``, as the
+    kernels counted them on the device: eager launches and those replayed
+    from CUDA graphs alike.  Waits for the device's work to end."""
+    return tuple(_device_counts(torch.device(device)).tolist())
+
+
+def reset_device_launches(device="cuda") -> None:
+    """Sets ``device``'s launch counters to 0, in stream order."""
+    _device_counts(torch.device(device)).zero_()
 
 
 def tf32_high(w: torch.Tensor) -> torch.Tensor:
@@ -127,7 +179,8 @@ def _launch(x: torch.Tensor, alpha: torch.Tensor, beta: torch.Tensor,
             w: torch.Tensor, b: torch.Tensor, dilation: int, mode: str
             ) -> torch.Tensor:
     """Checks the inputs, launches the kernel on x's device and counts the
-    launch in ``fused_snake_conv.launches``."""
+    call in ``fused_snake_conv.launches`` (the kernel counts its launch on
+    the device, ``device_launches``)."""
     if x.dim() != 3 or w.dim() != 3:
         raise ValueError(f"x must be (B, T, C) and w (O, C, k); got "
                          f"{tuple(x.shape)} and {tuple(w.shape)}")
@@ -147,12 +200,18 @@ def _launch(x: torch.Tensor, alpha: torch.Tensor, beta: torch.Tensor,
     left, _ = get_padding(k, 1, dilation, mode)
     wk, lo = kernel_weight(w)
     y = torch.empty((B, T, O), device=x.device, dtype=torch.float32)
+    # the partial sums of a split channel sum, added in split order
+    splits = kernel_plan(B, T, C, O, k, dilation)[2]
+    ws = (torch.empty((splits, B, T, O), device=x.device, dtype=torch.float32)
+          if splits > 1 else None)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _lib().fused_snake_conv_f32(
             x.data_ptr(), alpha.data_ptr(), beta.data_ptr(), wk.data_ptr(),
             lo.data_ptr(), b.data_ptr(), y.data_ptr(),
-            B, T, C, O, k, dilation, left, wk.shape[2], stream)
+            None if ws is None else ws.data_ptr(),
+            B, T, C, O, k, dilation, left, wk.shape[2],
+            _device_counts(x.device).data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"fused_snake_conv kernel launch failed with CUDA "
                            f"error {err} (B={B} T={T} C={C} O={O} k={k} "
@@ -192,7 +251,7 @@ def fused_snake_conv(x: torch.Tensor, alpha: torch.Tensor, beta: torch.Tensor,
     """conv(snake_beta(x)): x (B, T, C), alpha/beta (C,), w (O, C, k),
     b (O,) -> (B, T, O).
 
-    On a CUDA tensor this launches the kernel (and counts the launch in
+    On a CUDA tensor this launches the kernel (and counts the call in
     ``fused_snake_conv.launches``) or raises, through ``SnakeConvFunction``
     when an input needs a gradient; on a CPU tensor it is the plain version.
     x, alpha, beta and b must be contiguous; w is rearranged and split per

@@ -77,9 +77,11 @@ class CrossfadeState:
     cache: Cache
 
 
-@dataclasses.dataclass
+@dataclasses.dataclass(eq=False)
 class StreamState:
-    """Everything a stream carries from one buffer to the next."""
+    """Everything a stream carries from one buffer to the next.  States
+    compare and hash by identity: a streamer keys the CUDA graphs that
+    capture a state's addresses by the state itself."""
 
     codec_struct: Any      # codec encode caches, structure stream
     codec_timbre: Any      # codec encode caches, timbre stream

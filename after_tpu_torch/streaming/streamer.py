@@ -22,11 +22,30 @@ weights of both).  It runs on the card unless the caller passes
 ``device="cpu"``.  The sampler's noise ``x0`` is an argument; without it,
 it is drawn from the streamer's own generator on its device
 (``streamer.generator``, seeded 0).
+
+On the card a buffer runs as CUDA graphs, the counterpart of the JAX
+streamer's one jitted call with its state donated: one graph each for the
+structure stage, the timbre stage (with its latent ring), one Euler step
+per KV slot (``max_diffusion_steps`` of them) and the decode stage, so a
+buffer at ``nb_steps`` n replays 3 + n graphs.  The graphs read and write
+one state's tensors, so they belong to that state: they are captured when
+the state is made (``init_state``) or first used, after a warm-up whose
+writes to the state are undone (``warm_up``), and never again for a new
+``nb_steps`` or new guidances, which reach the step graphs as device
+scalars (``RectifiedFlow.stream_scalars``).  Each other state gets graphs
+of its own.  Each entry point is one sequence of stages over its state's
+buffers: inputs are copied into them, ``x0`` (when not given) is drawn
+into its buffer outside the graphs, and outputs are copies.  A stage is
+replayed from its graph, or, with ``Streamer(..., eager=True)`` (or
+``streamer.eager`` set) and always on the CPU, run op by op over the same
+buffers.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple, Union
+import dataclasses
+import weakref
+from typing import Any, Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -36,10 +55,47 @@ from ..config import AfterConfig
 from ..diffusion.pipeline import TransferPipeline
 from ..diffusion.rectified_flow import RectifiedFlow
 from ..models.autoencoder import AudioCodec, decoder_band_delay
-from ..utils.device import resolve_device
-from .state import StreamState, clone_state, init_cache
+from ..utils.device import copy_from_host, resolve_device, to_device
+from ..utils.graphs import Graph, GraphPool, capture_key, restored
+from .state import StreamState, clone_state, flatten_state, init_cache
 
 ArrayLike = Union[torch.Tensor, np.ndarray]
+
+
+@dataclasses.dataclass
+class _Buffers:
+    """A buffer's inputs and outputs between the stages, at fixed addresses:
+    what one state's stages read and write (its graphs' static buffers)."""
+
+    audio_s: torch.Tensor     # (B, chunk * ratio, 1) structure audio
+    audio_t: torch.Tensor     # (B, chunk * ratio, 1) timbre audio
+    zs: torch.Tensor          # structure codes: tcond, or the codec latents
+                              # where no structure encoder makes tcond's
+    tcond: torch.Tensor       # (B, chunk, zs) structure codes, diffused
+    cond: torch.Tensor        # (B, zt) timbre vector x latent_range
+    zt: torch.Tensor          # (B, zt) timbre vector
+    x: torch.Tensor           # (B, chunk, latents) noise in, latents out
+    scalars: torch.Tensor     # (max_diffusion_steps + 3,) stream_scalars
+
+
+@dataclasses.dataclass
+class _Stages:
+    """One stream state's buffers and, on the card, the CUDA graph of each
+    stage (by stage key, ``Streamer._keys``) with what they were captured
+    under (``capture_key``)."""
+
+    bufs: _Buffers
+    graphs: Optional[Dict[Any, Graph]] = None
+    check: Optional[tuple] = None
+
+
+def _into(buf: torch.Tensor, x) -> None:
+    shape = tuple(x.shape) if hasattr(x, "shape") else np.shape(x)
+    if shape != tuple(buf.shape):
+        raise ValueError(f"this stream state's graphs take {tuple(buf.shape)}"
+                         f", got {shape}: a buffer of another length needs a "
+                         "Streamer of that chunk_size")
+    copy_from_host(buf, x)
 
 
 def _share(module: nn.Module, source: nn.Module) -> nn.Module:
@@ -56,9 +112,11 @@ class Streamer:
                  n_fade: int = 4,
                  device: Optional[Union[str, torch.device]] = None, *,
                  pipeline: Optional[TransferPipeline] = None,
-                 latent_range: float = 1.0, compute_dtype=None):
+                 latent_range: float = 1.0, compute_dtype=None,
+                 eager: bool = False):
         """n_fade: crossfade overlap in latent frames for non-causal codecs
-        (ignored for causal ones)."""
+        (ignored for causal ones); eager: run op by op on the card instead
+        of replaying CUDA graphs."""
         if compute_dtype is not None:
             raise NotImplementedError(
                 "the port streams in f32 only: compute_dtype is not ported")
@@ -95,9 +153,21 @@ class Streamer:
         self.rf = _share(RectifiedFlow(cfg, streaming=True).to(self.device),
                          pipeline.rf)
         self.generator = torch.Generator(self.device).manual_seed(0)
+        self.eager = eager
+        # the CUDA graphs' pool (made at the first capture), and each
+        # state's buffers and graphs
+        self.graphs: Optional[GraphPool] = None
+        self._states: "weakref.WeakKeyDictionary[StreamState, _Stages]" \
+            = weakref.WeakKeyDictionary()
 
     def _tensor(self, x: ArrayLike) -> torch.Tensor:
-        return torch.as_tensor(x, dtype=torch.float32, device=self.device)
+        return to_device(x, self.device)
+
+    @property
+    def graphed(self) -> bool:
+        """Whether buffers run as CUDA graphs (on the card, unless
+        ``eager``)."""
+        return self.device.type == "cuda" and not self.eager
 
     # ------------------------------------------------------------------
 
@@ -125,9 +195,135 @@ class Streamer:
             zeros(3 * B, T, cfg.denoiser.n_channels), zeros(3 * B),
             zeros(3 * B, cfg.zt_channels), zeros(3 * B, T, cfg.zs_channels),
             cache=c))
-        return StreamState(codec_struct=enc, codec_timbre=clone_state(enc),
-                           codec_dec=dec, enc_time=et, denoiser=dn,
-                           prev_timbre=zeros(B, self.n_signal_timbre, z_ch))
+        state = StreamState(codec_struct=enc, codec_timbre=clone_state(enc),
+                            codec_dec=dec, enc_time=et, denoiser=dn,
+                            prev_timbre=zeros(B, self.n_signal_timbre, z_ch))
+        if self.graphed:
+            self._stages(state)
+        return state
+
+    # ------------------------------------------------------------------
+    # stages, run op by op or replayed as CUDA graphs
+    # ------------------------------------------------------------------
+
+    def _buffers(self, batch_size: int) -> _Buffers:
+        cfg, B, T = self.cfg, batch_size, self.chunk_size
+
+        def zeros(*shape):
+            return torch.zeros(shape, device=self.device)
+        tcond = zeros(B, T, cfg.zs_channels)
+        # without a structure encoder (midi) the structure codes are the
+        # codec's latents
+        zs = (tcond if self.rf.encoder_time is not None
+              else zeros(B, T, cfg.autoencoder.z_channels))
+        return _Buffers(
+            audio_s=zeros(B, self.audio_chunk, 1),
+            audio_t=zeros(B, self.audio_chunk, 1), zs=zs, tcond=tcond,
+            cond=zeros(B, cfg.zt_channels), zt=zeros(B, cfg.zt_channels),
+            x=zeros(B, T, cfg.denoiser.n_channels),
+            scalars=to_device(self.rf.stream_scalars(
+                cfg.denoiser.max_diffusion_steps)[1], self.device))
+
+    def _keys(self) -> list:
+        """The stages of a buffer in order: structure, timbre, the Euler
+        step of each KV slot (by its index), decode."""
+        return ["structure", "timbre",
+                *range(self.cfg.denoiser.max_diffusion_steps), "decode"]
+
+    def _stage(self, state: StreamState, b: _Buffers, key):
+        """Stage ``key`` of a buffer on ``state``, from and into ``b``;
+        returns what it wrote (decode: the audio)."""
+        if key == "structure":
+            z = self._codec_encode(state.codec_struct, b.audio_s)
+            if self.rf.encoder_time is not None:
+                z = self.rf.encoder_time(z, state.enc_time)[0]
+            return b.zs.copy_(z)
+        if key == "timbre":
+            z = self._codec_encode(state.codec_timbre, b.audio_t)
+            ring = torch.cat([state.prev_timbre, z], dim=1)[:, z.shape[1]:]
+            zt = self.rf.encoder(ring)[0] / self.latent_range
+            state.prev_timbre.copy_(ring)
+            b.zt.copy_(zt)
+            return b.cond.copy_(zt * self.latent_range)
+        if key == "decode":
+            if self.crossfade is not None:
+                return self.crossfade.decode(state.codec_dec, b.x)
+            return self.codec.decode(b.x, state.codec_dec)
+        return b.x.copy_(self.rf.stream_step(state.denoiser, key, b.x, b.cond,
+                                             b.tcond, b.scalars))
+
+    @torch.no_grad()
+    def warm_up(self, state: StreamState,
+                bufs: Optional[_Buffers] = None) -> Tuple[tuple, tuple]:
+        """Every stage of a buffer once on ``state`` (structure, timbre, the
+        Euler step of every KV slot, decode), over ``bufs`` (zeros when not
+        given), which fills every lazily built constant; the state's
+        tensors are then written back, in place, to what they held before.
+        Returns the shapes of the structure codes and of the audio.  The
+        graphs' capture runs it first, on their side stream."""
+        b = bufs if bufs is not None else self._buffers(
+            state.prev_timbre.shape[0])
+
+        def run():
+            for key in self._keys():
+                y = self._stage(state, b, key)
+            return tuple(b.zs.shape), tuple(y.shape)
+
+        with restored(flatten_state(state).values()):
+            return self._pool().warm(run) if self.graphed else run()
+
+    def _pool(self) -> GraphPool:
+        if self.graphs is None:
+            self.graphs = GraphPool(self.device)
+        return self.graphs
+
+    def _stages(self, state: StreamState) -> _Stages:
+        """The buffers of ``state`` and, on the card unless ``eager``, its
+        graphs: captured now (a warm-up that leaves the state as it was,
+        then one capture a stage, which runs nothing) if it has none, or if
+        the weights or the TF32 switches changed since their capture."""
+        g = self._states.get(state)
+        if g is None:
+            g = self._states[state] = _Stages(
+                self._buffers(state.prev_timbre.shape[0]))
+        if self.graphed:
+            check = capture_key(self.codec, self.rf)
+            if g.graphs is None or g.check != check:
+                self.warm_up(state, g.bufs)
+                capture = self._pool().capture
+                g.graphs = {key: capture(
+                    lambda key=key: self._stage(state, g.bufs, key))
+                    for key in self._keys()}
+                g.check = check
+        return g
+
+    def _run(self, state: StreamState, g: _Stages, key):
+        """Stage ``key`` of ``state``: its graph replayed, or op by op."""
+        if self.graphed:
+            return g.graphs[key].replay()
+        return self._stage(state, g.bufs, key)
+
+    def _condition(self, g: _Stages, time_cond, zsem) -> None:
+        """Given structure codes and timbre vector into the buffers."""
+        _into(g.bufs.tcond, time_cond)
+        _into(g.bufs.cond, zsem)
+        g.bufs.cond.mul_(self.latent_range)
+
+    def _diffuse(self, state: StreamState, g: _Stages, nb_steps,
+                 guidance_timbre, guidance_structure, x0) -> None:
+        """x0 (or noise from ``generator``) into the latents, the buffer's
+        runtime scalars into theirs, then the Euler steps of slots
+        0 .. nb - 1."""
+        b = g.bufs
+        if x0 is None:
+            b.x.normal_(generator=self.generator)
+        else:
+            _into(b.x, x0)
+        nb, values = self.rf.stream_scalars(nb_steps, guidance_timbre,
+                                            guidance_structure)
+        copy_from_host(b.scalars, values)
+        for i in range(nb):
+            self._run(state, g, i)
 
     # ------------------------------------------------------------------
     # steps
@@ -142,21 +338,19 @@ class Streamer:
     def structure(self, state: StreamState, audio: ArrayLike
                   ) -> Tuple[torch.Tensor, StreamState]:
         """(B, chunk * ratio, 1) audio -> (B, chunk, zs) structure codes."""
-        z = self._codec_encode(state.codec_struct, self._tensor(audio))
-        if self.rf.encoder_time is not None:
-            z = self.rf.encoder_time(z, state.enc_time)[0]
-        return z, state
+        g = self._stages(state)
+        _into(g.bufs.audio_s, audio)
+        return self._run(state, g, "structure").clone(), state
 
     @torch.no_grad()
     def timbre(self, state: StreamState, audio: ArrayLike
                ) -> Tuple[torch.Tensor, StreamState]:
         """(B, chunk * ratio, 1) audio -> (B, zt) timbre vector of the last
         n_signal latent frames of the timbre stream."""
-        z = self._codec_encode(state.codec_timbre, self._tensor(audio))
-        ring = torch.cat([state.prev_timbre, z], dim=1)[:, z.shape[1]:]
-        zt = self.rf.encoder(ring)[0] / self.latent_range
-        state.prev_timbre.copy_(ring)
-        return zt, state
+        g = self._stages(state)
+        _into(g.bufs.audio_t, audio)
+        self._run(state, g, "timbre")
+        return g.bufs.zt.clone(), state
 
     @torch.no_grad()
     def diffuse(self, state: StreamState, time_cond: ArrayLike,
@@ -166,25 +360,19 @@ class Streamer:
         """(B, chunk, zs) structure + (B, zt) timbre -> (B, chunk, latents)
         denoised codec latents.  ``nb_steps`` and the guidances may change
         from one buffer to the next."""
-        time_cond = self._tensor(time_cond)
-        zsem = self._tensor(zsem) * self.latent_range
-        B, T = time_cond.shape[:2]
-        if x0 is None:
-            x0 = torch.randn((B, T, self.cfg.denoiser.n_channels),
-                             generator=self.generator, device=self.device)
-        x = self.rf.sample_stream(state.denoiser, self._tensor(x0), zsem,
-                                  time_cond, nb_steps, guidance_timbre,
-                                  guidance_structure)
-        return x, state
+        g = self._stages(state)
+        self._condition(g, time_cond, zsem)
+        self._diffuse(state, g, nb_steps, guidance_timbre, guidance_structure,
+                      x0)
+        return g.bufs.x.clone(), state
 
     @torch.no_grad()
     def decode(self, state: StreamState, z: ArrayLike
                ) -> Tuple[torch.Tensor, StreamState]:
         """(B, chunk, latents) -> (B, chunk * ratio, 1) audio."""
-        z = self._tensor(z)
-        if self.crossfade is not None:
-            return self.crossfade.decode(state.codec_dec, z), state
-        return self.codec.decode(z, state.codec_dec), state
+        g = self._stages(state)
+        _into(g.bufs.x, z)
+        return self._run(state, g, "decode").clone(), state
 
     @property
     def decode_lag_frames(self) -> int:
@@ -201,26 +389,37 @@ class Streamer:
             return self.crossfade.n_fade * cfg.ratio
         return decoder_band_delay(cfg) * cfg.pqmf_bands
 
+    @torch.no_grad()
     def forward(self, state: StreamState, audio_structure: ArrayLike,
                 audio_timbre: ArrayLike, nb_steps=1, guidance_timbre=1.0,
                 guidance_structure=1.0, x0: Optional[ArrayLike] = None
                 ) -> Tuple[torch.Tensor, StreamState]:
-        """Audio -> audio, one buffer: structure, timbre, diffuse, decode."""
-        zs, state = self.structure(state, audio_structure)
-        zt, state = self.timbre(state, audio_timbre)
-        z, state = self.diffuse(state, zs, zt, nb_steps, guidance_timbre,
-                                guidance_structure, x0)
-        return self.decode(state, z)
+        """Audio -> audio, one buffer: structure, timbre, diffuse, decode;
+        on the card 3 + nb_steps graph replays."""
+        g = self._stages(state)
+        _into(g.bufs.audio_s, audio_structure)
+        _into(g.bufs.audio_t, audio_timbre)
+        self._run(state, g, "structure")
+        self._run(state, g, "timbre")
+        if g.bufs.zs is not g.bufs.tcond:
+            g.bufs.tcond.copy_(g.bufs.zs)
+        self._diffuse(state, g, nb_steps, guidance_timbre, guidance_structure,
+                      x0)
+        return self._run(state, g, "decode").clone(), state
 
+    @torch.no_grad()
     def generate(self, state: StreamState, time_cond: ArrayLike,
                  zsem: ArrayLike, nb_steps=1, guidance_timbre=1.0,
                  guidance_structure=1.0, x0: Optional[ArrayLike] = None
                  ) -> Tuple[torch.Tensor, StreamState]:
         """(structure codes, timbre vector) -> audio: diffuse + decode."""
-        z, state = self.diffuse(state, time_cond, zsem, nb_steps,
-                                guidance_timbre, guidance_structure, x0)
-        return self.decode(state, z)
+        g = self._stages(state)
+        self._condition(g, time_cond, zsem)
+        self._diffuse(state, g, nb_steps, guidance_timbre, guidance_structure,
+                      x0)
+        return self._run(state, g, "decode").clone(), state
 
+    @torch.no_grad()
     def generate_timbre(self, state: StreamState, audio: ArrayLike,
                         zsem: ArrayLike, nb_steps=1, guidance_timbre=1.0,
                         guidance_structure=1.0,
@@ -228,10 +427,13 @@ class Streamer:
                         ) -> Tuple[torch.Tensor, StreamState]:
         """(structure audio, timbre vector) -> audio: the structure of the
         audio, diffused with the given timbre, decoded."""
-        zs, state = self.structure(state, audio)
-        z, state = self.diffuse(state, zs, zsem, nb_steps, guidance_timbre,
-                                guidance_structure, x0)
-        return self.decode(state, z)
+        g = self._stages(state)
+        _into(g.bufs.audio_s, audio)
+        self._run(state, g, "structure")
+        self._condition(g, g.bufs.zs, zsem)
+        self._diffuse(state, g, nb_steps, guidance_timbre, guidance_structure,
+                      x0)
+        return self._run(state, g, "decode").clone(), state
 
     # -- XY-pad projector (utils/latent_map.py) ----------------------------
 
@@ -259,10 +461,19 @@ class Streamer:
         B, T = notes.shape[:2]
         pitch = notes[..., 0].to(torch.int64).clamp(0, 127)
         vel = notes[..., 1] / 128.0
-        roll = torch.zeros((B, T, 128), device=self.device)
+        # the roll goes straight into the structure buffer of the steps
+        g = self._stages(state)
+        roll = g.bufs.tcond
+        if tuple(roll.shape) != (B, T, 128):
+            raise ValueError(f"notes of shape {tuple(notes.shape)} for a "
+                             f"stream of {tuple(roll.shape)} piano rolls")
+        roll.zero_()
         roll.scatter_reduce_(2, pitch, vel, reduce="amax")
-        return self.diffuse(state, roll, zsem, nb_steps, guidance_timbre,
-                            guidance_structure, x0)
+        _into(g.bufs.cond, zsem)
+        g.bufs.cond.mul_(self.latent_range)
+        self._diffuse(state, g, nb_steps, guidance_timbre, guidance_structure,
+                      x0)
+        return g.bufs.x.clone(), state
 
     # ------------------------------------------------------------------
 

@@ -1,4 +1,4 @@
-"""Device choice and numeric mode of the port."""
+"""Device choice, numeric mode and host-to-card copies of the port."""
 
 from __future__ import annotations
 
@@ -30,3 +30,29 @@ def strict_f32() -> None:
     with the f32 reference; matmuls are set explicitly too."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+
+
+def copy_from_host(dst: torch.Tensor, src) -> torch.Tensor:
+    """``dst.copy_(src)`` without a host sync: a host array or CPU tensor is
+    staged in pinned memory and copied asynchronously.  The caching host
+    allocator keeps the pinned block until the copy has run, so the next
+    call cannot overwrite it while it is pending."""
+    if isinstance(src, torch.Tensor) and src.device.type != "cpu":
+        return dst.copy_(src)
+    host = torch.as_tensor(src, dtype=dst.dtype)
+    if dst.device.type == "cuda":
+        host = host.pin_memory()
+    return dst.copy_(host, non_blocking=dst.device.type == "cuda")
+
+
+def to_device(x, device: torch.device,
+              dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """``x`` (a tensor or a host array) as a ``dtype`` tensor on ``device``;
+    a host array reaches a card without a host sync (``copy_from_host``)."""
+    if isinstance(x, torch.Tensor) and x.device == device:
+        return x.to(dtype)
+    if device.type != "cuda":
+        return torch.as_tensor(x, dtype=dtype, device=device)
+    host = torch.as_tensor(x, dtype=dtype)
+    return copy_from_host(torch.empty(host.shape, dtype=dtype, device=device),
+                          host)

@@ -18,28 +18,48 @@ Phases, each printed before the last line:
    most 2048 frames a shape; the kernel may be at most 4x strict F.conv1d);
 4. serving: the base config at full width, port-native random weights from
    a fixed seed, answering 3 transfer requests of 524288 samples (batch 1,
-   20 Euler steps, guidance_timbre 2.0) with per-phase times, then one more
-   transfer under torch.profiler: device busy time, idle share, launches,
-   the kernels that took the most device time, and a check that no TF32
-   kernel ran but the port's own 3xTF32 kernel;
+   20 Euler steps, guidance_timbre 2.0) through ``TransferPipeline``'s
+   default, one CUDA graph a transfer: the first request warms up and
+   captures it (the wrapper's calls and ConvBlock1d shapes checked there),
+   then the 3 requests replay it (the kernel counting its 96 launches a
+   replay on the device, with the counts set to 0 just before the 3 and
+   read just after), then the same requests op by op (``eager``):
+   medians of both, their outputs within GRAPH_TOL; per-phase times as
+   graphs and op by op; the graph pool's memory and capture time; one
+   more transfer of each kind under torch.profiler: device busy time, idle
+   share, launches (96 ``snake_conv_3xtf32`` in one replay and the split
+   sum's ``sum_splits`` launches, counted by the profiler and held to the
+   device's counts, with their device ms), the kernels that
+   took the most device time, and a check that no TF32 kernel ran but the
+   port's own 3xTF32 kernel; one transfer op by op with host syncs
+   refused (``set_sync_debug_mode("error")``);
 5. card vs CPU: the same port and weights on a 65536-sample clip, 4 steps,
-   fixed x0, the card's output (kernels) against the CPU's (plain versions);
-   the same comparison with TF32 allowed is printed beside it, as the
-   reading that the limit must stay below;
+   fixed x0, the card's output (kernels, through its CUDA graph) against
+   the CPU's (plain versions); the same comparison with TF32 allowed is
+   printed beside it, as the reading that the limit must stay below;
 6. streaming: the same weights through ``Streamer(chunk_size=4,
    n_fade=4)`` (the crossfade path, the kernel on every conv window), batch
-   1, guidance_timbre 2.0: 2 warm-up buffers, then phase 4's first request
-   as 64 buffers of 8192 samples (185.76 ms of audio each) at nb_steps 1
-   and at 4, each buffer timed on the host clock around ``forward`` ending
-   in a synchronize (median, p90, max, real-time factor), 96 kernel
-   launches a buffer, each output finite and of shape (1, 8192, 1), the
-   state's tensors at fixed addresses; one more buffer under torch.profiler
-   as in phase 4;
-7. streaming card vs CPU: 8 buffers of two voices with fixed x0, card
-   against CPU within phase 5's limit (the TF32 reading beside it), for the
-   base config and for the causal, norm-free ``get_config("base",
-   "streaming")`` with port-native weights, which streams through cached
-   convs and launches no kernel.
+   1, guidance_timbre 2.0, as CUDA graphs (its default: a graph each for
+   structure, timbre, the Euler step of each KV slot and decode, captured
+   by ``init_state``; its captures checked as in phase 4) and op by op
+   (``eager=True``) with the same noise: 2 warm-up buffers, then phase 4's
+   first request as 64 buffers of 8192 samples (185.76 ms of audio each)
+   at nb_steps 1 and at 4, each buffer timed on the host clock around
+   ``forward`` ending in a synchronize (median, p90, max, real-time
+   factor), 96 kernel launches a buffer counted on the device (counts set
+   to 0 just before each run of 64 buffers and read just after), each
+   output finite and of shape
+   (1, 8192, 1), the state's tensors at fixed addresses, graph and eager
+   within GRAPH_TOL over the 64 buffers; then 64 buffers with nb_steps
+   cycling through 1-16 and both guidances changing every buffer: no
+   capture after ``init_state``, graph and eager within GRAPH_TOL; one more
+   buffer of each kind under torch.profiler as in phase 4, one op by op
+   with host syncs refused; the graph pool's memory and capture time;
+7. streaming card vs CPU: 8 buffers of two voices with fixed x0, the card
+   through its graphs against the CPU within phase 5's limit (the TF32
+   reading beside it), for the base config and for the causal, norm-free
+   ``get_config("base", "streaming")`` with port-native weights, which
+   streams through cached convs and launches no kernel.
 
 8. codec training: ``AutoencoderTrainer`` with the base codec
    (``get_ae_config()``), the default discriminator (6 scales, 64 filters)
@@ -59,7 +79,8 @@ Phases, each printed before the last line:
    forward (batch 8), as in phase 3, and its autograd Function's gradients
    for x, alpha, beta, w and b against plain autograd (each within
    GRAD_TOL x max |g| of its tensor), with the backward's time per
-   generator step;
+   generator step from CUDA graphs (and eager) beside ``F.conv1d``'s
+   autograd backward at the same shapes from CUDA graphs;
 9. training card vs CPU: the same weights at batch 1 and 16384 samples,
    fixed bottleneck noise, one GAN generator step's and one discriminator
    step's losses (within CARD_VS_CPU_TOL) and gradients (each tensor within
@@ -129,6 +150,12 @@ F64_FRAMES = 2048            # frames per shape in the float64 check, over
 F64_RATIO = 4.0              # kernel error <= F64_RATIO * strict F.conv1d's
 KERNEL_TOL = 1e-4            # max abs error <= KERNEL_TOL * max |y|
 CARD_VS_CPU_TOL = 1e-4       # max abs error <= CARD_VS_CPU_TOL * max |y_cpu|
+# CUDA graph against the same call run op by op: the same kernels on the
+# same inputs, so equal in practice
+GRAPH_TOL = 1e-6             # max abs difference <= GRAPH_TOL * max |y|
+KERNEL_NAME = "snake_conv_3xtf32"   # the kernel's device function
+SUM_NAME = "sum_splits"      # its second kernel, for split channel sums
+STREAM_CHANGING = 64         # buffers of the stream whose attributes change
 TOP_KERNELS = 12
 # the port's kernels that use TF32 on purpose (3xTF32, held to float64 in
 # the kernel phase); any other kernel with "tf32" in its name fails the run
@@ -216,6 +243,39 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3, graph: bool = True
     else:
         for _ in range(reps):
             fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def vjp_ms(fwd, args, gy, reps: int = 5) -> float:
+    """Device time of one backward of fwd(*args) against gy, in ms: the
+    forward captured in one CUDA graph and reps backwards in a second on
+    the same pool and stream, as torch.cuda.make_graphed_callables captures
+    a backward; CUDA events around the backward graph's replay.  The inputs
+    are fresh leaves: a leaf already used on the default stream carries that
+    stream in its gradient node, and a captured backward would wait on it."""
+    import torch
+    args = [a.detach().clone().requires_grad_() for a in args]
+    torch.cuda.synchronize()
+    with torch.cuda.stream(torch.cuda.Stream()):
+        for _ in range(2):
+            torch.autograd.grad(fwd(*args), args, gy)
+    torch.cuda.synchronize()
+    pool = torch.cuda.graph_pool_handle()
+    g_fwd, g_bwd = torch.cuda.CUDAGraph(), torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g_fwd, pool=pool):
+        y = fwd(*args)
+    with torch.cuda.graph(g_bwd, pool=pool):
+        for _ in range(reps):
+            torch.autograd.grad(y, args, gy, retain_graph=True)
+    g_fwd.replay()
+    g_bwd.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    g_bwd.replay()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
@@ -372,17 +432,20 @@ def check_gradients(path, batch: int):
     Returns the worst ratio and the backward's time summed over one codec
     forward's launches, with its operations (recompute, dgrad, wgrad)."""
     import torch
-    from after_tpu_torch.ops.conv import weight_norm
+    import torch.nn.functional as F
+    from after_tpu_torch.ops.conv import get_padding, weight_norm
     from after_tpu_torch.ops.kernels.fused_conv import (fused_snake_conv,
                                                         snake_conv_reference)
+    from after_tpu_torch.ops.snake import snake_beta
 
     counts = Counter(block_shape(b, T) for b, T in path)
     blocks = {block_shape(b, T): b for b, T in path}
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
-    worst, bwd_ms, bwd_flops = 0.0, 0.0, 0.0
+    worst, bwd_ms, bwd_flops, lib_ms, eager_ms = 0.0, 0.0, 0.0, 0.0, 0.0
     log(f"gradients: SnakeConvFunction vs plain autograd at batch {batch} "
         "(k d C O T mode: n, worst |g - g_plain| / max|g_plain| over x "
-        "alpha beta w b; backward ms, eager)")
+        "alpha beta w b; backward ms from a CUDA graph / eager; F.conv1d's "
+        "autograd backward ms from a CUDA graph)")
     for shape, block in sorted(blocks.items(), key=lambda kv: str(kv[0])):
         k, d, C, O, T, mode = shape
         with torch.no_grad():
@@ -403,19 +466,32 @@ def check_gradients(path, batch: int):
             fail(f"SnakeConvFunction {shape}: gradients differ from plain "
                  f"autograd by {ratio:.3e} x max|g| > {GRAD_TOL}")
         worst = max(worst, ratio)
-        ms = cuda_ms(lambda: torch.autograd.grad(y, ours, gy,
-                                                 retain_graph=True),
-                     reps=5, warmup=1, graph=False)
+        eager = cuda_ms(lambda: torch.autograd.grad(y, ours, gy,
+                                                    retain_graph=True),
+                        reps=5, warmup=1, graph=False)
+        ms = vjp_ms(lambda *t: fused_snake_conv(*t, d, mode), ours, gy)
+        left, right = get_padding(k, 1, d, mode)
+        lib_args = [F.pad(snake_beta(*args[:3]).transpose(1, 2),
+                          (left, right)).detach().requires_grad_(),
+                    w.detach().clone().requires_grad_(),
+                    args[4].detach().clone().requires_grad_()]
+        lib = vjp_ms(lambda a, wl, bl: F.conv1d(a, wl, bl, dilation=d),
+                     lib_args, gy.transpose(1, 2).contiguous())
         n = counts[shape]
         bwd_ms += n * ms
+        eager_ms += n * eager
+        lib_ms += n * lib
         bwd_flops += n * 3 * 2.0 * k * C * O * T * batch
-        log(f"  {k} {d} {C} {O} {T} {mode}: {n}, {ratio:.3e}; {ms:.4f}")
+        log(f"  {k} {d} {C} {O} {T} {mode}: {n}, {ratio:.3e}; {ms:.4f} / "
+            f"{eager:.4f}; {lib:.4f}")
     bound_ms = 1e3 * bwd_flops / PEAK_F32_FLOPS
     log(f"gradients: worst {worst:.3e} x max|g| (limit {GRAD_TOL}); backward "
         f"per generator step ({len(path)} launches' VJPs) {bwd_ms:.3f} ms "
-        f"eager, {bwd_flops / 1e9:.1f} GFLOP (recompute + dgrad + wgrad in "
-        f"strict f32; bound on the f32 CUDA cores {bound_ms:.3f} ms)")
-    return worst, bwd_ms, bound_ms
+        f"from CUDA graphs ({eager_ms:.3f} ms eager), F.conv1d's autograd "
+        f"backward {lib_ms:.3f} ms from CUDA graphs; {bwd_flops / 1e9:.1f} "
+        f"GFLOP (recompute + dgrad + wgrad in strict f32; bound on the f32 "
+        f"CUDA cores {bound_ms:.3f} ms)")
+    return worst, bwd_ms, bound_ms, lib_ms, eager_ms
 
 
 def synthetic_audio(gen, batch: int, n: int, sr: int):
@@ -546,7 +622,8 @@ def train_phase(row) -> None:
     with torch.no_grad():
         per_forward_k = check_fused_conv(enc + dec, "training codec forward",
                                          tc.batch_size)
-    grad_worst, bwd_ms, bwd_bound = check_gradients(enc + dec, tc.batch_size)
+    grad_worst, bwd_ms, bwd_bound, bwd_lib_ms, bwd_eager_ms = check_gradients(
+        enc + dec, tc.batch_size)
     row.update({
         "launches_training": launches,
         "launches_per_gen_step": per_forward,
@@ -558,6 +635,8 @@ def train_phase(row) -> None:
         "library_ms_per_codec_forward_training": per_forward_k["library_ms"],
         "tflops_training": per_forward_k["tflops"],
         "backward_ms_per_gen_step": bwd_ms,
+        "backward_eager_ms_per_gen_step": bwd_eager_ms,
+        "backward_library_ms_per_gen_step": bwd_lib_ms,
         "backward_bound_f32_ms_per_gen_step": bwd_bound,
         "grad_err_training": grad_worst,
         "weight_split_ms_per_codec_forward": wn_ms,
@@ -1014,7 +1093,6 @@ def kernel_row(per_transfer, per_buffer):
             "tflops": per_transfer["tflops"],
             "eager_ms": per_transfer["eager_ms"],
             "share_of_bound": per_transfer["share"],
-            "launches_per_buffer": per_buffer["launches"],
             "ms_per_buffer": per_buffer["ms"],
             "bound_ms_per_buffer": per_buffer["bound_ms"],
             "bound_by_per_buffer": per_buffer["bound_by"],
@@ -1025,10 +1103,12 @@ def kernel_row(per_transfer, per_buffer):
             "f64_err_conv1d_tf32": f64[2]}
 
 
-def profile_call(label: str, fn) -> None:
+def profile_call(label: str, fn):
     """One call of fn under torch.profiler: wall time, device busy time (the
     union of kernel intervals), idle share, kernel launches and the kernels
-    that took the most device time.  Fails if a TF32 kernel ran."""
+    that took the most device time.  Fails if a TF32 kernel ran.  Returns
+    (wall ms, busy ms or None, Counter of kernel launches by name, Counter
+    of device ms by name)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1044,7 +1124,7 @@ def profile_call(label: str, fn) -> None:
     if not kernels:
         log(f"profile: {label}: wall {wall_ms:.2f} ms; the profiler recorded no "
             f"device time, so device busy and idle share are not measured")
-        return
+        return wall_ms, None, Counter(), Counter()
     busy_us, cur_s, cur_e = 0.0, None, None
     for s, e in sorted((e.time_range.start, e.time_range.end)
                        for e in kernels):
@@ -1071,6 +1151,63 @@ def profile_call(label: str, fn) -> None:
             and not any(k in n for k in PORT_TF32_KERNELS)]
     if tf32:
         fail(f"TF32 kernels ran in {label}: {tf32[:3]}")
+    return wall_ms, busy_us / 1e3, count, Counter(
+        {k: us / 1e3 for k, us in by_name.items()})
+
+
+def kernel_launches(counts, name: str) -> int:
+    """Launches (or device ms) of the kernels whose name holds ``name``, in
+    a profile's Counter."""
+    return sum(n for k, n in counts.items() if name in k)
+
+
+def replay_witness(label: str, counts, ms, per_call: int, sums: int, row,
+                   unit: str) -> None:
+    """The profiler's count of the kernel's and the split sum's launches in
+    one replayed call, against the device's own counts of the main path's
+    run (``per_call`` and ``sums`` a call); their device ms, into ``row``."""
+    n, n_sum = (kernel_launches(counts, k) for k in (KERNEL_NAME, SUM_NAME))
+    t, t_sum = (kernel_launches(ms, k) for k in (KERNEL_NAME, SUM_NAME))
+    log(f"profile: {label}: {n} {KERNEL_NAME} launches ({t:.3f} ms) and "
+        f"{n_sum} {SUM_NAME} launches ({t_sum:.3f} ms) by the profiler; the "
+        f"device counted {per_call} and {sums} a call on the main path")
+    if n != per_call or n_sum != sums:
+        fail(f"{label}: the profiler and the device's counts differ")
+    row[f"launches_per_{unit}_replay"] = n
+    row[f"sum_splits_launches_per_{unit}_replay"] = n_sum
+    row[f"profiled_ms_per_{unit}_replay"] = t
+    row[f"sum_splits_ms_per_{unit}_replay"] = t_sum
+
+
+def no_host_sync(label: str, fn) -> None:
+    """fn under torch.cuda.set_sync_debug_mode("error"): fails on a host
+    sync."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fn()
+    except RuntimeError as e:
+        fail(f"{label} synchronized with the host: {e}")
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    log(f"no host sync: {label} ran under set_sync_debug_mode('error')")
+
+
+def agree(label: str, y, ref, limit: float = GRAPH_TOL) -> float:
+    """max|y - ref| / max|ref| (tensors or lists of tensors), within
+    ``limit``, printed."""
+    import torch
+    if isinstance(y, (list, tuple)):
+        y, ref = torch.cat(list(y), dim=1), torch.cat(list(ref), dim=1)
+    err = (y - ref).abs().max().item()
+    scale = ref.abs().max().item()
+    log(f"{label}: max abs difference {err:.3e} ({err / scale:.3e} x max|y| "
+        f"{scale:.4f}; limit {limit}; bitwise equal: {bool(err == 0)})")
+    if not err <= limit * scale:
+        fail(f"{label}: differ by {err} > {limit} x {scale}")
+    return err / scale
 
 
 def percentile(values, q: float) -> float:
@@ -1079,41 +1216,56 @@ def percentile(values, q: float) -> float:
     return v[max(0, math.ceil(q * len(v)) - 1)]
 
 
-def stream_audio(streamer, state, a, b, nb_steps: int):
-    """Stream (a, b) buffer by buffer from ``state``; returns the host times
-    of the buffers.  Checks every output and that the state's tensors keep
-    their addresses."""
+def stream_audio(streamer, state, a, b, nb_steps, attributes=None,
+                 x0s=None):
+    """Stream (a, b) buffer by buffer from ``state`` at ``nb_steps`` with
+    guidance_timbre GUIDANCE_TIMBRE, or with ``attributes`` (nb_steps,
+    guidance_timbre, guidance_structure) per buffer, from the noise of
+    ``x0s`` when given; returns the host times and the outputs of the
+    buffers.  Checks every output and that the state's tensors keep their
+    addresses."""
     import torch
     from after_tpu_torch.streaming.state import flatten_state
 
     A = streamer.audio_chunk
     ptrs = {k: t.data_ptr() for k, t in flatten_state(state).items()}
-    times = []
+    times, ys = [], []
     for i in range(a.shape[1] // A):
         s = slice(i * A, (i + 1) * A)
+        nb, gt, gs = (attributes[i] if attributes is not None
+                      else (nb_steps, GUIDANCE_TIMBRE, 1.0))
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        y, state = streamer.forward(state, a[:, s], b[:, s],
-                                    nb_steps=nb_steps,
-                                    guidance_timbre=GUIDANCE_TIMBRE)
+        y, state = streamer.forward(state, a[:, s], b[:, s], nb_steps=nb,
+                                    guidance_timbre=gt, guidance_structure=gs,
+                                    x0=None if x0s is None else x0s[i])
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
         if tuple(y.shape) != (a.shape[0], A, 1):
             fail(f"stream buffer {i}: output shape {tuple(y.shape)}")
         if not torch.isfinite(y).all():
             fail(f"stream buffer {i}: non-finite output")
+        ys.append(y)
     if ptrs != {k: t.data_ptr() for k, t in flatten_state(state).items()}:
         fail("the stream state's tensors moved between buffers")
-    return times
+    return times, ys
+
+
+def spread(times) -> str:
+    """median / p90 / max of host times, in ms."""
+    return (f"{sorted(times)[len(times) // 2] * 1e3:.2f} / "
+            f"{percentile(times, 0.9) * 1e3:.2f} / {max(times) * 1e3:.2f}")
 
 
 def stream_card_vs_cpu(label, card, cpu, n_buffers: int, seed: int):
     """The same two-voice stream on the card and on the CPU, fixed x0 per
     buffer; the largest difference over all buffers against the limit, and
-    the same with TF32 allowed.  Returns the card's kernel launches."""
+    the same with TF32 allowed.  Returns the card's kernel launches, as the
+    device counted them."""
     import numpy as np
     import torch
-    from after_tpu_torch.ops.kernels.fused_conv import fused_snake_conv
+    from after_tpu_torch.ops.kernels.fused_conv import (device_launches,
+                                                        reset_device_launches)
     from after_tpu_torch.utils.device import strict_f32
 
     rng = np.random.RandomState(seed)
@@ -1134,9 +1286,9 @@ def stream_card_vs_cpu(label, card, cpu, n_buffers: int, seed: int):
         return torch.cat(ys, dim=1)
 
     state = card.init_state(2)
-    fused_snake_conv.launches = 0
+    reset_device_launches()
     y_card = run(card, state)
-    launches = fused_snake_conv.launches
+    launches = device_launches()[0]
     y_cpu = run(cpu, cpu.init_state(2))
     err = (y_card - y_cpu).abs().max().item()
     scale = y_cpu.abs().max().item()
@@ -1147,8 +1299,8 @@ def stream_card_vs_cpu(label, card, cpu, n_buffers: int, seed: int):
     log(f"streaming card vs CPU, {label}: {n_buffers} buffers of 2 voices, "
         f"max abs err {err:.3e} (with TF32 allowed: {err_tf32:.3e}), max |y| "
         f"{scale:.4f}, tolerance {CARD_VS_CPU_TOL} * max |y| = "
-        f"{CARD_VS_CPU_TOL * scale:.3e}; fused_snake_conv launches on the "
-        f"card {launches}")
+        f"{CARD_VS_CPU_TOL * scale:.3e}; {KERNEL_NAME} launches on the card, "
+        f"counted on the device: {launches}")
     if not (torch.isfinite(y_card).all() and err <= CARD_VS_CPU_TOL * scale):
         fail(f"streaming, {label}: card and CPU disagree")
     return launches
@@ -1165,7 +1317,10 @@ def main() -> None:
     from after_tpu_torch.models.autoencoder import ConvBlock1d
     from after_tpu_torch.streaming import Streamer
     from after_tpu_torch.ops.kernels.build import load
-    from after_tpu_torch.ops.kernels.fused_conv import SOURCE, fused_snake_conv
+    from after_tpu_torch.ops.kernels.fused_conv import (SOURCE,
+                                                        device_launches,
+                                                        fused_snake_conv,
+                                                        reset_device_launches)
     from after_tpu_torch.utils.device import strict_f32
 
     # 1. card
@@ -1201,9 +1356,10 @@ def main() -> None:
         per_buffer = check_fused_conv(stream_path, "buffer")
     row = kernel_row(per_transfer, per_buffer)
 
-    # 4. serving: 3 requests through the main path; peak memory from here.
-    # The kernel phase's CUDA graphs leave garbage behind that slowed the
-    # serving phase's host time when left for the collector.
+    # 4. serving: the transfer as one CUDA graph (the main path), then the
+    # same requests op by op; peak memory from here.  The kernel phase's
+    # CUDA graphs leave garbage behind that slowed the serving phase's host
+    # time when left for the collector.
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -1211,86 +1367,178 @@ def main() -> None:
     requests = [(0.1 * rng.randn(1, N_SAMPLES, 1).astype(np.float32),
                  0.1 * rng.randn(1, N_SAMPLES, 1).astype(np.float32))
                 for _ in range(N_REQUESTS + 1)]
-    pipe.transfer(*requests[0], nb_steps=NB_STEPS,
-                  guidance_timbre=GUIDANCE_TIMBRE)        # warm-up
-    torch.cuda.synchronize()
-
-    seen = Counter()
-    hooks = [m.register_forward_pre_hook(
-        lambda mod, args: seen.update([block_shape(mod, args[0].shape[1])]))
-        for m in pipe.codec.modules() if isinstance(m, ConvBlock1d)]
-    fused_snake_conv.launches = 0
-    times = []
     expected_len = N_SAMPLES + (0 if cfg.autoencoder.causal
                                 else cfg.autoencoder.pqmf_bands)
+    kw = dict(nb_steps=NB_STEPS, guidance_timbre=GUIDANCE_TIMBRE)
+
+    def hook_blocks(codec, seen):
+        return [m.register_forward_pre_hook(lambda mod, args: seen.update(
+            [block_shape(mod, args[0].shape[1])]))
+            for m in codec.modules() if isinstance(m, ConvBlock1d)]
+
+    # the first request warms up, captures and replays once: the hooks and
+    # the wrapper's Python count see the warm-up and the capture (a replay
+    # runs no Python), the device's count the warm-up and the replay
+    seen = Counter()
+    hooks = hook_blocks(pipe.codec, seen)
+    fused_snake_conv.launches = 0
+    reset_device_launches()
+    t0 = time.perf_counter()
+    pipe.transfer(*requests[0], **kw)
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    for h in hooks:
+        h.remove()
+    first_device = device_launches()[0]
+    if fused_snake_conv.launches != 2 * len(path) or first_device != 2 * len(
+            path):
+        fail(f"the first request called the kernel's wrapper "
+             f"{fused_snake_conv.launches} times and the device counted "
+             f"{first_device} launches, expected {2 * len(path)} each")
+    if seen != Counter({s: 2 * n for s, n in path_counts.items()}):
+        fail("the ConvBlock1d shapes of the warm-up and the capture differ "
+             "from the checked ones")
+    log(f"serving: first request {first_ms:.2f} ms (warm-up, capture in "
+        f"{pipe.graphs.capture_seconds * 1e3:.1f} ms, one replay); the "
+        f"warm-up and the capture called the kernel's wrapper "
+        f"{fused_snake_conv.launches} times, the device counted "
+        f"{first_device} launches (the warm-up's and the replay's); the "
+        f"warm-up's and the capture's ConvBlock1d shapes are the checked ones")
+
+    # the main path: 3 requests replayed, the device's launch counts set
+    # to 0 just before them and read just after
+    fused_snake_conv.launches = 0
+    captures, replays = pipe.graphs.captures, pipe.graphs.replays
+    times, outs = [], []
+    reset_device_launches()
     for i, (a, b) in enumerate(requests[1:]):
-        before = fused_snake_conv.launches
         t0 = time.perf_counter()
-        y = pipe.transfer(a, b, nb_steps=NB_STEPS,
-                          guidance_timbre=GUIDANCE_TIMBRE,
+        y = pipe.transfer(a, b, **kw,
                           generator=torch.Generator("cuda").manual_seed(i))
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
-        grew = fused_snake_conv.launches - before
-        if grew != len(path):
-            fail(f"request {i}: fused_snake_conv launched {grew} times, "
-                 f"expected {len(path)}")
+        outs.append(y)
+    launches, sums = device_launches()
+    for i, y in enumerate(outs):
         if tuple(y.shape) != (1, expected_len, 1):
             fail(f"request {i}: output shape {tuple(y.shape)}")
         if not torch.isfinite(y).all():
             fail(f"request {i}: non-finite output")
-        log(f"serving: request {i}: {times[-1] * 1e3:.2f} ms, shape "
-            f"{tuple(y.shape)}, rms {y.pow(2).mean().sqrt().item():.4f}, "
-            f"fused_snake_conv launches +{grew}")
-    launches = fused_snake_conv.launches
-    for h in hooks:
-        h.remove()
-    if launches == 0:
-        fail("fused_snake_conv was not launched on the main path")
-    want = Counter({s: N_REQUESTS * n for s, n in path_counts.items()})
-    if seen != want:
-        fail("the ConvBlock1d shapes of the main path differ from the "
-             "checked ones")
-    # launches in the main path's run (3 requests); ms, plain_ms, bound_ms
-    # and library_ms are per transfer (96 launches)
+        log(f"serving: request {i}: {times[i] * 1e3:.2f} ms, shape "
+            f"{tuple(y.shape)}, rms {y.pow(2).mean().sqrt().item():.4f}")
+    if launches != N_REQUESTS * len(path):
+        fail(f"the device counted {launches} {KERNEL_NAME} launches in "
+             f"{N_REQUESTS} transfers, expected {len(path)} a transfer")
+    if fused_snake_conv.launches:
+        fail("a replayed transfer called the kernel's wrapper")
+    if pipe.graphs.captures != captures:
+        fail("the transfer was captured again")
+    graph_calls = (pipe.graphs.replays - replays) / N_REQUESTS
+    log(f"serving: the device counted {launches} {KERNEL_NAME} and {sums} "
+        f"{SUM_NAME} launches in the {N_REQUESTS} replayed transfers "
+        f"({launches // N_REQUESTS} and {sums // N_REQUESTS} a transfer)")
+    # launches in the main path's run (3 requests), counted on the device;
+    # ms, plain_ms, bound_ms and library_ms are per transfer (96 launches)
     row["launches"] = launches
     row["launches_per_transfer"] = launches // N_REQUESTS
+    row["sum_splits_launches_per_transfer"] = sums // N_REQUESTS
+    row["graph_launches_per_transfer"] = graph_calls
     audio_s = N_SAMPLES / cfg.sr
-    med = sorted(times)[len(times) // 2]
+
+    # the same requests op by op, on the same pipeline
+    pipe.eager = True
+    pipe.transfer(*requests[0], **kw)                     # warm-up
+    seen.clear()
+    hooks = hook_blocks(pipe.codec, seen)
+    fused_snake_conv.launches = 0
+    reset_device_launches()
+    eager_times, eager_outs = [], []
+    for i, (a, b) in enumerate(requests[1:]):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eager_outs.append(pipe.transfer(
+            a, b, **kw, generator=torch.Generator("cuda").manual_seed(i)))
+        torch.cuda.synchronize()
+        eager_times.append(time.perf_counter() - t0)
+    for h in hooks:
+        h.remove()
+    if (fused_snake_conv.launches != N_REQUESTS * len(path)
+            or device_launches() != (launches, sums)):
+        fail(f"eager transfers called the kernel's wrapper "
+             f"{fused_snake_conv.launches} times and the device counted "
+             f"{device_launches()} launches")
+    if seen != Counter({s: N_REQUESTS * n for s, n in path_counts.items()}):
+        fail("the ConvBlock1d shapes of the eager path differ from the "
+             "checked ones")
+    pipe.eager = False
+    med, eager_med = (sorted(t)[len(t) // 2] for t in (times, eager_times))
     log(f"serving: {N_REQUESTS} requests, median {med * 1e3:.2f} ms per "
-        f"transfer, real-time factor {audio_s / med:.2f}x "
-        f"({audio_s:.3f} s of audio)")
+        f"transfer as a CUDA graph ({graph_calls:g} graph launch a transfer;"
+        f" real-time factor {audio_s / med:.2f}x), {eager_med * 1e3:.2f} ms "
+        f"op by op ({audio_s / eager_med:.2f}x; {audio_s:.3f} s of audio)")
+    agree(f"serving: graph vs eager, {N_REQUESTS} transfers of the same "
+          "requests and noise", outs, eager_outs)
+    pipe.eager = True
+    agree("serving: eager vs eager, request 0 again", pipe.transfer(
+        *requests[1], **kw, generator=torch.Generator("cuda").manual_seed(0)),
+        eager_outs[0])
+    pipe.eager = False
+    row["transfer_ms_median"] = med * 1e3
+    row["transfer_eager_ms_median"] = eager_med * 1e3
 
-    # per-phase times of one more transfer, through the same entry points
+    # per-phase times of one more transfer, through the same entry points,
+    # as graphs and op by op (each phase run once before, to capture it)
     a, b = requests[1]
-    phases = {}
 
-    def timed(name, fn):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        phases[name] = (time.perf_counter() - t) * 1e3
-        return out
+    def phase_times():
+        phases = {}
 
-    z_s = timed("encode_structure_audio", lambda: pipe.encode(a))
-    z_t = timed("encode_timbre_audio", lambda: pipe.encode(b))
-    tc = timed("structure", lambda: pipe.structure(z_s))
-    c = timed("timbre", lambda: pipe.timbre(z_t))
-    x0 = torch.randn(z_s.shape, generator=torch.Generator("cuda")
-                     .manual_seed(0), device="cuda")
-    z = timed("sample", lambda: pipe.diffuse(
-        x0, c, tc, NB_STEPS, GUIDANCE_TIMBRE))
-    timed("decode", lambda: pipe.decode(z))
-    log("serving: phases (ms) " + ", ".join(
-        f"{k} {v:.2f}" for k, v in phases.items())
-        + f", sum {sum(phases.values()):.2f}")
+        def timed(name, fn):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            phases[name] = (time.perf_counter() - t) * 1e3
+            return out
+
+        z_s = timed("encode_structure_audio", lambda: pipe.encode(a))
+        z_t = timed("encode_timbre_audio", lambda: pipe.encode(b))
+        tc = timed("structure", lambda: pipe.structure(z_s))
+        c = timed("timbre", lambda: pipe.timbre(z_t))
+        x0 = torch.randn(z_s.shape, generator=torch.Generator("cuda")
+                         .manual_seed(0), device="cuda")
+        z = timed("sample", lambda: pipe.diffuse(
+            x0, c, tc, NB_STEPS, GUIDANCE_TIMBRE))
+        timed("decode", lambda: pipe.decode(z))
+        return phases
+
+    for eager in (False, True):
+        pipe.eager = eager
+        phase_times()
+        phases = phase_times()
+        log(f"serving: phases {'op by op' if eager else 'as CUDA graphs'} "
+            f"(ms) " + ", ".join(f"{k} {v:.2f}" for k, v in phases.items())
+            + f", sum {sum(phases.values()):.2f}")
+    pipe.eager = False
     log(f"serving: peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
-    profile_call("one transfer", lambda: pipe.transfer(
-        a, b, nb_steps=NB_STEPS, guidance_timbre=GUIDANCE_TIMBRE))
+    held = pipe.graphs.held_bytes()
+    log(f"serving: the pipeline's graph pool holds "
+        + (f"{held / 2**20:.1f} MiB" if held is not None else "not measured")
+        + f" ({pipe.graphs.captures} graphs: the transfer, the phases and "
+        f"phase 5's keys to come; capture time so far "
+        f"{pipe.graphs.capture_seconds * 1e3:.1f} ms)")
+    _, _, counts, ms = profile_call("one transfer as a CUDA graph",
+                                    lambda: pipe.transfer(a, b, **kw))
+    replay_witness("one replayed transfer", counts, ms,
+                   launches // N_REQUESTS, sums // N_REQUESTS, row,
+                   "transfer")
+    pipe.eager = True
+    profile_call("one transfer op by op", lambda: pipe.transfer(a, b, **kw))
+    no_host_sync("one transfer op by op", lambda: pipe.transfer(a, b, **kw))
+    pipe.eager = False
 
-    # 5. card vs CPU on a short clip, same weights
+    # 5. card vs CPU on a short clip, same weights, through the graphs
     cpu = TransferPipeline(cfg, device="cpu")
     cpu.codec.load_state_dict(pipe.codec.state_dict())
     cpu.rf.load_state_dict(pipe.rf.state_dict())
@@ -1304,69 +1552,188 @@ def main() -> None:
     y_cpu = cpu.transfer(a, b, **kw)
     err = (y_card - y_cpu).abs().max().item()
     scale = y_cpu.abs().max().item()
-    # the same run with TF32 allowed in cuBLAS and cuDNN: the reading a
-    # precision leak would give, for the record beside the strict one
+    # the same run with TF32 allowed in cuBLAS and cuDNN (a graph captured
+    # under those switches): the reading a precision leak would give, for
+    # the record beside the strict one
     torch.backends.cuda.matmul.allow_tf32 = True
     torch.backends.cudnn.allow_tf32 = True
     err_tf32 = (pipe.transfer(a, b, **kw).cpu() - y_cpu).abs().max().item()
     strict_f32()
-    log(f"card vs CPU: {SHORT_SAMPLES} samples, {SHORT_STEPS} steps, max abs "
-        f"err {err:.3e} (with TF32 allowed: {err_tf32:.3e}), max |y| "
-        f"{scale:.4f}, tolerance {CARD_VS_CPU_TOL} * max |y| = "
-        f"{CARD_VS_CPU_TOL * scale:.3e}")
+    log(f"card vs CPU: {SHORT_SAMPLES} samples, {SHORT_STEPS} steps, the card "
+        f"through its CUDA graph, max abs err {err:.3e} (with TF32 allowed: "
+        f"{err_tf32:.3e}), max |y| {scale:.4f}, tolerance {CARD_VS_CPU_TOL} "
+        f"* max |y| = {CARD_VS_CPU_TOL * scale:.3e}")
     if not (torch.isfinite(y_card).all() and err <= CARD_VS_CPU_TOL * scale):
         fail("card and CPU disagree")
 
-    # 6. streaming: phase 4's first request, buffer by buffer
+    # 6. streaming: phase 4's first request, buffer by buffer, as CUDA
+    # graphs and op by op on the same weights and noise
     streamer = Streamer(cfg, chunk_size=CHUNK, n_fade=N_FADE, pipeline=pipe)
+    eager_streamer = Streamer(cfg, chunk_size=CHUNK, n_fade=N_FADE,
+                              pipeline=pipe, eager=True)
     a, b = requests[1]
     A = streamer.audio_chunk
     buffer_ms = A / cfg.sr * 1e3
-    stream_audio(streamer, streamer.init_state(1), a[:, :STREAM_WARMUP * A],
-                 b[:, :STREAM_WARMUP * A], STREAM_STEPS[-1])     # warm-up
+    for st in (streamer, eager_streamer):                  # warm-up
+        stream_audio(st, st.init_state(1), a[:, :STREAM_WARMUP * A],
+                     b[:, :STREAM_WARMUP * A], STREAM_STEPS[-1])
     n_buffers = N_SAMPLES // A
+    x0s = np.random.RandomState(SEED + 6).randn(
+        n_buffers, 1, CHUNK, cfg.denoiser.n_channels).astype(np.float32)
     want = Counter({s: n_buffers * n for s, n in Counter(
         block_shape(blk, T) for blk, T in stream_path).items()})
-    launches_streaming = 0
+    # init_state: the pass that builds the caches (one encode and one
+    # decode of a window), the warm-up and the capture (a buffer each)
+    want_init = Counter(block_shape(blk, T)
+                        for blk, T in stream_path + stream_path + enc_w
+                        + dec_w)
+    S = cfg.denoiser.max_diffusion_steps
+    launches_streaming = sums_streaming = 0
+    stream_rows = {}
     for nb in STREAM_STEPS:
-        state = streamer.init_state(1)
+        # init_state: the hooks and the wrapper's Python count see its
+        # cache pass, warm-up and capture, one call of the kernel a hook
         seen.clear()
-        hooks = [m.register_forward_pre_hook(lambda mod, args: seen.update(
-            [block_shape(mod, args[0].shape[1])]))
-            for m in streamer.codec.modules() if isinstance(m, ConvBlock1d)]
+        hooks = hook_blocks(streamer.codec, seen)
+        captures = streamer.graphs.captures
         fused_snake_conv.launches = 0
-        times = stream_audio(streamer, state, a, b, nb)
-        launches = fused_snake_conv.launches
+        t0 = time.perf_counter()
+        state = streamer.init_state(1)
+        torch.cuda.synchronize()
+        init_ms = (time.perf_counter() - t0) * 1e3
         for h in hooks:
             h.remove()
+        if streamer.graphs.captures - captures != 3 + S:
+            fail(f"init_state captured {streamer.graphs.captures - captures}"
+                 f" graphs, expected {3 + S}")
+        if seen != want_init:
+            fail("the ConvBlock1d shapes of the stream's warm-up and capture "
+                 "differ from the checked ones")
+        if fused_snake_conv.launches != sum(want_init.values()):
+            fail(f"init_state called the kernel's wrapper "
+                 f"{fused_snake_conv.launches} times for "
+                 f"{sum(want_init.values())} ConvBlock1d calls")
+        # the streamed path: the device's launch counts set to 0 just
+        # before its 64 buffers and read just after
+        fused_snake_conv.launches = 0
+        captures, replays = streamer.graphs.captures, streamer.graphs.replays
+        reset_device_launches()
+        times, ys = stream_audio(streamer, state, a, b, nb, x0s=x0s)
+        launches, sums = device_launches()
         launches_streaming += launches
+        sums_streaming += sums
         if launches != len(stream_path) * n_buffers:
-            fail(f"streaming: fused_snake_conv launched {launches} times in "
-                 f"{n_buffers} buffers, expected {len(stream_path)} a buffer")
+            fail(f"streaming: the device counted {launches} {KERNEL_NAME} "
+                 f"launches in {n_buffers} buffers, expected "
+                 f"{len(stream_path)} a buffer")
+        if fused_snake_conv.launches:
+            fail("a replayed buffer called the kernel's wrapper")
+        if streamer.graphs.captures != captures:
+            fail("a stream state was captured again")
+        graph_calls = (streamer.graphs.replays - replays) / n_buffers
+        e_state = eager_streamer.init_state(1)
+        seen.clear()
+        hooks = hook_blocks(eager_streamer.codec, seen)
+        fused_snake_conv.launches = 0
+        reset_device_launches()
+        eager_times, eager_ys = stream_audio(eager_streamer, e_state, a, b, nb,
+                                             x0s=x0s)
+        for h in hooks:
+            h.remove()
+        if (fused_snake_conv.launches != len(stream_path) * n_buffers
+                or device_launches() != (launches, sums)):
+            fail(f"streaming op by op: the kernel's wrapper was called "
+                 f"{fused_snake_conv.launches} times and the device counted "
+                 f"{device_launches()} launches")
         if seen != want:
             fail("the ConvBlock1d shapes of the streaming path differ from "
                  "the checked ones")
-        med = sorted(times)[len(times) // 2]
+        med, eager_med = (sorted(t)[len(t) // 2] for t in (times,
+                                                           eager_times))
+        stream_rows[nb] = (med * 1e3, eager_med * 1e3)
         log(f"streaming: nb_steps {nb}, {n_buffers} buffers of {A} samples "
-            f"({buffer_ms:.2f} ms of audio each): median "
-            f"{med * 1e3:.2f} ms, p90 {percentile(times, 0.9) * 1e3:.2f} ms, "
-            f"max {max(times) * 1e3:.2f} ms per buffer; real-time factor "
-            f"{buffer_ms / (med * 1e3):.2f}x; fused_snake_conv launches "
-            f"{launches / n_buffers:g} a buffer")
-    # launches in the two streamed runs (2 x 64 buffers); the *_per_buffer
-    # times are those of one buffer's 96 launches
+            f"({buffer_ms:.2f} ms of audio each), median / p90 / max ms per "
+            f"buffer: as CUDA graphs {spread(times)} (real-time factor "
+            f"{buffer_ms / (med * 1e3):.2f}x, {graph_calls:g} graph launches "
+            f"a buffer), op by op {spread(eager_times)} "
+            f"({buffer_ms / (eager_med * 1e3):.2f}x); init_state with its "
+            f"capture {init_ms:.1f} ms; {KERNEL_NAME} and {SUM_NAME} "
+            f"launches counted on the device {launches / n_buffers:g} and "
+            f"{sums / n_buffers:g} a buffer")
+        agree(f"streaming nb_steps {nb}: graph vs eager, {n_buffers} buffers",
+              ys, eager_ys)
+    # launches in the two streamed runs (2 x 64 buffers), counted on the
+    # device; the *_per_buffer times are those of one buffer's 96 launches
     row["launches_streaming"] = launches_streaming
-    state = streamer.init_state(1)
-    profile_call(f"one streamed buffer at nb_steps {STREAM_STEPS[-1]}",
-                 lambda: streamer.forward(state, a[:, :A], b[:, :A],
-                                          nb_steps=STREAM_STEPS[-1],
-                                          guidance_timbre=GUIDANCE_TIMBRE))
+    row["launches_per_buffer"] = launches_streaming // (
+        n_buffers * len(STREAM_STEPS))
+    row["sum_splits_launches_per_buffer"] = sums_streaming // (
+        n_buffers * len(STREAM_STEPS))
+    row["graph_launches_per_buffer"] = {nb: 3 + nb for nb in STREAM_STEPS}
+    row["buffer_ms_median"] = {nb: v[0] for nb, v in stream_rows.items()}
+    row["buffer_eager_ms_median"] = {nb: v[1] for nb, v in
+                                     stream_rows.items()}
 
-    # 7. streaming card vs CPU, for the base config and the causal one
-    stream_card_vs_cpu(
-        "base (crossfade)", streamer,
-        Streamer(cfg, CHUNK, N_FADE, pipeline=cpu), STREAM_VS_CPU_BUFFERS,
-        SEED + 2)
+    # a stream whose nb_steps (1-16) and guidances change every buffer
+    attrs = [(1 + i % S, 1.0 + 0.8 * math.sin(i), 1.2 + math.cos(0.7 * i))
+             for i in range(STREAM_CHANGING)]
+    n = STREAM_CHANGING * A
+    state = streamer.init_state(1)
+    captures = streamer.graphs.captures
+    reset_device_launches()
+    times, ys = stream_audio(streamer, state, a[:, :n], b[:, :n], None,
+                             attributes=attrs, x0s=x0s)
+    changing = device_launches()[0]
+    if streamer.graphs.captures != captures:
+        fail("the stream was captured again after its first buffer")
+    if changing != len(stream_path) * STREAM_CHANGING:
+        fail(f"the device counted {changing} {KERNEL_NAME} launches in "
+             f"{STREAM_CHANGING} buffers")
+    eager_times, eager_ys = stream_audio(
+        eager_streamer, eager_streamer.init_state(1), a[:, :n], b[:, :n],
+        None, attributes=attrs, x0s=x0s)
+    log(f"streaming: {STREAM_CHANGING} buffers with nb_steps 1-{S} and both "
+        f"guidances changing every buffer: {streamer.graphs.captures - captures}"
+        f" captures after init_state, {changing} {KERNEL_NAME} launches "
+        f"counted on the device; median / p90 / max ms as CUDA graphs "
+        f"{spread(times)}, op by op {spread(eager_times)}")
+    agree(f"streaming with changing attributes: graph vs eager, "
+          f"{STREAM_CHANGING} buffers", ys, eager_ys)
+
+    nb = STREAM_STEPS[-1]
+    state = streamer.init_state(1)
+    one = dict(nb_steps=nb, guidance_timbre=GUIDANCE_TIMBRE)
+    streamer.forward(state, a[:, :A], b[:, :A], **one)
+    _, _, counts, ms = profile_call(
+        f"one streamed buffer at nb_steps {nb} as CUDA graphs",
+        lambda: streamer.forward(state, a[:, :A], b[:, :A], **one))
+    replay_witness("one replayed buffer", counts, ms,
+                   row["launches_per_buffer"],
+                   row["sum_splits_launches_per_buffer"], row, "buffer")
+    e_state = eager_streamer.init_state(1)
+    eager_streamer.forward(e_state, a[:, :A], b[:, :A], **one)
+    profile_call(f"one streamed buffer at nb_steps {nb} op by op",
+                 lambda: eager_streamer.forward(e_state, a[:, :A], b[:, :A],
+                                                **one))
+    no_host_sync("one streamed buffer op by op",
+                 lambda: eager_streamer.forward(e_state, a[:, :A], b[:, :A],
+                                                **one))
+    held = streamer.graphs.held_bytes()
+    states = streamer.graphs.captures // (3 + S)
+    log(f"streaming: the streamer's graph pool holds "
+        + (f"{held / 2**20:.1f} MiB" if held is not None else "not measured")
+        + f" after {states} states' captures ({3 + S} graphs a state; "
+        f"capture time {streamer.graphs.capture_seconds / states * 1e3:.1f} "
+        f"ms a state, with its warm-up in init_state)")
+
+    # 7. streaming card vs CPU, for the base config and the causal one,
+    # the card through its graphs
+    if stream_card_vs_cpu(
+            "base (crossfade)", streamer,
+            Streamer(cfg, CHUNK, N_FADE, pipeline=cpu), STREAM_VS_CPU_BUFFERS,
+            SEED + 2) != len(stream_path) * STREAM_VS_CPU_BUFFERS:
+        fail("the base stream's replays did not launch the kernel on every "
+             "ConvBlock1d")
     ccfg = get_config("base", "streaming")
     ccfg = ccfg.resolved(in_size=ccfg.autoencoder.z_channels,
                          n_signal=N_SAMPLES // ccfg.autoencoder.ratio)
@@ -1382,7 +1749,7 @@ def main() -> None:
         fail("the causal codec launched the kernel on its cached convs")
 
     # 8. codec training at full width; 9. training card vs CPU
-    del streamer, ccard, ccpu, cpu
+    del streamer, eager_streamer, state, e_state, ccard, ccpu, cpu
     gc.collect()
     torch.cuda.empty_cache()
     train_phase(row)

@@ -19,8 +19,10 @@ import numpy as np
 import pytest
 import torch
 
-from after_tpu_torch.ops.kernels.fused_conv import (fused_snake_conv,
+from after_tpu_torch.ops.kernels.fused_conv import (device_launches,
+                                                    fused_snake_conv,
                                                     kernel_weight,
+                                                    reset_device_launches,
                                                     snake_conv_reference)
 from after_tpu_torch.utils.device import strict_f32
 
@@ -206,12 +208,13 @@ def test_streamer_on_the_card_matches_the_cpu(cuda):
         a, b = (0.3 * rng.randn(2, A, 1)).astype(np.float32), \
             (0.3 * rng.randn(2, A, 1)).astype(np.float32)
         x0 = rng.randn(2, 4, 8).astype(np.float32)
-        before = fused_snake_conv.launches
+        reset_device_launches()
         y_card, states[1] = streamers[1].forward(states[1], a, b, 2, 2.0,
                                                  x0=x0)
-        torch.cuda.synchronize()
-        # 3 resnets of 2 conv blocks in each encode and in the decode
-        assert fused_snake_conv.launches - before == 18
+        # 3 resnets of 2 conv blocks in each encode and in the decode, each
+        # launch counted by the kernel on the device (the buffer is replayed
+        # from CUDA graphs, which run no Python)
+        assert device_launches()[0] == 18
         y_cpu, states[0] = streamers[0].forward(states[0], a, b, 2, 2.0,
                                                 x0=x0)
         err = (y_card.cpu() - y_cpu).abs().max().item()

@@ -43,3 +43,29 @@ def test_frozen_encoder_cycle_step_matches_jax(shapes):
     assert float(metrics["cycle_cond"]) > 0
     assert all(float(g.abs().max()) == 0 for g in grads["encoder"])
     assert any(float(g.abs().max()) > 0 for g in grads["encoder_time"])
+
+
+def test_cycle_with_fsq_noise_dropout_is_refused_by_both():
+    """A cycle step with the structure encoder's FSQ noise dropout: the
+    JAX trainer raises flax's InvalidRngError in the cycle's re-encode (it
+    passes only a "dropout" rng, the dropout asks for "sample"), while the
+    same step without the cycle runs; the port refuses the configuration
+    when the trainer is made, naming that failure."""
+    import flax
+
+    from after_tpu_torch.diffusion.trainer import DiffusionTrainer
+
+    cfg = common.no_dropout(**CYCLE, **{
+        "encoder_time.quantizer_levels": (5,) * 12,
+        "encoder_time.quantizer_noise_dropout": 0.5})
+    jtr = common.identity_trainer(cfg)
+    variables = common.random_variables(common.variable_shapes(jtr), 6)
+    step = (common.batch(6), jax.random.PRNGKey(13))
+    with pytest.raises(flax.errors.InvalidRngError):
+        common.jax_train_step(jtr, variables, *step, (False, True, True, True),
+                              (0.05, 1.0))
+    metrics, _, _ = common.jax_train_step(
+        jtr, variables, *step, (False, True, True, False), (0.05, 1.0))
+    assert float(metrics["diffusion_loss"]) > 0
+    with pytest.raises(ValueError, match="InvalidRngError"):
+        DiffusionTrainer(common.port_cfg(cfg), device="cpu")

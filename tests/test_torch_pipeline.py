@@ -99,7 +99,8 @@ def test_import_pulls_in_no_jax():
             "after_tpu_torch.autoencoder.trainer, "
             "after_tpu_torch.models.discriminator, after_tpu_torch.ops.stft, "
             "after_tpu_torch.diffusion.trainer, after_tpu_torch.dataset, "
-            "after_tpu_torch.utils.checkpoint, after_tpu_torch.cli.train; "
+            "after_tpu_torch.utils.checkpoint, after_tpu_torch.cli.train, "
+            "after_tpu_torch.utils.graphs; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'flax' or m == 'after_tpu' or "
             "m.startswith('after_tpu.')]; print(bad); sys.exit(1 if bad else 0)")
