@@ -159,7 +159,8 @@ class AutoencoderTrainer:
         of skipped non-finite updates (``skipped_nonfinite``)."""
         metrics, grads = self.gen_grads(x, use_gan, w_wave, w_reg, noise)
         self.optimizer.step(grads)
-        metrics["skipped_nonfinite"] = self.optimizer.total_notfinite
+        # a copy: the optimizer's counter changes in place at its next step
+        metrics["skipped_nonfinite"] = self.optimizer.total_notfinite.clone()
         return metrics
 
     def disc_grads(self, x: ArrayLike, noise: Optional[ArrayLike] = None

@@ -14,9 +14,9 @@ drive ``after_tpu_torch.autoencoder.AutoencoderTrainer``, and
 ``DiffusionTrainConfig`` drives ``after_tpu_torch.diffusion.trainer.
 DiffusionTrainer``.  Fields that only the JAX package reads
 (``fused_kernels``, ``rng_impl``) and those the port refuses for now
-(``compute_dtype`` of both trainers, ``steps_per_call > 1``,
-``stft_bf16_dft``, ``DiscriminatorConfig(kind="descript")``,
-``diffusion_type="edm"``) are kept so that the JSON form stays identical.
+(``compute_dtype`` of both trainers, ``stft_bf16_dft``,
+``DiscriminatorConfig(kind="descript")``, ``diffusion_type="edm"``) are
+kept so that the JSON form stays identical.
 """
 
 from __future__ import annotations
@@ -230,8 +230,9 @@ class DiffusionTrainConfig:
     # master params / optimizer / EMA / losses / norm statistics stay f32
     # (norm statistics in f32). None = pure f32.
     compute_dtype: Optional[str] = None
-    # the JAX trainer's random generator and its steps per XLA call: the
-    # port ignores the first and refuses steps_per_call > 1
+    # the JAX trainer's random generator (the port ignores it) and the
+    # steps per call: DiffusionTrainer.fit runs windows of steps_per_call
+    # steps, as the JAX trainer's multi_step does
     rng_impl: Optional[str] = None
     steps_per_call: int = 1
 

@@ -583,6 +583,16 @@ __global__ void sum_splits(const float* __restrict__ ws, float* __restrict__ y,
   }
 }
 
+// sum_splits over n outputs on stream s: one thread an output, at most 8
+// blocks an SM (a grid-stride loop covers the rest)
+int launch_sum_splits(const float* ws, float* y, long long n, int splits,
+                      unsigned long long* count, cudaStream_t s) {
+  const long long most = (long long)kSMs * 8;
+  const int blocks = (int)((n + 255) / 256 < most ? (n + 255) / 256 : most);
+  sum_splits<<<blocks, 256, 0, s>>>(ws, y, n, splits, count);
+  return (int)cudaGetLastError();
+}
+
 int ceil_div(int a, int b) { return (a + b - 1) / b; }
 
 // channels per stage of each instance: the most that fits beside the other
@@ -765,12 +775,20 @@ int fused_snake_conv_f32(const float* x, const float* alpha, const float* beta,
     default: e = launch<256, 16, 1>(w, wlo, Cw, p, plan, B, s);
   }
   if (e != 0 || plan.splits == 1) return e;
-  const long long n = (long long)B * T * O;
-  const long long most = (long long)kSMs * 8;
-  const int blocks = (int)((n + 255) / 256 < most ? (n + 255) / 256 : most);
-  sum_splits<<<blocks, 256, 0, s>>>(ws, y, n, plan.splits,
-                                    counts == nullptr ? nullptr : counts + 1);
-  return (int)cudaGetLastError();
+  return launch_sum_splits(ws, y, (long long)B * T * O, plan.splits,
+                           counts == nullptr ? nullptr : counts + 1, s);
+}
+
+// The split sum alone, as fused_snake_conv_f32 launches it: y[i] = ws[0][i]
+// + ... + ws[splits - 1][i] over n = B * T * O outputs, in split order;
+// counts[1] (when counts is not null) counts the launch.
+int fused_snake_conv_sum_splits(const float* ws, float* y, long long n,
+                                int splits, unsigned long long* counts,
+                                void* stream) {
+  if (n <= 0 || splits <= 0) return (int)cudaErrorInvalidValue;
+  return launch_sum_splits(ws, y, n, splits,
+                           counts == nullptr ? nullptr : counts + 1,
+                           (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -30,6 +30,32 @@ masks.  ``train.rng_impl`` names the JAX trainer's random generator and is
 kept for the shared JSON form only.  Everything runs on the trainer's
 device, the CUDA card unless the caller passes ``device="cpu"``, in strict
 f32.
+
+On the card each step runs as a CUDA graph, as the JAX package jits each
+step (utils/graphs.py): one graph per step signature (kind, phase1,
+train_encoder, train_encoder_time, use_cycle; at most 5 over the
+curriculum) and batch layout, keyed besides by the addresses of the train
+state and the TF32 switches.  The first step of a signature runs op by op
+on the graphs' side stream and is captured after it; later steps copy
+their batch into the graph's static buffers (a host batch through pinned
+memory, without a host sync) and their adversarial and regularisation
+weights into device scalars, and replay it.  The generator is registered
+with each graph, so a replay draws what the step run op by op would draw
+from the same generator state; nothing is read back to the host
+(``AdamW`` and the BatchNorm commit select on the device).  A step given
+``draws`` (host values) runs op by op, and so does every step with
+``eager=True`` or on the CPU.  New train-state tensors (``init``,
+``load_jax``, ``load_state_tree``) drop the graphs.
+
+``fit`` runs ``train.steps_per_call = K > 1`` as the JAX package's
+windows of K steps (``multi_step``, ``_scan_window``): a window starts at a
+step that is a multiple of K when no curriculum boundary falls strictly
+inside it and it ends by ``max_steps``; its K steps are queued without a
+host sync, their metrics summed on the device, and the callback sees the
+window's averages once, with the trainer K steps on.  The port draws each
+step from its own generator, so a window is exactly K single steps (JAX's
+windows split one key K ways, so their draws differ from its single
+steps').
 """
 
 from __future__ import annotations
@@ -43,8 +69,11 @@ import numpy as np
 import torch
 
 from ..config import AfterConfig
+from ..ops.conv import recompute_weights
 from ..ops.train_mode import TrainMode
-from ..utils.device import resolve_device, strict_f32
+from ..utils.device import copy_from_host, resolve_device, strict_f32, \
+    to_device
+from ..utils.graphs import GraphPool, state_key
 from ..utils.optim import AdamW
 from .factory import make_model
 
@@ -60,6 +89,10 @@ ArrayLike = Union[torch.Tensor, np.ndarray]
 # fsq         the structure encoder's FSQ noise dropout (FSQ.draw)
 DRAWS = ("shuffle", "cond_noise", "time_cond_noise", "cfg_uniform", "x0",
          "t", "cycle_perm", "fsq")
+# the float metrics of a diffusion step (with "skipped_nonfinite", the
+# optimizer's running count of skipped updates)
+DIFFUSION_METRICS = ("diffusion_loss", "adversarial_loss", "cond_reg",
+                     "time_cond_reg", "cycle_cond", "cycle_time_cond", "loss")
 
 
 def shuffle_index(batch: int, length: int, sizes: Sequence[int],
@@ -99,19 +132,16 @@ def _cos_loss(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 class DiffusionTrainer:
     """The diffusion model (``rf``), its optimizers, the EMA of the
     denoiser's parameters (``ema``, in ``rf.net.parameters()`` order) and
-    the step count."""
+    the step count.  On the card the steps run as CUDA graphs;
+    ``eager=True`` (or setting ``trainer.eager``) runs them op by op."""
 
     def __init__(self, cfg: AfterConfig,
                  device: Optional[Union[str, torch.device]] = None,
-                 seed: int = 0):
+                 seed: int = 0, *, eager: bool = False):
         tc = cfg.train
         if tc.compute_dtype is not None:
             raise NotImplementedError(
                 "the port trains in f32 only: train.compute_dtype is not "
-                "ported")
-        if int(tc.steps_per_call or 1) > 1:
-            raise NotImplementedError(
-                "train.steps_per_call > 1 (several steps in one call) is not "
                 "ported")
         et = cfg.encoder_time
         if (tc.cycle_consistency and et is not None and et.quantizer_levels
@@ -129,8 +159,12 @@ class DiffusionTrainer:
                 "InvalidRngError), so the port refuses it")
         self.cfg, self.tc = cfg, tc
         self.device = resolve_device(device)
+        self.eager = eager
         strict_f32()
         self.rf = make_model(cfg).eval().to(self.device)
+        # the encoders run without gradients in a classifier step: a weight
+        # kept there would outlive the updates in a step's graph
+        recompute_weights(self.rf)
         self.generator = torch.Generator(self.device).manual_seed(seed)
         # the models the main optimizer trains, in its parameter order
         self.groups = {"net": self.rf.net, "encoder": self.rf.encoder}
@@ -150,6 +184,12 @@ class DiffusionTrainer:
                               if rf.classifier is not None else None)
         self.ema = [p.detach().clone() for p in rf.net.parameters()]
         self.step = 0
+        # the steps' CUDA graphs, made at the first capture: {key: (state
+        # key, graph, static inputs)}; new state tensors drop them
+        self.graphs: Optional[GraphPool] = None
+        self._graphs: Dict[tuple, tuple] = {}
+        self._weights = torch.zeros(2, device=self.device)
+        self._state = list(self._state_tensors())
 
     def init(self, seed: int = 0) -> "DiffusionTrainer":
         """Port-native random weights from ``seed`` (utils/init.py), fresh
@@ -202,8 +242,7 @@ class DiffusionTrainer:
         memo: Dict[int, torch.Tensor] = {}
         for v in batch.values():
             if id(v) not in memo:
-                memo[id(v)] = torch.as_tensor(v, dtype=torch.float32,
-                                              device=self.device)
+                memo[id(v)] = to_device(v, self.device)
         return {k: memo[id(v)] for k, v in batch.items()}
 
     def _taker(self, draws: Optional[Mapping[str, Any]]
@@ -382,13 +421,16 @@ class DiffusionTrainer:
         """A diffusion step without its update: (metrics, the gradients of
         each trained model's parameters by model name, in ``parameters()``
         order, zeros for a frozen model, the step's pending batch
-        statistics)."""
-        batch = self.upload(batch)
+        statistics).  Runs op by op."""
+        return self._train_grads(
+            self.upload(batch), self._taker(draws),
+            (phase1, train_encoder, train_encoder_time, use_cycle),
+            (adversarial_weight, regularisation_weight))
+
+    def _train_grads(self, batch, take, flags, weights):
+        phase1, train_encoder, train_encoder_time, _ = flags
         keep = self._keep(phase1, train_encoder, train_encoder_time)
-        loss, metrics, kept = self._loss(
-            batch, self._taker(draws), phase1, train_encoder,
-            train_encoder_time, use_cycle, adversarial_weight,
-            regularisation_weight)
+        loss, metrics, kept = self._loss(batch, take, *flags, *weights)
         wanted = [p for p, g in zip(self.params, self._group_of) if keep[g]]
         got = iter(torch.autograd.grad(loss, wanted, allow_unused=True))
         grads: Dict[str, List[torch.Tensor]] = {}
@@ -399,6 +441,22 @@ class DiffusionTrainer:
                 grads[name].append(torch.zeros_like(p) if g is None else g)
         return {k: v.detach() for k, v in metrics.items()}, grads, kept
 
+    def _train_update(self, batch, take, flags, weights
+                      ) -> Dict[str, torch.Tensor]:
+        """One diffusion step on a device batch; its metrics."""
+        metrics, grads, kept = self._train_grads(batch, take, flags, weights)
+        keep = self._keep(*flags[:3])
+        self.optimizer.step([g for name in self.groups for g in grads[name]],
+                            [keep[g] for g in self._group_of])
+        metrics["skipped_nonfinite"] = self.optimizer.total_notfinite.clone()
+        kept.commit(self.optimizer.finite)
+        decay = self.tc.ema_decay
+        with torch.no_grad():
+            torch._foreach_mul_(self.ema, decay)
+            torch._foreach_add_(self.ema, list(self.rf.net.parameters()),
+                                alpha=1 - decay)
+        return metrics
+
     def train_step(self, batch: Mapping[str, ArrayLike], phase1: bool,
                    train_encoder: bool, train_encoder_time: bool,
                    use_cycle: bool, adversarial_weight: float,
@@ -407,22 +465,18 @@ class DiffusionTrainer:
                    ) -> Dict[str, Any]:
         """One diffusion step: the update of the trained models, their
         batch statistics when the gradients are finite, the EMA; returns the
-        metrics with the count of skipped updates (``skipped_nonfinite``)."""
-        metrics, grads, kept = self.train_grads(
-            batch, phase1, train_encoder, train_encoder_time, use_cycle,
-            adversarial_weight, regularisation_weight, draws)
-        keep = self._keep(phase1, train_encoder, train_encoder_time)
-        self.optimizer.step([g for name in self.groups for g in grads[name]],
-                            [keep[g] for g in self._group_of])
-        metrics["skipped_nonfinite"] = self.optimizer.total_notfinite
-        if self.optimizer.finite:
-            kept.commit()
-        decay = self.tc.ema_decay
-        with torch.no_grad():
-            torch._foreach_mul_(self.ema, decay)
-            torch._foreach_add_(self.ema, list(self.rf.net.parameters()),
-                                alpha=1 - decay)
-        return metrics
+        metrics with the count of skipped updates (``skipped_nonfinite``),
+        as device tensors of their own."""
+        return self._diffusion(
+            batch, (phase1, train_encoder, train_encoder_time, use_cycle),
+            (adversarial_weight, regularisation_weight), draws)
+
+    def _diffusion(self, batch, flags, weights, draws=None):
+        flags = tuple(map(bool, flags))
+        return self._run(
+            ("diffusion", *flags),
+            lambda b, take, w: self._train_update(b, take, flags, w),
+            batch, tuple(weights), draws)
 
     # ------------------------------------------------------------------
     # the classifier step
@@ -434,12 +488,13 @@ class DiffusionTrainer:
                                     List[torch.Tensor], TrainMode]:
         """A classifier step without its update: (metrics, the gradients of
         the classifier's parameters, its pending batch statistics).  Both
-        encoders run at inference, without gradients."""
-        rf = self.rf
-        if rf.classifier is None:
+        encoders run at inference, without gradients.  Runs op by op."""
+        if self.rf.classifier is None:
             raise ValueError("the config has no adversarial classifier")
-        batch = self.upload(batch)
-        take = self._taker(draws)
+        return self._classifier_grads(self.upload(batch), self._taker(draws))
+
+    def _classifier_grads(self, batch, take):
+        rf = self.rf
         with torch.no_grad():
             cond = rf.encoder(self._shuffled(batch["x_cond"], take))[0]
             time_cond = rf.encoder_time(batch["x_time_cond"])[0]
@@ -449,15 +504,97 @@ class DiffusionTrainer:
         grads = torch.autograd.grad(loss, list(rf.classifier.parameters()))
         return {"classifier_loss": loss.detach()}, list(grads), kept
 
+    def _classifier_update(self, batch, take, weights=None
+                           ) -> Dict[str, torch.Tensor]:
+        metrics, grads, kept = self._classifier_grads(batch, take)
+        self.cls_optimizer.step(grads)
+        kept.commit(self.cls_optimizer.finite)
+        return metrics
+
     def classifier_step(self, batch: Mapping[str, ArrayLike],
                         draws: Optional[Mapping[str, Any]] = None
                         ) -> Dict[str, torch.Tensor]:
         """One update of the classifier (and its batch statistics when the
-        gradients are finite); its metrics."""
-        metrics, grads, kept = self.classifier_grads(batch, draws)
-        self.cls_optimizer.step(grads)
-        if self.cls_optimizer.finite:
-            kept.commit()
+        gradients are finite); its metrics, as device tensors of their
+        own."""
+        if self.rf.classifier is None:
+            raise ValueError("the config has no adversarial classifier")
+        return self._classifier(batch, draws)
+
+    def _classifier(self, batch, draws=None):
+        return self._run(("classifier",), self._classifier_update, batch,
+                         None, draws)
+
+    # ------------------------------------------------------------------
+    # the steps as CUDA graphs
+    # ------------------------------------------------------------------
+
+    @property
+    def graphed(self) -> bool:
+        """Whether steps run as CUDA graphs (on the card, unless
+        ``eager``)."""
+        return self.device.type == "cuda" and not self.eager
+
+    def _state_tensors(self):
+        """What a step's graph reads and writes in place besides its static
+        inputs: the models' parameters and statistics, both optimizers'
+        state and the EMA."""
+        yield from self.rf.parameters()
+        yield from self.rf.buffers()
+        yield from self.ema
+        for opt in (self.optimizer, self.cls_optimizer):
+            if opt is not None:
+                yield from (opt._mu, opt._nu, opt.count, opt.notfinite_count,
+                            opt.total_notfinite, opt.finite)
+
+    def _run(self, signature: tuple, update: Callable[..., Dict],
+             batch: Mapping[str, ArrayLike], weights: Optional[tuple],
+             draws: Optional[Mapping[str, Any]]) -> Dict[str, torch.Tensor]:
+        """update(device batch, take, weights), one step: op by op (with
+        ``draws``, ``eager`` or on the CPU), or as the graph of
+        ``signature`` and the batch's layout and shapes.  Returns its
+        metrics (a replay's as copies: the next replay overwrites the
+        graph's outputs).
+
+        The graph's inputs are static buffers: one per distinct array of
+        the batch (keys that share an array share a buffer) and the weights
+        as device scalars.  At the first step with its key the step runs on
+        the pool's side stream and is captured after it; the generator is
+        registered with the graph."""
+        if draws is not None or not self.graphed:
+            return update(self.upload(batch), self._taker(draws), weights)
+        arrays: List[Any] = []
+        slots: Dict[int, int] = {}
+        layout = []
+        for k, v in batch.items():
+            if id(v) not in slots:
+                slots[id(v)] = len(arrays)
+                arrays.append(v)
+            layout.append((k, slots[id(v)]))
+        key = (signature, tuple(layout),
+               tuple(tuple(np.shape(a)) for a in arrays))
+        check = (state_key(self._state), id(self.generator))
+        entry = self._graphs.get(key)
+        statics = entry[2] if entry is not None else [
+            torch.empty(np.shape(a), device=self.device) for a in arrays]
+        for buf, a in zip(statics, arrays):
+            copy_from_host(buf, a)
+        if weights is not None:
+            copy_from_host(self._weights, np.asarray(weights, np.float32))
+        if entry is not None and entry[0] == check:
+            return {k: v.clone() for k, v in entry[1].replay().items()}
+
+        static_batch = {k: statics[i] for k, i in layout}
+        w = (self._weights[0], self._weights[1]) if weights is not None \
+            else None
+
+        def step():
+            return update(static_batch, self._taker(None), w)
+        if self.graphs is None:
+            self.graphs = GraphPool(self.device)
+        metrics = self.graphs.warm(step)
+        self._graphs[key] = (check, self.graphs.capture(
+            step, generators=(self.generator,)), statics)
         return metrics
 
     # ------------------------------------------------------------------
@@ -502,26 +639,95 @@ class DiffusionTrainer:
             = None, mesh=None) -> "DiffusionTrainer":
         """Train on ``batches`` of latent crops {"x", "x_cond",
         "x_time_cond"} until ``max_steps`` (``train.max_steps`` by
-        default); ``callback(self, metrics)`` after each step, with the
-        metrics as device tensors.  Training across devices (``mesh``) is
-        not ported."""
+        default); ``callback(self, metrics)`` after each step, or after
+        each window of ``train.steps_per_call`` steps with the window's
+        metrics (``window``), the metrics as device tensors.  Training
+        across devices (``mesh``) is not ported."""
         if mesh is not None:
             raise NotImplementedError(
                 "the port trains on one device: no mesh or DDP yet")
-        max_steps = max_steps if max_steps is not None else self.tc.max_steps
+        tc = self.tc
+        max_steps = max_steps if max_steps is not None else tc.max_steps
+        K = max(int(tc.steps_per_call or 1), 1)
+        # windows take their batches from inside the loop: an iterator, so
+        # that a list cannot replay its head
+        batches = iter(batches)
+        # the curriculum's boundaries, which a window never crosses
+        boundaries = sorted({tc.timbre_warmup, tc.cycle_start_step + 1,
+                             tc.stop_training_encoder_step + 1,
+                             tc.stop_training_encoder_time_step + 1,
+                             max_steps})
+
+        def window_clear(step):
+            return (step + K <= max_steps
+                    and not any(step < b < step + K for b in boundaries))
+
+        def single(batch):
+            metrics = self._single(batch)
+            if callback is not None:
+                callback(self, metrics)
+
         for batch in batches:
             if self.step >= max_steps:
                 break
-            step = self.step
-            if self.step_kind(step) == "classifier":
-                metrics = self.classifier_step(batch)
-            else:
-                metrics = self.train_step(batch, *self.step_flags(step),
-                                          *self.schedule_weights(step))
-            self.step += 1
-            if callback is not None:
-                callback(self, metrics)
+            if K > 1 and self.step % K == 0 and window_clear(self.step):
+                window = [batch]
+                for nxt in batches:
+                    window.append(nxt)
+                    if len(window) == K:
+                        break
+                if len(window) == K:
+                    metrics = self.window(window)
+                    if callback is not None:
+                        callback(self, metrics)
+                    continue
+                # the iterator ran dry inside a window: single steps
+                for b in window:
+                    if self.step >= max_steps:
+                        break
+                    single(b)
+                break
+            single(batch)
         return self
+
+    def _single(self, batch, draws=None) -> Dict[str, torch.Tensor]:
+        """The step ``fit`` runs at ``self.step``, which it then counts."""
+        step = self.step
+        if self.step_kind(step) == "classifier":
+            metrics = self._classifier(batch, draws)
+        else:
+            metrics = self._diffusion(batch, self.step_flags(step),
+                                      self.schedule_weights(step), draws)
+        self.step += 1
+        return metrics
+
+    def window(self, batches: Sequence[Mapping[str, ArrayLike]],
+               draws: Optional[Sequence[Mapping[str, Any]]] = None
+               ) -> Dict[str, torch.Tensor]:
+        """len(batches) steps from ``self.step``, one a batch, as ``fit``
+        runs a window (the caller sees to it that no curriculum boundary
+        falls inside it), with the metrics averaged on the device and
+        nothing read back: the JAX ``multi_step``'s metrics, the diffusion
+        metrics averaged over the window's diffusion steps,
+        ``classifier_loss`` over its classifier steps (0 where it has none)
+        and ``skipped_nonfinite`` the running count after its last
+        diffusion step.  ``draws`` gives each step's draws (the steps then
+        run op by op)."""
+        draws = draws if draws is not None else [None] * len(batches)
+        steps = [self._single(b, d) for b, d in zip(batches, draws)]
+        cls = [m for m in steps if "classifier_loss" in m]
+        diff = [m for m in steps if "classifier_loss" not in m]
+
+        def mean(rows, key):
+            if not rows:
+                return torch.zeros((), device=self.device)
+            return torch.stack([m[key] for m in rows]).mean()
+        out = {k: mean(diff, k) for k in DIFFUSION_METRICS}
+        out["classifier_loss"] = mean(cls, "classifier_loss")
+        out["skipped_nonfinite"] = (
+            diff[-1]["skipped_nonfinite"] if diff
+            else torch.zeros((), dtype=torch.int32, device=self.device))
+        return out
 
     # ------------------------------------------------------------------
     # checkpoints

@@ -56,18 +56,21 @@ class _WeightNormed(nn.Module):
     With gradients off (inference) the result is a constant, so it is kept
     until either parameter is moved or written in place (``init_weights``,
     ``load_jax`` and ``load_state_dict`` all write in place, which bumps the
-    tensor's version).  A module with ``kernel_layout`` set keeps it as the
-    fused snake+conv kernel reads it: storage in (k, O, C) order behind an
-    (O, C, k) view, with its low tf32 half beside it as ``kernel_lo``
+    tensor's version), unless ``keep_weight`` is off (``recompute_weights``).
+    A module with ``kernel_layout`` set keeps it as the fused snake+conv
+    kernel reads it: storage in (k, O, C) order behind an (O, C, k) view,
+    with its low tf32 half beside it as ``kernel_lo``
     (ops/kernels/fused_conv.py: ``kernel_weight``)."""
 
     _wn = None
     _wn_key = None
     kernel_layout = False
+    keep_weight = True
 
     def effective_weight(self) -> torch.Tensor:
         w, g = self.weight, self.g
-        if torch.is_grad_enabled() or w.is_inference() or g.is_inference():
+        if (not self.keep_weight or torch.is_grad_enabled()
+                or w.is_inference() or g.is_inference()):
             return weight_norm(w, g)
         key = (w.data_ptr(), w._version, g.data_ptr(), g._version)
         if key != self._wn_key:
@@ -81,6 +84,17 @@ class _WeightNormed(nn.Module):
             self._wn = wn
             self._wn_key = key
         return self._wn
+
+
+def recompute_weights(module: nn.Module) -> None:
+    """Makes every weight-normed conv in ``module`` compute its weight at
+    each call, in inference too.  A training step captured in a CUDA graph
+    needs this: a kept weight is read at a fixed address and made again
+    only by Python, which a replay does not run, so after an update a
+    replay would go on reading the weight from before it."""
+    for m in module.modules():
+        if isinstance(m, _WeightNormed):
+            m.keep_weight = False
 
 
 class StreamConv1d(_WeightNormed, Streaming):

@@ -17,7 +17,9 @@ version (``snake_conv_reference``) for CPU tensors; there is no other choice
 and no fallback between the two.  Where the kernel's plan splits the channel
 sum over blocks, the wrapper hands it a scratch buffer for the partial
 sums, which the kernel adds in a fixed order: its output has the same bits
-from launch to launch, eager or replayed in a CUDA graph.
+from launch to launch, eager or replayed in a CUDA graph.  That second
+kernel, ``sum_splits``, is also callable alone (on the card; its plain
+version ``sum_splits_reference`` on the CPU), to check and time it.
 
 Two counts of launches: ``fused_snake_conv.launches`` counts the wrapper's
 calls on the card (an eager launch, or one recorded by a CUDA graph
@@ -71,6 +73,9 @@ def _lib():
         lib.fused_snake_conv_f32.restype = ctypes.c_int
         lib.fused_snake_conv_plan.argtypes = [i] * 6 + [p]
         lib.fused_snake_conv_plan.restype = ctypes.c_int
+        lib.fused_snake_conv_sum_splits.argtypes = [p, p, ctypes.c_longlong,
+                                                    i, p, p]
+        lib.fused_snake_conv_sum_splits.restype = ctypes.c_int
         _LIB = lib
     return _LIB
 
@@ -268,3 +273,36 @@ def fused_snake_conv(x: torch.Tensor, alpha: torch.Tensor, beta: torch.Tensor,
 
 
 fused_snake_conv.launches = 0
+
+
+def sum_splits_reference(ws: torch.Tensor) -> torch.Tensor:
+    """ws[0] + ws[1] + ... + ws[-1], added in that order (the plain version
+    of the split sum)."""
+    y = ws[0].clone()
+    for part in ws[1:]:
+        y += part
+    return y
+
+
+def sum_splits(ws: torch.Tensor) -> torch.Tensor:
+    """The kernel's split sum over the first axis of ``ws`` (splits, ...),
+    in split order: on a CUDA tensor it launches ``sum_splits`` (which
+    counts itself in ``device_launches()[1]``) or raises; on a CPU tensor it
+    is the plain version."""
+    if ws.device.type == "cpu":
+        return sum_splits_reference(ws)
+    if ws.device.type != "cuda":
+        raise ValueError(f"sum_splits runs on cuda or cpu, not {ws.device}")
+    if ws.dtype != torch.float32 or not ws.is_contiguous() or ws.dim() < 2:
+        raise ValueError("sum_splits takes a contiguous f32 (splits, ...) "
+                         "tensor")
+    y = torch.empty(ws.shape[1:], device=ws.device, dtype=torch.float32)
+    with torch.cuda.device(ws.device):
+        err = _lib().fused_snake_conv_sum_splits(
+            ws.data_ptr(), y.data_ptr(), y.numel(), ws.shape[0],
+            _device_counts(ws.device).data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"sum_splits launch failed with CUDA error {err} "
+                           f"(ws {tuple(ws.shape)})")
+    return y

@@ -63,7 +63,12 @@ class BatchNorm(nn.Module):
         return (x - mean) * mul + self.bias
 
     @torch.no_grad()
-    def update_running(self, mean: torch.Tensor, var: torch.Tensor) -> None:
+    def update_running(self, mean: torch.Tensor, var: torch.Tensor,
+                       ok: Optional[torch.Tensor] = None) -> None:
+        """0.9 * old + 0.1 * batch, written in place (the buffers keep their
+        addresses); with ``ok`` (a 0-dim bool tensor) the old values stay
+        where it is false."""
         m = self.momentum
-        self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
-        self.running_var.copy_(m * self.running_var + (1 - m) * var)
+        for run, batch in ((self.running_mean, mean), (self.running_var, var)):
+            new = m * run + (1 - m) * batch
+            run.copy_(new if ok is None else torch.where(ok, new, run))

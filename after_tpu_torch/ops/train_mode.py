@@ -26,10 +26,13 @@ class TrainMode:
         self.batch_stats: Dict[torch.nn.Module,
                                Tuple[torch.Tensor, torch.Tensor]] = {}
 
-    def commit(self) -> None:
-        """Fold the recorded batch statistics into the running ones."""
+    def commit(self, ok: Optional[torch.Tensor] = None) -> None:
+        """Fold the recorded batch statistics into the running ones; with
+        ``ok`` (a 0-dim device bool) only where it is true, selected on the
+        device as the JAX trainers select them (``jnp.where(grads_ok, new,
+        old)``), so that no value is read back to the host."""
         for bn, (mean, var) in self.batch_stats.items():
-            bn.update_running(mean, var)
+            bn.update_running(mean, var, ok)
 
 
 def dropout(x: torch.Tensor, rate: float,

@@ -1,20 +1,26 @@
-"""CUDA graphs of the port's serving calls: the counterpart of the JAX
-package's compiled calls (``jax.jit`` of a transfer, of a streamed buffer).
+"""CUDA graphs of the port's serving calls and training steps: the
+counterpart of the JAX package's compiled calls (``jax.jit`` of a transfer,
+of a streamed buffer, of a diffusion training step).
 
 A ``GraphPool`` captures callables as ``torch.cuda.CUDAGraph``s that share
 one memory pool and one side stream, and replays them.  A captured call
 reads and writes fixed addresses: the caller owns static input buffers,
 copies each call's inputs into them (``utils.device.copy_from_host`` for
 host arrays), replays, and copies out what it returns, since the next
-replay overwrites the outputs.  Capture runs nothing: the callable runs once on the side
-stream first (``warm``), which fills every lazily built constant, loads the
-kernels and sets their attributes, so that no host-to-device copy and no
-one-time setup falls inside a capture.
+replay overwrites the outputs.  Capture runs nothing: the callable runs
+once on the side stream first (``warm``), which fills every lazily built
+constant, loads the kernels and sets their attributes, so that no
+host-to-device copy and no one-time setup falls inside a capture.
 
 What a graph bakes in besides its buffers (the weights' addresses, the
 kept weight-normed weights, the TF32 switches) is summed up by
-``capture_key``; an owner captures again when it changes.  A capture or a
-replay that fails raises: nothing falls back to running eagerly.
+``capture_key``; an owner captures again when it changes.  A training
+step writes its state in place, so its graph is keyed by ``state_key``
+(addresses and switches, not versions).  A step that draws random values
+names its generators to ``capture``: a replay then draws fresh values, the
+ones the same step run op by op would draw from the generator's state.  A
+capture or a replay that fails raises: nothing falls back to running
+eagerly.
 
 A replay runs no Python: forward hooks and counters kept in Python (such as
 ``fused_snake_conv.launches``) see the warm-up and the capture only.  The
@@ -27,7 +33,7 @@ from __future__ import annotations
 import contextlib
 import itertools
 import time
-from typing import Any, Callable, Iterable, Optional
+from typing import Any, Callable, Iterable, Optional, Sequence
 
 import torch
 from torch import nn
@@ -42,6 +48,17 @@ def capture_key(*modules: nn.Module) -> tuple:
     return (torch.backends.cuda.matmul.allow_tf32,
             torch.backends.cudnn.allow_tf32,
             tuple((t.data_ptr(), t._version) for t in tensors))
+
+
+def state_key(tensors: Iterable[torch.Tensor]) -> tuple:
+    """The addresses of a training state's tensors (parameters, optimizer
+    state, EMA) and the TF32 switches.  Unlike ``capture_key`` it leaves out
+    the versions: a training step writes these tensors in place, so its
+    warm-up, its capture and every step run op by op bump them, while what
+    its graph reads stays where it was."""
+    return (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32,
+            tuple(t.data_ptr() for t in tensors))
 
 
 @contextlib.contextmanager
@@ -97,11 +114,17 @@ class GraphPool:
         current.wait_stream(self.stream)
         return out
 
-    def capture(self, fn: Callable[[], Any]) -> Graph:
+    def capture(self, fn: Callable[[], Any],
+                generators: Sequence[torch.Generator] = ()) -> Graph:
         """fn() captured (run before with ``warm``); its outputs become the
-        graph's static outputs.  Raises if the capture fails."""
+        graph's static outputs.  ``generators`` are the CUDA generators fn
+        draws from: registered with the graph, each replay draws the values
+        fn would draw from the generator's state at that point, and moves
+        the state on as fn would.  Raises if the capture fails."""
         t0 = time.perf_counter()
         graph = torch.cuda.CUDAGraph()
+        for gen in generators:
+            graph.register_generator_state(gen)
         with torch.cuda.graph(graph, pool=self.pool, stream=self.stream):
             outputs = fn()
         self.captures += 1

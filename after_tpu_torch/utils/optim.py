@@ -2,7 +2,6 @@
 
 from __future__ import annotations
 
-import math
 from typing import Any, Dict, Iterable, List, Optional, Sequence
 
 import torch
@@ -15,8 +14,8 @@ class AdamW:
     parameters, which ``step`` updates in place; ``clip=None`` leaves the
     clip out of the chain and ``lr_decay=1.0`` keeps the rate constant.
 
-    - clip: g stays below the global norm ``clip``, else becomes
-      g / norm * clip;
+    - clip: g stays as it is while the global norm is below ``clip``, else
+      becomes g / norm * clip;
     - Adam with bias correction, eps 1e-8 outside the square root;
     - decoupled weight decay 0.01 * p, scaled by the learning rate with the
       Adam update;
@@ -24,6 +23,18 @@ class AdamW:
     - gradients that are not all finite leave the parameters, moments and
       count as they are (``total_notfinite`` counts them), unless more than
       ``max_consecutive_errors`` came in a row.
+
+    The state lives on the parameters' device at fixed addresses, so that a
+    step can be captured in a CUDA graph: the moments in one flat buffer
+    each (``mu`` and ``nu`` are per-parameter views of them), and
+    ``count``, ``notfinite_count``, ``total_notfinite`` and the last step's
+    ``finite`` as 0-dim tensors.  A step reads nothing back to the host: the
+    learning rate and the bias corrections are computed on the device in
+    f32, as optax computes them.  A skipped update never multiplies by a
+    0/1 mask: its gradients are selected away to zeros (``masked_fill_``)
+    before they reach the moments, whose decay is then 1, so that the
+    moments keep their bits, and its parameter update is selected away to
+    zeros.
 
     ``step``'s ``keep`` freezes parameters as the JAX diffusion trainer does
     around its optimizer: their gradients count as zeros (in the global
@@ -40,74 +51,95 @@ class AdamW:
         self.params = list(params)
         self.lr, self.lr_decay, self.b1, self.b2 = lr, lr_decay, b1, b2
         self.clip = clip
-        self.mu = [torch.zeros_like(p) for p in self.params]
-        self.nu = [torch.zeros_like(p) for p in self.params]
-        self.count = 0                 # applied updates
-        self.notfinite_count = 0       # non-finite gradients in a row
-        self.total_notfinite = 0
-        self.finite = True             # the last step's gradients were
+        self.device = (self.params[0].device if self.params
+                       else torch.device("cpu"))
+        self._sizes = [p.numel() for p in self.params]
+        total = sum(self._sizes)
+        self._mu = torch.zeros(total, device=self.device)
+        self._nu = torch.zeros(total, device=self.device)
+        self.mu = self._views(self._mu)
+        self.nu = self._views(self._nu)
+        # each parameter as a flat alias of its storage
+        self._flat_params = [p.detach().view(-1) for p in self.params]
+        # a frozen parameter's gradient in the flat one
+        self._zeros = torch.zeros(max(self._sizes, default=0),
+                                  device=self.device)
+
+        def scalar(dtype):
+            return torch.zeros((), dtype=dtype, device=self.device)
+        self.count = scalar(torch.int32)            # applied updates
+        self.notfinite_count = scalar(torch.int32)  # non-finite in a row
+        self.total_notfinite = scalar(torch.int32)
+        self.finite = torch.ones((), dtype=torch.bool, device=self.device)
+
+    def _views(self, flat: torch.Tensor) -> List[torch.Tensor]:
+        return [v.view_as(p) for v, p in zip(flat.split(self._sizes),
+                                             self.params)]
 
     @torch.no_grad()
     def step(self, grads: List[torch.Tensor],
-             keep: Optional[Sequence[bool]] = None) -> bool:
+             keep: Optional[Sequence[bool]] = None) -> torch.Tensor:
         """Apply one update from ``grads`` (one per parameter), to the
-        parameters whose ``keep`` is true (all by default); False when it
-        was skipped."""
+        parameters whose ``keep`` is true (all by default).  Returns a 0-dim
+        device bool: whether the update was applied."""
         if len(grads) != len(self.params):
             raise ValueError(f"{len(grads)} gradients for "
                              f"{len(self.params)} parameters")
-        if keep is not None:
-            grads = [g if k else torch.zeros_like(g)
-                     for g, k in zip(grads, keep)]
-        norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
-        norm_value = norm.item()
-        # a finite global norm means finite gradients; an infinite one may
-        # still come from finite values whose squares overflow
-        finite = math.isfinite(norm_value) or all(
-            bool(torch.isfinite(g).all()) for g in grads)
-        self.finite = finite
-        self.notfinite_count = 0 if finite else self.notfinite_count + 1
-        if not finite:
-            self.total_notfinite += 1
-            if self.notfinite_count <= self.max_consecutive_errors:
-                return False
-        if self.clip is not None and not norm_value < self.clip:
-            grads = torch._foreach_div(grads, norm)
-            torch._foreach_mul_(grads, self.clip)
-        lr = self.lr * self.lr_decay ** self.count
-        self.count += 1
+        kept = ([True] * len(grads) if keep is None
+                else [bool(k) for k in keep])
+        g = torch.cat([t.reshape(-1) if k else self._zeros[:n]
+                       for t, k, n in zip(grads, kept, self._sizes)])
+        # an infinite global norm may come from finite values whose squares
+        # overflow: finiteness is tested on the values, as optax does
+        finite = torch.isfinite(g).all()
+        self.finite.copy_(finite)
+        self.notfinite_count.copy_(
+            torch.where(finite, 0, self.notfinite_count + 1))
+        self.total_notfinite.add_(~finite)
+        apply = finite | (self.notfinite_count > self.max_consecutive_errors)
+        skip = ~apply
+
+        if self.clip is not None:
+            norm = torch.linalg.vector_norm(g)
+            g.mul_(torch.where(norm < self.clip, 1.0, self.clip / norm))
+        g.masked_fill_(skip, 0.0)
         b1, b2 = self.b1, self.b2
-        torch._foreach_mul_(self.mu, b1)
-        torch._foreach_add_(self.mu, grads, alpha=1 - b1)
-        torch._foreach_mul_(self.nu, b2)
-        torch._foreach_addcmul_(self.nu, grads, grads, value=1 - b2)
-        mu_hat = torch._foreach_div(self.mu, 1 - b1 ** self.count)
-        denom = torch._foreach_div(self.nu, 1 - b2 ** self.count)
-        torch._foreach_sqrt_(denom)
-        torch._foreach_add_(denom, self.eps)
-        update = torch._foreach_div(mu_hat, denom)
-        torch._foreach_add_(update, self.params, alpha=self.weight_decay)
-        params = self.params
-        if keep is not None:
-            params = [p for p, k in zip(params, keep) if k]
-            update = [u for u, k in zip(update, keep) if k]
+        self._mu.mul_(torch.where(apply, b1, 1.0)).add_(g, alpha=1 - b1)
+        self._nu.mul_(torch.where(apply, b2, 1.0)).addcmul_(
+            g, g, value=1 - b2)
+        lr = self.lr * torch.pow(self.lr_decay, self.count.float())
+        # the bias corrections of this update (count + 1 >= 1: finite also
+        # where the update is skipped and selected away below)
+        count = self.count + 1
+        update = torch.div(self._mu, 1 - torch.pow(b1, count))
+        update.div_(torch.div(self._nu, 1 - torch.pow(b2, count))
+                    .sqrt_().add_(self.eps))
+        self.count.add_(apply)
+        params = [p for p, k in zip(self._flat_params, kept) if k]
+        updates = [u for u, k in zip(update.split(self._sizes), kept) if k]
         if params:
-            torch._foreach_add_(params, update, alpha=-lr)
-        return True
+            torch._foreach_add_(updates, params, alpha=self.weight_decay)
+            update.mul_(-lr).masked_fill_(skip, 0.0)
+            torch._foreach_add_(params, updates)
+        return apply
 
     def state_dict(self) -> Dict[str, Any]:
-        return {"mu": self.mu, "nu": self.nu, "count": self.count,
-                "notfinite_count": self.notfinite_count,
-                "total_notfinite": self.total_notfinite}
+        """The checkpoint form: the moments per parameter and the counts as
+        Python ints (read back from the device)."""
+        return {"mu": self.mu, "nu": self.nu, "count": int(self.count),
+                "notfinite_count": int(self.notfinite_count),
+                "total_notfinite": int(self.total_notfinite)}
 
     @torch.no_grad()
     def load_state_dict(self, state: Dict[str, Any]) -> None:
+        """Writes ``state`` (a ``state_dict``) into the optimizer's tensors,
+        in place."""
         for ours, theirs in ((self.mu, state["mu"]), (self.nu, state["nu"])):
             if len(theirs) != len(ours):
                 raise ValueError(f"{len(theirs)} moments for {len(ours)} "
                                  f"parameters")
             for a, b in zip(ours, theirs):
                 a.copy_(b)
-        self.count = int(state["count"])
-        self.notfinite_count = int(state["notfinite_count"])
-        self.total_notfinite = int(state["total_notfinite"])
+        for name in ("count", "notfinite_count", "total_notfinite"):
+            getattr(self, name).fill_(int(state[name]))
+        self.finite.fill_(True)

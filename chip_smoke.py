@@ -16,6 +16,13 @@ Phases, each printed before the last line:
    it), the kernel's TFLOP/s and share of its bound, and its error against a
    float64 plain version beside those of strict-f32 and TF32 F.conv1d (at
    most 2048 frames a shape; the kernel may be at most 4x strict F.conv1d);
+   then the kernel's split sum (``sum_splits``) alone at every split shape
+   of the path: equal bits to its plain version (the same adds in the same
+   order), its time beside the plain version's, ``torch.sum(ws, dim=0)``'s
+   and its byte bound ((splits + 1) x B x T x O x 4 bytes at 3.35 TB/s),
+   each timed over inputs rotated through more memory than the L2 cache
+   holds (ROTATE_BYTES), so that they come from HBM; a time below the
+   bound fails;
 4. serving: the base config at full width, port-native random weights from
    a fixed seed, answering 3 transfer requests of 524288 samples (batch 1,
    20 Euler steps, guidance_timbre 2.0) through ``TransferPipeline``'s
@@ -95,14 +102,32 @@ Phases, each printed before the last line:
    timbre encoder frozen from step 10, classifier steps between them); the
    first DIFF_COLLATE_STEPS batches from the port's collate over synthetic
    (64, 4096) latent records made from the seed, the rest from a
-   ``DeviceLatentBank`` of the same records on the card.  Each step's host
-   time ending in a synchronize and the median of each kind without its
-   first step; every metric finite, no skipped update, each diffusion step
-   moving the denoiser, each encoder only while it trains (the frozen
+   ``DeviceLatentBank`` of the same records on the card.  The 15 steps run
+   as CUDA graphs, the trainer's default: each step's host time ending in
+   a synchronize; every metric finite, no skipped update, each diffusion
+   step moving the denoiser, each encoder only while it trains (the frozen
    timbre encoder's BatchNorm statistics still moving), the classifier
    only in classifier steps and the EMA only in diffusion steps; one
-   phase-2 diffusion step under torch.profiler as in phase 4; peak device
-   memory; a checkpoint saved and restored under build/ with equal tensors;
+   capture at the first step of each step signature and none after (at
+   most DIFF_MAX_GRAPHS); the graph pool's memory and peak device memory.
+   The same 15 steps op by op (``eager=True``) from the same weights,
+   generator seed and batches: per-step metrics within DIFF_GRAPH_TOL and
+   final parameters within DIFF_GRAPH_LR_TOL x lr an update of the graphs'
+   (the readings printed beside the limits; the parameters' limit is a
+   reading only), and the same pair with cuDNN's deterministic algorithms
+   held to the same bits, which is the check; one op-by-op
+   diffusion, cycle and classifier step each under
+   ``set_sync_debug_mode("error")``.  The
+   same schedule with ``steps_per_call=3`` as graphs: callbacks at
+   DIFF_WINDOW_STEPS, each window's metrics within DIFF_GRAPH_TOL of the
+   single steps' means, each window's ms.  A longer schedule
+   (DIFF_LONG_SCHEDULE, DIFF_LONG_STEPS steps: at least 10 of each
+   phase-2 kind, all 5 signatures) as graphs and op by op: the median of
+   each kind without the first step of each signature, peak memory; then
+   as windows of 3 steps: the median of the windows that capture nothing;
+   one replayed step of each phase-2 kind (diffusion, cycle, classifier)
+   under torch.profiler as in phase 4 (launches, busy time, idle share); a
+   checkpoint saved and restored under build/ with equal tensors;
    ``validate``, then ``val_transfer_margin`` with the base codec of phase
    4 through ``make_codec_coder`` (20 steps; its round trip decodes and
    encodes 16 rows of 128 frames), the kernel's launches in it counted and
@@ -116,8 +141,8 @@ Phases, each printed before the last line:
    DIFF_GRAD_MEDIAN_TOL), the reading with TF32 allowed beside them.
 
 Any failure exits non-zero.  The line before the last is the kernel table as
-JSON; the last line is ``{"ok": true, "device": {...}}``.  Imports nothing of
-JAX or of after_tpu.
+JSON (the snake+conv kernel and its split sum); the last line is ``{"ok":
+true, "device": {...}}``.  Imports nothing of JAX or of after_tpu.
 """
 
 from __future__ import annotations
@@ -145,6 +170,9 @@ STREAM_VS_CPU_BUFFERS = 8
 PEAK_TF32_FLOPS = 495e12     # H100 SXM, dense TF32 on the tensor cores
 PEAK_F32_FLOPS = 67e12       # H100 SXM, f32 outside the tensor cores
 PEAK_BYTES = 3.35e12         # H100 SXM HBM3
+# a kernel timed against its byte bound reads inputs the L2 cache (50 MB
+# on an H100) does not hold: one call on each of a set of inputs this large
+ROTATE_BYTES = 4 * 50e6
 F64_FRAMES = 2048            # frames per shape in the float64 check, over
                              # the batch: a max over more frames is larger
 F64_RATIO = 4.0              # kernel error <= F64_RATIO * strict F.conv1d's
@@ -186,6 +214,31 @@ DIFF_KINDS = (["phase1"] * 3 + ["diffusion", "classifier", "classifier",
                                 "cycle", "classifier", "classifier", "cycle",
                                 "classifier", "classifier"])
 DIFF_COLLATE_STEPS = 5       # batches from the host collate, then the bank
+DIFF_MAX_GRAPHS = 5          # step signatures of the curriculum
+# graphs against op by op, and windows against single steps: the same draws
+# and kernels, but cuDNN's weight gradients add in no fixed order, and Adam
+# turns a gradient that is rounding noise around 0 into a step of either
+# sign, so two runs part more with each step.  On an H100 two op-by-op
+# runs of the 15 steps read 3.8e-4 x max(|v|, 0.01) apart on a metric and
+# 7.4 x lr on a parameter after 8 updates; graphs against op by op read
+# 1.4e-4 to 5.5e-4 over three runs.  Metrics within DIFF_GRAPH_TOL x
+# max(|v|, 0.01).  The parameters' limit, DIFF_GRAPH_LR_TOL x lr an update,
+# is about as far as any two Adam runs can part (an update moves a
+# parameter by about lr whatever its gradient), so it is a reading, not a
+# check of the gradients: the check is the pair run with cuDNN's
+# deterministic algorithms, where a graph run and an op-by-op run are held
+# to the same bits.
+DIFF_GRAPH_TOL = 3e-3
+DIFF_GRAPH_LR_TOL = 2.0
+DIFF_WINDOW = 3              # steps_per_call of the windowed run
+# its callbacks: windows [0, 3) and [3, 6), single steps where a curriculum
+# boundary (7, 10) falls inside a window, the window [12, 15)
+DIFF_WINDOW_STEPS = [3, 6, 7, 8, 9, 10, 11, 12, 15]
+# the longer run: phase 1 (0-2), 11 diffusion steps (3-33), 12 cycle steps
+# (36-69; the timbre encoder frozen after 45), the classifier steps between
+DIFF_LONG_SCHEDULE = {"train.cycle_start_step": 33,
+                      "train.stop_training_encoder_step": 45}
+DIFF_LONG_STEPS = 70
 DIFF_RECORDS = 32            # synthetic latent records of (64, 4096)
 DIFF_RECORD_FRAMES = 4096
 DIFF_VAL_BATCHES = 2
@@ -246,6 +299,18 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3, graph: bool = True
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def rotating_ms(fn, inputs) -> float:
+    """Device time of one call of fn, in ms, on an input that comes from
+    HBM: one call on each of ``inputs`` (together larger than the L2 cache)
+    captured in one CUDA graph, every output kept, so that no call reads
+    or writes where another has just left its data in the cache."""
+    held, it = [], iter(inputs * 2)
+    ms = cuda_ms(lambda: held.append(fn(next(it))), reps=len(inputs),
+                 warmup=1)
+    held.clear()
+    return ms
 
 
 def vjp_ms(fwd, args, gy, reps: int = 5) -> float:
@@ -342,13 +407,16 @@ def check_fused_conv(path, unit, batch: int = 1):
     from after_tpu_torch.ops.conv import get_padding
     from after_tpu_torch.ops.kernels.fused_conv import (fused_snake_conv,
                                                         kernel_plan,
-                                                        snake_conv_reference)
+                                                        snake_conv_reference,
+                                                        sum_splits,
+                                                        sum_splits_reference)
     from after_tpu_torch.ops.snake import snake_beta
 
     path_counts = Counter(block_shape(b, T) for b, T in path)
     blocks_by_shape = {block_shape(b, T): b for b, T in path}
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     total = Counter()
+    splits = Counter()       # (splits, B, T, O) of the split sum -> launches
     worst = 0.0
     f64_worst = (0.0, 0.0, 0.0)
     log("kernels: device times from CUDA graphs of 20 calls each")
@@ -400,12 +468,54 @@ def check_fused_conv(path, unit, batch: int = 1):
                      library_ms=n * lib_ms,
                      bound_ms=n * bound_ms, bound_f32_ms=n * bound_f32_ms,
                      flops=n * flops, bytes=n * nbytes)
-        plan = "/".join(map(str, kernel_plan(batch, T, C, O, k, d)))
-        log(f"  {k} {d} {C} {O} {T} {mode}: {n}, {plan}, {err:.3e}; "
+        plan = kernel_plan(batch, T, C, O, k, d)
+        log(f"  {k} {d} {C} {O} {T} {mode}: {n}, {'/'.join(map(str, plan))}"
+            f", {err:.3e}; "
             f"{ms:.4f}/{plain_ms:.4f}/{lib_ms:.4f}/{bound_ms:.4f}/"
             f"{bound_f32_ms:.4f}; {flops / ms / 1e9:.1f}, "
             f"{bound_ms / ms:.3f}; {e64[0]:.3e}/{e64[1]:.3e}/{e64[2]:.3e}")
+        if plan[2] > 1:
+            splits[(plan[2], batch, T, O)] += n
     total["launches"] = len(path)
+    # the split sum alone at each split shape: against its plain version
+    # (the same adds in the same order: equal bits) and torch.sum, each
+    # timed on partial sums that come from HBM, where its byte bound holds
+    # (on the main path the conv kernel has just written them, so they may
+    # still sit in the L2 cache)
+    log(f"kernels: {SUM_NAME} at each split shape of the {unit} (splits B T "
+        f"O: n/{unit}, inputs rotated, max_abs_err; kernel/plain/torch.sum/"
+        f"bound(bytes) ms, share of bound)")
+    sum_err = 0.0
+    for (parts, B_, T_, O_), n in sorted(splits.items()):
+        nbytes = 4.0 * (parts + 1) * B_ * T_ * O_
+        wss = [torch.randn((parts, B_, T_, O_), generator=gen, device="cuda")
+               for _ in range(max(2, math.ceil(ROTATE_BYTES / nbytes)))]
+        err = max((sum_splits(ws) - sum_splits_reference(ws)).abs().max()
+                  .item() for ws in wss[:2])
+        if err != 0:
+            fail(f"{SUM_NAME} {tuple(wss[0].shape)}: {err} off its plain "
+                 f"version")
+        sum_err = max(sum_err, err)
+        ms = rotating_ms(sum_splits, wss)
+        plain_ms = rotating_ms(sum_splits_reference, wss)
+        lib_ms = rotating_ms(lambda ws: torch.sum(ws, dim=0), wss)
+        del wss
+        bound_ms = 1e3 * nbytes / PEAK_BYTES
+        total.update(sum_ms=n * ms, sum_plain_ms=n * plain_ms,
+                     sum_library_ms=n * lib_ms, sum_bound_ms=n * bound_ms,
+                     sum_launches=n)
+        log(f"  {parts} {B_} {T_} {O_}: {n}, {err:.1e}; {ms:.4f}/"
+            f"{plain_ms:.4f}/{lib_ms:.4f}/{bound_ms:.4f}, "
+            f"{bound_ms / ms:.3f}")
+        if bound_ms > ms:
+            fail(f"{SUM_NAME} {(parts, B_, T_, O_)}: {ms:.4f} ms beats its "
+                 f"byte bound {bound_ms:.4f} ms: the bound is wrong")
+    total["sum_max_abs_err"] = sum_err
+    log(f"kernels: {SUM_NAME} per {unit} ({total['sum_launches']} launches):"
+        f" kernel {total['sum_ms']:.4f} ms, plain {total['sum_plain_ms']:.4f}"
+        f" ms, torch.sum {total['sum_library_ms']:.4f} ms, bound "
+        f"{total['sum_bound_ms']:.4f} ms (bytes at {PEAK_BYTES / 1e12} TB/s), "
+        f"{total['sum_bound_ms'] / max(total['sum_ms'], 1e-12):.3f} of it")
     total["bound_by"] = ("operations" if 3 * total["flops"] / PEAK_TF32_FLOPS
                          >= total["bytes"] / PEAK_BYTES else "bytes")
     total["tflops"] = total["flops"] / total["ms"] / 1e9
@@ -765,7 +875,8 @@ def diffusion_phase(row, codec) -> None:
                                            val_transfer_margin, validate)
     from after_tpu_torch.config import ae_to_json, to_json
     from after_tpu_torch.dataset import DeviceLatentBank, make_collate_fn
-    from after_tpu_torch.diffusion.trainer import DiffusionTrainer
+    from after_tpu_torch.diffusion.trainer import (DIFFUSION_METRICS,
+                                                   DiffusionTrainer)
     from after_tpu_torch.models.autoencoder import ConvBlock1d
     from after_tpu_torch.ops.kernels.fused_conv import (fused_snake_conv,
                                                         snake_conv_reference)
@@ -787,24 +898,40 @@ def diffusion_phase(row, codec) -> None:
     kinds = [tr.step_kind(i) for i in range(DIFF_STEPS)]
     if kinds != DIFF_KINDS:
         fail(f"fit's schedule {kinds} differs from {DIFF_KINDS}")
+    # every run of the phase starts from these weights
+    weights0 = {k: v.clone() for k, v in tr.rf.state_dict().items()}
 
     items = [{"z": z} for z in synthetic_latents(
         DIFF_RECORDS, cfg.denoiser.n_channels, DIFF_RECORD_FRAMES, SEED)]
-    collate = make_collate_fn(DIFF_FRAMES, seed=SEED)
-    pick = np.random.RandomState(SEED)
+    bank = DeviceLatentBank(items, DIFF_FRAMES, device="cuda")
 
-    def host_batch(collate_fn, batch=DIFF_BATCH):
+    def host_batch(collate_fn, pick, batch=DIFF_BATCH):
         return collate_fn([items[i] for i in
                            pick.randint(0, len(items), batch)])
 
-    bank = DeviceLatentBank(items, DIFF_FRAMES, device="cuda")
-    batches = itertools.chain(
-        (host_batch(collate) for _ in range(DIFF_COLLATE_STEPS)),
-        bank.batches(DIFF_BATCH, seed=SEED))
+    def batches():
+        """The phase's batches, the same in every run: the first from the
+        host collate, the rest from the bank on the card."""
+        collate = make_collate_fn(DIFF_FRAMES, seed=SEED)
+        pick = np.random.RandomState(SEED)
+        return itertools.chain(
+            (host_batch(collate, pick) for _ in range(DIFF_COLLATE_STEPS)),
+            bank.batches(DIFF_BATCH, seed=SEED))
+
     log(f"diffusion: {DIFF_RECORDS} synthetic latent records of "
         f"({cfg.denoiser.n_channels}, {DIFF_RECORD_FRAMES}); steps 0-"
         f"{DIFF_COLLATE_STEPS - 1} from the host collate, the rest from a "
         f"DeviceLatentBank of {bank.nbytes / 2**20:.1f} MiB on the card")
+
+    def trainer(run_cfg=cfg, eager=False):
+        """A trainer of the phase's weights (port-native, drawn on the CPU
+        from the seed) and generator seed."""
+        t = DiffusionTrainer(run_cfg, device="cuda", seed=SEED,
+                             eager=eager).init(SEED)
+        if not all(torch.equal(v, weights0[k])
+                   for k, v in t.rf.state_dict().items()):
+            fail("init(SEED) gave other weights")
+        return t
 
     def bn_stats(module):
         return torch.cat([m.running_mean for m in module.modules()
@@ -817,35 +944,86 @@ def diffusion_phase(row, codec) -> None:
             "ema": torch.cat([e.reshape(-1) for e in t.ema]),
             "encoder_stats": bn_stats(t.rf.encoder)}
 
-    records = []
-    snap = {"state": snapshot(tr)}
+    def signature(t, step):
+        kind = t.step_kind(step)
+        return (kind,) if kind == "classifier" else (kind, *t.step_flags(step))
 
-    def callback(t, metrics):
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - snap["t0"]
-        step = t.step - 1
-        values = {k: float(v) for k, v in metrics.items()}
-        state = snapshot(t)
-        moved = {k: not torch.equal(v, snap["state"][k])
-                 for k, v in state.items()}
-        records.append((kinds[step], dt, values, moved))
-        log(f"diffusion: step {step} ({kinds[step]}): {dt * 1e3:.2f} ms, "
-            "moved " + ",".join(k for k, m in moved.items() if m) + "; "
-            + ", ".join(f"{k} {v:.5g}" for k, v in values.items()))
-        snap["state"] = state
+    def run(t, max_steps, moved_check=False, batch_iter=None):
+        """fit over max_steps steps: per callback (step, kind of its last
+        step, host ms ending in a synchronize, metrics as floats, captures so
+        far, what moved)."""
+        records = []
+        snap = {"state": snapshot(t) if moved_check else None}
+
+        def callback(tt, metrics):
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - snap["t0"]
+            step = tt.step - 1
+            values = {k: float(v) for k, v in metrics.items()}
+            moved = None
+            if moved_check:
+                state = snapshot(tt)
+                moved = {k: not torch.equal(v, snap["state"][k])
+                         for k, v in state.items()}
+                snap["state"] = state
+            records.append((step, tt.step_kind(step), dt, values,
+                            tt.graphs.captures if tt.graphs else 0, moved))
+            torch.cuda.synchronize()
+            snap["t0"] = time.perf_counter()
+
         torch.cuda.synchronize()
         snap["t0"] = time.perf_counter()
+        t.fit(batch_iter if batch_iter is not None else batches(),
+              max_steps=max_steps, callback=callback)
+        return records
 
+    def medians(t, records):
+        """{kind: (median ms without the first step of each signature, ms
+        of the kind's first step, steps run)}."""
+        out, seen = {}, set()
+        for kind in ("phase1", "diffusion", "cycle", "classifier"):
+            times, rest = [], []
+            for step, k, dt, *_ in records:
+                if k != kind:
+                    continue
+                times.append(dt)
+                sig = signature(t, step)
+                if sig in seen:
+                    rest.append(dt)
+                seen.add(sig)
+            rest.sort()
+            out[kind] = (rest[len(rest) // 2] * 1e3 if rest else None,
+                         times[0] * 1e3 if times else None, len(times))
+        return out
+
+    def check_captures(label, t, records):
+        """One capture at the first step of each signature, none after."""
+        seen, before = set(), 0
+        for step, _, _, _, captures, _ in records:
+            sig = signature(t, step)
+            want = before + (sig not in seen)
+            if captures != want:
+                fail(f"{label}: {captures} captures after step {step}, "
+                     f"expected {want}")
+            seen.add(sig)
+            before = captures
+        if before > DIFF_MAX_GRAPHS:
+            fail(f"{label}: {before} graphs, more than {DIFF_MAX_GRAPHS}")
+        return before
+
+    def gap(a, b):
+        """max |a - b| / max(|b|, 0.01) over b's metrics."""
+        return max(abs(a[k] - v) / max(abs(v), 1e-2) for k, v in b.items())
+
+    # the main path: 15 steps of fit as CUDA graphs, every step kind
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    torch.cuda.synchronize()
-    snap["t0"] = time.perf_counter()
-    tr.fit(batches, max_steps=DIFF_STEPS, callback=callback)
+    records = run(tr, DIFF_STEPS, moved_check=True)
     peak = torch.cuda.max_memory_allocated()
     if len(records) != DIFF_STEPS:
         fail(f"fit ran {len(records)} steps, expected {DIFF_STEPS}")
-    for step, (kind, _, values, moved) in enumerate(records):
+    for step, kind, dt, values, captures, moved in records:
         if not all(math.isfinite(v) for v in values.values()):
             fail(f"diffusion step {step}: non-finite metrics {values}")
         if values.get("skipped_nonfinite", 0) != 0:
@@ -862,20 +1040,184 @@ def diffusion_phase(row, codec) -> None:
         if moved != want:
             fail(f"diffusion step {step} ({kind}): moved {moved}, "
                  f"expected {want}")
-    if tr.cls_optimizer.total_notfinite:
+        log(f"diffusion: step {step} ({kind}) as a graph: {dt * 1e3:.2f} ms "
+            f"(captures so far {captures}), moved " + ",".join(
+                k for k, m in moved.items() if m) + "; " + ", ".join(
+                f"{k} {v:.5g}" for k, v in values.items()))
+    if int(tr.cls_optimizer.total_notfinite):
         fail("a classifier update was skipped")
-    medians = {}
-    for kind in ("phase1", "diffusion", "cycle", "classifier"):
-        times = [dt for k, dt, *_ in records if k == kind]
-        rest = times[1:]
-        medians[kind] = sorted(rest)[len(rest) // 2] * 1e3
-        log(f"diffusion: {kind} steps: first {times[0] * 1e3:.2f} ms, "
-            f"median of the rest {medians[kind]:.2f} ms ({len(rest)})")
-    log(f"diffusion: peak device memory {peak / 2**30:.2f} GiB")
-    batch = tr.upload(next(batches))
-    step = DIFF_SCHEDULE["train.timbre_warmup"]
-    profile_call("one phase-2 diffusion step", lambda: tr.train_step(
-        batch, *tr.step_flags(step), *tr.schedule_weights(step)))
+    n_graphs = check_captures("graphs, 15 steps", tr, records)
+    pool_mib = tr.graphs.held_bytes()
+    log(f"diffusion: {n_graphs} graphs captured (one at the first step of "
+        f"each signature, none after) in {tr.graphs.capture_seconds:.2f} s; "
+        f"graph pool " + (f"{pool_mib / 2**20:.1f} MiB" if pool_mib
+                          is not None else "not measured")
+        + f"; peak device memory {peak / 2**30:.2f} GiB")
+
+    # the same 15 steps op by op, from the same weights and generator seed
+    eager = trainer(eager=True)
+    e_records = run(eager, DIFF_STEPS)
+    if eager.graphs is not None:
+        fail("the eager trainer captured a graph")
+    worst = max(gap(g[3], e[3]) for g, e in zip(records, e_records))
+    lr = cfg.train.lr
+    p_gap = {}
+    for name in ("net", "encoder", "encoder_time", "classifier"):
+        a, b = (flat_params(getattr(t.rf, name)) for t in (tr, eager))
+        p_gap[name] = (a - b).abs().max().item() / lr
+    updates = max(int(tr.optimizer.count), int(tr.cls_optimizer.count))
+    equal = all(torch.equal(a, b) for a, b in zip(
+        tr.rf.state_dict().values(), eager.rf.state_dict().values()))
+    log(f"diffusion: graphs vs op by op over {DIFF_STEPS} steps: metrics "
+        f"within {worst:.3e} x max(|v|, 0.01) (limit {DIFF_GRAPH_TOL}); "
+        f"final parameters within " + ", ".join(
+            f"{k} {v:.3e}" for k, v in p_gap.items())
+        + f" x lr (a reading; limit {DIFF_GRAPH_LR_TOL} x lr x {updates} "
+        f"updates); bitwise equal: {equal} (the check is the deterministic "
+        f"pair below)")
+    if not (worst <= DIFF_GRAPH_TOL
+            and max(p_gap.values()) <= DIFF_GRAPH_LR_TOL * updates):
+        fail("diffusion: the graphs and the op-by-op steps disagree")
+    # the same pair with cuDNN's deterministic algorithms: the same kernels
+    # on the same inputs and draws, so the same bits
+    torch.backends.cudnn.deterministic = True
+    try:
+        pair = [trainer(eager=e) for e in (False, True)]
+        det = [run(t, DIFF_STEPS) for t in pair]
+    finally:
+        torch.backends.cudnn.deterministic = False
+    same_metrics = all(a[3] == b[3] for a, b in zip(*det))
+    same_state = all(torch.equal(a, b) for a, b in zip(
+        *(list(t.rf.state_dict().values()) + t.ema
+          + [t.optimizer._mu, t.optimizer._nu, t.cls_optimizer._mu,
+             t.cls_optimizer._nu] for t in pair)))
+    log(f"diffusion: graphs vs op by op with cuDNN deterministic, "
+        f"{DIFF_STEPS} steps: every step's metrics equal {same_metrics}, "
+        f"final weights, statistics, EMA and moments equal {same_state}")
+    if not (same_metrics and same_state):
+        fail("diffusion: with cuDNN deterministic the graphs and the "
+             "op-by-op steps differ")
+    del pair, det
+    # op by op with host syncs refused: a diffusion, a cycle and a
+    # classifier step, each from a host batch
+    host = host_batch(make_collate_fn(DIFF_FRAMES, seed=SEED + 2),
+                      np.random.RandomState(SEED + 2))
+    for label, step in (("diffusion", 3), ("cycle", 9)):
+        no_host_sync(f"one op-by-op {label} step", lambda: eager.train_step(
+            host, *eager.step_flags(step), *eager.schedule_weights(step)))
+    no_host_sync("one op-by-op classifier step",
+                 lambda: eager.classifier_step(host))
+    del eager
+
+    # steps_per_call = 3 over the same schedule, as graphs
+    win = trainer(diffusion_config(**{"train.steps_per_call": DIFF_WINDOW}))
+    w_records = run(win, DIFF_STEPS)
+    steps = [r[0] + 1 for r in w_records]
+    if steps != DIFF_WINDOW_STEPS:
+        fail(f"steps_per_call={DIFF_WINDOW}: callbacks at {steps}, "
+             f"expected {DIFF_WINDOW_STEPS}")
+    per_step = {r[0]: r[3] for r in records}
+    worst_w, windows, first = 0.0, [], 0
+    for step, _, dt, values, _, _ in w_records:
+        rows = [per_step[i] for i in range(first, step + 1)]
+        if len(rows) == 1:
+            want = rows[0]
+        else:
+            diff = [r for r in rows if "loss" in r]
+            cls = [r for r in rows if "classifier_loss" in r]
+            want = {k: sum(r[k] for r in diff) / max(len(diff), 1)
+                    for k in DIFFUSION_METRICS}
+            want["classifier_loss"] = (sum(r["classifier_loss"] for r in cls)
+                                       / max(len(cls), 1))
+            windows.append((first, step + 1, dt * 1e3))
+        worst_w = max(worst_w, gap(values, want))
+        first = step + 1
+    log(f"diffusion: steps_per_call={DIFF_WINDOW}: callbacks at {steps}; "
+        f"windows " + ", ".join(f"[{a}, {b}) {ms:.2f} ms" for a, b, ms in
+                               windows)
+        + f"; window metrics within {worst_w:.3e} x max(|v|, 0.01) of the "
+        f"single steps' means (limit {DIFF_GRAPH_TOL}); "
+        f"{win.graphs.captures} graphs")
+    if worst_w > DIFF_GRAPH_TOL:
+        fail("diffusion: the windows' metrics differ from the single steps'")
+    del win
+
+    # a longer run, graphs and op by op: at least 10 steps of each phase-2
+    # kind, for the medians; then as windows of 3 steps, for the median of a
+    # window that captures nothing
+    long_cfg = diffusion_config(**DIFF_LONG_SCHEDULE)
+    long_runs = {}
+    for eager_run in (False, True):
+        t = trainer(long_cfg, eager=eager_run)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        recs = run(t, DIFF_LONG_STEPS)
+        long_runs[eager_run] = (medians(t, recs),
+                                torch.cuda.max_memory_allocated() - before)
+        if not eager_run:
+            check_captures("graphs, long run", t, recs)
+            long_pool = t.graphs.held_bytes()
+            graphed_long = t
+        del t
+    t = trainer(diffusion_config(**DIFF_LONG_SCHEDULE,
+                                 **{"train.steps_per_call": DIFF_WINDOW}))
+    recs = run(t, DIFF_LONG_STEPS)
+    steady, last, captured = [], 0, 0
+    for step, _, dt, _, captures, _ in recs:
+        if step + 1 - last == DIFF_WINDOW and captures == captured:
+            steady.append(dt * 1e3)
+        last, captured = step + 1, captures
+    del t
+    if not steady:
+        fail("the windowed long run has no window without a capture")
+    window_ms = sorted(steady)[len(steady) // 2]
+    log(f"diffusion: {DIFF_LONG_STEPS} steps as windows of {DIFF_WINDOW}: "
+        f"{len(recs)} callbacks, median of the {len(steady)} windows that "
+        f"capture nothing {window_ms:.2f} ms (min {min(steady):.2f}, max "
+        f"{max(steady):.2f})")
+    for eager_run, (meds, mem) in long_runs.items():
+        log(f"diffusion: {DIFF_LONG_STEPS} steps "
+            f"{'op by op' if eager_run else 'as CUDA graphs'}: " + "; ".join(
+                f"{k} median {m[0]:.2f} ms over {m[2]} (first {m[1]:.2f})"
+                for k, m in meds.items() if m[0] is not None)
+            + f" (medians without each signature's first step); peak device "
+            f"memory {mem / 2**30:.2f} GiB above what the run found "
+            f"allocated (weights, optimizers, other trainers)")
+    meds_g, meds_e = long_runs[False][0], long_runs[True][0]
+    for kind, (_, _, n) in meds_g.items():
+        if kind != "phase1" and n < 10:
+            fail(f"the long run has {n} {kind} steps")
+
+    # one replayed step of each phase-2 kind under the profiler
+    t = graphed_long
+    batch = t.upload(next(batches()))
+    cycle = DIFF_LONG_SCHEDULE["train.cycle_start_step"] + 3
+    profiled = {}
+    for kind, step in (("diffusion", DIFF_SCHEDULE["train.timbre_warmup"]),
+                       ("cycle", cycle), ("classifier", cycle + 1)):
+        if t.step_kind(step) != kind:
+            fail(f"step {step} of the long run is not a {kind} step")
+        replays = t.graphs.replays
+        wall, busy, counts, _ = profile_call(
+            f"one replayed phase-2 {kind} step", lambda: (
+                t.classifier_step(batch) if kind == "classifier" else
+                t.train_step(batch, *t.step_flags(step),
+                             *t.schedule_weights(step))))
+        if t.graphs.replays != replays + 1:
+            fail(f"the profiled {kind} step was not a replay")
+        profiled[kind] = {"wall_ms": wall, "busy_ms": busy,
+                          "launches": sum(counts.values())}
+    del t, graphed_long
+    row["diffusion_profiled_replays"] = profiled
+    row["diffusion_step_ms_median"] = {k: m[0] for k, m in meds_g.items()}
+    row["diffusion_step_ms_median_eager"] = {k: m[0]
+                                             for k, m in meds_e.items()}
+    row["diffusion_window_ms_median"] = window_ms
+    row["diffusion_graphs"] = n_graphs
+    row["diffusion_graph_pool_mib"] = (None if long_pool is None
+                                       else long_pool / 2**20)
 
     # checkpoint under build/
     ckpt = os.path.join("build", "diffusion_ckpt")
@@ -902,7 +1244,9 @@ def diffusion_phase(row, codec) -> None:
 
     # validation: loss, then the transfer margin across the codec
     val_collate = make_collate_fn(DIFF_FRAMES, seed=SEED + 1)
-    val_batches = [host_batch(val_collate) for _ in range(DIFF_VAL_BATCHES)]
+    val_pick = np.random.RandomState(SEED + 1)
+    val_batches = [host_batch(val_collate, val_pick)
+                   for _ in range(DIFF_VAL_BATCHES)]
     t0 = time.perf_counter()
     vloss = validate(tr, val_batches)
     torch.cuda.synchronize()
@@ -978,7 +1322,6 @@ def diffusion_phase(row, codec) -> None:
         "bound_by_validation_round_trip": per_trip["bound_by"],
         "plain_ms_per_validation_round_trip": per_trip["plain_ms"],
         "library_ms_per_validation_round_trip": per_trip["library_ms"],
-        "diffusion_step_ms_median": medians,
         "diffusion_peak_memory_gib": peak / 2**30,
         "max_abs_err": max(row["max_abs_err"], per_trip["max_abs_err"]),
         "f64_err": max(row["f64_err"], per_trip["f64"][0]),
@@ -1101,6 +1444,26 @@ def kernel_row(per_transfer, per_buffer):
             "eager_ms_per_buffer": per_buffer["eager_ms"],
             "f64_err": f64[0], "f64_err_conv1d": f64[1],
             "f64_err_conv1d_tf32": f64[2]}
+
+
+def sum_row(per_transfer, per_buffer):
+    """The split sum's row: per transfer and per streamed buffer (times
+    from CUDA graphs; its bound is the bytes it moves)."""
+    return {"name": SUM_NAME, "route": "cuda",
+            "source": "after_tpu_torch/csrc/fused_snake_conv.cu",
+            "replaces": "after_tpu/ops/pallas/fused_conv.py:129",
+            "max_abs_err": max(per_transfer["sum_max_abs_err"],
+                               per_buffer["sum_max_abs_err"]),
+            "ms": per_transfer["sum_ms"],
+            "plain_ms": per_transfer["sum_plain_ms"],
+            "bound_ms": per_transfer["sum_bound_ms"], "bound_by": "bytes",
+            "library_ms": per_transfer["sum_library_ms"],
+            "launches_per_transfer": per_transfer["sum_launches"],
+            "ms_per_buffer": per_buffer["sum_ms"],
+            "plain_ms_per_buffer": per_buffer["sum_plain_ms"],
+            "bound_ms_per_buffer": per_buffer["sum_bound_ms"],
+            "library_ms_per_buffer": per_buffer["sum_library_ms"],
+            "launches_per_buffer": per_buffer["sum_launches"]}
 
 
 def profile_call(label: str, fn):
@@ -1355,6 +1718,7 @@ def main() -> None:
         per_transfer = check_fused_conv(path, "transfer")
         per_buffer = check_fused_conv(stream_path, "buffer")
     row = kernel_row(per_transfer, per_buffer)
+    srow = sum_row(per_transfer, per_buffer)
 
     # 4. serving: the transfer as one CUDA graph (the main path), then the
     # same requests op by op; peak memory from here.  The kernel phase's
@@ -1442,6 +1806,11 @@ def main() -> None:
     row["launches"] = launches
     row["launches_per_transfer"] = launches // N_REQUESTS
     row["sum_splits_launches_per_transfer"] = sums // N_REQUESTS
+    srow["launches"] = sums
+    if sums != N_REQUESTS * srow["launches_per_transfer"]:
+        fail(f"the device counted {sums} {SUM_NAME} launches in "
+             f"{N_REQUESTS} transfers, phase 3 expects "
+             f"{srow['launches_per_transfer']} a transfer")
     row["graph_launches_per_transfer"] = graph_calls
     audio_s = N_SAMPLES / cfg.sr
 
@@ -1760,7 +2129,7 @@ def main() -> None:
     diffusion_phase(row, pipe.codec)
     row["grad_card_vs_cpu_diffusion"] = diffusion_card_vs_cpu()
 
-    print(json.dumps({"kernels": [row]}), flush=True)
+    print(json.dumps({"kernels": [row, srow]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

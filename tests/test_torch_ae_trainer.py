@@ -225,6 +225,20 @@ def test_fit_runs_the_schedule_of_step_kinds():
                            "val_total_loss"}
 
 
+def test_step_metrics_keep_their_count_of_skipped_updates():
+    """Each generator step's skipped_nonfinite is that step's count: two
+    finite steps' metrics still read 0 after a NaN batch is skipped."""
+    ae, tc, dc = _configs(port_config)
+    tr = AutoencoderTrainer(ae, tc, dc, device="cpu").init(0)
+    x = (0.1 * np.random.RandomState(6).randn(1, TC["num_signal"], 1)
+         ).astype(np.float32)
+    kept = [tr.gen_step(x, False, 1.0, 0.1) for _ in range(2)]
+    skipped = tr.gen_step(np.full_like(x, np.nan), False, 1.0, 0.1)
+    assert [int(m["skipped_nonfinite"]) for m in kept] == [0, 0]
+    assert int(skipped["skipped_nonfinite"]) == 1
+    assert int(tr.optimizer.count) == 2
+
+
 @pytest.mark.parametrize("package_kind", ["ae", "train", "disc"])
 def test_codec_configs_share_the_json_form(package_kind):
     import json

@@ -1,6 +1,6 @@
-"""The port's CUDA graphs on the card: a streamed buffer and a transfer
-replayed as graphs against the same calls run op by op (``eager=True``),
-and the graphs' rules.
+"""The port's CUDA graphs on the card: a streamed buffer, a transfer and
+the diffusion trainer's steps and windows replayed as graphs against the
+same calls run op by op (``eager=True``), and the graphs' rules.
 
 These tests need a CUDA card and skip without one.  The machine with the
 card has no JAX, so run them there without the suite's conftest:
@@ -11,6 +11,11 @@ A small crossfade config (the base codec's path: GroupNorm, centered
 convs, the snake+conv kernel on every conv window) with port-native random
 weights.  Tolerance: graph and eager within 1e-6 x max |y| (the same
 kernels on the same inputs: equal in practice).
+
+The trainer runs the micro diffusion config of tests/test_diffusion.py with
+its dropouts on, and cuDNN's deterministic algorithms: its graphs and its
+op-by-op steps then run the same kernels on the same inputs and draws, and
+are held to the same bits.
 """
 
 import numpy as np
@@ -19,6 +24,7 @@ import torch
 
 from after_tpu_torch import config as port_config
 from after_tpu_torch.diffusion.pipeline import TransferPipeline
+from after_tpu_torch.diffusion.trainer import DiffusionTrainer
 from after_tpu_torch.ops.kernels.fused_conv import (device_launches,
                                                     fused_snake_conv,
                                                     kernel_plan,
@@ -40,6 +46,20 @@ OVERRIDES = {
     "encoder_time.channels": (8, 16, 12),
     "denoiser.embed_dim": 64, "denoiser.n_layers": 2,
     "denoiser.head_dim": 32, "denoiser.rotary_dim": 16,
+}
+# tests/test_diffusion.py's micro_config, whose module imports JAX
+DIFFUSION_OVERRIDES = {
+    "denoiser.embed_dim": 64, "denoiser.n_layers": 2,
+    "denoiser.noise_embed_dims": 16, "denoiser.mlp_multiplier": 2,
+    "encoder.channels": (16, 16, 16, 32),
+    "encoder_time.channels": (16, 16, 16, 16, 12),
+    "classifier.channels": (16, 16, 16, 16, 6), "train.n_signal": 32,
+    "autoencoder.pqmf_bands": 4, "autoencoder.z_channels": 8,
+    "autoencoder.base_channels": 8, "autoencoder.multipliers": (1, 2, 2),
+    "autoencoder.factors": (2, 2), "autoencoder.dilations": (1, 3),
+    "autoencoder.num_blocks_per_stage": 1,
+    # 9 steps: phase 1 (0-2), then a diffusion and two classifier steps
+    "train.timbre_warmup": 3, "train.update_classifier_every": 3,
 }
 # (nb_steps, guidance_timbre, guidance_structure) of each buffer
 ATTRIBUTES = [(1, 1.7, 0.3), (3, 2.0, 1.5), (16, 1.0, 1.0), (4, 0.5, 2.5),
@@ -251,3 +271,92 @@ def test_a_failing_capture_raises(cuda):
     with pytest.raises(RuntimeError):
         pool.capture(lambda: (x * 2).sum().item())
     assert pool.captures == 0
+
+
+def _trainers(cuda, **overrides):
+    """A graphed diffusion trainer and an eager one, same weights and
+    generator seed."""
+    cfg = port_config.with_overrides(port_config.get_config(
+        "tiny", **DIFFUSION_OVERRIDES).resolved(in_size=8, n_signal=32),
+        overrides)
+    return (DiffusionTrainer(cfg, device=cuda, seed=1).init(0),
+            DiffusionTrainer(cfg, device=cuda, seed=1, eager=True).init(0))
+
+
+def _latents(n, seed):
+    rng = np.random.RandomState(seed)
+    out = []
+    for _ in range(n):
+        x = rng.randn(4, 32, 8).astype(np.float32)
+        out.append({"x": x, "x_cond": rng.randn(4, 32, 8).astype(np.float32),
+                    "x_time_cond": x})
+    return out
+
+
+@pytest.fixture
+def deterministic(cuda):
+    torch.backends.cudnn.deterministic = True
+    yield cuda
+    torch.backends.cudnn.deterministic = False
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [1, 3])
+def test_diffusion_fit_graphs_match_eager(deterministic, K):
+    """Nine steps of ``fit`` (K = 3: three windows) as CUDA graphs and op
+    by op: the same callbacks with the same metrics, and the same weights,
+    statistics, EMA and moments after them, also where a replayed
+    classifier step follows a replayed diffusion step that moved the
+    encoders; one capture for each step signature at its first step (phase
+    1, diffusion, classifier) and none after."""
+    graphed, eager = _trainers(deterministic, **{"train.steps_per_call": K})
+    batches = _latents(9, 0)
+    runs = []
+    for tr in (graphed, eager):
+        seen = []
+        tr.fit(iter(batches), max_steps=9, callback=lambda t, m: seen.append(
+            (t.step, t.graphs.captures if t.graphs else 0,
+             {k: float(v) for k, v in m.items()})))
+        runs.append(seen)
+    steps = [3, 6, 9] if K == 3 else list(range(1, 10))
+    assert [s for s, _, _ in runs[0]] == [s for s, _, _ in runs[1]] == steps
+    captures = {s: c for s, c, _ in runs[0]}
+    assert captures[3] == 1 and captures[9] == 3
+    if K == 1:
+        assert captures[4] == 2 and captures[5] == 3
+    assert eager.graphs is None
+    for (s, _, a), (_, _, b) in zip(*runs):
+        assert a == b, s
+    for t in (graphed, eager):
+        assert int(t.optimizer.count) == 5 and int(t.cls_optimizer.count) == 4
+    for a, b in zip(graphed.rf.state_dict().values(),
+                    eager.rf.state_dict().values()):
+        assert torch.equal(a, b)
+    for a, b in zip(graphed.ema + [graphed.optimizer._mu,
+                                   graphed.cls_optimizer._nu],
+                    eager.ema + [eager.optimizer._mu,
+                                 eager.cls_optimizer._nu]):
+        assert torch.equal(a, b)
+    # graphs of new train-state tensors are made anew
+    graphed.init(0)
+    assert graphed.graphs is None
+
+
+@pytest.mark.cuda
+def test_diffusion_steps_make_no_host_sync(cuda):
+    """Op-by-op and replayed diffusion and classifier steps, with host
+    batches, under the sync debug mode that raises on a host sync."""
+    graphed, eager = _trainers(cuda, **{"train.timbre_warmup": 0})
+    b1, b2 = _latents(2, 1)
+    for tr in (graphed, eager):     # fills the constants, captures
+        tr.train_step(b1, False, True, True, False, 0.1, 1.0)
+        tr.classifier_step(b1)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for tr in (graphed, eager):
+            tr.train_step(b2, False, True, True, False, 0.2, 1.0)
+            tr.classifier_step(b2)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert graphed.graphs.captures == 2 and graphed.graphs.replays == 2

@@ -23,7 +23,9 @@ from after_tpu_torch.ops.kernels.fused_conv import (device_launches,
                                                     fused_snake_conv,
                                                     kernel_weight,
                                                     reset_device_launches,
-                                                    snake_conv_reference)
+                                                    snake_conv_reference,
+                                                    sum_splits,
+                                                    sum_splits_reference)
 from after_tpu_torch.utils.device import strict_f32
 
 
@@ -63,6 +65,21 @@ def test_kernel_matches_plain_version(cuda, B, T, C, O, k, d, mode):
     ref = snake_conv_reference(x, alpha, beta, w, b, d, mode)
     err = (y - ref).abs().max().item()
     assert err <= 1e-4 * ref.abs().max().item(), err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 1, 1024, 768), (5, 1, 37, 96),
+                                   (1, 3, 7, 5)])
+def test_split_sum_kernel_matches_plain_version(cuda, shape):
+    """The split sum launched alone: the plain version's adds in the same
+    order, so the same bits, and one launch counted on the device."""
+    ws = torch.randn(shape, generator=torch.Generator(cuda).manual_seed(0),
+                     device=cuda)
+    reset_device_launches()
+    assert torch.equal(sum_splits(ws), sum_splits_reference(ws))
+    assert device_launches() == (0, 1)
+    with pytest.raises(ValueError):
+        sum_splits(ws.double())
 
 
 @pytest.mark.cuda

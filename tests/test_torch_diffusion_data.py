@@ -316,7 +316,7 @@ def test_filter_partial_load_matches_jax():
 
 @pytest.mark.parametrize("override", [
     {"diffusion_type": "edm"}, {"train.compute_dtype": "bfloat16"},
-    {"train.steps_per_call": 2}, {"encoder_time.vae_regularisation": True},
+    {"encoder_time.vae_regularisation": True},
     {"encoder.regularisation": "vae"}])
 def test_what_is_not_ported_raises(override):
     cfg = port_config.with_overrides(common.port_cfg(common.no_dropout()),

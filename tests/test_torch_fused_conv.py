@@ -18,7 +18,8 @@ import torch
 from after_tpu.ops.pallas import fused_snake_causal_conv, reference_snake_conv
 from after_tpu_torch.ops.conv import get_padding
 from after_tpu_torch.ops.kernels.fused_conv import (fused_snake_conv,
-                                                    snake_conv_reference)
+                                                    snake_conv_reference,
+                                                    sum_splits)
 
 ATOL = 2e-4
 
@@ -75,6 +76,17 @@ def test_cpu_tensor_takes_plain_version_without_launch():
     assert fused_snake_conv.launches == before
     ref = snake_conv_reference(*args, wt, torch.from_numpy(b), 3, "centered")
     assert torch.equal(y, ref)
+
+
+def test_split_sum_plain_version_adds_in_split_order():
+    """On the CPU the split sum is its plain version: ws[0] + ws[1] + ...
+    in that order (the kernel's order), within f32 rounding of a float64
+    sum."""
+    ws = torch.randn(4, 2, 16, 8, generator=torch.Generator().manual_seed(0))
+    y = sum_splits(ws)
+    assert torch.equal(y, ((ws[0] + ws[1]) + ws[2]) + ws[3])
+    torch.testing.assert_close(y.double(), ws.double().sum(0), rtol=0,
+                               atol=1e-6)
 
 
 def test_padding_rule_matches_jax():
