@@ -89,6 +89,39 @@ class AutoencoderTrainer:
         load_discriminator(self.disc, disc_vars)
         return self
 
+    def state_tree(self) -> Dict[str, Any]:
+        """The whole train state for ``utils.checkpoint.save_checkpoint``,
+        as the JAX CLI saves it: both models' state dicts (``codec_vars``,
+        ``disc_vars``), both optimizer states and the step."""
+        return {"codec_vars": self.codec.state_dict(),
+                "disc_vars": self.disc.state_dict(),
+                "opt_state": self.optimizer.state_dict(),
+                "disc_opt_state": self.disc_optimizer.state_dict(),
+                "step": self.step}
+
+    def load_state_tree(self, tree: Mapping[str, Any]) -> None:
+        """Restart from a ``state_tree``: both models' weights, and each
+        optimizer state only where it is there and its shapes still fit the
+        models, else that optimizer starts fresh."""
+        from ..utils.checkpoint import shapes_compatible
+        self.codec.load_state_dict(tree["codec_vars"])
+        self.disc.load_state_dict(tree["disc_vars"])
+        self._new_optimizers()
+        for key, opt in (("opt_state", self.optimizer),
+                         ("disc_opt_state", self.disc_optimizer)):
+            state = tree.get(key)
+            if state is None:
+                continue
+            if shapes_compatible(state, opt.state_dict()):
+                opt.load_state_dict(state)
+            else:
+                print(f"[train_autoencoder] {key} doesn't match the current "
+                      "config; optimizer restarts fresh")
+        if "opt_state" not in tree:
+            print("[train_autoencoder] checkpoint has no optimizer state; "
+                  "optimizers restart fresh")
+        self.step = int(tree["step"])
+
     # ------------------------------------------------------------------
 
     def _tensor(self, x: ArrayLike) -> torch.Tensor:

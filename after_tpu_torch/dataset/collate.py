@@ -8,11 +8,12 @@ piano-roll structure; the batches feed ``DiffusionTrainer.fit``.
 
 from __future__ import annotations
 
-import pickle
 import threading
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
+
+from . import midi as midi_io
 
 
 def thread_rng_factory(seed: int = 0):
@@ -48,7 +49,7 @@ def make_collate_fn(n_signal: int, structure_type: str = "audio",
     structure is x itself (the same array object, so it is uploaded once);
     for midi a piano roll from the record's "midi" (an object with
     ``get_piano_roll``, or its pickled bytes as the record store keeps
-    them)."""
+    them, read by ``midi.loads``)."""
     get_rng = thread_rng_factory(seed)
 
     def collate(batch: List[Dict]) -> Dict[str, np.ndarray]:
@@ -96,7 +97,7 @@ def make_collate_fn(n_signal: int, structure_type: str = "audio",
                 if isinstance(midi, np.ndarray):
                     midi = midi.tobytes()
                 if isinstance(midi, (bytes, bytearray)):
-                    midi = pickle.loads(midi)
+                    midi = midi_io.loads(midi)
                 roll = midi.get_piano_roll(times=times) / 127.0
                 rolls.append(roll[..., i0[bi]:i0[bi] + n_signal])
             time_cond = np.stack(rolls).astype(np.float32)

@@ -772,10 +772,20 @@ class DiffusionTrainer:
             with torch.no_grad():
                 for e, v in zip(self.ema, ema.values()):
                     e.copy_(v)
+        elif ema is not None:
+            print("[train] ema_params in checkpoint don't match the "
+                  "current net; EMA restarts from the net params")
         for key, opt in (("opt_state", self.optimizer),
                          ("cls_opt_state", self.cls_optimizer)):
             state = tree.get(key)
-            if (opt is not None and state is not None
-                    and shapes_compatible(state, opt.state_dict())):
+            if opt is None or state is None:
+                continue
+            if shapes_compatible(state, opt.state_dict()):
                 opt.load_state_dict(state)
+            else:
+                print(f"[train] {key} in checkpoint doesn't match the "
+                      "current config; optimizer restarts fresh")
+        if "opt_state" not in tree:
+            print("[train] checkpoint has no ['opt_state']; optimizer "
+                  "restarts fresh")
         self.step = int(tree["step"])

@@ -19,6 +19,10 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
                 "PyTorch versions on the CPU")
         return torch.device("cuda", torch.cuda.current_device())
     device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"no CUDA device for device={str(device)!r}: pass device='cpu' "
+            "to run the port's plain PyTorch versions on the CPU")
     if device.type == "cuda" and device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
     return device

@@ -31,6 +31,7 @@ snake+conv kernel counts its launches on the device, replays included
 from __future__ import annotations
 
 import contextlib
+import gc
 import itertools
 import time
 from typing import Any, Callable, Iterable, Optional, Sequence
@@ -125,8 +126,17 @@ class GraphPool:
         graph = torch.cuda.CUDAGraph()
         for gen in generators:
             graph.register_generator_state(gen)
-        with torch.cuda.graph(graph, pool=self.pool, stream=self.stream):
-            outputs = fn()
+        # a garbage collection inside the capture that frees another
+        # owner's graphs (an earlier trainer left in a reference cycle)
+        # destroys them mid-capture, which invalidates this capture
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph, pool=self.pool, stream=self.stream):
+                outputs = fn()
+        finally:
+            if collecting:
+                gc.enable()
         self.captures += 1
         self.capture_seconds += time.perf_counter() - t0
         return Graph(self, graph, outputs)

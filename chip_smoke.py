@@ -138,15 +138,47 @@ Phases, each printed before the last line:
    step's metrics (within CARD_VS_CPU_TOL) and gradients (each tensor
    within DIFF_GRAD_TOL x the larger of its max |g| and 1e-3 x its model's
    largest gradient, the median over each model's tensors within
-   DIFF_GRAD_MEDIAN_TOL), the reading with TF32 allowed beside them.
+   DIFF_GRAD_MEDIAN_TOL), the reading with TF32 allowed beside them;
+12. training from the command line (``after_tpu_torch.cli.main.main``, in
+   this process, tensorboard kept out): a waveform store of CLI_RECORDS
+   records of about 3 s of synthetic audio from the seed, int16 as
+   prepare_dataset stores them, written with the port's ``RecordWriter``;
+   ``train_autoencoder`` with the base codec at batch 8 x 131072,
+   ``warmup_steps`` TRAIN_WARMUP, CLI_AE_STEPS steps, checkpoints and
+   validation every CLI_AE_EVERY, then ``--restart`` for 2 more steps,
+   which must resume at step CLI_AE_STEPS with the saved weights,
+   optimizer states and step, every kernel launch of the restart held to
+   its plain version (the timed run's launches are counted only); a
+   latent store of DIFF_RECORDS records with the trained codec's latent
+   channels; ``train`` with phase 10's config, batch and longer schedule
+   (``--override``) for CLI_DIFF_STEPS steps, validated at the end through
+   the codec run (``--emb_model_path``: its round trip and audio decodes,
+   every kernel launch held to its plain version), then ``--restart`` for
+   2 more steps, resuming likewise; the same command with
+   ``--data_on_device`` (no loader thread, no host batch), checked alike.
+   Each command must exit 0 and leave its checkpoints, metrics.jsonl keys
+   and audio files; the kernel's launches are counted with the counts set
+   to 0 just before each command and read just after.  The steps are
+   timed as a user runs them (``step_clock``): a synchronize only where
+   the command waits for the card anyway (each signature's first step,
+   which compiles or captures, checkpoints, validation, the last step), so
+   the host may run ahead between them.  Printed: each command's wall ms a
+   step, over all its steps and over those after the last first step of a
+   signature (the callbacks' own work left out), its
+   median host ms between callbacks per kind beside phases 8 and 10's
+   (which synchronize every step), the loader's ms a batch and the
+   requests that found its queue empty, the checkpoints' sizes; no
+   module of FORBIDDEN_MODULES may be imported.
 
-Any failure exits non-zero.  The line before the last is the kernel table as
+Any failure exits non-zero.  The card's name and power limit are printed
+again after phase 12.  The line before the last is the kernel table as
 JSON (the snake+conv kernel and its split sum); the last line is ``{"ok":
 true, "device": {...}}``.  Imports nothing of JAX or of after_tpu.
 """
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import math
@@ -251,6 +283,14 @@ DIFF_VS_CPU_BATCH = 4
 # 2.9e-03 to 5.7e-02
 DIFF_GRAD_TOL = 3e-2
 DIFF_GRAD_MEDIAN_TOL = 2e-3
+CLI_DIR = "build/cli"         # phase 12's stores and runs
+CLI_RECORDS = 16             # waveform records of about 3 s
+CLI_RECORD_SAMPLES = 132300  # 3 s at 44.1 kHz
+CLI_AE_STEPS = 10
+CLI_AE_EVERY = 5             # the codec run's checkpoints and validation
+CLI_DIFF_STEPS = DIFF_LONG_STEPS
+# what phase 12 may not find imported, though the card machine lacks most
+FORBIDDEN_MODULES = ("jax", "flax", "after_tpu", "google.protobuf")
 
 
 def log(msg: str) -> None:
@@ -854,9 +894,9 @@ def synthetic_latents(n: int, channels: int, frames: int, seed: int):
     return out
 
 
-def diffusion_config(**overrides):
+def diffusion_config(in_size: int = 64, **overrides):
     from after_tpu_torch.config import get_config, with_overrides
-    cfg = get_config("base", "cycle").resolved(in_size=64,
+    cfg = get_config("base", "cycle").resolved(in_size=in_size,
                                                n_signal=DIFF_FRAMES)
     return with_overrides(cfg, {**DIFF_SCHEDULE,
                                 "train.batch_size": DIFF_BATCH, **overrides})
@@ -1226,16 +1266,7 @@ def diffusion_phase(row, codec) -> None:
     restored = restore_checkpoint(ckpt)
     ckpt_s = time.perf_counter() - t0
 
-    def equal(a, b):
-        if isinstance(a, dict):
-            return a.keys() == b.keys() and all(equal(a[k], b[k]) for k in a)
-        if isinstance(a, (list, tuple)):
-            return len(a) == len(b) and all(map(equal, a, b))
-        if isinstance(a, torch.Tensor):
-            return torch.equal(a.cpu(), b)
-        return a == b
-
-    if not equal(tr.state_tree(), restored):
+    if not trees_equal(tr.state_tree(), restored):
         fail("the restored checkpoint differs from the train state")
     size = sum(os.path.getsize(os.path.join(d, f))
                for d, _, fs in os.walk(ckpt) for f in fs)
@@ -1667,6 +1698,433 @@ def stream_card_vs_cpu(label, card, cpu, n_buffers: int, seed: int):
     if not (torch.isfinite(y_card).all() and err <= CARD_VS_CPU_TOL * scale):
         fail(f"streaming, {label}: card and CPU disagree")
     return launches
+
+
+def _to_cpu(tree):
+    """A copy of a train state's tree on the host (its tensors cloned)."""
+    import torch
+    if isinstance(tree, dict):
+        return {k: _to_cpu(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_to_cpu(v) for v in tree]
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().to("cpu", copy=True)
+    return tree
+
+
+def trees_equal(a, b) -> bool:
+    import torch
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(trees_equal(a[k], b[k])
+                                            for k in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(map(trees_equal, a, b))
+    if isinstance(a, torch.Tensor):
+        return torch.equal(a.cpu(), b.cpu())
+    return a == b
+
+
+class _Tee:
+    """Standard output that also keeps what is written (a command's own
+    lines)."""
+
+    def __init__(self, out):
+        self.out, self.parts = out, []
+
+    def write(self, s):
+        self.parts.append(s)
+        return self.out.write(s)
+
+    def flush(self):
+        self.out.flush()
+
+    def text(self) -> str:
+        return "".join(self.parts)
+
+
+@contextlib.contextmanager
+def step_clock(trainer_cls, sync_every: int = 0):
+    """While in the block, ``trainer_cls.fit`` records for each step the
+    host ms from the end of the previous step's callback (or fit's start)
+    to the start of its own, with the step's kind, graph signature (the
+    codec trainer's is its kind) and whether it was the first of its
+    signature, and ``load_state_tree`` the train state just after it
+    loads: yields the two lists (steps, loaded).  It adds no synchronize
+    where the command has none, but for the first step of each signature
+    (which compiles or captures and waits for the card anyway): before
+    fit and at the start of the callbacks of those steps, of every
+    ``sync_every``-th step (where the command saves and validates) and of
+    the last step.  So the sum of a run's times is its wall time without
+    its callbacks' own work, with the host free to run ahead of the card
+    between those points as a user's run does."""
+    import torch
+    steps, loaded = [], []
+    fit, load = trainer_cls.fit, trainer_cls.load_state_tree
+
+    def timed_fit(self, batches, max_steps=None, callback=None, **kw):
+        t0, seen = [0.0], set()
+        last = max_steps if max_steps is not None else self.tc.max_steps
+
+        def timed(tr, metrics):
+            step = tr.step - 1
+            kind = tr.step_kind(step)
+            sig = ((kind, *tr.step_flags(step)) if hasattr(tr, "step_flags")
+                   and kind != "classifier" else (kind,))
+            first = sig not in seen
+            seen.add(sig)
+            if (first or tr.step == last
+                    or sync_every and tr.step % sync_every == 0):
+                torch.cuda.synchronize()
+            steps.append((kind, sig, (time.perf_counter() - t0[0]) * 1e3,
+                          first))
+            if callback is not None:
+                callback(tr, metrics)
+            t0[0] = time.perf_counter()
+
+        torch.cuda.synchronize()
+        t0[0] = time.perf_counter()
+        return fit(self, batches, max_steps, timed, **kw)
+
+    def kept_load(self, tree, *args, **kwargs):
+        load(self, tree, *args, **kwargs)
+        loaded.append(_to_cpu(self.state_tree()))
+
+    trainer_cls.fit, trainer_cls.load_state_tree = timed_fit, kept_load
+    try:
+        yield steps, loaded
+    finally:
+        trainer_cls.fit, trainer_cls.load_state_tree = fit, load
+
+
+def cli_run(argv, trainer_cls, sync_every: int = 0):
+    """``after_tpu_torch.cli.main.main(argv)`` in this process, under
+    ``step_clock(trainer_cls, sync_every)``: its exit code, standard
+    output, steps and the train state just after a restart's load (None
+    without one)."""
+    from after_tpu_torch.cli.main import main as cli_main
+    tee = _Tee(sys.stdout)
+    with step_clock(trainer_cls, sync_every) as (steps, loaded):
+        with contextlib.redirect_stdout(tee):
+            rc = cli_main(argv)
+    return rc, tee.text(), steps, loaded[0] if loaded else None
+
+
+def step_medians(steps):
+    """{kind: (median ms over its steps without the first of each
+    signature, or None; steps behind it)}."""
+    out = {}
+    for kind, _, ms, first in steps:
+        out.setdefault(kind, [])
+        if not first:
+            out[kind].append(ms)
+    return {k: (sorted(v)[len(v) // 2] if v else None, len(v))
+            for k, v in out.items()}
+
+
+def wall_ms(steps):
+    """A run's wall ms a step: over all its steps, and over the steps after
+    the last first step of a signature (None without any), with how many
+    those are."""
+    total = sum(ms for _, _, ms, _ in steps) / len(steps)
+    last = max((i for i, s in enumerate(steps) if s[3]), default=-1)
+    tail = steps[last + 1:]
+    return (total, sum(ms for _, _, ms, _ in tail) / len(tail)
+            if tail else None, len(tail))
+
+
+def snake_conv_check(label, worst, checked):
+    """A forward hook for ``register_module_forward_hook`` that holds each
+    ``ConvBlock1d`` output (a launch of the kernel) to its plain version
+    on the same input: fails past KERNEL_TOL x max|y|, keeps the worst
+    ratio in ``worst[0]`` and counts the checks in ``checked[0]``."""
+    import torch
+    from after_tpu_torch.models.autoencoder import ConvBlock1d
+    from after_tpu_torch.ops.kernels.fused_conv import snake_conv_reference
+
+    @torch.no_grad()
+    def check(mod, args, y):
+        if not isinstance(mod, ConvBlock1d):
+            return
+        h = mod.gn(args[0]) if mod.gn is not None else args[0]
+        ref = snake_conv_reference(h.contiguous(), mod.act.alpha,
+                                   mod.act.beta, mod.conv.effective_weight(),
+                                   mod.conv.bias, mod.conv.dilation,
+                                   mod.conv.mode)
+        err = (y - ref).abs().max().item()
+        scale = ref.abs().max().item()
+        if not err <= KERNEL_TOL * scale:
+            fail(f"{label}: fused_snake_conv at {tuple(h.shape)} off its "
+                 f"plain version by {err} > {KERNEL_TOL} * {scale}")
+        worst[0] = max(worst[0], err / scale)
+        checked[0] += 1
+    return check
+
+
+def fmt_ms(v) -> str:
+    return "none" if v is None else f"{v:.2f}"
+
+
+def cli_checks(label, rc, out, run, steps_saved, keys, audio, loader=True):
+    """A command's run: exit code 0, the checkpoints of ``steps_saved``,
+    ``keys`` in metrics.jsonl, the ``audio`` files; returns the loader's
+    (ms a batch, dry requests, batches) from its last line (None without
+    ``loader``) and the checkpoints' sizes in MiB."""
+    import os
+    import re
+    from after_tpu_torch.utils.checkpoint import available_steps
+    if rc != 0:
+        fail(f"{label}: exit code {rc}")
+    if available_steps(run) != steps_saved:
+        fail(f"{label}: checkpoints {available_steps(run)}, expected "
+             f"{steps_saved}")
+    with open(os.path.join(run, "metrics.jsonl")) as f:
+        entries = [json.loads(line) for line in f]
+    seen = set().union(*entries) if entries else set()
+    if not set(keys) <= seen:
+        fail(f"{label}: metrics.jsonl lacks {sorted(set(keys) - seen)}")
+    if not all(math.isfinite(v) for e in entries for v in e.values()):
+        fail(f"{label}: non-finite values in metrics.jsonl")
+    have = set(os.listdir(os.path.join(run, "audio")))
+    if not set(audio) <= have:
+        fail(f"{label}: audio files {sorted(set(audio) - have)} missing")
+    sizes = {step: sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in
+                       os.walk(os.path.join(run, f"checkpoint_{step}"))
+                       for f in fs) / 2**20 for step in steps_saved}
+    if not loader:
+        return None, sizes
+    m = re.search(r"loader: (\d+) batches built, ([\d.]+) ms a batch; the "
+                  r"queue was empty at (\d+) requests", out)
+    if m is None:
+        fail(f"{label}: no loader line")
+    return (float(m.group(2)), int(m.group(3)), int(m.group(1))), sizes
+
+
+def cli_phase(row) -> None:
+    """Phase 12: training from the command line (see the module
+    docstring)."""
+    import os
+    import shutil
+
+    import numpy as np
+    import torch
+    from after_tpu_torch.autoencoder import AutoencoderTrainer
+    from after_tpu_torch.config import load_codec_config
+    from after_tpu_torch.dataset import AudioExample, RecordWriter
+    from after_tpu_torch.diffusion.trainer import DiffusionTrainer
+    from after_tpu_torch.ops.kernels.fused_conv import (device_launches,
+                                                        fused_snake_conv,
+                                                        reset_device_launches)
+    from after_tpu_torch.utils.checkpoint import restore_checkpoint
+    from torch.nn.modules.module import register_module_forward_hook
+
+    # tensorboard (absent on the card machine) imports protobuf: the phase
+    # runs without it, so that the module check below sees the port's own
+    sys.modules["torch.utils.tensorboard"] = None
+    shutil.rmtree(CLI_DIR, ignore_errors=True)
+    wave_db = os.path.join(CLI_DIR, "wavedb")
+    z_db = os.path.join(CLI_DIR, "zdb")
+    runs = os.path.join(CLI_DIR, "runs")
+    ae_run, diff_run = os.path.join(runs, "ae"), os.path.join(runs, "diff")
+
+    def checked_run(label, argv, trainer_cls, sync_every=0):
+        """cli_run with the kernel's counts set to 0 just before and read
+        just after, and each of its launches held to its plain version:
+        (exit code, output, steps, loaded, (wrapper, device) launches,
+        worst error ratio)."""
+        worst, checked = [0.0], [0]
+        gc.collect()
+        torch.cuda.empty_cache()
+        hook = register_module_forward_hook(
+            snake_conv_check(label, worst, checked))
+        fused_snake_conv.launches = 0
+        reset_device_launches()
+        try:
+            out = cli_run(argv, trainer_cls, sync_every)
+        finally:
+            hook.remove()
+        launches = (fused_snake_conv.launches, device_launches()[0])
+        if launches[0] == 0 or checked[0] != launches[0]:
+            fail(f"{label}: {launches} kernel launches, {checked[0]} of them "
+                 f"checked")
+        return (*out, launches, worst[0])
+
+    # a waveform store, int16 as prepare_dataset stores it
+    gen = torch.Generator("cuda").manual_seed(SEED + 12)
+    waves = synthetic_audio(gen, CLI_RECORDS, CLI_RECORD_SAMPLES,
+                            44100)[..., 0].cpu().numpy()
+    with RecordWriter(wave_db) as w:
+        for i, x in enumerate(waves):
+            e = AudioExample()
+            e.put_array("waveform", x, dtype=np.int16, sampling_rate=44100)
+            e.put_metadata({"name": f"synthetic_{i}"})
+            w.put(f"{i:08d}", e.serialize())
+
+    # the codec: CLI_AE_STEPS steps, timed (its launches counted, not
+    # checked: the checks would slow its steps), then a restart for 2 more
+    # with every launch held to its plain version
+    ae_args = ["train_autoencoder", "--name", "ae", "--db_path", wave_db,
+               "--out_path", runs, "--batch_size", "8", "--num_signal",
+               "131072", "--override", f"train.warmup_steps={TRAIN_WARMUP}",
+               "--override", f"train.steps_save={CLI_AE_EVERY}",
+               "--override", f"train.steps_valid={CLI_AE_EVERY}"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    fused_snake_conv.launches = 0
+    reset_device_launches()
+    rc, out, ae_steps, _ = cli_run(
+        ae_args + ["--max_steps", str(CLI_AE_STEPS)], AutoencoderTrainer,
+        CLI_AE_EVERY)
+    ae_launches = (fused_snake_conv.launches, device_launches()[0])
+    ae_loader, ae_sizes = cli_checks(
+        "train_autoencoder", rc, out, ae_run, [5, 10],
+        ["mrstft", "regularisation_loss", "total_loss", "skipped_nonfinite",
+         "feature_matching", "adversarial", "val_mrstft",
+         "val_total_loss", "steps_per_sec"],
+        ["validation_audio_5.wav", "validation_audio_10.wav"])
+    if len(ae_steps) != CLI_AE_STEPS or ae_launches[0] == 0:
+        fail(f"train_autoencoder ran {len(ae_steps)} steps with "
+             f"{ae_launches} kernel launches")
+    saved = restore_checkpoint(ae_run, CLI_AE_STEPS)
+    rc, out, restart_steps, loaded, ae_checked, ae_worst = checked_run(
+        "train_autoencoder --restart",
+        ae_args + ["--max_steps", str(CLI_AE_STEPS + 2), "--restart", "0"],
+        AutoencoderTrainer)
+    cli_checks("train_autoencoder --restart", rc, out, ae_run,
+               [5, 10, 12], ["val_mrstft"], ["validation_audio_10.wav"])
+    if (loaded is None or loaded["step"] != CLI_AE_STEPS
+            or not trees_equal(loaded, saved) or len(restart_steps) != 2):
+        fail("train_autoencoder --restart did not resume at step "
+             f"{CLI_AE_STEPS} with the saved state")
+    ae_meds, ae_wall = step_medians(ae_steps), wall_ms(ae_steps)
+    mem = row.get("step_ms_median", {})
+    log(f"command line: train_autoencoder, base codec, batch 8 x 131072, "
+        f"{CLI_AE_STEPS} steps then a restart at {CLI_AE_STEPS} (weights, "
+        f"both optimizer states and the step as saved) for 2 more; wall ms "
+        f"a step (a synchronize only at each kind's first step, the "
+        f"checkpoints and validation, whose own time is left out, and the "
+        f"last step): {ae_wall[0]:.2f} over the {CLI_AE_STEPS}, "
+        f"{fmt_ms(ae_wall[1])} over the {ae_wall[2]} after each kind's "
+        f"first; median host ms between callbacks without each kind's "
+        f"first step: " + ", ".join(
+            f"{k} {v:.2f} over {n} (in memory, phase 8, a synchronize a "
+            f"step: {fmt_ms(mem.get(k))})"
+            for k, (v, n) in ae_meds.items() if v is not None)
+        + f"; the loader {ae_loader[0]:.3f} ms a batch over {ae_loader[2]} "
+        f"batches, its queue empty at {ae_loader[1]} of {CLI_AE_STEPS} "
+        f"requests; {KERNEL_NAME} launches {ae_launches[0]} (device "
+        f"{ae_launches[1]}); the restart's {ae_checked[0]} (device "
+        f"{ae_checked[1]}) each within {ae_worst:.3e} x max|y| of its plain "
+        f"version (limit {KERNEL_TOL}); checkpoints " + ", ".join(
+            f"{s}: {v:.1f} MiB" for s, v in ae_sizes.items()))
+
+    # a latent store with the trained codec's latent channels
+    channels = load_codec_config(ae_run).z_channels
+    latents = synthetic_latents(DIFF_RECORDS, channels, DIFF_RECORD_FRAMES,
+                                SEED + 12)
+    with RecordWriter(z_db) as w:
+        for i, z in enumerate(latents):
+            e = AudioExample()
+            e.put_array("z", z)
+            e.put_metadata({"name": f"synthetic_{i}"})
+            w.put(f"{i:08d}", e.serialize())
+
+    # the diffusion model: phase 10's config and longer schedule, validated
+    # through the codec run, each kernel launch held to its plain version
+    diff_args = (["train", "--name", "diff", "--db_path", z_db,
+                  "--out_path", runs, "--config", "base", "--config",
+                  "cycle", "--batch_size", str(DIFF_BATCH),
+                  "--emb_model_path", ae_run,
+                  "--override", f"train.n_signal={DIFF_FRAMES}",
+                  "--override", f"train.steps_save={CLI_DIFF_STEPS}",
+                  "--override", f"train.steps_valid={CLI_DIFF_STEPS}"]
+                 + [a for k, v in {**DIFF_SCHEDULE,
+                                   **DIFF_LONG_SCHEDULE}.items()
+                    for a in ("--override", f"{k}={v}")])
+    rc, out, diff_steps, _, diff_launches, diff_worst = checked_run(
+        "train", diff_args + ["--max_steps", str(CLI_DIFF_STEPS)],
+        DiffusionTrainer)
+    diff_loader, diff_sizes = cli_checks(
+        "train", rc, out, diff_run, [CLI_DIFF_STEPS],
+        ["diffusion_loss", "loss", "classifier_loss", "cycle_cond",
+         "val_diffusion_loss", "val_transfer_margin",
+         "val_transfer_margin_audio", "steps_per_sec"],
+        [f"{kind}_{i}_{CLI_DIFF_STEPS}.wav" for kind in (
+            "true", "reconstruction", "transfer") for i in range(4)])
+    if len(diff_steps) != CLI_DIFF_STEPS:
+        fail(f"train ran {len(diff_steps)} steps")
+    saved = restore_checkpoint(diff_run, CLI_DIFF_STEPS)
+    rc, out, restart_steps, loaded = cli_run(
+        diff_args + ["--max_steps", str(CLI_DIFF_STEPS + 2), "--restart",
+                     "0"], DiffusionTrainer)
+    cli_checks("train --restart", rc, out, diff_run,
+               [CLI_DIFF_STEPS, CLI_DIFF_STEPS + 2], ["diffusion_loss"], [])
+    if (loaded is None or loaded["step"] != CLI_DIFF_STEPS
+            or not trees_equal(loaded, saved) or len(restart_steps) != 2):
+        fail(f"train --restart did not resume at step {CLI_DIFF_STEPS} with "
+             "the saved state")
+    # the same command with the latents on the card (--data_on_device):
+    # its steps take no host batch and run beside no loader thread
+    rc, out, bank_steps, _, bank_launches, bank_worst = checked_run(
+        "train --data_on_device", diff_args + [
+            "--name", "diff_bank", "--data_on_device", "--max_steps",
+            str(CLI_DIFF_STEPS)], DiffusionTrainer)
+    cli_checks("train --data_on_device", rc, out,
+               os.path.join(runs, "diff_bank"), [CLI_DIFF_STEPS],
+               ["diffusion_loss", "val_diffusion_loss"], [], loader=False)
+    if len(bank_steps) != CLI_DIFF_STEPS:
+        fail(f"train --data_on_device ran {len(bank_steps)} steps")
+    diff_meds, diff_wall = step_medians(diff_steps), wall_ms(diff_steps)
+    bank_meds, bank_wall = step_medians(bank_steps), wall_ms(bank_steps)
+    mem = row.get("diffusion_step_ms_median", {})
+    log(f"command line: train, base + cycle, batch {DIFF_BATCH}, n_signal "
+        f"{DIFF_FRAMES}, phase 10's longer schedule for {CLI_DIFF_STEPS} "
+        f"steps (validation through the codec run), then a restart at "
+        f"{CLI_DIFF_STEPS} for 2 more; wall ms a step (a synchronize only "
+        f"at each signature's first step, which captures, and the last "
+        f"step): {diff_wall[0]:.2f} over the {CLI_DIFF_STEPS}, "
+        f"{fmt_ms(diff_wall[1])} over the {diff_wall[2]} after the last "
+        f"capture; with --data_on_device {bank_wall[0]:.2f} "
+        f"and {fmt_ms(bank_wall[1])} over {bank_wall[2]}; median host ms "
+        f"between callbacks without each signature's first step: "
+        + ", ".join(f"{k} {fmt_ms(v)} over {n} (--data_on_device "
+                    f"{fmt_ms(bank_meds.get(k, (None,))[0])}; in memory, "
+                    f"phase 10's long run, a synchronize a step: "
+                    f"{fmt_ms(mem.get(k))})"
+                    for k, (v, n) in diff_meds.items())
+        + f"; the loader {diff_loader[0]:.3f} ms a batch over "
+        f"{diff_loader[2]} batches, its queue empty at {diff_loader[1]} of "
+        f"{CLI_DIFF_STEPS} requests; validation: {diff_launches[0]} "
+        f"{KERNEL_NAME} launches (device {diff_launches[1]}), each within "
+        f"{diff_worst:.3e} x max|y| of its plain version (limit "
+        f"{KERNEL_TOL}), with --data_on_device {bank_launches[0]} (device "
+        f"{bank_launches[1]}) within {bank_worst:.3e}; checkpoints "
+        + ", ".join(f"{s}: {v:.1f} MiB" for s, v in diff_sizes.items()))
+
+    bad = sorted(m for m in sys.modules if sys.modules[m] is not None and any(
+        m == f or m.startswith(f + ".") for f in FORBIDDEN_MODULES))
+    if bad:
+        fail(f"command line: forbidden modules imported: {bad[:10]}")
+    log(f"command line: none of {', '.join(FORBIDDEN_MODULES)} imported")
+    row["launches_cli"] = {"train_autoencoder": ae_launches[1],
+                           "train_autoencoder_restart": ae_checked[1],
+                           "train": diff_launches[1],
+                           "train_data_on_device": bank_launches[1]}
+    row["cli_max_err_ratio"] = {"train_autoencoder_restart": ae_worst,
+                                "train": diff_worst,
+                                "train_data_on_device": bank_worst}
+    row["cli_wall_ms_per_step"] = {"train_autoencoder": ae_wall[:2],
+                                   "train": diff_wall[:2],
+                                   "train_data_on_device": bank_wall[:2]}
+    row["cli_step_ms_median"] = {
+        "train_autoencoder": {k: v for k, (v, _) in ae_meds.items()},
+        "train": {k: v for k, (v, _) in diff_meds.items()},
+        "train_data_on_device": {k: v for k, (v, _) in bank_meds.items()}}
+    row["cli_loader_ms_per_batch"] = {"train_autoencoder": ae_loader[0],
+                                      "train": diff_loader[0]}
+    row["cli_loader_dry"] = {"train_autoencoder": ae_loader[1],
+                             "train": diff_loader[1]}
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def main() -> None:
@@ -2129,6 +2587,11 @@ def main() -> None:
     diffusion_phase(row, pipe.codec)
     row["grad_card_vs_cpu_diffusion"] = diffusion_card_vs_cpu()
 
+    # 12. training from the command line
+    cli_phase(row)
+
+    # the card again, so that the end of a long output still names it
+    log(f"card: {card_line()}")
     print(json.dumps({"kernels": [row, srow]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -18,6 +18,8 @@ setup(
         "console_scripts": [
             # mirrors the reference's `after` console script (setup.py:32-34)
             "after-tpu = after_tpu.cli.main:main",
+            # the PyTorch / H100 port's training commands
+            "after-tpu-torch = after_tpu_torch.cli.main:main",
         ]
     },
 )

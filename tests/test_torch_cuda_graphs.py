@@ -18,6 +18,8 @@ op-by-op steps then run the same kernels on the same inputs and draws, and
 are held to the same bits.
 """
 
+import gc
+
 import numpy as np
 import pytest
 import torch
@@ -271,6 +273,27 @@ def test_a_failing_capture_raises(cuda):
     with pytest.raises(RuntimeError):
         pool.capture(lambda: (x * 2).sum().item())
     assert pool.captures == 0
+
+
+@pytest.mark.cuda
+def test_a_collection_cannot_free_a_graph_inside_a_capture(cuda):
+    """Garbage that holds another pool's graph in a reference cycle, and a
+    capture that allocates enough to start a collection: the collector is
+    off while capturing, so the old graph is not destroyed mid-capture."""
+    x = torch.ones(4, device=cuda)
+    old = GraphPool(cuda)
+    cycle = [old.capture(lambda: x * 2)]
+    cycle.append(cycle)
+    del cycle, old
+
+    def fn():
+        assert not gc.isenabled()
+        junk = [[] for _ in range(5 * gc.get_threshold()[0])]
+        return x * 3 + len(junk) * 0
+    graph = GraphPool(cuda).capture(fn)
+    assert gc.isenabled()
+    torch.testing.assert_close(graph.replay(), x * 3)
+    gc.collect()
 
 
 def _trainers(cuda, **overrides):

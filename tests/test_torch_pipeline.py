@@ -100,10 +100,18 @@ def test_import_pulls_in_no_jax():
             "after_tpu_torch.models.discriminator, after_tpu_torch.ops.stft, "
             "after_tpu_torch.diffusion.trainer, after_tpu_torch.dataset, "
             "after_tpu_torch.utils.checkpoint, after_tpu_torch.cli.train, "
-            "after_tpu_torch.utils.graphs; "
+            "after_tpu_torch.utils.graphs, after_tpu_torch.cli.main, "
+            "after_tpu_torch.cli.train_autoencoder, "
+            "after_tpu_torch.dataset.audio_example, "
+            "after_tpu_torch.dataset.store, after_tpu_torch.dataset.dataset, "
+            "after_tpu_torch.dataset.audio, after_tpu_torch.dataset.midi, "
+            "after_tpu_torch.dataset.transforms, "
+            "after_tpu_torch.utils.logging; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'flax' or m == 'after_tpu' or "
-            "m.startswith('after_tpu.')]; print(bad); sys.exit(1 if bad else 0)")
+            "m.startswith('after_tpu.') or m == 'google.protobuf' or "
+            "m.startswith('google.protobuf.')]; print(bad); "
+            "sys.exit(1 if bad else 0)")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr
