@@ -3,6 +3,10 @@ subcommands (after_tpu/cli/main.py).
 
     after-tpu-torch train_autoencoder   codec GAN training
     after-tpu-torch train               diffusion training
+    after-tpu-torch export              a2a run -> streaming artifact
+    after-tpu-torch export_midi         MIDI run -> streaming artifact
+    after-tpu-torch export_autoencoder  codec run -> codec-only artifact
+    after-tpu-torch serve               local web frontend
 
 The JAX package's other subcommands are not ported yet: each exits
 non-zero and names the ROADMAP item that ports it.
@@ -12,17 +16,14 @@ from __future__ import annotations
 
 import sys
 
-PORTED = ["train_autoencoder", "train"]
+PORTED = ["train_autoencoder", "train", "export", "export_midi",
+          "export_autoencoder", "serve"]
 # subcommand -> the ROADMAP item (section A) that ports it
 NOT_PORTED = {
     "prepare_dataset": "13 (dataset preparation and import)",
     "update_dataset": "13 (dataset preparation and import)",
     "import_dataset": "13 (dataset preparation and import)",
     "import_torch": "13 (dataset preparation and import)",
-    "export": "12 (export and serving)",
-    "export_midi": "12 (export and serving)",
-    "export_autoencoder": "12 (export and serving)",
-    "serve": "12 (export and serving)",
 }
 
 
@@ -40,6 +41,12 @@ def main(argv=None) -> int:
     if cmd == "train":
         from . import train
         return train.main(rest)
+    if cmd.startswith("export"):
+        from . import export
+        return export.main(cmd, rest)
+    if cmd == "serve":
+        from . import serve
+        return serve.main(rest)
     from . import train_autoencoder
     return train_autoencoder.main(rest)
 

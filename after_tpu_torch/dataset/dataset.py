@@ -40,16 +40,20 @@ def train_test_split_ids(n: int, test_size: float = 0.02,
 
 
 class SimpleDataset:
-    """One store's ``split`` ("train" or "validation") as dicts of the
-    buffers named in ``keys`` ("metadata" for the record's metadata)."""
+    """One store's ``split`` ("train" or "validation", or every record
+    when None) as dicts of the buffers named in ``keys`` ("metadata" for
+    the record's metadata)."""
 
-    def __init__(self, path: str, keys: Sequence[str], split: str):
-        if split not in ("train", "validation"):
-            raise ValueError(f"split {split!r}: 'train' or 'validation'")
+    def __init__(self, path: str, keys: Sequence[str],
+                 split: Optional[str] = None):
+        if split not in ("train", "validation", None):
+            raise ValueError(f"split {split!r}: 'train', 'validation' or "
+                             "None")
         self.reader = RecordReader(path)
         self.buffer_keys = list(keys)
         all_keys = self.reader.keys()
-        ids = train_test_split_ids(len(all_keys))[split]
+        ids = (range(len(all_keys)) if split is None
+               else train_test_split_ids(len(all_keys))[split])
         self.keys = [all_keys[i] for i in ids]
 
     def __len__(self) -> int:

@@ -138,6 +138,19 @@ class MidiFile:
 
     # -- rendering ---------------------------------------------------------
 
+    def duration(self) -> float:
+        return max((n.end for n in self.notes), default=0.0)
+
+    def slice(self, start: float, end: float) -> "MidiFile":
+        """Notes overlapping [start, end), re-based to start=0."""
+        out = []
+        for n in self.notes:
+            if n.end > start and n.start < end:
+                out.append(Note(n.pitch, n.velocity,
+                                max(n.start - start, 0.0),
+                                min(n.end - start, end - start)))
+        return MidiFile(notes=out)
+
     def get_piano_roll(self, times: np.ndarray) -> np.ndarray:
         """(128, len(times)) velocity roll sampled at ``times`` seconds."""
         roll = np.zeros((128, len(times)), dtype=np.float32)
@@ -146,6 +159,23 @@ class MidiFile:
             mask = (t >= n.start) & (t < n.end)
             roll[n.pitch, mask] = n.velocity
         return roll
+
+    def get_note_pairs(self, times: np.ndarray, n_poly: int) -> np.ndarray:
+        """(len(times), n_poly, 2) active (pitch, velocity) pairs a frame,
+        zero-padded: the note-pair input of a MIDI artifact's
+        ``diffuse_midi``.  Slots fill in note-list order; notes beyond
+        n_poly at once are dropped.  ``times`` ascend."""
+        t = np.asarray(times)
+        out = np.zeros((len(t), n_poly, 2), np.float32)
+        counts = np.zeros(len(t), np.int64)
+        for n in self.notes:
+            i0 = int(np.searchsorted(t, n.start, side="left"))
+            i1 = int(np.searchsorted(t, n.end, side="left"))
+            for i in range(i0, i1):
+                if counts[i] < n_poly:
+                    out[i, counts[i]] = (n.pitch, n.velocity)
+                    counts[i] += 1
+        return out
 
 
 # the globals a stored MIDI pickle may name: the JAX package's classes and

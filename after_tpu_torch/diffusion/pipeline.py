@@ -2,13 +2,15 @@
 after_tpu/diffusion/pipeline.py).
 
 ``transfer = encode (x2) -> structure + timbre encoders -> Euler sampler
-with 3-way CFG -> decode``.  Every entry point runs on the pipeline's device,
+with 3-way CFG -> decode``; ``generate`` (structure codes and a timbre
+vector) and ``generate_timbre`` (structure audio and a timbre vector) are
+the same chain from a given timbre, as the frontend calls it.  Every entry point runs on the pipeline's device,
 which is the CUDA card unless the caller passes ``device="cpu"``.  Inputs and
 outputs keep the JAX package's (B, T, C) layout.
 
 On the card each entry point runs as a CUDA graph, as the JAX package jits
-each of them: keyed by its input shapes (and ``nb_steps`` for ``diffuse``
-and ``transfer``, static as in JAX), captured on the first call with a new
+each of them: keyed by its input shapes (and ``nb_steps`` where it
+samples, static as in JAX), captured on the first call with a new
 key (utils/graphs.py) and replayed after that, with the inputs copied into
 its static buffers and the guidances in static device scalars, so they may
 change from call to call.  The sampler's noise, when not given, is drawn
@@ -20,7 +22,8 @@ always run so.
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Mapping, Optional, Sequence, Union
+from typing import (Any, Callable, Dict, Mapping, Optional, Sequence, Tuple,
+                    Union)
 
 import numpy as np
 import torch
@@ -146,6 +149,70 @@ class TransferPipeline:
             [x0, cond, time_cond,
              guidance_mix(guidance_timbre, guidance_structure)], (nb_steps,))
 
+    def _noise(self, B: int, T: int, generator: Optional[torch.Generator]
+               ) -> torch.Tensor:
+        """The sampler's normal noise for B x T latent frames, drawn with
+        ``generator`` (seeded 0 when absent) on the pipeline's device."""
+        if generator is None:
+            generator = torch.Generator(self.device).manual_seed(0)
+        return torch.randn((B, T, self.cfg.autoencoder.z_channels),
+                           generator=generator, device=self.device)
+
+    def _frames(self, audio) -> Tuple[int, int]:
+        """(B, latent frames) of a (B, T, 1) waveform."""
+        B, T = _shape(audio)[:2]
+        ratio = self.cfg.autoencoder.ratio
+        if T % ratio:
+            raise ValueError(f"{T} samples: a transfer takes a multiple of "
+                             f"the codec's ratio {ratio}")
+        return B, T // ratio
+
+    def _generate(self, time_cond, cond, x0, mix, nb_steps):
+        """Diffuse from x0 under the conditions, then decode."""
+        return self.codec.decode(
+            self.rf.sample(x0, cond, time_cond, nb_steps, mix=mix))
+
+    @torch.inference_mode()
+    def generate(self, time_cond: ArrayLike, zsem: ArrayLike,
+                 nb_steps: int = 20, guidance_timbre: float = 1.0,
+                 guidance_structure: float = 1.0,
+                 x0: Optional[ArrayLike] = None,
+                 generator: Optional[torch.Generator] = None
+                 ) -> torch.Tensor:
+        """(B, T, zs) structure codes and a (B, zt) timbre vector -> audio:
+        the sampler and the decode (a MIDI model's piano roll is its
+        structure codes); one CUDA graph per (input shapes, ``nb_steps``).
+        Noise as in ``transfer``."""
+        if x0 is None:
+            x0 = self._noise(*_shape(time_cond)[:2], generator)
+        return self._run(
+            "generate", lambda tc, c, noise, mix: self._generate(
+                tc, c, noise, mix, nb_steps),
+            [time_cond, zsem, x0,
+             guidance_mix(guidance_timbre, guidance_structure)], (nb_steps,))
+
+    @torch.inference_mode()
+    def generate_timbre(self, audio_structure: ArrayLike, zsem: ArrayLike,
+                        nb_steps: int = 20, guidance_timbre: float = 1.0,
+                        guidance_structure: float = 1.0,
+                        x0: Optional[ArrayLike] = None,
+                        generator: Optional[torch.Generator] = None
+                        ) -> torch.Tensor:
+        """(B, T, 1) structure audio and a (B, zt) timbre vector -> audio:
+        the structure of the audio diffused with the given timbre and
+        decoded; one CUDA graph per (input shapes, ``nb_steps``).  Noise as
+        in ``transfer``."""
+        if x0 is None:
+            x0 = self._noise(*self._frames(audio_structure), generator)
+
+        def run(a, c, noise, mix):
+            time_cond = self.rf.encode_structure(self.codec.encode(a))[0]
+            return self._generate(time_cond, c, noise, mix, nb_steps)
+        return self._run(
+            "generate_timbre", run,
+            [audio_structure, zsem, x0,
+             guidance_mix(guidance_timbre, guidance_structure)], (nb_steps,))
+
     def _transfer(self, audio_structure, audio_timbre, x0, mix, nb_steps):
         """The transfer's chain on device tensors, from the sampler's noise
         ``x0``."""
@@ -171,15 +238,7 @@ class TransferPipeline:
         seeded 0 when absent).  On the card this is one CUDA graph per
         (input shapes, ``nb_steps``)."""
         if x0 is None:
-            if generator is None:
-                generator = torch.Generator(self.device).manual_seed(0)
-            B, T = _shape(audio_structure)[:2]
-            ratio = self.cfg.autoencoder.ratio
-            if T % ratio:
-                raise ValueError(f"{T} samples: a transfer takes a multiple "
-                                 f"of the codec's ratio {ratio}")
-            x0 = torch.randn((B, T // ratio, self.cfg.autoencoder.z_channels),
-                             generator=generator, device=self.device)
+            x0 = self._noise(*self._frames(audio_structure), generator)
         return self._run(
             "transfer", lambda a, b, noise, mix: self._transfer(
                 a, b, noise, mix, nb_steps),

@@ -6,14 +6,14 @@ adversarial classifier, the training loss with its condition dropout, the
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import numpy as np
 import torch
 from torch import nn
 
 from ..config import AfterConfig
-from ..models.denoiser import Denoiser
+from ..models.denoiser import Denoiser, KVSlot
 from ..models.ecapa import ECAPAEncoder
 from ..models.encoder import Encoder1D
 from ..ops.train_mode import TrainMode
@@ -35,6 +35,23 @@ def guidance_mix(guidance_timbre, guidance_structure) -> np.ndarray:
     total = np.float32(0.5) * (gs + gt)
     factor = gt / np.maximum(gs, np.float32(0.01))
     return np.array([total, factor], dtype=np.float32)
+
+
+def stream_scalars(max_steps: int, nb_steps=1, guidance_timbre=1.0,
+                   guidance_structure=1.0) -> Tuple[int, np.ndarray]:
+    """(nb, scalars) of one streaming buffer: ``nb_steps`` clipped to [1,
+    max_steps] (the slots the KV cache has), and the f32 vector [t_0 ..
+    t_{S-1}, dt, total, factor] that its Euler steps read (S = max_steps):
+    t_i = i / nb and dt = 1 / nb in f32, as in the JAX sampler (t_i for i >=
+    nb unused), then ``guidance_mix``.  The arguments are Python numbers or
+    0-d tensors."""
+    nb = min(max(int(nb_steps), 1), max_steps)
+    nb_f = np.float32(nb)
+    t = np.arange(max_steps, dtype=np.float32) / nb_f
+    return nb, np.concatenate([
+        t, [np.float32(1.0) / nb_f],
+        guidance_mix(guidance_timbre, guidance_structure)]
+    ).astype(np.float32)
 
 
 class RectifiedFlow(nn.Module):
@@ -132,7 +149,8 @@ class RectifiedFlow(nn.Module):
         return o_none + total * (o_tc + factor * (o_full - o_tc) - o_none)
 
     def model_forward(self, x, time, cond, time_cond, mix: torch.Tensor,
-                      cache: Cache = None, cache_index: int = 0):
+                      cache: Cache = None,
+                      cache_index: Union[int, torch.Tensor] = 0):
         """3-way CFG velocity in one batched forward of 3B rows, mixed with
         ``mix`` = [total, factor] (``guidance_mix``) on x's device; a
         streaming net takes its KV cache and the Euler step's slot."""
@@ -162,29 +180,19 @@ class RectifiedFlow(nn.Module):
 
     def stream_scalars(self, nb_steps=1, guidance_timbre=1.0,
                        guidance_structure=1.0) -> Tuple[int, np.ndarray]:
-        """(nb, scalars) of one streaming buffer: ``nb_steps`` clipped to
-        [1, max_diffusion_steps] (the slots the KV cache has), and the f32
-        vector [t_0 .. t_{S-1}, dt, total, factor] that its Euler steps read
-        (S = max_diffusion_steps): t_i = i / nb and dt = 1 / nb in f32, as
-        in the JAX sampler (t_i for i >= nb unused), then ``guidance_mix``.
-        The arguments are Python numbers or 0-d tensors."""
-        S = self.cfg.denoiser.max_diffusion_steps
-        nb = min(max(int(nb_steps), 1), S)
-        nb_f = np.float32(nb)
-        t = np.arange(S, dtype=np.float32) / nb_f
-        return nb, np.concatenate([
-            t, [np.float32(1.0) / nb_f],
-            guidance_mix(guidance_timbre, guidance_structure)]
-        ).astype(np.float32)
+        """``stream_scalars`` of this model's max_diffusion_steps."""
+        return stream_scalars(self.cfg.denoiser.max_diffusion_steps, nb_steps,
+                              guidance_timbre, guidance_structure)
 
-    def stream_step(self, cache: Cache, i: int, x, cond, time_cond,
-                    scalars: torch.Tensor):
+    def stream_step(self, cache: Cache, i: Union[int, torch.Tensor], x, cond,
+                    time_cond, scalars: torch.Tensor):
         """Euler step i of a streaming buffer, on KV slot i: x + v * dt, with
         t_i, dt and the guidance mix read from ``scalars``
         (``stream_scalars``, on x's device); the cache is updated in place.
-        A CUDA graph of each slot serves every nb_steps."""
+        ``i`` is a Python int or an int64 0-d tensor (``KVSlot``).  A CUDA
+        graph of each slot serves every nb_steps."""
         S = self.cfg.denoiser.max_diffusion_steps
-        time = scalars[i].expand(x.shape[0])
+        time = KVSlot(i).read(scalars, 0).expand(x.shape[0])
         dx = self.model_forward(x, time, cond, time_cond, scalars[S + 1:],
                                 cache=cache, cache_index=i)
         return x + dx * scalars[S]

@@ -34,7 +34,7 @@ from torch import nn
 
 from ..config import AutoEncoderConfig
 from ..ops.conv import StreamConv1d, StreamConvTranspose1d
-from ..ops.kernels.fused_conv import fused_snake_conv
+from ..ops.kernels.fused_conv import snake_conv
 from ..ops.norms import GroupNorm
 from ..ops.pqmf import PQMFAnalysis, PQMFSynthesis
 from ..ops.snake import SnakeBeta
@@ -93,9 +93,9 @@ class ConvBlock1d(nn.Module):
         # input's strides and a streaming GroupNorm returns a slice, so make
         # the layout explicit.  The weight comes in the kernel's own layout
         # (kernel_layout), so no call copies it.
-        return fused_snake_conv(h.contiguous(), self.act.alpha, self.act.beta,
-                                self.conv.effective_weight(), self.conv.bias,
-                                self.conv.dilation, self.conv.mode)
+        return snake_conv(h.contiguous(), self.act.alpha, self.act.beta,
+                          *self.conv.kernel_weights(), self.conv.bias,
+                          self.conv.dilation, self.conv.mode)
 
 
 class ResnetBlock1d(nn.Module):

@@ -12,12 +12,13 @@ Euler step, ``k`` and ``v`` of shape (B, max_diffusion_steps, heads,
 local_attention_size, head_dim), and a per-step count of the slots written
 so far, ``filled`` (max_diffusion_steps,), shared across the batch.  A call
 with ``cache_index`` i attends over slot i followed by its own frames,
-masks the slots not written yet, then rolls its keys into slot i.
+masks the slots not written yet, then rolls its keys into slot i; i is a
+Python int or, in a traced program, an int64 0-d tensor (``KVSlot``).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -79,6 +80,30 @@ class MLP(nn.Module):
                        train)
 
 
+class KVSlot:
+    """The KV-cache slot of one Euler step, along an axis of the cache: a
+    Python int (a view of the slot, read and written in place; the form a
+    CUDA graph of each slot bakes in) or an int64 0-d tensor (read with
+    ``index_select`` and written with ``index_copy_``, the form a traced
+    program takes as a runtime input: one program serves every slot).  Both
+    give the same bits."""
+
+    def __init__(self, index: Union[int, torch.Tensor]):
+        self.index = index
+
+    def read(self, t: torch.Tensor, axis: int) -> torch.Tensor:
+        if isinstance(self.index, int):
+            return t.select(axis, self.index)
+        return t.index_select(axis, self.index.reshape(1)).squeeze(axis)
+
+    def write(self, t: torch.Tensor, axis: int, value: torch.Tensor) -> None:
+        if isinstance(self.index, int):
+            t.select(axis, self.index).copy_(value)
+        else:
+            t.index_copy_(axis, self.index.reshape(1),
+                          value.unsqueeze(axis).to(t.dtype))
+
+
 class ChunkCausalAttention(nn.Module, Streaming):
     """Multi-head self-attention with the chunk-wise causal sliding-window
     mask and rotary positions on the first ``rotary_dim`` head features;
@@ -118,7 +143,7 @@ class ChunkCausalAttention(nn.Module, Streaming):
         return self._consts[key]
 
     def forward(self, x: torch.Tensor, cache: Optional[Cache] = None,
-                cache_index: int = 0,
+                cache_index: Union[int, torch.Tensor] = 0,
                 train: Optional[TrainMode] = None) -> torch.Tensor:
         cfg = self.cfg
         B, T, E = x.shape
@@ -131,17 +156,18 @@ class ChunkCausalAttention(nn.Module, Streaming):
             vc = self.slot(cache, "v", lambda: x.new_zeros((B, S, H, C, D)))
             filled = self.slot(cache, "filled", lambda: torch.zeros(
                 (S,), dtype=torch.int32, device=x.device))
-            kc, vc = kc[:, cache_index], vc[:, cache_index]    # B H C D
-            full_k = torch.cat([kc, k], dim=2)
-            full_v = torch.cat([vc, v], dim=2)
+            slot = KVSlot(cache_index)
+            kc_i, vc_i = slot.read(kc, 1), slot.read(vc, 1)    # B H C D
+            full_k = torch.cat([kc_i, k], dim=2)
+            full_v = torch.cat([vc_i, v], dim=2)
             bias, q_ang, k_ang, key_pos = self._constants(T, C + T, x.device)
             # mask the slots of this step not written yet
-            n_filled = filled[cache_index]
+            n_filled = slot.read(filled, 0)
             bias = torch.where(key_pos >= C - n_filled, bias, NEG_INF)
             # roll-write: shift this step's slot left by T, append the keys
-            kc.copy_(full_k[:, :, T:] if T < C else k[:, :, T - C:])
-            vc.copy_(full_v[:, :, T:] if T < C else v[:, :, T - C:])
-            filled[cache_index] = torch.clamp(n_filled + T, max=C)
+            slot.write(kc, 1, full_k[:, :, T:] if T < C else k[:, :, T - C:])
+            slot.write(vc, 1, full_v[:, :, T:] if T < C else v[:, :, T - C:])
+            slot.write(filled, 0, torch.clamp(n_filled + T, max=C))
         else:
             full_k, full_v = k, v
             bias, q_ang, k_ang, _ = self._constants(T, T, x.device)
@@ -174,7 +200,7 @@ class DecoderBlock(nn.Module):
 
     def forward(self, x: torch.Tensor, cond: Optional[torch.Tensor],
                 tcond: Optional[torch.Tensor], cache: Optional[Cache] = None,
-                cache_index: int = 0,
+                cache_index: Union[int, torch.Tensor] = 0,
                 train: Optional[TrainMode] = None) -> torch.Tensor:
         E = x.shape[-1]
         if self.tcond_linear is not None and tcond is not None:
@@ -231,7 +257,8 @@ class Denoiser(nn.Module):
     def forward(self, x: torch.Tensor, time: torch.Tensor,
                 cond: Optional[torch.Tensor] = None,
                 time_cond: Optional[torch.Tensor] = None,
-                cache: Optional[Cache] = None, cache_index: int = 0,
+                cache: Optional[Cache] = None,
+                cache_index: Union[int, torch.Tensor] = 0,
                 train: Optional[TrainMode] = None) -> torch.Tensor:
         cfg = self.cfg
         noise_level = fourier_features(time, cfg.noise_embed_dims)

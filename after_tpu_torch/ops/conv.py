@@ -60,14 +60,25 @@ class _WeightNormed(nn.Module):
     A module with ``kernel_layout`` set keeps it as the fused snake+conv
     kernel reads it: storage in (k, O, C) order behind an (O, C, k) view,
     with its low tf32 half beside it as ``kernel_lo``
-    (ops/kernels/fused_conv.py: ``kernel_weight``)."""
+    (ops/kernels/fused_conv.py: ``kernel_weight``).  ``kernel_weights``
+    gives the kernel's two tensors.
+
+    ``fold_weights`` turns a module into its export form, whose weight is a
+    plain buffer: ``weight`` (the normed weight), or ``weight_k`` and
+    ``weight_lo`` (the kernel's layout and low half) where ``kernel_layout``
+    is set."""
 
     _wn = None
     _wn_key = None
     kernel_layout = False
     keep_weight = True
+    folded = False
 
     def effective_weight(self) -> torch.Tensor:
+        if self.folded:
+            if self.kernel_layout:
+                return self.weight_k[:, :, :self.in_features].permute(1, 2, 0)
+            return self.weight
         w, g = self.weight, self.g
         if (not self.keep_weight or torch.is_grad_enabled()
                 or w.is_inference() or g.is_inference()):
@@ -85,6 +96,14 @@ class _WeightNormed(nn.Module):
             self._wn_key = key
         return self._wn
 
+    def kernel_weights(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(w_k, w_lo): the weight in the fused kernel's (k, O, Cw) layout
+        and its low tf32 half, as the op ``snake_conv`` takes them."""
+        if self.folded:
+            return self.weight_k, self.weight_lo
+        from .kernels.fused_conv import kernel_weight
+        return kernel_weight(self.effective_weight())
+
 
 def recompute_weights(module: nn.Module) -> None:
     """Makes every weight-normed conv in ``module`` compute its weight at
@@ -95,6 +114,31 @@ def recompute_weights(module: nn.Module) -> None:
     for m in module.modules():
         if isinstance(m, _WeightNormed):
             m.keep_weight = False
+
+
+@torch.no_grad()
+def fold_weights(module: nn.Module) -> nn.Module:
+    """The export form of ``module``, in place: each weight-normed conv's
+    ``weight`` and ``g`` replaced by plain buffers of its effective weight
+    (``weight``, or ``weight_k`` and ``weight_lo`` in the fused kernel's
+    layout where ``kernel_layout`` is set), the weights a program holds as
+    constants.  A kept weight reads tensor addresses and versions, which no
+    trace allows; a folded one reads nothing but its buffers.  Apply it to
+    an export copy (``copy.deepcopy``), never to a module that trains."""
+    from .kernels.fused_conv import kernel_weight
+    for m in module.modules():
+        if isinstance(m, _WeightNormed) and not m.folded:
+            wn = weight_norm(m.weight, m.g)
+            del m.weight, m.g
+            if m.kernel_layout:
+                wk, lo = kernel_weight(wn)
+                m.register_buffer("weight_k", wk.contiguous())
+                m.register_buffer("weight_lo", lo)
+            else:
+                m.register_buffer("weight", wn)
+            m._wn = m._wn_key = None
+            m.folded = True
+    return module
 
 
 class StreamConv1d(_WeightNormed, Streaming):

@@ -6,32 +6,38 @@ kernel (csrc/fused_snake_conv.cu, 3xTF32 on Hopper's tensor cores) computes
 
     y[b, t, o] = bias[o] + sum_{j<k} sum_c snake(xpad[b, t + j*d, c]) * w[o, c, j]
 
-over (B, T, C) inputs.  The weight has torch's conv1d shape (O, C, k); the
-kernel reads it as (k, O, C), together with its low tf32 half
-(``weight_low``).  A weight whose storage already has that order and that
-carries its low half as ``w.kernel_lo`` (``StreamConv1d(...,
-kernel_layout=True)`` keeps it so at inference) is passed as it is; any
-other is rearranged and split per call (``kernel_weight``).
-``fused_snake_conv`` launches the kernel for CUDA tensors and runs the plain
-version (``snake_conv_reference``) for CPU tensors; there is no other choice
-and no fallback between the two.  Where the kernel's plan splits the channel
-sum over blocks, the wrapper hands it a scratch buffer for the partial
-sums, which the kernel adds in a fixed order: its output has the same bits
-from launch to launch, eager or replayed in a CUDA graph.  That second
-kernel, ``sum_splits``, is also callable alone (on the card; its plain
-version ``sum_splits_reference`` on the CPU), to check and time it.
+over (B, T, C) inputs.  It is registered as the op
+``after_tpu_torch::snake_conv`` (``snake_conv``), which takes the weight as
+the kernel reads it: (k, O, Cw) with its low tf32 half beside it, two
+explicit tensors (``kernel_weight``), so that the op survives
+``torch.export``, ``save`` and ``load`` and a CUDA graph capture of the
+loaded program.  Its CUDA implementation launches the kernel or raises, its
+CPU implementation is the plain version (``snake_conv_reference``), and
+traced it is one node of the program (``register_fake``); there is no other
+choice and no fallback between the two.  Importing this module registers
+the op: a process must import it before it loads a program that holds it.
 
-Two counts of launches: ``fused_snake_conv.launches`` counts the wrapper's
-calls on the card (an eager launch, or one recorded by a CUDA graph
+``fused_snake_conv`` takes torch's conv1d weight (O, C, k) and calls the op.
+A weight whose storage already has the (k, O, C) order and that carries its
+low half as ``w.kernel_lo`` (``StreamConv1d(..., kernel_layout=True)``
+keeps it so at inference) is passed as it is; any other is rearranged and
+split per call.  Where the kernel's plan splits the channel sum over
+blocks, the wrapper hands it a scratch buffer for the partial sums, which
+the kernel adds in a fixed order: its output has the same bits from launch
+to launch, eager or replayed in a CUDA graph.  That second kernel,
+``sum_splits``, is also callable alone (on the card; its plain version
+``sum_splits_reference`` on the CPU), to check and time it.
+
+Two counts of launches: ``fused_snake_conv.launches`` counts the op's
+launches on the card (an eager launch, or one recorded by a CUDA graph
 capture; a replay runs no Python and adds nothing), and the kernels count
 their own launches on the device (``device_launches``,
 ``reset_device_launches``), replays included.
 
 The op is differentiable, as the JAX package's custom VJP makes its kernel
-(``_fused_with_vjp``): on the card, inputs that need a gradient go through
-``SnakeConvFunction``, whose forward launches the kernel and whose backward
-is the VJP of the plain version, recomputed from the saved inputs (x, alpha,
-beta, w, b).  There is no backward kernel, as the JAX package has none.
+(``_fused_with_vjp``): its registered gradient (``_plain_vjp``) is the VJP
+of the plain version, recomputed from the saved inputs (x, alpha, beta,
+w_k, b).  There is no backward kernel, as the JAX package has none.
 """
 
 from __future__ import annotations
@@ -154,7 +160,8 @@ def kernel_weight(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """w (O, C, k) as the kernel reads it: (k, O, Cw) contiguous, Cw = C
     rounded up to a multiple of 4, zeros past C, and its low tf32 half in the
     same layout.  Views of ``w`` and ``w.kernel_lo`` where those already fit,
-    a copy and a split otherwise."""
+    a copy and a split otherwise (the copy carries w's gradient, the low
+    half none)."""
     O, C, k = w.shape
     wk = w.permute(2, 0, 1)
     lo = getattr(w, "kernel_lo", None)
@@ -165,7 +172,13 @@ def kernel_weight(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         return wk, lo
     hi = torch.zeros((k, O, -(-C // 4) * 4), dtype=w.dtype, device=w.device)
     hi[:, :, :C] = wk
-    return hi, weight_low(hi)
+    return hi, weight_low(hi.detach())
+
+
+def torch_weight(w_k: torch.Tensor, channels: int) -> torch.Tensor:
+    """The kernel's (k, O, Cw) weight back in torch's conv1d shape (O, C,
+    k), C = ``channels``, contiguous."""
+    return w_k[:, :, :channels].permute(1, 2, 0).contiguous()
 
 
 def _check(name: str, t: torch.Tensor, device: torch.device, shape) -> None:
@@ -181,29 +194,28 @@ def _check(name: str, t: torch.Tensor, device: torch.device, shape) -> None:
 
 
 def _launch(x: torch.Tensor, alpha: torch.Tensor, beta: torch.Tensor,
-            w: torch.Tensor, b: torch.Tensor, dilation: int, mode: str
-            ) -> torch.Tensor:
+            w_k: torch.Tensor, w_lo: torch.Tensor, b: torch.Tensor,
+            dilation: int, mode: str) -> torch.Tensor:
     """Checks the inputs, launches the kernel on x's device and counts the
     call in ``fused_snake_conv.launches`` (the kernel counts its launch on
     the device, ``device_launches``)."""
-    if x.dim() != 3 or w.dim() != 3:
-        raise ValueError(f"x must be (B, T, C) and w (O, C, k); got "
-                         f"{tuple(x.shape)} and {tuple(w.shape)}")
+    if x.dim() != 3 or w_k.dim() != 3:
+        raise ValueError(f"x must be (B, T, C) and w_k (k, O, Cw); got "
+                         f"{tuple(x.shape)} and {tuple(w_k.shape)}")
     B, T, C = x.shape
-    O, _, k = w.shape
+    k, O, Cw = w_k.shape
+    if Cw % 4 or not C <= Cw < C + 4:
+        raise ValueError(f"w_k has {Cw} input channels for x's {C}: the "
+                         "kernel reads C rounded up to a multiple of 4")
     _check("x", x, x.device, (B, T, C))
     _check("alpha", alpha, x.device, (C,))
     _check("beta", beta, x.device, (C,))
-    if w.device != x.device:
-        raise ValueError(f"w is on {w.device}, x on {x.device}")
-    if w.dtype != torch.float32:
-        raise TypeError(f"w must be float32, got {w.dtype}")
-    if w.shape[1] != C:
-        raise ValueError(f"w has shape {tuple(w.shape)}, expected "
-                         f"({O}, {C}, {k})")
+    _check("w_k", w_k, x.device, (k, O, Cw))
+    _check("w_lo", w_lo, x.device, (k, O, Cw))
     _check("b", b, x.device, (O,))
+    if w_k.data_ptr() % 16 or w_lo.data_ptr() % 16:
+        raise ValueError("the kernel's weight tiles must be 16-byte aligned")
     left, _ = get_padding(k, 1, dilation, mode)
-    wk, lo = kernel_weight(w)
     y = torch.empty((B, T, O), device=x.device, dtype=torch.float32)
     # the partial sums of a split channel sum, added in split order
     splits = kernel_plan(B, T, C, O, k, dilation)[2]
@@ -212,10 +224,10 @@ def _launch(x: torch.Tensor, alpha: torch.Tensor, beta: torch.Tensor,
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _lib().fused_snake_conv_f32(
-            x.data_ptr(), alpha.data_ptr(), beta.data_ptr(), wk.data_ptr(),
-            lo.data_ptr(), b.data_ptr(), y.data_ptr(),
+            x.data_ptr(), alpha.data_ptr(), beta.data_ptr(), w_k.data_ptr(),
+            w_lo.data_ptr(), b.data_ptr(), y.data_ptr(),
             None if ws is None else ws.data_ptr(),
-            B, T, C, O, k, dilation, left, wk.shape[2],
+            B, T, C, O, k, dilation, left, Cw,
             _device_counts(x.device).data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"fused_snake_conv kernel launch failed with CUDA "
@@ -225,51 +237,72 @@ def _launch(x: torch.Tensor, alpha: torch.Tensor, beta: torch.Tensor,
     return y
 
 
-class SnakeConvFunction(torch.autograd.Function):
-    """The kernel with a gradient: counterpart of ``_fused_with_vjp``.
+@torch.library.custom_op("after_tpu_torch::snake_conv", mutates_args=(),
+                         device_types="cuda")
+def snake_conv(x: torch.Tensor, alpha: torch.Tensor, beta: torch.Tensor,
+               w_k: torch.Tensor, w_lo: torch.Tensor, b: torch.Tensor,
+               dilation: int, mode: str) -> torch.Tensor:
+    """The registered op ``after_tpu_torch::snake_conv``: conv(snake_beta(x))
+    with the weight in the kernel's layout, w_k (k, O, Cw) and its low tf32
+    half w_lo (``kernel_weight``).  On CUDA tensors it launches the kernel
+    (``_launch``) or raises; on CPU tensors it is the plain version; traced
+    (``torch.export``) it is one node of the program."""
+    return _launch(x, alpha, beta, w_k, w_lo, b, dilation, mode)
 
-    Forward launches the kernel and saves its five inputs; backward
-    recomputes the plain version from them with autograd on and returns its
-    VJP for the inputs that need one (w in torch's (O, C, k) shape)."""
 
-    @staticmethod
-    def forward(ctx, x, alpha, beta, w, b, dilation, mode):
-        ctx.save_for_backward(x, alpha, beta, w, b)
-        ctx.dilation, ctx.mode = dilation, mode
-        return _launch(x, alpha, beta, w, b, dilation, mode)
+@snake_conv.register_kernel("cpu")
+def _snake_conv_cpu(x, alpha, beta, w_k, w_lo, b, dilation, mode):
+    return snake_conv_reference(x, alpha, beta, torch_weight(w_k, x.shape[2]),
+                                b, dilation, mode)
 
-    @staticmethod
-    def backward(ctx, g):
-        saved = [t.detach().requires_grad_(need) for t, need in
-                 zip(ctx.saved_tensors, ctx.needs_input_grad)]
-        wanted = [t for t in saved if t.requires_grad]
-        with torch.enable_grad():
-            y = snake_conv_reference(*saved, ctx.dilation, ctx.mode)
-            grads = iter(torch.autograd.grad(y, wanted, g))
-        return tuple(next(grads) if t.requires_grad else None
-                     for t in saved) + (None, None)
+
+@snake_conv.register_fake
+def _snake_conv_fake(x, alpha, beta, w_k, w_lo, b, dilation, mode):
+    return x.new_empty((x.shape[0], x.shape[1], w_k.shape[1]))
+
+
+def _save_inputs(ctx, inputs, output):
+    x, alpha, beta, w_k, _, b, dilation, mode = inputs
+    ctx.save_for_backward(x, alpha, beta, w_k, b)
+    ctx.dilation, ctx.mode = dilation, mode
+
+
+def _plain_vjp(ctx, g):
+    """The op's gradient, the counterpart of ``_fused_with_vjp``'s: the VJP
+    of the plain version, recomputed from the saved inputs (x, alpha, beta,
+    w_k, b), for the inputs that need one; none for the low half."""
+    need = [ctx.needs_input_grad[i] for i in (0, 1, 2, 3, 5)]
+    saved = [t.detach().requires_grad_(n)
+             for t, n in zip(ctx.saved_tensors, need)]
+    wanted = [t for t in saved if t.requires_grad]
+    with torch.enable_grad():
+        x, alpha, beta, w_k, b = saved
+        y = snake_conv_reference(x, alpha, beta,
+                                 torch_weight(w_k, x.shape[2]), b,
+                                 ctx.dilation, ctx.mode)
+        grads = iter(torch.autograd.grad(y, wanted, g))
+    gx, galpha, gbeta, gw, gb = (next(grads) if t.requires_grad else None
+                                 for t in saved)
+    return gx, galpha, gbeta, gw, None, gb, None, None
+
+
+snake_conv.register_autograd(_plain_vjp, setup_context=_save_inputs)
 
 
 def fused_snake_conv(x: torch.Tensor, alpha: torch.Tensor, beta: torch.Tensor,
                      w: torch.Tensor, b: torch.Tensor, dilation: int = 1,
                      mode: str = "causal") -> torch.Tensor:
     """conv(snake_beta(x)): x (B, T, C), alpha/beta (C,), w (O, C, k),
-    b (O,) -> (B, T, O).
+    b (O,) -> (B, T, O), through the registered op ``snake_conv``.
 
     On a CUDA tensor this launches the kernel (and counts the call in
-    ``fused_snake_conv.launches``) or raises, through ``SnakeConvFunction``
-    when an input needs a gradient; on a CPU tensor it is the plain version.
-    x, alpha, beta and b must be contiguous; w is rearranged and split per
-    call unless it comes in the kernel's layout with its low half
-    (``kernel_weight``)."""
-    if x.device.type == "cpu":
-        return snake_conv_reference(x, alpha, beta, w, b, dilation, mode)
-    if x.device.type != "cuda":
+    ``fused_snake_conv.launches``) or raises; on a CPU tensor it is the
+    plain version; either way differentiable.  x, alpha, beta and b must be
+    contiguous; w is rearranged and split per call unless it comes in the
+    kernel's layout with its low half (``kernel_weight``)."""
+    if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"fused_snake_conv runs on cuda or cpu, not {x.device}")
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (x, alpha, beta, w, b)):
-        return SnakeConvFunction.apply(x, alpha, beta, w, b, dilation, mode)
-    return _launch(x, alpha, beta, w, b, dilation, mode)
+    return snake_conv(x, alpha, beta, *kernel_weight(w), b, dilation, mode)
 
 
 fused_snake_conv.launches = 0

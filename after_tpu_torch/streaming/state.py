@@ -20,7 +20,7 @@ fixed across buffers (the counterpart of ``donate_argnums`` in the JAX
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, Mapping
+from typing import Any, Callable, Dict, Mapping, Sequence
 
 import torch
 from torch import nn
@@ -124,4 +124,29 @@ def flatten_state(node, prefix: str = "") -> Dict[str, Any]:
             walk(v, f"{path}/{k}" if path else str(k))
 
     walk(node, prefix)
+    return out
+
+
+def unflatten_state(template, leaves: Sequence[Any]):
+    """The inverse of ``flatten_state``: a tree of ``template``'s structure
+    (its mappings, dataclasses and tuples) whose leaves are ``leaves``, in
+    ``flatten_state``'s order.  A traced program takes a state as its list
+    of leaves and rebuilds the tree with this."""
+    it = iter(leaves)
+    end = object()
+
+    def walk(n):
+        if isinstance(n, Mapping):
+            return {k: walk(v) for k, v in n.items()}
+        if dataclasses.is_dataclass(n):
+            return dataclasses.replace(n, **{
+                f.name: walk(getattr(n, f.name))
+                for f in dataclasses.fields(n)})
+        if isinstance(n, tuple):
+            return tuple(walk(v) for v in n)
+        return next(it)
+
+    out = walk(template)
+    if next(it, end) is not end:
+        raise ValueError("more leaves than the template has")
     return out

@@ -105,7 +105,68 @@ def _share(module: nn.Module, source: nn.Module) -> nn.Module:
     return module.eval()
 
 
-class Streamer:
+def piano_roll(notes: torch.Tensor) -> torch.Tensor:
+    """(B, T, n_poly, 2) (pitch, velocity) note pairs -> the (B, T, 128)
+    piano roll the MIDI denoiser takes as structure: velocity / 128 at each
+    pitch (clipped to 0-127), the loudest where notes share one."""
+    pitch = notes[..., 0].to(torch.int64).clamp(0, 127)
+    vel = notes[..., 1] / 128.0
+    roll = notes.new_zeros(notes.shape[:2] + (128,))
+    return roll.scatter_reduce_(2, pitch, vel, reduce="amax")
+
+
+class StreamStages:
+    """The stages of a streamed buffer, each a function of a
+    ``StreamState`` and its inputs that returns its output and writes the
+    state in place: what a ``Streamer``'s CUDA graphs capture and what
+    ``streaming.export`` writes as programs.  A class that mixes it in has
+    ``codec``, ``crossfade`` (None for a causal codec), ``rf`` and
+    ``latent_range``."""
+
+    def _codec_encode(self, cache, audio: torch.Tensor) -> torch.Tensor:
+        if self.crossfade is not None:
+            return self.crossfade.encode(cache, audio)
+        return self.codec.encode(audio, cache)
+
+    def _codec_decode(self, cache, z: torch.Tensor) -> torch.Tensor:
+        if self.crossfade is not None:
+            return self.crossfade.decode(cache, z)
+        return self.codec.decode(z, cache)
+
+    def structure_stage(self, state: StreamState, audio: torch.Tensor
+                        ) -> torch.Tensor:
+        """(B, chunk * ratio, 1) audio -> structure codes (the codec's
+        latents where there is no structure encoder)."""
+        z = self._codec_encode(state.codec_struct, audio)
+        if self.rf.encoder_time is not None:
+            z = self.rf.encoder_time(z, state.enc_time)[0]
+        return z
+
+    def timbre_stage(self, state: StreamState, audio: torch.Tensor
+                     ) -> torch.Tensor:
+        """(B, chunk * ratio, 1) audio -> (B, zt) timbre vector of the latent
+        ring, which it moves on by one chunk."""
+        z = self._codec_encode(state.codec_timbre, audio)
+        ring = torch.cat([state.prev_timbre, z], dim=1)[:, z.shape[1]:]
+        zt = self.rf.encoder(ring)[0] / self.latent_range
+        state.prev_timbre.copy_(ring)
+        return zt
+
+    def step_stage(self, state: StreamState, slot, x: torch.Tensor,
+                   cond: torch.Tensor, tcond: torch.Tensor,
+                   scalars: torch.Tensor) -> torch.Tensor:
+        """The Euler step on KV slot ``slot`` (an int, or an int64 0-d
+        tensor): x + v * dt (``RectifiedFlow.stream_step``)."""
+        return self.rf.stream_step(state.denoiser, slot, x, cond, tcond,
+                                   scalars)
+
+    def decode_stage(self, state: StreamState, z: torch.Tensor
+                     ) -> torch.Tensor:
+        """(B, chunk, latents) -> (B, chunk * ratio, 1) audio."""
+        return self._codec_decode(state.codec_dec, z)
+
+
+class Streamer(StreamStages):
     """Buffer-by-buffer timbre transfer over a ``StreamState``."""
 
     def __init__(self, cfg: AfterConfig, chunk_size: int = 4,
@@ -173,8 +234,19 @@ class Streamer:
 
     @torch.no_grad()
     def init_state(self, batch_size: int = 1) -> StreamState:
-        """Zeroed stream state for ``batch_size`` parallel voices.  Every
-        buffer is allocated here once; each step writes into it in place."""
+        """Zeroed stream state for ``batch_size`` parallel voices
+        (``new_state``), and on the card its graphs, captured now."""
+        state = self.new_state(batch_size)
+        if self.graphed:
+            self._stages(state)
+        return state
+
+    @torch.no_grad()
+    def new_state(self, batch_size: int = 1) -> StreamState:
+        """Zeroed stream state for ``batch_size`` parallel voices (the
+        crossfade path's GroupNorm pads as one pass over silence leaves
+        them), with no graphs yet.  Every buffer is allocated here once;
+        each step writes into it in place."""
         cfg = self.cfg
         B, A, T = batch_size, self.audio_chunk, self.chunk_size
         z_ch = cfg.autoencoder.z_channels
@@ -195,12 +267,9 @@ class Streamer:
             zeros(3 * B, T, cfg.denoiser.n_channels), zeros(3 * B),
             zeros(3 * B, cfg.zt_channels), zeros(3 * B, T, cfg.zs_channels),
             cache=c))
-        state = StreamState(codec_struct=enc, codec_timbre=clone_state(enc),
-                            codec_dec=dec, enc_time=et, denoiser=dn,
-                            prev_timbre=zeros(B, self.n_signal_timbre, z_ch))
-        if self.graphed:
-            self._stages(state)
-        return state
+        return StreamState(codec_struct=enc, codec_timbre=clone_state(enc),
+                           codec_dec=dec, enc_time=et, denoiser=dn,
+                           prev_timbre=zeros(B, self.n_signal_timbre, z_ch))
 
     # ------------------------------------------------------------------
     # stages, run op by op or replayed as CUDA graphs
@@ -234,23 +303,15 @@ class Streamer:
         """Stage ``key`` of a buffer on ``state``, from and into ``b``;
         returns what it wrote (decode: the audio)."""
         if key == "structure":
-            z = self._codec_encode(state.codec_struct, b.audio_s)
-            if self.rf.encoder_time is not None:
-                z = self.rf.encoder_time(z, state.enc_time)[0]
-            return b.zs.copy_(z)
+            return b.zs.copy_(self.structure_stage(state, b.audio_s))
         if key == "timbre":
-            z = self._codec_encode(state.codec_timbre, b.audio_t)
-            ring = torch.cat([state.prev_timbre, z], dim=1)[:, z.shape[1]:]
-            zt = self.rf.encoder(ring)[0] / self.latent_range
-            state.prev_timbre.copy_(ring)
+            zt = self.timbre_stage(state, b.audio_t)
             b.zt.copy_(zt)
             return b.cond.copy_(zt * self.latent_range)
         if key == "decode":
-            if self.crossfade is not None:
-                return self.crossfade.decode(state.codec_dec, b.x)
-            return self.codec.decode(b.x, state.codec_dec)
-        return b.x.copy_(self.rf.stream_step(state.denoiser, key, b.x, b.cond,
-                                             b.tcond, b.scalars))
+            return self.decode_stage(state, b.x)
+        return b.x.copy_(self.step_stage(state, key, b.x, b.cond, b.tcond,
+                                         b.scalars))
 
     @torch.no_grad()
     def warm_up(self, state: StreamState,
@@ -328,11 +389,6 @@ class Streamer:
     # ------------------------------------------------------------------
     # steps
     # ------------------------------------------------------------------
-
-    def _codec_encode(self, cache, audio: torch.Tensor) -> torch.Tensor:
-        if self.crossfade is not None:
-            return self.crossfade.encode(cache, audio)
-        return self.codec.encode(audio, cache)
 
     @torch.no_grad()
     def structure(self, state: StreamState, audio: ArrayLike
@@ -459,16 +515,13 @@ class Streamer:
         roll (velocity / 128) that the denoiser takes as structure."""
         notes = self._tensor(notes)
         B, T = notes.shape[:2]
-        pitch = notes[..., 0].to(torch.int64).clamp(0, 127)
-        vel = notes[..., 1] / 128.0
-        # the roll goes straight into the structure buffer of the steps
+        # the roll goes into the structure buffer of the steps
         g = self._stages(state)
         roll = g.bufs.tcond
         if tuple(roll.shape) != (B, T, 128):
             raise ValueError(f"notes of shape {tuple(notes.shape)} for a "
                              f"stream of {tuple(roll.shape)} piano rolls")
-        roll.zero_()
-        roll.scatter_reduce_(2, pitch, vel, reduce="amax")
+        roll.copy_(piano_roll(notes))
         _into(g.bufs.cond, zsem)
         g.bufs.cond.mul_(self.latent_range)
         self._diffuse(state, g, nb_steps, guidance_timbre, guidance_structure,

@@ -169,9 +169,32 @@ Phases, each printed before the last line:
    (which synchronize every step), the loader's ms a batch and the
    requests that found its queue empty, the checkpoints' sizes; no
    module of FORBIDDEN_MODULES may be imported.
+13. export and serving, from phase 12's runs (the base codec run ``ae``,
+   non-causal, so it streams through the crossfade path, and the
+   diffusion run ``diff`` trained through it): ``after-tpu-torch export``
+   on the card (chunk 4, nb_steps 4, guidance_timbre 2.0), the same with
+   ``--batch_size 2`` and ``export_autoencoder`` of the codec run, each
+   timed, with the bytes of each file; a fresh ``ExportedStreamer`` reads
+   the artifact back (its load time, with the capture of its 3 + 16 stage
+   graphs), runs 2 warm-up buffers, then phase 6's request as 64 buffers
+   at nb_steps 1 and at 4 and 64 buffers with nb_steps and both guidances
+   changing, beside the live ``Streamer`` on the same checkpoints' weights
+   (the EMA in the denoiser) with the same noise: outputs within
+   GRAPH_TOL, 96 kernel launches a buffer counted on the device (counts
+   set to 0 just before each run and read just after), no capture after
+   the load, the state at fixed addresses, median / p90 / max ms a buffer
+   of both; one artifact buffer under torch.profiler as in phase 4; the
+   two-voice artifact on the card against the same artifact moved to the
+   CPU (``move_to_device_pass``, the op's plain version there), 8 buffers
+   of fixed noise within CARD_VS_CPU_TOL, the TF32 reading beside it; the
+   codec artifact's ``forward`` against the live crossfade codec within
+   GRAPH_TOL; then ``after-tpu-torch serve --artifact`` in its own
+   process on 127.0.0.1 and a free port answers ``GET /api/info``, ``POST
+   /api/timbre`` and ``POST /api/transfer`` with a 3 s WAV (200 each, a
+   finite WAV of whole buffers back), each request timed, and is stopped.
 
 Any failure exits non-zero.  The card's name and power limit are printed
-again after phase 12.  The line before the last is the kernel table as
+again after phase 13.  The line before the last is the kernel table as
 JSON (the snake+conv kernel and its split sum); the last line is ``{"ok":
 true, "device": {...}}``.  Imports nothing of JAX or of after_tpu.
 """
@@ -291,6 +314,11 @@ CLI_AE_EVERY = 5             # the codec run's checkpoints and validation
 CLI_DIFF_STEPS = DIFF_LONG_STEPS
 # what phase 12 may not find imported, though the card machine lacks most
 FORBIDDEN_MODULES = ("jax", "flax", "after_tpu", "google.protobuf")
+EXPORT_STEPS = 4             # the artifact's default nb_steps
+SERVE_SECONDS = 3.0          # the WAV posted to the server
+SERVE_START_TIMEOUT = 300    # seconds for the server to print its address
+SERVE_REQUEST_TIMEOUT = 120
+DEVICE = "cuda"              # where phase 13 exports, serves and streams
 
 
 def log(msg: str) -> None:
@@ -1512,9 +1540,13 @@ def profile_call(label: str, fn):
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    # every kernel record counts as a launch; a record of zero length
+    # (start and end stamped alike) adds no busy time
     kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA
-               and e.time_range.elapsed_us() > 0]
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    zero = sum(e.time_range.elapsed_us() <= 0 for e in kernels)
+    if zero:
+        log(f"profile: {label}: {zero} kernel records of zero length")
     if not kernels:
         log(f"profile: {label}: wall {wall_ms:.2f} ms; the profiler recorded no "
             f"device time, so device busy and idle share are not measured")
@@ -2100,11 +2132,7 @@ def cli_phase(row) -> None:
         f"{bank_launches[1]}) within {bank_worst:.3e}; checkpoints "
         + ", ".join(f"{s}: {v:.1f} MiB" for s, v in diff_sizes.items()))
 
-    bad = sorted(m for m in sys.modules if sys.modules[m] is not None and any(
-        m == f or m.startswith(f + ".") for f in FORBIDDEN_MODULES))
-    if bad:
-        fail(f"command line: forbidden modules imported: {bad[:10]}")
-    log(f"command line: none of {', '.join(FORBIDDEN_MODULES)} imported")
+    no_forbidden_modules("command line")
     row["launches_cli"] = {"train_autoencoder": ae_launches[1],
                            "train_autoencoder_restart": ae_checked[1],
                            "train": diff_launches[1],
@@ -2125,6 +2153,395 @@ def cli_phase(row) -> None:
                              "train": diff_loader[1]}
     gc.collect()
     torch.cuda.empty_cache()
+
+
+def no_forbidden_modules(label: str) -> None:
+    """Fails if a module of FORBIDDEN_MODULES has been imported."""
+    bad = sorted(m for m in sys.modules if sys.modules[m] is not None and any(
+        m == f or m.startswith(f + ".") for f in FORBIDDEN_MODULES))
+    if bad:
+        fail(f"{label}: forbidden modules imported: {bad[:10]}")
+    log(f"{label}: none of {', '.join(FORBIDDEN_MODULES)} imported")
+
+
+def _dir_bytes(path: str) -> dict:
+    """{file relative to path: bytes} of every file under path."""
+    import os
+    out = {}
+    for root, _, files in os.walk(path):
+        for f in sorted(files):
+            full = os.path.join(root, f)
+            out[os.path.relpath(full, path)] = os.path.getsize(full)
+    return out
+
+
+def _wav_bytes(x, sr: int) -> bytes:
+    import io
+
+    import numpy as np
+    import scipy.io.wavfile
+    buf = io.BytesIO()
+    scipy.io.wavfile.write(buf, sr, (np.clip(x, -1, 1) * 32767).astype(
+        np.int16))
+    return buf.getvalue()
+
+
+def _request(base: str, path: str, body=None):
+    """(status, content type, body, ms) of one request to the server."""
+    import urllib.request
+    req = urllib.request.Request(base + path, data=body,
+                                 method="GET" if body is None else "POST")
+    t0 = time.perf_counter()
+    with urllib.request.urlopen(req, timeout=SERVE_REQUEST_TIMEOUT) as r:
+        data = r.read()
+        return (r.status, r.headers["Content-Type"], data,
+                (time.perf_counter() - t0) * 1e3)
+
+
+def serve_phase(art: str, sr: int, audio_chunk: int) -> dict:
+    """``after-tpu-torch serve --artifact`` in its own process on
+    127.0.0.1 and a free port: /api/info, then /api/timbre and
+    /api/transfer with a SERVE_SECONDS WAV; each must answer 200, the
+    transfer a finite WAV of whole buffers.  The server is stopped in any
+    case.  Returns each request's ms."""
+    import io
+    import select
+
+    import numpy as np
+    import scipy.io.wavfile
+
+    t = np.arange(int(SERVE_SECONDS * sr)) / sr
+    rng = np.random.RandomState(SEED + 13)
+    wav = _wav_bytes(0.4 * np.sin(2 * np.pi * 220.0 * t)
+                     + 0.05 * rng.randn(len(t)), sr)
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "after_tpu_torch.cli.main", "serve",
+         "--artifact", art, "--host", "127.0.0.1", "--port", "0",
+         "--device", DEVICE],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    out, ms = [], {}
+    try:
+        t0 = time.perf_counter()
+        base = None
+        while base is None:
+            left = SERVE_START_TIMEOUT - (time.perf_counter() - t0)
+            if left <= 0 or not select.select([proc.stdout], [], [],
+                                              left)[0]:
+                fail(f"serve: no address within {SERVE_START_TIMEOUT} s: "
+                     + "".join(out)[-2000:])
+            line = proc.stdout.readline()
+            if not line:
+                fail(f"serve exited with {proc.wait()}: "
+                     + "".join(out)[-2000:])
+            out.append(line)
+            if "frontend at http://" in line:
+                base = line.strip().split(" at ")[1]
+        ms["start"] = (time.perf_counter() - t0) * 1e3
+        status, ctype, body, ms["info"] = _request(base, "/api/info")
+        info = json.loads(body)
+        if status != 200 or info.get("artifact") != art:
+            fail(f"serve: /api/info answered {status}: {info}")
+        status, _, body, ms["timbre"] = _request(base, "/api/timbre", wav)
+        if status != 200 or "xy" not in json.loads(body):
+            fail(f"serve: /api/timbre answered {status}: {body[:200]}")
+        status, ctype, body, ms["transfer"] = _request(
+            base, f"/api/transfer?steps={EXPORT_STEPS}&gt={GUIDANCE_TIMBRE}"
+            "&seed=1", wav)
+        got_sr, y = scipy.io.wavfile.read(io.BytesIO(body))
+        want = -(-len(t) // audio_chunk) * audio_chunk
+        if (status != 200 or ctype != "audio/wav" or got_sr != sr
+                or len(y) != want or not np.isfinite(y).all()):
+            fail(f"serve: /api/transfer answered {status} {ctype}, "
+                 f"{len(y)} samples at {got_sr} Hz (expected {want})")
+        log(f"serve: after-tpu-torch serve --artifact on {base}: address "
+            f"after {ms['start']:.0f} ms (its process starting, the "
+            f"artifact loading and capturing), GET /api/info "
+            f"{ms['info']:.1f} ms, POST /api/timbre of {SERVE_SECONDS:g} s "
+            f"{ms['timbre']:.1f} ms, POST /api/transfer of {SERVE_SECONDS:g}"
+            f" s at nb_steps {EXPORT_STEPS} {ms['transfer']:.1f} ms "
+            f"({len(y)} samples, {len(y) // audio_chunk} buffers, finite, "
+            f"rms {float(np.sqrt(np.mean((y / 32767.0) ** 2))):.4f}); each "
+            f"answered 200")
+    finally:
+        proc.terminate()
+        try:
+            proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+    return ms
+
+
+def export_phase(row, a, b, attrs) -> None:
+    """Phase 13: export and serving (see the module docstring), from the
+    runs phase 12 left; ``a`` and ``b`` are phase 6's request and
+    ``attrs`` its changing attributes."""
+    import os
+
+    import numpy as np
+    import torch
+    from after_tpu_torch.cli.export import load_run
+    from after_tpu_torch.cli.main import main as cli_main
+    from after_tpu_torch.ops.kernels.fused_conv import (device_launches,
+                                                        reset_device_launches)
+    from after_tpu_torch.streaming import CrossfadeDecoder, Streamer
+    from after_tpu_torch.streaming.export import (ExportedCodec,
+                                                  ExportedStreamer)
+    from after_tpu_torch.utils.checkpoint import restore_checkpoint
+    from after_tpu_torch.utils.device import strict_f32
+
+    runs = os.path.join(CLI_DIR, "runs")
+    ae_run, diff_run = os.path.join(runs, "ae"), os.path.join(runs, "diff")
+    art = os.path.join(diff_run, "after.audio.diff")
+    art2 = os.path.join(CLI_DIR, "after.audio.diff.voices2")
+    codec_art = os.path.join(ae_run, "codec_export")
+    per_buffer = row["launches_per_buffer"]
+    per_sums = row["sum_splits_launches_per_buffer"]
+    export = ["export", "--model_path", diff_run, "--emb_model_path", ae_run,
+              "--chunk_size", str(CHUNK), "--nb_steps", str(EXPORT_STEPS),
+              "--guidance_timbre", str(GUIDANCE_TIMBRE), "--device", DEVICE]
+    seconds = {}
+    for label, argv in (
+            ("export", export),
+            ("export --batch_size 2", export + ["--batch_size", "2",
+                                                "--out", art2]),
+            ("export_autoencoder", ["export_autoencoder", "--model_path",
+                                    ae_run, "--chunk_size", str(CHUNK),
+                                    "--device", DEVICE])):
+        gc.collect()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rc = cli_main(argv)
+        torch.cuda.synchronize()
+        seconds[label] = time.perf_counter() - t0
+        if rc != 0:
+            fail(f"{label} exited with {rc}")
+    sizes = {}
+    for label, path in (("artifact", art), ("codec artifact", codec_art)):
+        files = _dir_bytes(path)
+        sizes[label] = sum(files.values())
+        bins = [v for k, v in files.items() if k.endswith(".bin")]
+        log(f"export: {label} {path}, {sizes[label] / 2**20:.1f} MiB: "
+            + ", ".join(f"{k} {v}" for k, v in files.items()
+                        if not k.endswith(".bin"))
+            + f", state/leaf_<i>.bin {len(bins)} files {sum(bins)} bytes")
+    log("export: seconds (on the card, in this process): " + ", ".join(
+        f"{k} {v:.2f}" for k, v in seconds.items()))
+
+    # the artifact read back from disk; the live streamer over the same
+    # checkpoints (the EMA in the denoiser)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    host = ExportedStreamer(art, DEVICE)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    S = int(host.manifest["attributes"]["nb_steps"]["max"])
+    captures = host.graphs.captures
+    if captures != 3 + S:
+        fail(f"the artifact's host captured {captures} graphs, expected "
+             f"{3 + S}")
+    log(f"artifact: ExportedStreamer load {load_s:.2f} s with the capture of "
+        f"its {captures} stage graphs ({host.graphs.capture_seconds:.2f} s "
+        f"capturing); torch {torch.__version__}")
+    cfg, pipe = load_run(diff_run, ae_run, device=DEVICE)
+    # the weights each program holds: the denoiser's once, in step
+    n_net = sum(p.numel() for p in pipe.rf.net.parameters())
+    held = {k: (sum(t.numel() for t in m.state_dict().values()),
+                sum(t.numel() for n, t in m.state_dict().items()
+                    if ".net." in f".{n}"))
+            for k, m in host.programs.items()}
+    log("artifact: weights each program holds (elements, of them the "
+        "denoiser's): " + ", ".join(f"{k} {v[0]} ({v[1]})"
+                                    for k, v in held.items())
+        + f"; the denoiser has {n_net}")
+    if held["step"][1] != n_net or any(v[1] for k, v in held.items()
+                                       if k != "step"):
+        fail("the artifact does not hold the denoiser's weights once, in "
+             "its step program")
+    streamer = Streamer(cfg, CHUNK, N_FADE, pipeline=pipe)
+    A = streamer.audio_chunk
+    n_buffers = a.shape[1] // A
+    x0s = np.random.RandomState(SEED + 13).randn(
+        n_buffers, 1, CHUNK, cfg.denoiser.n_channels).astype(np.float32)
+
+    def host_stream(nb_steps, attributes=None, n=n_buffers):
+        times, ys = [], []
+        for i in range(n):
+            s = slice(i * A, (i + 1) * A)
+            nb, gt, gs = (attributes[i] if attributes is not None
+                          else (nb_steps, GUIDANCE_TIMBRE, 1.0))
+            host.set_attribute("nb_steps", nb)
+            host.set_attribute("guidance_timbre", gt)
+            host.set_attribute("guidance_structure", gs)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            y = host.call("forward", a[:, s], b[:, s], x0=x0s[i])
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            if tuple(y.shape) != (1, A, 1) or not torch.isfinite(y).all():
+                fail(f"artifact buffer {i}: shape {tuple(y.shape)} or a "
+                     "non-finite output")
+            ys.append(y)
+        return times, ys
+
+    ptrs = [t.data_ptr() for t in host.state]
+    host_stream(STREAM_STEPS[-1], n=STREAM_WARMUP)             # warm-up
+    stream_audio(streamer, streamer.init_state(1), a[:, :STREAM_WARMUP * A],
+                 b[:, :STREAM_WARMUP * A], STREAM_STEPS[-1])
+    launches_artifact = sums_artifact = 0
+    medians = {}
+    for nb in STREAM_STEPS:
+        host.reset()
+        reset_device_launches()
+        times, ys = host_stream(nb)
+        launches, sums = device_launches()
+        launches_artifact += launches
+        sums_artifact += sums
+        if launches != per_buffer * n_buffers or sums != per_sums * n_buffers:
+            fail(f"artifact, nb_steps {nb}: the device counted {launches} "
+                 f"{KERNEL_NAME} and {sums} {SUM_NAME} launches in "
+                 f"{n_buffers} buffers, expected {per_buffer} and "
+                 f"{per_sums} a buffer")
+        live_times, live_ys = stream_audio(streamer, streamer.init_state(1),
+                                           a, b, nb, x0s=x0s)
+        medians[nb] = (sorted(times)[n_buffers // 2] * 1e3,
+                       sorted(live_times)[n_buffers // 2] * 1e3)
+        log(f"artifact: nb_steps {nb}, {n_buffers} buffers of {A} samples, "
+            f"median / p90 / max ms per buffer {spread(times)}, the live "
+            f"streamer's {spread(live_times)}; {KERNEL_NAME} and {SUM_NAME} "
+            f"launches counted on the device {launches / n_buffers:g} and "
+            f"{sums / n_buffers:g} a buffer")
+        agree(f"artifact nb_steps {nb}: artifact vs live streamer, "
+              f"{n_buffers} buffers", ys, live_ys)
+    n = len(attrs)
+    host.reset()
+    reset_device_launches()
+    times, ys = host_stream(None, attrs, n)
+    changing = device_launches()[0]
+    live_times, live_ys = stream_audio(streamer, streamer.init_state(1),
+                                       a[:, :n * A], b[:, :n * A], None,
+                                       attributes=attrs, x0s=x0s)
+    if changing != per_buffer * n:
+        fail(f"artifact: the device counted {changing} {KERNEL_NAME} "
+             f"launches in {n} buffers with changing attributes")
+    if host.graphs.captures != captures:
+        fail("the artifact's host captured after its load")
+    if ptrs != [t.data_ptr() for t in host.state]:
+        fail("the artifact's state tensors moved between buffers")
+    log(f"artifact: {n} buffers with nb_steps 1-{S} and both guidances "
+        f"changing every buffer: median / p90 / max ms {spread(times)}, the "
+        f"live streamer's {spread(live_times)}; no capture after the load; "
+        f"{changing} {KERNEL_NAME} launches counted on the device")
+    agree(f"artifact with changing attributes: artifact vs live streamer, "
+          f"{n} buffers", ys, live_ys)
+    one = (a[:, :A], b[:, :A])
+    host.set_attribute("nb_steps", STREAM_STEPS[-1])
+    host.call("forward", *one)
+    # the device's counts of the profiled call itself: late in this
+    # process the profiler has lost a kernel record of an artifact buffer
+    # (95 of the device's 96 in three of four runs; GroupNorm's
+    # reductions vary alike), so it is read beside them
+    reset_device_launches()
+    _, busy, counts, ms = profile_call(
+        f"one artifact buffer at nb_steps {STREAM_STEPS[-1]}",
+        lambda: host.call("forward", *one))
+    device = device_launches()
+    recorded = tuple(kernel_launches(counts, k)
+                     for k in (KERNEL_NAME, SUM_NAME))
+    log(f"profile: one artifact buffer: the device counted {device[0]} "
+        f"{KERNEL_NAME} and {device[1]} {SUM_NAME} launches, the profiler "
+        f"recorded {recorded[0]} ({kernel_launches(ms, KERNEL_NAME):.3f} "
+        f"ms) and {recorded[1]} ({kernel_launches(ms, SUM_NAME):.3f} ms)")
+    if device != (per_buffer, per_sums):
+        fail(f"one artifact buffer launched {device}, expected "
+             f"{(per_buffer, per_sums)}")
+    row["profiled_launches_per_artifact_buffer"] = recorded
+    row["profiled_ms_per_artifact_buffer"] = kernel_launches(ms, KERNEL_NAME)
+
+    # the kernel against its plain version on this path: the two-voice
+    # artifact on the card and moved to the CPU, where the op is the plain
+    # version
+    del host
+    gc.collect()
+    rng = np.random.RandomState(SEED + 14)
+    m = STREAM_VS_CPU_BUFFERS * A
+    a2 = 0.1 * rng.randn(2, m, 1).astype(np.float32)
+    b2 = 0.1 * rng.randn(2, m, 1).astype(np.float32)
+    x2 = rng.randn(STREAM_VS_CPU_BUFFERS, 2, CHUNK,
+                   cfg.denoiser.n_channels).astype(np.float32)
+
+    def voices(h):
+        h.set_attribute("nb_steps", 2)
+        ys = [h.call("forward", a2[:, i * A:(i + 1) * A],
+                     b2[:, i * A:(i + 1) * A], x0=x2[i]).cpu()
+              for i in range(STREAM_VS_CPU_BUFFERS)]
+        return torch.cat(ys, dim=1)
+
+    card = ExportedStreamer(art2, DEVICE)
+    reset_device_launches()
+    y_card = voices(card)
+    voice_launches = device_launches()[0]
+    y_cpu = voices(ExportedStreamer(art2, device="cpu"))
+    err = (y_card - y_cpu).abs().max().item()
+    scale = y_cpu.abs().max().item()
+    del card
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    err_tf32 = (voices(ExportedStreamer(art2, DEVICE)) - y_cpu
+                ).abs().max().item()
+    strict_f32()
+    log(f"artifact card vs CPU: {STREAM_VS_CPU_BUFFERS} buffers of 2 voices "
+        f"(the artifact of --batch_size 2, moved to the CPU with "
+        f"move_to_device_pass), max abs err {err:.3e} (with TF32 allowed: "
+        f"{err_tf32:.3e}), max |y| {scale:.4f}, tolerance {CARD_VS_CPU_TOL} "
+        f"* max |y| = {CARD_VS_CPU_TOL * scale:.3e}; {KERNEL_NAME} launches "
+        f"on the card, counted on the device: {voice_launches}")
+    if not (torch.isfinite(y_card).all() and err <= CARD_VS_CPU_TOL * scale):
+        fail("artifact: card and CPU disagree")
+    if voice_launches != per_buffer * STREAM_VS_CPU_BUFFERS:
+        fail(f"artifact: the two-voice buffers launched {voice_launches} "
+             f"kernels")
+
+    # the codec-only artifact against the live crossfade codec
+    codec = ExportedCodec(codec_art, DEVICE)
+    live = CrossfadeDecoder(cfg.autoencoder, n_fade=N_FADE, chunk_size=CHUNK)
+    tree = restore_checkpoint(ae_run)
+    live.codec.load_state_dict(tree.get("codec_vars", tree))
+    live.codec.to(DEVICE).eval()
+    enc, dec = live.init_encode_state(1), live.init_state(1)
+    reset_device_launches()
+    ys = [codec.forward(a[:, i * A:(i + 1) * A]) for i in range(n_buffers)]
+    codec_launches = device_launches()[0]
+    with torch.no_grad():
+        live_ys = [live.decode(dec, live.encode(enc, torch.from_numpy(
+            a[:, i * A:(i + 1) * A]).to(DEVICE))) for i in range(n_buffers)]
+    if codec_launches != 2 * per_buffer // 3 * n_buffers:
+        fail(f"codec artifact: the device counted {codec_launches} "
+             f"{KERNEL_NAME} launches in {n_buffers} forwards")
+    log(f"codec artifact: {n_buffers} forwards (encode then decode, its "
+        f"own state), {codec_launches // n_buffers} {KERNEL_NAME} launches "
+        f"a forward, counted on the device")
+    agree(f"codec artifact forward vs the live crossfade codec, {n_buffers} "
+          f"buffers", ys, live_ys)
+    del codec, streamer, pipe
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    serve_ms = serve_phase(art, cfg.sr, A)
+    no_forbidden_modules("export and serving")
+    row["launches_artifact"] = launches_artifact
+    row["launches_per_artifact_buffer"] = launches_artifact // (
+        n_buffers * len(STREAM_STEPS))
+    row["artifact_buffer_ms_median"] = {k: v[0] for k, v in medians.items()}
+    row["artifact_live_buffer_ms_median"] = {k: v[1]
+                                             for k, v in medians.items()}
+    row["artifact_busy_ms"] = busy
+    row["export_seconds"] = seconds
+    row["artifact_bytes"] = sizes
+    row["artifact_load_seconds"] = load_s
+    row["artifact_card_vs_cpu"] = err / scale
+    row["serve_ms"] = serve_ms
 
 
 def main() -> None:
@@ -2589,6 +3006,9 @@ def main() -> None:
 
     # 12. training from the command line
     cli_phase(row)
+
+    # 13. export and serving, from phase 12's runs
+    export_phase(row, a, b, attrs)
 
     # the card again, so that the end of a long output still names it
     log(f"card: {card_line()}")

@@ -123,19 +123,22 @@ def test_codec_hands_the_kernel_contiguous_rows(monkeypatch):
     pass contiguous f32 (B, T, C) tensors and its weight in the kernel's
     layout (checked here on the CPU)."""
     import after_tpu_torch.models.autoencoder as ae
-    from after_tpu_torch.ops.kernels.fused_conv import snake_conv_reference
+    from after_tpu_torch.ops.kernels.fused_conv import (snake_conv_reference,
+                                                        torch_weight)
 
     calls = []
 
-    def checked(x, alpha, beta, w, b, dilation, mode):
+    def checked(x, alpha, beta, w_k, w_lo, b, dilation, mode):
         for t in (x, alpha, beta, b):
             assert t.is_contiguous() and t.dtype == torch.float32
         # the weight comes in the kernel's (k, O, C) layout: no copy per call
-        assert w.dtype == torch.float32 and w.permute(2, 0, 1).is_contiguous()
+        assert w_k.dtype == torch.float32 and w_k.is_contiguous()
+        assert w_lo.shape == w_k.shape and w_lo.is_contiguous()
         calls.append(x.shape)
-        return snake_conv_reference(x, alpha, beta, w, b, dilation, mode)
+        return snake_conv_reference(
+            x, alpha, beta, torch_weight(w_k, x.shape[2]), b, dilation, mode)
 
-    monkeypatch.setattr(ae, "fused_snake_conv", checked)
+    monkeypatch.setattr(ae, "snake_conv", checked)
     codec = AudioCodec(AutoEncoderConfig(**TINY)).eval()
     with torch.no_grad():
         z = codec.encode(torch.zeros(1, 1024, 1))

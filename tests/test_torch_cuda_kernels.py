@@ -8,7 +8,7 @@ card has no JAX, so run them there without the suite's conftest:
 
 Tolerance: max abs error <= 1e-4 * max |y| (3xTF32 on the tensor cores in
 another summation order than cuDNN's strict f32, TF32 off in cuDNN).  The
-autograd Function's gradients (the plain version's VJP, recomputed) are
+registered op's gradients (the plain version's VJP, recomputed) are
 within 1e-4 * max |g| of plain autograd's for each input.  Against
 a float64 plain version the kernel's error may be at most 4x that of
 strict-f32 F.conv1d.  The streamed waveform on the card is within
@@ -143,8 +143,9 @@ def test_kept_weight_is_passed_as_it_is(cuda):
     (8, 333, 384, 384, 3, 9, "centered"), (2, 37, 130, 70, 1, 1, "causal")])
 def test_function_gradients_match_plain_autograd(cuda, B, T, C, O, k, d,
                                                  mode):
-    """Inputs that need a gradient launch the kernel once through
-    SnakeConvFunction; its gradients for x, alpha, beta, w and b against
+    """Inputs that need a gradient launch the kernel once through the
+    registered op; its gradients (the op's registered VJP) for x, alpha,
+    beta, w and b against
     autograd through the plain version, each within 1e-4 x max |g|."""
     args = _inputs(6, B, T, C, O, k, cuda)
     args[3] = args[3] / (C * k) ** 0.5
@@ -236,3 +237,55 @@ def test_streamer_on_the_card_matches_the_cpu(cuda):
                                                 x0=x0)
         err = (y_card.cpu() - y_cpu).abs().max().item()
         assert err <= 1e-4 * y_cpu.abs().max().item(), (i, err)
+
+
+@pytest.mark.cuda
+def test_registered_op_at_the_buffer_shapes(cuda):
+    """``after_tpu_torch::snake_conv`` called by its registered name, the
+    weight in the kernel's layout, at every crossfade window shape of a
+    streamed buffer: within 1e-4 x max |y| of the plain version, one
+    launch each, counted on the device."""
+    op = torch.ops.after_tpu_torch.snake_conv.default
+    reset_device_launches()
+    for B, T, C, O, k, d in STREAMING_SHAPES:
+        x, alpha, beta, w, b = _inputs(8, B, T, C, O, k, cuda)
+        w = w / (C * k) ** 0.5
+        y = op(x, alpha, beta, *kernel_weight(w), b, d, "centered")
+        ref = snake_conv_reference(x, alpha, beta, w, b, d, "centered")
+        err = (y - ref).abs().max().item()
+        assert err <= 1e-4 * ref.abs().max().item(), ((B, T, C, O, k), err)
+    assert device_launches()[0] == len(STREAMING_SHAPES)
+
+
+@pytest.mark.cuda
+def test_op_in_an_exported_program_under_a_graph_capture(cuda, tmp_path):
+    """A codec-only artifact traced on the card, saved and loaded: its
+    programs captured as CUDA graphs at load, a replayed buffer launching
+    the kernel on each of its ConvBlock1d (counted on the device) and
+    within 1e-4 x max |y| of the same artifact moved to the CPU, where the
+    op runs the plain version."""
+    from after_tpu_torch.config import AutoEncoderConfig
+    from after_tpu_torch.models.autoencoder import AudioCodec
+    from after_tpu_torch.streaming.export import ExportedCodec, export_codec
+    from after_tpu_torch.utils.init import init_weights
+
+    cfg = AutoEncoderConfig(pqmf_bands=4, z_channels=8, base_channels=8,
+                            multipliers=(1, 2, 2), factors=(2, 2),
+                            dilations=(1, 3), num_blocks_per_stage=1)
+    codec = AudioCodec(cfg)
+    init_weights(codec, 0)
+    export_codec(cfg, codec.state_dict(), str(tmp_path), chunk_size=4,
+                 device=cuda)
+    card, cpu = (ExportedCodec(str(tmp_path), d) for d in (cuda, "cpu"))
+    assert card.graphs is not None and card.graphs.captures == 3
+    rng = np.random.RandomState(9)
+    for i in range(4):
+        x = (0.3 * rng.randn(1, 4 * cfg.ratio, 1)).astype(np.float32)
+        reset_device_launches()
+        y = card.forward(x)
+        # 3 resnets of 2 conv blocks in the encode and in the decode
+        assert device_launches()[0] == 12
+        ref = cpu.forward(x)
+        err = (y.cpu() - ref).abs().max().item()
+        assert err <= 1e-4 * ref.abs().max().item(), (i, err)
+    assert card.graphs.captures == 3 and card.graphs.replays == 4

@@ -166,19 +166,15 @@ def test_gradients_match_the_pallas_kernels_vjp(d, mode):
                                    err_msg=name)
 
 
-def test_function_backward_is_the_plain_versions_vjp(monkeypatch):
-    """SnakeConvFunction (the card's path for inputs that need a gradient)
-    with its launch replaced by the plain version, so that it runs here: its
-    backward returns the plain version's VJP for each input that needs one,
-    and None for the others."""
-    from after_tpu_torch.ops.kernels import fused_conv
-
-    monkeypatch.setattr(fused_conv, "_launch", snake_conv_reference)
+def test_function_backward_is_the_plain_versions_vjp():
+    """The registered op's gradient (the card's path for inputs that need a
+    gradient, and the CPU's): its backward returns the plain version's VJP
+    for each input that needs one, bit for bit, and None for the others."""
     x, alpha, beta, w, b = _inputs(5, 2, 40, 12, 20, 3)
     gy = np.random.RandomState(6).randn(2, 40, 20).astype(np.float32)
     for mode in ("causal", "centered"):
-        fn = fused_conv.SnakeConvFunction.apply
-        ours = _grads_port(fn, x, alpha, beta, w, b, 3, mode, gy)
+        ours = _grads_port(fused_snake_conv, x, alpha, beta, w, b, 3, mode,
+                           gy)
         plain = _grads_port(snake_conv_reference, x, alpha, beta, w, b, 3,
                             mode, gy)
         for a, p in zip(ours, plain):
@@ -186,9 +182,9 @@ def test_function_backward_is_the_plain_versions_vjp(monkeypatch):
     xt = torch.from_numpy(x)
     wt = torch.from_numpy(np.ascontiguousarray(w.transpose(2, 1, 0)))
     wt.requires_grad_()
-    y = fused_conv.SnakeConvFunction.apply(
-        xt, torch.from_numpy(alpha), torch.from_numpy(beta), wt,
-        torch.from_numpy(b), 1, "causal")
+    y = fused_snake_conv(xt, torch.from_numpy(alpha), torch.from_numpy(beta),
+                         wt, torch.from_numpy(b), 1, "causal")
+    assert "snake_conv" in type(y.grad_fn).__name__
     y.sum().backward()
     assert wt.grad is not None and wt.grad.shape == wt.shape
     assert xt.grad is None

@@ -106,7 +106,9 @@ def test_import_pulls_in_no_jax():
             "after_tpu_torch.dataset.store, after_tpu_torch.dataset.dataset, "
             "after_tpu_torch.dataset.audio, after_tpu_torch.dataset.midi, "
             "after_tpu_torch.dataset.transforms, "
-            "after_tpu_torch.utils.logging; "
+            "after_tpu_torch.utils.logging, "
+            "after_tpu_torch.streaming.export, after_tpu_torch.cli.export, "
+            "after_tpu_torch.cli.serve, after_tpu_torch.frontend.server; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'flax' or m == 'after_tpu' or "
             "m.startswith('after_tpu.') or m == 'google.protobuf' or "

@@ -354,21 +354,24 @@ def test_crossfade_hands_the_kernel_contiguous_rows(monkeypatch, crossfade):
     contiguous f32 (B, T, C) rows and its weight in the kernel's layout
     (checked on the CPU, where the op does not check them)."""
     import after_tpu_torch.models.autoencoder as ae
-    from after_tpu_torch.ops.kernels.fused_conv import snake_conv_reference
+    from after_tpu_torch.ops.kernels.fused_conv import (snake_conv_reference,
+                                                        torch_weight)
 
     cfg, _, _, dec = crossfade
     calls = []
 
-    def checked(x, alpha, beta, w, b, dilation, mode):
+    def checked(x, alpha, beta, w_k, w_lo, b, dilation, mode):
         for t in (x, alpha, beta, b):
             assert t.is_contiguous() and t.dtype == torch.float32
-        assert w.dtype == torch.float32 and w.permute(2, 0, 1).is_contiguous()
+        assert w_k.dtype == torch.float32 and w_k.is_contiguous()
+        assert w_lo.shape == w_k.shape and w_lo.is_contiguous()
         calls.append(tuple(x.shape))
-        return snake_conv_reference(x, alpha, beta, w, b, dilation, mode)
+        return snake_conv_reference(
+            x, alpha, beta, torch_weight(w_k, x.shape[2]), b, dilation, mode)
 
     B, A = 2, 4 * cfg.ratio
     enc, st = dec.init_encode_state(B), dec.init_state(B)
-    monkeypatch.setattr(ae, "fused_snake_conv", checked)
+    monkeypatch.setattr(ae, "snake_conv", checked)
     x = torch.from_numpy(
         (0.3 * np.random.RandomState(13).randn(B, A, 1)).astype(np.float32))
     with torch.no_grad():
