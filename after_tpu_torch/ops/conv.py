@@ -57,50 +57,58 @@ class _WeightNormed(nn.Module):
     until either parameter is moved or written in place (``init_weights``,
     ``load_jax`` and ``load_state_dict`` all write in place, which bumps the
     tensor's version), unless ``keep_weight`` is off (``recompute_weights``).
-    A module with ``kernel_layout`` set keeps it as the fused snake+conv
-    kernel reads it: storage in (k, O, C) order behind an (O, C, k) view,
-    with its low tf32 half beside it as ``kernel_lo``
-    (ops/kernels/fused_conv.py: ``kernel_weight``).  ``kernel_weights``
-    gives the kernel's two tensors.
+    A module with ``kernel_layout`` set keeps, beside it, the pair the fused
+    snake+conv kernel reads (``kernel_weights``): the weight in its (k, O,
+    Cw) layout and its low tf32 half (ops/kernels/fused_conv.py:
+    ``kernel_weight``), the kept weight being a view of the first.
 
-    ``fold_weights`` turns a module into its export form, whose weight is a
-    plain buffer: ``weight`` (the normed weight), or ``weight_k`` and
-    ``weight_lo`` (the kernel's layout and low half) where ``kernel_layout``
-    is set."""
+    ``fold_weights`` turns a module into its export form, whose weights are
+    plain buffers: ``weight`` (the normed weight), or ``weight_k`` and
+    ``weight_lo`` (the kernel's pair) where ``kernel_layout`` is set."""
 
-    _wn = None
-    _wn_key = None
+    _kept = None        # (weight, kernel pair or None), made at _kept_key
+    _kept_key = None
     kernel_layout = False
     keep_weight = True
     folded = False
+
+    def _keep(self):
+        """(weight, (w_k, w_lo) or None) as kept for inference, made again
+        when ``weight`` or ``g`` changed; None where the weight is computed
+        at each call."""
+        w, g = self.weight, self.g
+        if (not self.keep_weight or torch.is_grad_enabled()
+                or w.is_inference() or g.is_inference()):
+            return None
+        key = (w.data_ptr(), w._version, g.data_ptr(), g._version)
+        if key != self._kept_key:
+            wn, pair = weight_norm(w, g), None
+            if self.kernel_layout:
+                # imported here: ops/kernels/fused_conv.py imports this module
+                from .kernels.fused_conv import kernel_weight
+                pair = kernel_weight(wn)
+                wn = pair[0][:, :, :self.in_features].permute(1, 2, 0)
+            self._kept, self._kept_key = (wn, pair), key
+        return self._kept
 
     def effective_weight(self) -> torch.Tensor:
         if self.folded:
             if self.kernel_layout:
                 return self.weight_k[:, :, :self.in_features].permute(1, 2, 0)
             return self.weight
-        w, g = self.weight, self.g
-        if (not self.keep_weight or torch.is_grad_enabled()
-                or w.is_inference() or g.is_inference()):
-            return weight_norm(w, g)
-        key = (w.data_ptr(), w._version, g.data_ptr(), g._version)
-        if key != self._wn_key:
-            wn = weight_norm(w, g)
-            if self.kernel_layout:
-                # imported here: ops/kernels/fused_conv.py imports this module
-                from .kernels.fused_conv import weight_low
-                wk = wn.permute(2, 0, 1).contiguous()
-                wn = wk.permute(1, 2, 0)
-                wn.kernel_lo = weight_low(wk)
-            self._wn = wn
-            self._wn_key = key
-        return self._wn
+        kept = self._keep()
+        return weight_norm(self.weight, self.g) if kept is None else kept[0]
 
     def kernel_weights(self) -> Tuple[torch.Tensor, torch.Tensor]:
         """(w_k, w_lo): the weight in the fused kernel's (k, O, Cw) layout
-        and its low tf32 half, as the op ``snake_conv`` takes them."""
-        if self.folded:
+        and its low tf32 half, as the op ``snake_conv`` takes them; the kept
+        pair where there is one, else made from ``effective_weight`` (with
+        its gradient)."""
+        if self.folded and self.kernel_layout:
             return self.weight_k, self.weight_lo
+        kept = None if self.folded else self._keep()
+        if kept is not None and kept[1] is not None:
+            return kept[1]
         from .kernels.fused_conv import kernel_weight
         return kernel_weight(self.effective_weight())
 
@@ -132,11 +140,11 @@ def fold_weights(module: nn.Module) -> nn.Module:
             del m.weight, m.g
             if m.kernel_layout:
                 wk, lo = kernel_weight(wn)
-                m.register_buffer("weight_k", wk.contiguous())
+                m.register_buffer("weight_k", wk)
                 m.register_buffer("weight_lo", lo)
             else:
                 m.register_buffer("weight", wn)
-            m._wn = m._wn_key = None
+            m._kept = m._kept_key = None
             m.folded = True
     return module
 

@@ -17,11 +17,10 @@ traced it is one node of the program (``register_fake``); there is no other
 choice and no fallback between the two.  Importing this module registers
 the op: a process must import it before it loads a program that holds it.
 
-``fused_snake_conv`` takes torch's conv1d weight (O, C, k) and calls the op.
-A weight whose storage already has the (k, O, C) order and that carries its
-low half as ``w.kernel_lo`` (``StreamConv1d(..., kernel_layout=True)``
-keeps it so at inference) is passed as it is; any other is rearranged and
-split per call.  Where the kernel's plan splits the channel sum over
+``fused_snake_conv`` takes torch's conv1d weight (O, C, k), rearranges and
+splits it (``kernel_weight``) and calls the op; the model's convs call the
+op with the pair they keep (``StreamConv1d(..., kernel_layout=True)``,
+``kernel_weights``), so that no call of theirs copies it.  Where the kernel's plan splits the channel sum over
 blocks, the wrapper hands it a scratch buffer for the partial sums, which
 the kernel adds in a fixed order: its output has the same bits from launch
 to launch, eager or replayed in a CUDA graph.  That second kernel,
@@ -159,19 +158,11 @@ def weight_low(w: torch.Tensor) -> torch.Tensor:
 def kernel_weight(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """w (O, C, k) as the kernel reads it: (k, O, Cw) contiguous, Cw = C
     rounded up to a multiple of 4, zeros past C, and its low tf32 half in the
-    same layout.  Views of ``w`` and ``w.kernel_lo`` where those already fit,
-    a copy and a split otherwise (the copy carries w's gradient, the low
-    half none)."""
+    same layout: a copy, which carries w's gradient, and its split, which
+    carries none."""
     O, C, k = w.shape
-    wk = w.permute(2, 0, 1)
-    lo = getattr(w, "kernel_lo", None)
-    if (lo is not None and C % 4 == 0 and wk.is_contiguous()
-            and lo.is_contiguous() and lo.shape == wk.shape
-            and lo.device == w.device and lo.dtype == w.dtype
-            and wk.data_ptr() % 16 == 0 and lo.data_ptr() % 16 == 0):
-        return wk, lo
     hi = torch.zeros((k, O, -(-C // 4) * 4), dtype=w.dtype, device=w.device)
-    hi[:, :, :C] = wk
+    hi[:, :, :C] = w.permute(2, 0, 1)
     return hi, weight_low(hi.detach())
 
 
@@ -298,8 +289,7 @@ def fused_snake_conv(x: torch.Tensor, alpha: torch.Tensor, beta: torch.Tensor,
     On a CUDA tensor this launches the kernel (and counts the call in
     ``fused_snake_conv.launches``) or raises; on a CPU tensor it is the
     plain version; either way differentiable.  x, alpha, beta and b must be
-    contiguous; w is rearranged and split per call unless it comes in the
-    kernel's layout with its low half (``kernel_weight``)."""
+    contiguous; w is rearranged and split at each call (``kernel_weight``)."""
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"fused_snake_conv runs on cuda or cpu, not {x.device}")
     return snake_conv(x, alpha, beta, *kernel_weight(w), b, dilation, mode)

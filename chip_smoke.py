@@ -183,7 +183,10 @@ Phases, each printed before the last line:
    GRAPH_TOL, 96 kernel launches a buffer counted on the device (counts
    set to 0 just before each run and read just after), no capture after
    the load, the state at fixed addresses, median / p90 / max ms a buffer
-   of both; one artifact buffer under torch.profiler as in phase 4; the
+   of both; one artifact buffer under torch.profiler as in phase 4, its
+   kernel ms and busy time kept only from a profile that recorded every
+   launch the device counted (up to PROFILE_TRIES profiles); the host ms
+   of the live streamer's ``capture_key``; the
    two-voice artifact on the card against the same artifact moved to the
    CPU (``move_to_device_pass``, the op's plain version there), 8 buffers
    of fixed noise within CARD_VS_CPU_TOL, the TF32 reading beside it; the
@@ -319,6 +322,8 @@ SERVE_SECONDS = 3.0          # the WAV posted to the server
 SERVE_START_TIMEOUT = 300    # seconds for the server to print its address
 SERVE_REQUEST_TIMEOUT = 120
 DEVICE = "cuda"              # where phase 13 exports, serves and streams
+PROFILE_TRIES = 3            # profiles of an artifact buffer, for one that
+                             # kept every kernel record
 
 
 def log(msg: str) -> None:
@@ -473,8 +478,8 @@ def check_fused_conv(path, unit, batch: int = 1):
     import torch
     import torch.nn.functional as F
     from after_tpu_torch.ops.conv import get_padding
-    from after_tpu_torch.ops.kernels.fused_conv import (fused_snake_conv,
-                                                        kernel_plan,
+    from after_tpu_torch.ops.kernels.fused_conv import (kernel_plan,
+                                                        snake_conv,
                                                         snake_conv_reference,
                                                         sum_splits,
                                                         sum_splits_reference)
@@ -499,11 +504,12 @@ def check_fused_conv(path, unit, batch: int = 1):
         n = path_counts[shape]
         x = torch.randn((batch, T, C), generator=gen, device="cuda")
         alpha, beta = block.act.alpha.detach(), block.act.beta.detach()
-        # the kept weight, in the kernel's layout with its low tf32 half,
-        # as the main path passes it
+        # the weight in the kernel's layout with its low tf32 half, as the
+        # main path passes it, and in torch's layout for the plain version
+        w_k, w_lo = block.conv.kernel_weights()
         w = block.conv.effective_weight()
         b = block.conv.bias.detach()
-        y = fused_snake_conv(x, alpha, beta, w, b, d, mode)
+        y = snake_conv(x, alpha, beta, w_k, w_lo, b, d, mode)
         ref = snake_conv_reference(x, alpha, beta, w, b, d, mode)
         torch.cuda.synchronize()
         err = (y - ref).abs().max().item()
@@ -520,9 +526,10 @@ def check_fused_conv(path, unit, batch: int = 1):
         left, right = get_padding(k, 1, d, mode)
         a = F.pad(snake_beta(x, alpha, beta).transpose(1, 2), (left, right))
         wc = w.contiguous()
-        ms = cuda_ms(lambda: fused_snake_conv(x, alpha, beta, w, b, d, mode))
+        ms = cuda_ms(lambda: snake_conv(x, alpha, beta, w_k, w_lo, b, d,
+                                        mode))
         eager_ms = cuda_ms(
-            lambda: fused_snake_conv(x, alpha, beta, w, b, d, mode),
+            lambda: snake_conv(x, alpha, beta, w_k, w_lo, b, d, mode),
             graph=False)
         plain_ms = cuda_ms(
             lambda: snake_conv_reference(x, alpha, beta, w, b, d, mode))
@@ -699,8 +706,7 @@ def train_phase(row) -> None:
     from after_tpu_torch.autoencoder import AutoencoderTrainer
     from after_tpu_torch.config import (AETrainConfig, DiscriminatorConfig,
                                         get_ae_config)
-    from after_tpu_torch.ops.kernels.fused_conv import (fused_snake_conv,
-                                                        kernel_weight)
+    from after_tpu_torch.ops.kernels.fused_conv import fused_snake_conv
 
     ae = get_ae_config()
     tc = AETrainConfig(warmup_steps=TRAIN_WARMUP)
@@ -792,7 +798,7 @@ def train_phase(row) -> None:
     def split_weights():
         with torch.enable_grad():
             for b in blocks:
-                kernel_weight(b.conv.effective_weight())
+                b.conv.kernel_weights()
     wn_ms = cuda_ms(split_weights, reps=5, warmup=1, graph=False)
     log(f"training: weight norm + the kernel's weight split per codec "
         f"forward ({len(blocks)} convs, eager): {wn_ms:.3f} ms")
@@ -1540,13 +1546,9 @@ def profile_call(label: str, fn):
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    # every kernel record counts as a launch; a record of zero length
-    # (start and end stamped alike) adds no busy time
     kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    zero = sum(e.time_range.elapsed_us() <= 0 for e in kernels)
-    if zero:
-        log(f"profile: {label}: {zero} kernel records of zero length")
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.time_range.elapsed_us() > 0]
     if not kernels:
         log(f"profile: {label}: wall {wall_ms:.2f} ms; the profiler recorded no "
             f"device time, so device busy and idle share are not measured")
@@ -2289,6 +2291,7 @@ def export_phase(row, a, b, attrs) -> None:
                                                   ExportedStreamer)
     from after_tpu_torch.utils.checkpoint import restore_checkpoint
     from after_tpu_torch.utils.device import strict_f32
+    from after_tpu_torch.utils.graphs import capture_key
 
     runs = os.path.join(CLI_DIR, "runs")
     ae_run, diff_run = os.path.join(runs, "ae"), os.path.join(runs, "diff")
@@ -2438,26 +2441,45 @@ def export_phase(row, a, b, attrs) -> None:
     one = (a[:, :A], b[:, :A])
     host.set_attribute("nb_steps", STREAM_STEPS[-1])
     host.call("forward", *one)
-    # the device's counts of the profiled call itself: late in this
-    # process the profiler has lost a kernel record of an artifact buffer
-    # (95 of the device's 96 in three of four runs; GroupNorm's
-    # reductions vary alike), so it is read beside them
-    reset_device_launches()
-    _, busy, counts, ms = profile_call(
-        f"one artifact buffer at nb_steps {STREAM_STEPS[-1]}",
-        lambda: host.call("forward", *one))
-    device = device_launches()
-    recorded = tuple(kernel_launches(counts, k)
-                     for k in (KERNEL_NAME, SUM_NAME))
-    log(f"profile: one artifact buffer: the device counted {device[0]} "
-        f"{KERNEL_NAME} and {device[1]} {SUM_NAME} launches, the profiler "
-        f"recorded {recorded[0]} ({kernel_launches(ms, KERNEL_NAME):.3f} "
-        f"ms) and {recorded[1]} ({kernel_launches(ms, SUM_NAME):.3f} ms)")
-    if device != (per_buffer, per_sums):
-        fail(f"one artifact buffer launched {device}, expected "
-             f"{(per_buffer, per_sums)}")
-    row["profiled_launches_per_artifact_buffer"] = recorded
-    row["profiled_ms_per_artifact_buffer"] = kernel_launches(ms, KERNEL_NAME)
+    # the profiler may lose a kernel record late in this process (95 of
+    # the device's 96 in three of four runs), so the kernel's device ms and
+    # the busy time come only from a profile whose counts are the device's
+    # counts of the same call: up to PROFILE_TRIES profiles, else not
+    # measured
+    busy = kernel_ms = None
+    for attempt in range(1, PROFILE_TRIES + 1):
+        reset_device_launches()
+        _, busy_i, counts, ms = profile_call(
+            f"one artifact buffer at nb_steps {STREAM_STEPS[-1]}",
+            lambda: host.call("forward", *one))
+        device = device_launches()
+        if device != (per_buffer, per_sums):
+            fail(f"one artifact buffer launched {device}, expected "
+                 f"{(per_buffer, per_sums)}")
+        recorded = tuple(kernel_launches(counts, k)
+                         for k in (KERNEL_NAME, SUM_NAME))
+        log(f"profile: one artifact buffer, profile {attempt}: the device "
+            f"counted {device[0]} {KERNEL_NAME} and {device[1]} {SUM_NAME} "
+            f"launches, the profiler recorded {recorded[0]} and "
+            f"{recorded[1]}")
+        if recorded == device:
+            busy, kernel_ms = busy_i, kernel_launches(ms, KERNEL_NAME)
+            break
+    log("profile: one artifact buffer: " + (
+        f"{KERNEL_NAME} {kernel_ms:.3f} ms on the device, busy "
+        f"{busy:.2f} ms" if kernel_ms is not None else
+        f"no profile kept all launches in {PROFILE_TRIES}: kernel ms and "
+        f"busy not measured"))
+    row["profiled_ms_per_artifact_buffer"] = kernel_ms
+    # what the live streamer's host computes at every call and the
+    # artifact's host does not (ROADMAP B4)
+    t0 = time.perf_counter()
+    for _ in range(100):
+        capture_key(streamer.codec, streamer.rf)
+    key_ms = (time.perf_counter() - t0) * 10
+    log(f"artifact: capture_key of the live streamer's modules, "
+        f"{key_ms:.3f} ms a call (host, mean of 100)")
+    row["live_capture_key_ms"] = key_ms
 
     # the kernel against its plain version on this path: the two-voice
     # artifact on the card and moved to the CPU, where the op is the plain

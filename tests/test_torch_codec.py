@@ -126,12 +126,15 @@ def test_codec_hands_the_kernel_contiguous_rows(monkeypatch):
     from after_tpu_torch.ops.kernels.fused_conv import (snake_conv_reference,
                                                         torch_weight)
 
-    calls = []
+    calls, kept = [], {}
 
     def checked(x, alpha, beta, w_k, w_lo, b, dilation, mode):
         for t in (x, alpha, beta, b):
             assert t.is_contiguous() and t.dtype == torch.float32
-        # the weight comes in the kernel's (k, O, C) layout: no copy per call
+        # the weight is its conv's kept pair, in the kernel's (k, O, C)
+        # layout: the same tensors at every call, so no copy per call
+        pair = kept.get(id(w_k), (None, None))
+        assert pair[0] is w_k and pair[1] is w_lo
         assert w_k.dtype == torch.float32 and w_k.is_contiguous()
         assert w_lo.shape == w_k.shape and w_lo.is_contiguous()
         calls.append(x.shape)
@@ -141,6 +144,10 @@ def test_codec_hands_the_kernel_contiguous_rows(monkeypatch):
     monkeypatch.setattr(ae, "snake_conv", checked)
     codec = AudioCodec(AutoEncoderConfig(**TINY)).eval()
     with torch.no_grad():
+        for m in codec.modules():
+            if isinstance(m, ae.ConvBlock1d):
+                w_k, w_lo = m.conv.kernel_weights()
+                kept[id(w_k)] = (w_k, w_lo)
         z = codec.encode(torch.zeros(1, 1024, 1))
         codec.decode(z)
     # 1 + 2 stages x 1 resnet = 3 resnets per direction, 2 convs each
@@ -182,25 +189,28 @@ def test_kernel_weight_is_split_and_refreshed_after_load_state_dict():
     conv = codec.decoder.to_out.block1.conv
     assert conv.kernel_layout
 
-    def check(w):
-        wk = w.permute(2, 0, 1)
-        assert wk.is_contiguous()
-        lo = w.kernel_lo
-        assert lo.shape == wk.shape
+    def check(pair):
+        wk, lo = pair
+        C = conv.in_features
+        assert wk.is_contiguous() and lo.shape == wk.shape
+        assert not wk[:, :, C:].any() and not lo[:, :, C:].any()
         assert not (lo.view(torch.int32) & 0x1FFF).any()   # tf32 values
         exact = weight_norm(conv.weight, conv.g).permute(2, 0, 1)
-        np.testing.assert_array_equal(wk.numpy(), exact.numpy())
-        err = (tf32_high(wk) + lo - exact).abs()
+        np.testing.assert_array_equal(wk[:, :, :C].numpy(), exact.numpy())
+        err = (tf32_high(wk[:, :, :C]) + lo[:, :, :C] - exact).abs()
         assert (err <= 2.0 ** -20 * exact.abs()).all()
 
     with torch.no_grad():
-        kept = conv.effective_weight()
+        kept = conv.kernel_weights()
         check(kept)
-        assert conv.effective_weight() is kept
+        again = conv.kernel_weights()
+        assert again[0] is kept[0] and again[1] is kept[1]
+        # the kept weight in torch's layout is a view of the pair's first
+        assert conv.effective_weight().data_ptr() == kept[0].data_ptr()
         codec.load_state_dict(other.state_dict())
-        fresh = conv.effective_weight()
-        assert fresh is not kept
-        assert not torch.equal(fresh.kernel_lo, kept.kernel_lo)
+        fresh = conv.kernel_weights()
+        assert fresh[0] is not kept[0]
+        assert not torch.equal(fresh[1], kept[1])
         check(fresh)
 
 

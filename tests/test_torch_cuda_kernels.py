@@ -119,18 +119,29 @@ def test_kernel_error_against_float64(cuda, B, T, C, O, k, d):
 
 @pytest.mark.cuda
 def test_kept_weight_is_passed_as_it_is(cuda):
-    """A weight in the kernel's layout with its low half (as StreamConv1d
-    keeps it) reaches the kernel without a copy, and gives the result of
-    the same weight in torch's layout (within the rounding of the order of
-    the sums)."""
+    """A conv's kept pair (``StreamConv1d(..., kernel_layout=True)`` at
+    inference) is the same two tensors at every call, reaches the kernel
+    as they are, and gives the result of the same weight in torch's layout
+    (within the rounding of the order of the sums)."""
+    from after_tpu_torch.ops.conv import StreamConv1d
+    from after_tpu_torch.ops.kernels.fused_conv import snake_conv
+
     x, alpha, beta, w, b = _inputs(4, 1, 300, 64, 96, 3, cuda)
-    hi, lo = kernel_weight(w)
-    kept = hi.permute(1, 2, 0)
-    kept.kernel_lo = lo
-    hi2, lo2 = kernel_weight(kept)
-    assert hi2.data_ptr() == hi.data_ptr() and lo2.data_ptr() == lo.data_ptr()
-    y = fused_snake_conv(x, alpha, beta, kept, b, 3, "centered")
-    y_plain_layout = fused_snake_conv(x, alpha, beta, w, b, 3, "centered")
+    conv = StreamConv1d(64, 96, 3, dilation=3, mode="centered",
+                        kernel_layout=True).to(cuda)
+    with torch.no_grad():
+        conv.weight.copy_(w)
+        conv.g.copy_(torch.linalg.vector_norm(w.flatten(1), dim=1))
+        hi, lo = conv.kernel_weights()
+        hi2, lo2 = conv.kernel_weights()
+        assert hi2 is hi and lo2 is lo
+        assert conv.effective_weight().data_ptr() == hi.data_ptr()
+        before = fused_snake_conv.launches
+        y = snake_conv(x, alpha, beta, hi, lo, b, 3, "centered")
+        assert fused_snake_conv.launches == before + 1
+        y_plain_layout = fused_snake_conv(x, alpha, beta,
+                                          conv.effective_weight(), b, 3,
+                                          "centered")
     # a split channel sum adds with atomics, in an order that varies
     err = (y - y_plain_layout).abs().max().item()
     assert err <= 1e-6 * y.abs().max().item(), err

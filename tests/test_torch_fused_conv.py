@@ -124,12 +124,12 @@ def test_kernel_weight_layout_and_split(C):
     err = (tf32_high(hi).double() + lo.double() - hi.double()).abs()
     assert (err <= 2.0 ** -22 * hi.double().abs()).all()
     np.testing.assert_array_equal(weight_low(hi).numpy(), lo.numpy())
-    # a weight kept in the kernel's layout with its low half is passed on
-    kept = hi.permute(1, 2, 0)[:, :C]
-    kept.kernel_lo = lo
-    if C % 4 == 0:
-        hi2, lo2 = kernel_weight(kept)
-        assert hi2.data_ptr() == hi.data_ptr() and lo2 is lo
+    # a copy of w: the high half carries w's gradient, the low half none
+    wg = w.clone().requires_grad_()
+    hi2, lo2 = kernel_weight(wg)
+    assert hi2.requires_grad and not lo2.requires_grad
+    assert hi2.data_ptr() != wg.data_ptr()
+    np.testing.assert_array_equal(lo2.numpy(), lo.numpy())
 
 
 def _grads_jax(x, alpha, beta, w, b, d, mode, gy):

@@ -358,11 +358,14 @@ def test_crossfade_hands_the_kernel_contiguous_rows(monkeypatch, crossfade):
                                                         torch_weight)
 
     cfg, _, _, dec = crossfade
-    calls = []
+    calls, kept = [], {}
 
     def checked(x, alpha, beta, w_k, w_lo, b, dilation, mode):
         for t in (x, alpha, beta, b):
             assert t.is_contiguous() and t.dtype == torch.float32
+        # its conv's kept pair, the same tensors at every call: no copy
+        pair = kept.get(id(w_k), (None, None))
+        assert pair[0] is w_k and pair[1] is w_lo
         assert w_k.dtype == torch.float32 and w_k.is_contiguous()
         assert w_lo.shape == w_k.shape and w_lo.is_contiguous()
         calls.append(tuple(x.shape))
@@ -375,6 +378,10 @@ def test_crossfade_hands_the_kernel_contiguous_rows(monkeypatch, crossfade):
     x = torch.from_numpy(
         (0.3 * np.random.RandomState(13).randn(B, A, 1)).astype(np.float32))
     with torch.no_grad():
+        for m in dec.codec.modules():
+            if isinstance(m, ae.ConvBlock1d) and not m.cached:
+                w_k, w_lo = m.conv.kernel_weights()
+                kept[id(w_k)] = (w_k, w_lo)
         dec.decode(st, dec.encode(enc, x))
     # 3 resnets per direction, 2 conv blocks each; every window at batch 2
     assert len(calls) == 12 and all(s[0] == B for s in calls)
