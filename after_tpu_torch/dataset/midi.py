@@ -2,14 +2,15 @@
 after_tpu/dataset/midi.py, numpy only).
 
 SMF format 0/1 parsing with tempo-map tick-to-second conversion, note
-extraction and ``get_piano_roll(times)``, what the diffusion collate reads;
-``slice`` waits for the port of ``prepare_dataset`` (ROADMAP item 13).
+extraction, ``get_piano_roll(times)`` (what the diffusion collate reads),
+``slice`` (what ``prepare_dataset`` stores a chunk) and ``save``.
 
 Record stores keep a record's MIDI as ``pickle.dumps`` of a ``MidiFile``:
 stores prepared by the JAX package name ``after_tpu.dataset.midi``'s
 classes, stores prepared by the port this module's.  ``loads`` reads
-either onto this module's classes without importing the JAX package and
-refuses a pickle that names any other global.
+either onto this module's classes without importing the JAX package.  The
+JAX package's transcriptions carry numpy integers and floats, which load as
+Python numbers; a pickle that names any other global is refused.
 """
 
 from __future__ import annotations
@@ -177,6 +178,38 @@ class MidiFile:
                     counts[i] += 1
         return out
 
+    # -- writing -------------------------------------------------------------
+
+    def save(self, path: str, tempo_bpm: float = 120.0,
+             division: int = 480) -> None:
+        """A format-0 SMF of the notes at one tempo."""
+        events = []
+        for n in self.notes:
+            tick_s = int(round(n.start * division * tempo_bpm / 60.0))
+            tick_e = int(round(n.end * division * tempo_bpm / 60.0))
+            events.append((tick_s, 0x90, n.pitch, n.velocity))
+            events.append((tick_e, 0x80, n.pitch, 0))
+        events.sort()
+        out = bytearray()
+        # tempo meta
+        tempo = int(60_000_000 / tempo_bpm)
+        out += b"\x00\xff\x51\x03" + tempo.to_bytes(3, "big")
+        last = 0
+        for tick, status, p1, p2 in events:
+            delta = tick - last
+            last = tick
+            var = bytearray()
+            var.insert(0, delta & 0x7F)
+            delta >>= 7
+            while delta:
+                var.insert(0, 0x80 | (delta & 0x7F))
+                delta >>= 7
+            out += bytes(var) + bytes([status, p1, p2])
+        out += b"\x00\xff\x2f\x00"
+        with open(path, "wb") as f:
+            f.write(b"MThd" + struct.pack(">IHHH", 6, 0, 1, division))
+            f.write(b"MTrk" + struct.pack(">I", len(out)) + bytes(out))
+
 
 # the globals a stored MIDI pickle may name: the JAX package's classes and
 # this module's, each read as this module's
@@ -185,14 +218,42 @@ _ALLOWED = {(module, name): cls
             for name, cls in (("MidiFile", MidiFile), ("Note", Note))}
 
 
+def _numeric_dtype(spec, align=False, copy=False) -> np.dtype:
+    dtype = np.dtype(spec, align, copy)
+    if dtype.kind not in "iuf":
+        raise pickle.UnpicklingError(
+            f"a stored MIDI record may hold numpy integers and floats, not "
+            f"{dtype}")
+    return dtype
+
+
+def _numeric_scalar(dtype, data=None):
+    """numpy's scalar reconstructor, for an integer or float only: the
+    Python number of ``data``'s bytes."""
+    if not (isinstance(dtype, np.dtype) and dtype.kind in "iuf"
+            and dtype.names is None and dtype.subdtype is None
+            and not dtype.hasobject and isinstance(data, bytes)
+            and len(data) == dtype.itemsize):
+        raise pickle.UnpicklingError(
+            "a stored MIDI record may hold numpy integers and floats only")
+    return np.frombuffer(data, dtype)[0].item()
+
+
+# numpy's scalars of a JAX package's transcription: its dtype and its
+# reconstructor, under numpy 2's module names and numpy 1's
+_ALLOWED.update({("numpy", "dtype"): _numeric_dtype,
+                 ("numpy._core.multiarray", "scalar"): _numeric_scalar,
+                 ("numpy.core.multiarray", "scalar"): _numeric_scalar})
+
+
 class _MidiUnpickler(pickle.Unpickler):
 
     def find_class(self, module: str, name: str):
         cls = _ALLOWED.get((module, name))
         if cls is None:
             raise pickle.UnpicklingError(
-                f"a stored MIDI record may name only MidiFile and Note, "
-                f"not {module}.{name}")
+                f"a stored MIDI record may name only MidiFile, Note and "
+                f"numpy's numbers, not {module}.{name}")
         return cls
 
 

@@ -91,30 +91,54 @@ def spectrogram(x: torch.Tensor, n_fft: int, hop: int,
 
 
 # ---------------------------------------------------------------------------
-# Mel filterbank (HTK / torchaudio convention)
+# Mel filterbanks (HTK / torchaudio and Slaney / librosa conventions)
 # ---------------------------------------------------------------------------
 
 
-def _hz_to_mel(f):
-    return 2595.0 * np.log10(1.0 + np.asarray(f, dtype=np.float64) / 700.0)
+def _hz_to_mel(f, htk: bool):
+    f = np.asarray(f, dtype=np.float64)
+    if htk:
+        return 2595.0 * np.log10(1.0 + f / 700.0)
+    # Slaney: linear below 1 kHz, logarithmic above
+    f_sp, min_log_hz = 200.0 / 3, 1000.0
+    min_log_mel = min_log_hz / f_sp
+    logstep = np.log(6.4) / 27.0
+    return np.where(f >= min_log_hz,
+                    min_log_mel + np.log(np.maximum(f, 1e-10) / min_log_hz)
+                    / logstep, f / f_sp)
 
 
-def _mel_to_hz(m):
-    return 700.0 * (10.0 ** (np.asarray(m, dtype=np.float64) / 2595.0) - 1.0)
+def _mel_to_hz(m, htk: bool):
+    m = np.asarray(m, dtype=np.float64)
+    if htk:
+        return 700.0 * (10.0 ** (m / 2595.0) - 1.0)
+    f_sp, min_log_hz = 200.0 / 3, 1000.0
+    min_log_mel = min_log_hz / f_sp
+    logstep = np.log(6.4) / 27.0
+    return np.where(m >= min_log_mel,
+                    min_log_hz * np.exp(logstep * (m - min_log_mel)),
+                    f_sp * m)
 
 
 @lru_cache(maxsize=64)
-def mel_filterbank(sr: int, n_fft: int, n_mels: int) -> np.ndarray:
-    """(n_mels, n_fft//2+1) triangular HTK filterbank from 0 Hz to sr / 2."""
+def mel_filterbank(sr: int, n_fft: int, n_mels: int, fmin: float = 0.0,
+                   fmax: Optional[float] = None, htk: bool = True,
+                   slaney_norm: bool = False) -> np.ndarray:
+    """(n_mels, n_fft//2+1) triangular filterbank from ``fmin`` to ``fmax``
+    (sr / 2 by default) on the HTK mel scale, or Slaney's with ``htk=False``;
+    ``slaney_norm`` scales each filter to unit area."""
+    fmax = fmax or sr / 2
     fft_freqs = np.linspace(0, sr / 2, n_fft // 2 + 1)
-    hz_pts = _mel_to_hz(np.linspace(_hz_to_mel(0.0), _hz_to_mel(sr / 2),
-                                    n_mels + 2))
+    hz_pts = _mel_to_hz(np.linspace(_hz_to_mel(fmin, htk),
+                                    _hz_to_mel(fmax, htk), n_mels + 2), htk)
     fb = np.zeros((n_mels, n_fft // 2 + 1))
     for i in range(n_mels):
         lower, center, upper = hz_pts[i], hz_pts[i + 1], hz_pts[i + 2]
         up = (fft_freqs - lower) / max(center - lower, 1e-10)
         down = (upper - fft_freqs) / max(upper - center, 1e-10)
         fb[i] = np.maximum(0.0, np.minimum(up, down))
+    if slaney_norm:
+        fb *= (2.0 / (hz_pts[2:] - hz_pts[:-2]))[:, None]
     return fb.astype(np.float32)
 
 

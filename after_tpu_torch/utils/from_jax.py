@@ -18,9 +18,11 @@ mappings:
 
 - Dense kernel (in, out) -> nn.Linear weight (out, in);
 - conv kernel (k, in, out) -> weight (out, in, k); weight-norm ``g`` stays a
-  parameter of its own;
+  parameter of its own; a 2-D conv kernel (kh, kw, in, out) -> nn.Conv2d
+  weight (out, in, kh, kw);
 - transposed-conv kernel (k, in, out) -> weight (in, out, k) flipped along k;
-- norm ``scale`` -> weight; BatchNorm ``mean`` / ``var`` -> running buffers.
+- norm ``scale`` -> weight; BatchNorm ``mean`` / ``var`` -> running buffers
+  (the port's ``BatchNorm`` and torch's).
 
 A denoiser stored with ``scan_layers`` (``blocks/block`` with a leading
 layer axis) is unstacked into ``block_i`` first.  Every flax leaf must land
@@ -45,6 +47,7 @@ from typing import Any, Dict, List, Mapping
 import numpy as np
 import torch
 from torch import nn
+from torch.nn.modules.batchnorm import _BatchNorm
 
 from ..ops.conv import StreamConv1d, StreamConvTranspose1d
 from ..ops.norms import BatchNorm, GroupNorm
@@ -53,12 +56,12 @@ from ..streaming.state import StreamState, flatten_state
 
 
 def _set(t: torch.Tensor, value: np.ndarray, path: str) -> None:
-    value = np.array(value, dtype=np.float32)     # a writable copy
+    value = np.array(value, dtype=np.float32, order="C")  # a writable copy
     if tuple(t.shape) != value.shape:
         raise ValueError(f"{path}: port shape {tuple(t.shape)} != "
                          f"JAX shape {value.shape}")
     with torch.no_grad():
-        t.copy_(torch.from_numpy(np.ascontiguousarray(value)))
+        t.copy_(torch.from_numpy(value))
 
 
 class _Walk:
@@ -89,12 +92,16 @@ class _Walk:
         elif isinstance(module, nn.Conv1d):
             _set(module.weight, take(p, "kernel").transpose(2, 1, 0),
                  path + "/kernel")
+        elif isinstance(module, nn.Conv2d):
+            _set(module.weight, take(p, "kernel").transpose(3, 2, 0, 1),
+                 path + "/kernel")
         elif isinstance(module, SnakeBeta):
             _set(module.alpha, take(p, "alpha"), path + "/alpha")
             _set(module.beta, take(p, "beta"), path + "/beta")
-        elif isinstance(module, (GroupNorm, nn.LayerNorm, BatchNorm)):
+        elif isinstance(module, (GroupNorm, nn.LayerNorm, BatchNorm,
+                                 _BatchNorm)):
             _set(module.weight, take(p, "scale"), path + "/scale")
-            if isinstance(module, BatchNorm):
+            if isinstance(module, (BatchNorm, _BatchNorm)):
                 _set(module.running_mean, take(s, "mean"), path + "/mean")
                 _set(module.running_var, take(s, "var"), path + "/var")
         else:
@@ -186,6 +193,21 @@ def load_pipeline(pipeline, variables: Mapping[str, Any]) -> None:
     load_module(pipeline.codec, variables["codec"], "codec")
     dv = variables["diffusion"]
     load_diffusion(pipeline.rf, dv, classifier="classifier" in dv)
+
+
+def load_basic_pitch(model, variables: Mapping[str, Any]) -> None:
+    """Load a ``dataset.basic_pitch.BasicPitch`` from the JAX pipeline's
+    variables ({"net": {"params", "batch_stats"}, "cqt_bn": {"mean",
+    "var"}})."""
+    load_module(model.net, variables["net"], "net")
+    _set(model.cqt_bn_mean, variables["cqt_bn"]["mean"], "cqt_bn/mean")
+    _set(model.cqt_bn_var, variables["cqt_bn"]["var"], "cqt_bn/var")
+
+
+def load_beat_this(net: nn.Module, variables: Mapping[str, Any]) -> None:
+    """Load a ``dataset.beat_tracker.BeatThis`` from the JAX module's
+    variables ({"params", "batch_stats"})."""
+    load_module(net, variables)
 
 
 def load_discriminator(disc: nn.Module, variables: Mapping[str, Any]) -> None:

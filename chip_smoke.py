@@ -196,8 +196,42 @@ Phases, each printed before the last line:
    /api/timbre`` and ``POST /api/transfer`` with a 3 s WAV (200 each, a
    finite WAV of whole buffers back), each request timed, and is stopped.
 
+14. dataset preparation, with phase 12's codec run: a synthetic corpus of
+   WAV files from the seed (files of 3 and 3.5 chunks of PREP_SAMPLES,
+   the last padded; a shorter file, tiled; a file whose second chunk is
+   silent; 9 chunks kept) and two synthetic reference checkpoints (the
+   port's random basic-pitch model, its heads' biases at -4 so that its
+   activations are sparse, and the full-size Beat This model, under the
+   reference's key names); first the kernel against its plain version at
+   every ConvBlock1d shape of an encode at batch PREP_BATCH, as phase 3
+   does; then ``after-tpu-torch prepare_dataset`` on the card with
+   ``--num_signal PREP_SAMPLES --batch_size PREP_BATCH --cut_silences
+   --augmentations 1 --descriptors all --beat_track --beat_this_ckpt
+   --midi --basic_pitch --save_waveform``: its encodes (2 batches of
+   originals, the second padded, and 2 of augmentations) each launching
+   the kernel once a ConvBlock1d, counted on the device (counts set to 0
+   just before the command and read just after); every record's keys,
+   shapes, finite values, chunk indices and MIDI; the z of two records
+   against the port's plain versions on the CPU within CARD_VS_CPU_TOL,
+   the TF32 reading beside it; ``--parser simple_midi --midi`` slicing a
+   .mid file; one encoded batch under torch.profiler (the kernel's share
+   of its device time, busy time, idle share; profiled before the
+   commands), kept only from a profile that recorded every launch the
+   device counted, as in phase 13, and the kernel's share of the batch's
+   synchronized wall time, from its CUDA-event ms at these shapes; a
+   second ``prepare_dataset`` run in the same process, whose wall time
+   less the models' construction gives the steady records/s; ``train`` for
+   PREP_TRAIN_STEPS steps on the prepared store; ``update_dataset`` of it,
+   each record's new z within GRAPH_TOL of a direct encode, the kernel's
+   launches counted on the device.  Printed with the card's name and power
+   limit: the command's wall seconds and records/s (start-up, model
+   construction and first calls inside) beside the steady records/s, ms
+   an encoded batch
+   (synchronized), Beat This ms a chunk, basic-pitch ms a file, the host
+   ms of augmentation and descriptors a record.
+
 Any failure exits non-zero.  The card's name and power limit are printed
-again after phase 13.  The line before the last is the kernel table as
+again after phase 14.  The line before the last is the kernel table as
 JSON (the snake+conv kernel and its split sum); the last line is ``{"ok":
 true, "device": {...}}``.  Imports nothing of JAX or of after_tpu.
 """
@@ -316,12 +350,16 @@ CLI_AE_STEPS = 10
 CLI_AE_EVERY = 5             # the codec run's checkpoints and validation
 CLI_DIFF_STEPS = DIFF_LONG_STEPS
 # what phase 12 may not find imported, though the card machine lacks most
-FORBIDDEN_MODULES = ("jax", "flax", "after_tpu", "google.protobuf")
+FORBIDDEN_MODULES = ("jax", "flax", "after_tpu", "google.protobuf", "yaml")
 EXPORT_STEPS = 4             # the artifact's default nb_steps
 SERVE_SECONDS = 3.0          # the WAV posted to the server
 SERVE_START_TIMEOUT = 300    # seconds for the server to print its address
 SERVE_REQUEST_TIMEOUT = 120
 DEVICE = "cuda"              # where phase 13 exports, serves and streams
+PREP_SAMPLES = N_SAMPLES      # phase 14's chunks (--num_signal)
+PREP_BATCH = 8               # and encode batch (--batch_size)
+PREP_SHORT_SAMPLES = 300000  # a file shorter than a chunk, tiled
+PREP_TRAIN_STEPS = 3         # train's steps on the prepared store
 PROFILE_TRIES = 3            # profiles of an artifact buffer, for one that
                              # kept every kernel record
 
@@ -1583,6 +1621,40 @@ def profile_call(label: str, fn):
         {k: us / 1e3 for k, us in by_name.items()})
 
 
+def profile_kept(label: str, fn, expected):
+    """Up to PROFILE_TRIES profiles of fn (profile_call), the device's
+    launch counts set to 0 before each; fails unless the device counts
+    ``expected`` (launches of the kernel, of its split sum) in each.
+    Returns (busy ms, the kernel's device ms, the split sum's device ms) of
+    the first profile that recorded every launch the device counted, else
+    (None, None, None): the profiler may lose a kernel record late in a
+    long process, and a profile that did lacks part of the kernel's time."""
+    from after_tpu_torch.ops.kernels.fused_conv import (device_launches,
+                                                        reset_device_launches)
+
+    for attempt in range(1, PROFILE_TRIES + 1):
+        reset_device_launches(DEVICE)
+        _, busy, counts, ms = profile_call(f"{label}, profile {attempt}", fn)
+        device = device_launches(DEVICE)
+        if device != tuple(expected):
+            fail(f"{label} launched {device}, expected {tuple(expected)}")
+        recorded = tuple(kernel_launches(counts, k)
+                         for k in (KERNEL_NAME, SUM_NAME))
+        log(f"profile: {label}, profile {attempt}: the device counted "
+            f"{device[0]} {KERNEL_NAME} and {device[1]} {SUM_NAME} launches, "
+            f"the profiler recorded {recorded[0]} and {recorded[1]}")
+        if recorded == device:
+            kernel_ms = kernel_launches(ms, KERNEL_NAME)
+            sum_ms = kernel_launches(ms, SUM_NAME)
+            log(f"profile: {label}: {KERNEL_NAME} {kernel_ms:.3f} ms and "
+                f"{SUM_NAME} {sum_ms:.3f} ms on the device, busy "
+                f"{busy:.2f} ms")
+            return busy, kernel_ms, sum_ms
+    log(f"profile: {label}: no profile kept all launches in {PROFILE_TRIES}: "
+        f"kernel ms and busy not measured")
+    return None, None, None
+
+
 def kernel_launches(counts, name: str) -> int:
     """Launches (or device ms) of the kernels whose name holds ``name``, in
     a profile's Counter."""
@@ -2442,34 +2514,11 @@ def export_phase(row, a, b, attrs) -> None:
     host.set_attribute("nb_steps", STREAM_STEPS[-1])
     host.call("forward", *one)
     # the profiler may lose a kernel record late in this process (95 of
-    # the device's 96 in three of four runs), so the kernel's device ms and
-    # the busy time come only from a profile whose counts are the device's
-    # counts of the same call: up to PROFILE_TRIES profiles, else not
-    # measured
-    busy = kernel_ms = None
-    for attempt in range(1, PROFILE_TRIES + 1):
-        reset_device_launches()
-        _, busy_i, counts, ms = profile_call(
-            f"one artifact buffer at nb_steps {STREAM_STEPS[-1]}",
-            lambda: host.call("forward", *one))
-        device = device_launches()
-        if device != (per_buffer, per_sums):
-            fail(f"one artifact buffer launched {device}, expected "
-                 f"{(per_buffer, per_sums)}")
-        recorded = tuple(kernel_launches(counts, k)
-                         for k in (KERNEL_NAME, SUM_NAME))
-        log(f"profile: one artifact buffer, profile {attempt}: the device "
-            f"counted {device[0]} {KERNEL_NAME} and {device[1]} {SUM_NAME} "
-            f"launches, the profiler recorded {recorded[0]} and "
-            f"{recorded[1]}")
-        if recorded == device:
-            busy, kernel_ms = busy_i, kernel_launches(ms, KERNEL_NAME)
-            break
-    log("profile: one artifact buffer: " + (
-        f"{KERNEL_NAME} {kernel_ms:.3f} ms on the device, busy "
-        f"{busy:.2f} ms" if kernel_ms is not None else
-        f"no profile kept all launches in {PROFILE_TRIES}: kernel ms and "
-        f"busy not measured"))
+    # the device's 96 in three of four runs)
+    busy, kernel_ms, _ = profile_kept(
+        f"one artifact buffer at nb_steps {STREAM_STEPS[-1]}",
+        lambda: host.call("forward", *one),
+        (per_buffer, per_sums))
     row["profiled_ms_per_artifact_buffer"] = kernel_ms
     # what the live streamer's host computes at every call and the
     # artifact's host does not (ROADMAP B4)
@@ -2564,6 +2613,363 @@ def export_phase(row, a, b, attrs) -> None:
     row["artifact_load_seconds"] = load_s
     row["artifact_card_vs_cpu"] = err / scale
     row["serve_ms"] = serve_ms
+
+
+class _Timer:
+    """Wraps ``owner.name`` (a function or method) so that each call's host
+    ms, synchronized before and after on the card where ``sync``, lands in
+    ``self.ms``; ``restore`` puts the original back."""
+
+    def __init__(self, owner, name: str, sync: bool = False):
+        import torch
+        self.owner, self.name = owner, name
+        self.fn = getattr(owner, name)
+        self.own = name in vars(owner)       # not inherited
+        self.ms = []
+        fn, ms = self.fn, self.ms
+
+        def timed(*args, **kwargs):
+            if sync and DEVICE == "cuda":
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            if sync and DEVICE == "cuda":
+                torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            return out
+        setattr(owner, name, timed)
+
+    def restore(self) -> None:
+        if self.own:
+            setattr(self.owner, self.name, self.fn)
+        else:
+            delattr(self.owner, self.name)
+
+    def median(self):
+        return sorted(self.ms)[len(self.ms) // 2] if self.ms else None
+
+
+def _corpus(root: str, sr: int, n: int):
+    """The synthetic corpus of phase 14 under ``root``: WAV files of a few
+    sinusoids and noise from the seed, in chunks of ``n`` samples; returns
+    (the main corpus directory, the MIDI corpus directory, the chunks the
+    main run keeps)."""
+    import os
+
+    import numpy as np
+    from after_tpu_torch.dataset.audio import save_wav
+    from after_tpu_torch.dataset.midi import MidiFile, Note
+
+    rng = np.random.RandomState(SEED + 14)
+
+    def sound(length):
+        t = np.arange(length) / sr
+        x = sum(rng.uniform(0.05, 0.2) * np.sin(
+            2 * np.pi * rng.uniform(60.0, 2000.0) * t
+            * (1 + rng.uniform(-0.05, 0.05) * t)) for _ in range(4))
+        # a pulse every half second, so that the beat trackers find beats
+        pulse = (np.sin(2 * np.pi * 2.0 * t) > 0.98) * rng.uniform(0.3, 0.5)
+        return (x + pulse + 0.01 * rng.randn(length)).astype(np.float32)
+
+    main, midi = os.path.join(root, "corpus"), os.path.join(root, "midi")
+    os.makedirs(main)
+    os.makedirs(midi)
+    silent = sound(2 * n)
+    silent[n:] = 0.0                             # --cut_silences drops it
+    files = {"three_chunks": sound(3 * n),
+             "padded_tail": sound(3 * n + n // 2),   # a padded fourth chunk
+             "short": sound(PREP_SHORT_SAMPLES),     # tiled to one chunk
+             "half_silent": silent}
+    for name, x in files.items():
+        save_wav(os.path.join(main, f"{name}.wav"), x, sr)
+    save_wav(os.path.join(midi, "with_midi.wav"), sound(n), sr)
+    MidiFile(notes=[Note(60 + i, 90, 0.5 * i, 0.5 * i + 0.4)
+                    for i in range(int(n / sr / 0.5))]).save(
+        os.path.join(midi, "with_midi.mid"))
+    return main, midi, 3 + 4 + 1 + 1
+
+
+def dataset_phase(row) -> None:
+    """Phase 14: dataset preparation (see the module docstring), with phase
+    12's codec run."""
+    import os
+    import shutil
+
+    import numpy as np
+    import torch
+    from after_tpu_torch.cli import prepare_dataset as prep
+    from after_tpu_torch.cli.main import main as cli_main
+    from after_tpu_torch.cli.train import make_codec_coder
+    from after_tpu_torch.config import load_codec_config
+    from after_tpu_torch.dataset import AudioExample, RecordReader
+    from after_tpu_torch.dataset import midi as midi_io
+    from after_tpu_torch.dataset.audio import load_wav, normalize_signal
+    from after_tpu_torch.dataset.basic_pitch import (BasicPitch,
+                                                     reference_state_dict)
+    from after_tpu_torch.dataset import beat_tracker as bt
+    from after_tpu_torch.diffusion.trainer import DiffusionTrainer
+    from after_tpu_torch.models.autoencoder import AudioCodec
+    from after_tpu_torch.ops.kernels.fused_conv import (device_launches,
+                                                        reset_device_launches)
+    from after_tpu_torch.utils.checkpoint import restore_checkpoint
+    from after_tpu_torch.utils.device import strict_f32
+
+    sys.modules["torch.utils.tensorboard"] = None
+    root = os.path.join(CLI_DIR, "prepare")
+    shutil.rmtree(root, ignore_errors=True)
+    ae_run = os.path.join(CLI_DIR, "runs", "ae")
+    cfg = load_codec_config(ae_run)
+    sr, n = cfg.sr, PREP_SAMPLES
+    t0 = time.perf_counter()
+    corpus, midi_corpus, n_chunks = _corpus(root, sr, n)
+    log(f"dataset preparation: synthetic corpus of {n_chunks} kept chunks "
+        f"of {n} samples ({n / sr:.3f} s) in "
+        f"{time.perf_counter() - t0:.2f} s")
+
+    # synthetic reference checkpoints: the port's random models at full
+    # size under the reference's names.  The basic-pitch heads' biases are
+    # set to -4, so that their activations are sparse as a trained model's
+    # are (near 0.5 everywhere, the note search would follow every onset
+    # to the end of the file)
+    torch.manual_seed(SEED + 14)
+    bp_model = BasicPitch(DEVICE)
+    with torch.no_grad():
+        for head in (bp_model.net.note_conv2, bp_model.net.onset_conv2):
+            head.bias.fill_(-4.0)
+    bp_path = os.path.join(root, "basic_pitch.pth")
+    torch.save(reference_state_dict(bp_model), bp_path)
+    bt_path = os.path.join(root, "beat_this.pth")
+    torch.save(bt.reference_state_dict(bt.BeatThis()), bt_path)
+    del bp_model
+
+    # the encoder's ConvBlock1d shapes at batch PREP_BATCH, the kernel held
+    # to its plain version at each, as phase 3 does
+    codec = AudioCodec(cfg).eval().to(DEVICE)
+    codec.load_state_dict(restore_checkpoint(ae_run)["codec_vars"])
+    enc_path, _ = codec_conv_blocks(codec, n)
+    per_batch = None
+    if DEVICE == "cuda":
+        with torch.no_grad():
+            per_batch = check_fused_conv(enc_path, "encoded batch",
+                                         PREP_BATCH)
+
+    # one encoded batch under the profiler, before the commands (a profile
+    # late in this process may lose a kernel record): the kernel's share
+    # of its device time, the device's busy time and idle share
+    batch = torch.as_tensor(np.stack([
+        prep._chunk_signal(normalize_signal(load_wav(os.path.join(
+            corpus, "three_chunks.wav"), sr=sr)[0]), n)[i % 3]
+        for i in range(PREP_BATCH)])[..., None], device=DEVICE)
+    with torch.inference_mode():
+        codec.encode(batch)
+        busy, k_ms, sum_ms = profile_kept(
+            f"one encoded batch of {PREP_BATCH} x {n} samples",
+            lambda: codec.encode(batch),
+            (len(enc_path), per_batch["sum_launches"] if per_batch else 0))
+    del batch
+    if busy:
+        log(f"dataset preparation: the kernel's share of an encoded batch's "
+            f"device time {k_ms + sum_ms:.3f} of {busy:.3f} ms busy "
+            f"({(k_ms + sum_ms) / busy:.3f}, the split sum's "
+            f"{sum_ms:.3f} ms included); {card_line()}")
+
+    # the command, its encodes, trackers and host transforms timed
+    def prepare(out, timers):
+        """One prepare_dataset run into ``out`` with ``timers`` in place;
+        (wall s, s of it spent building the three models, device counts)."""
+        builds = [_Timer(prep.CodecEncoderFn, "__init__", sync=True),
+                  _Timer(BasicPitch, "__init__", sync=True),
+                  _Timer(BasicPitch, "load_state_dict", sync=True),
+                  _Timer(bt.Audio2Beats, "__init__", sync=True)]
+        argv = ["prepare_dataset", "--input_path", corpus, "--output_path",
+                out, "--emb_model_path", ae_run, "--num_signal", str(n),
+                "--batch_size", str(PREP_BATCH), "--cut_silences",
+                "--augmentations", "1", "--descriptors", "all",
+                "--beat_track", "--beat_this_ckpt", bt_path, "--midi",
+                "--basic_pitch", bp_path, "--save_waveform", "--device",
+                DEVICE]
+        gc.collect()
+        if DEVICE == "cuda":
+            torch.cuda.empty_cache()
+        reset_device_launches(DEVICE)
+        t0 = time.perf_counter()
+        try:
+            rc = cli_main(argv)
+        finally:
+            for t in builds + list(timers.values()):
+                t.restore()
+        wall = time.perf_counter() - t0
+        if rc != 0:
+            fail(f"prepare_dataset: exit code {rc}")
+        build = sum(sum(t.ms) for t in builds) / 1e3
+        return wall, build, device_launches(DEVICE)
+
+    store = os.path.join(root, "store")
+    timers = {"encode": _Timer(prep.CodecEncoderFn, "__call__", sync=True),
+              "beat_this": _Timer(bt.Audio2Beats, "__call__", sync=True),
+              "basic_pitch": _Timer(BasicPitch, "transcribe", sync=True),
+              "augment": _Timer(prep, "pitch_stretch_augment"),
+              "descriptors": _Timer(prep, "audio_descriptors")}
+    wall, build, (launches, _) = prepare(store, timers)
+    encodes = len(timers["encode"].ms)
+    want_encodes = 2 * math.ceil(n_chunks / PREP_BATCH)
+    if encodes != want_encodes or launches != encodes * len(enc_path):
+        fail(f"prepare_dataset: {encodes} encodes (expected {want_encodes}) "
+             f"and {launches} {KERNEL_NAME} launches counted on the device, "
+             f"expected {len(enc_path)} an encoded batch")
+    # a second run in this process, the kernel, cuDNN and the allocator
+    # warm: its records/s without the models' construction is the rate a
+    # corpus far longer than this one sees
+    warm_wall, warm_build, _ = prepare(os.path.join(root, "store_warm"), {})
+    steady = n_chunks / (warm_wall - warm_build)
+    log(f"dataset preparation: prepare_dataset on {DEVICE}: {n_chunks} "
+        f"records in {wall:.2f} s ({n_chunks / wall:.3f} records/s, the "
+        f"command's start-up, {build:.2f} s of model construction and the "
+        f"first calls inside); a second run in this process {warm_wall:.2f} "
+        f"s, {warm_build:.2f} s of it model construction, steady "
+        f"{steady:.3f} records/s; "
+        f"{encodes} encoded batches of {PREP_BATCH} x {n} samples, "
+        f"{launches // encodes} {KERNEL_NAME} launches each counted on the "
+        f"device (the encoder's {len(enc_path)} ConvBlock1d); ms an encoded "
+        f"batch (synchronized) median {timers['encode'].median():.2f} "
+        f"({spread([t / 1e3 for t in timers['encode'].ms])}); Beat This ms "
+        f"a chunk median "
+        f"{timers['beat_this'].median():.2f} over "
+        f"{len(timers['beat_this'].ms)}; basic-pitch ms a file median "
+        f"{timers['basic_pitch'].median():.2f} over "
+        f"{len(timers['basic_pitch'].ms)}; host ms a record: augmentation "
+        f"{timers['augment'].median():.2f}, descriptors "
+        f"{timers['descriptors'].median():.2f}; {card_line()}")
+    if per_batch is not None:
+        log(f"dataset preparation: the kernel's share of an encoded batch's "
+            f"synchronized wall time {per_batch['ms']:.3f} of "
+            f"{timers['encode'].median():.2f} ms "
+            f"({per_batch['ms'] / timers['encode'].median():.3f}; its ms "
+            f"from CUDA events at these shapes, the batch's median)")
+
+    # the records: keys, shapes, finite values, chunks and MIDI
+    reader = RecordReader(store)
+    z_len = n // cfg.ratio
+    shapes = {"z": (cfg.z_channels, z_len), "z_aug_0": (cfg.z_channels,
+                                                        z_len),
+              "waveform": (n,), "beat_clock": (z_len,),
+              "downbeat_clock": (z_len,), "midi_bytes": None,
+              **{d: (z_len,) for d in prep.KNOWN_DESCRIPTORS}}
+    chunks = []
+    for key in reader.keys():
+        ae = AudioExample(reader.get(key))
+        if set(ae.get_keys()) != set(shapes):
+            fail(f"prepare_dataset record {key}: keys {sorted(ae.get_keys())}")
+        for name, shape in shapes.items():
+            if shape is None:
+                midi_io.loads(ae.get_bytes(name))
+                continue
+            v = ae.get(name)
+            if v.shape != shape or not np.isfinite(v).all():
+                fail(f"prepare_dataset record {key}: {name} of shape "
+                     f"{v.shape} (expected {shape}) or not finite")
+        meta = ae.get_metadata()
+        chunks.append((meta["name"], int(meta["chunk"])))
+    want = [("half_silent", 0), ("padded_tail", 0), ("padded_tail", 1),
+            ("padded_tail", 2), ("padded_tail", 3), ("short", 0),
+            ("three_chunks", 0), ("three_chunks", 1), ("three_chunks", 2)]
+    if chunks != want:
+        fail(f"prepare_dataset records {chunks}, expected {want}")
+
+    # the latents of two records against the port's plain versions on the
+    # CPU (the chunks rebuilt as the command builds them), and the TF32
+    # reading beside the limit
+    _, cpu_encode = make_codec_coder(ae_run, "cpu")
+    errs, errs_tf32, scale = [], [], 0.0
+    for name, chunk_i in (("padded_tail", 3), ("three_chunks", 0)):
+        x, _ = load_wav(os.path.join(corpus, f"{name}.wav"), sr=sr)
+        chunk = prep._chunk_signal(normalize_signal(x), n)[chunk_i]
+        key = reader.keys()[want.index((name, chunk_i))]
+        z_card = AudioExample(reader.get(key)).get("z")
+        z_cpu = cpu_encode(chunk[None, :, None])[0].T.numpy()
+        torch.backends.cudnn.allow_tf32 = True
+        torch.backends.cuda.matmul.allow_tf32 = True
+        with torch.no_grad():
+            z_tf32 = codec.encode(torch.as_tensor(chunk[None, :, None],
+                                                  device=DEVICE))[0].T
+        strict_f32()
+        errs.append(float(np.abs(z_card - z_cpu).max()))
+        errs_tf32.append(float(np.abs(z_tf32.detach().cpu().numpy()
+                                      - z_cpu).max()))
+        scale = max(scale, float(np.abs(z_cpu).max()))
+    log(f"dataset preparation: z card vs CPU, 2 records: max abs err "
+        f"{max(errs):.3e} (with TF32 allowed: {max(errs_tf32):.3e}), max|z| "
+        f"{scale:.4f}, limit {CARD_VS_CPU_TOL} x max|z|")
+    if not max(errs) <= CARD_VS_CPU_TOL * scale:
+        fail("prepare_dataset: card and CPU latents disagree")
+
+    # MIDI from a .mid file beside its audio (simple_midi)
+    midi_store = os.path.join(root, "midi_store")
+    if cli_main(["prepare_dataset", "--input_path", midi_corpus,
+                 "--output_path", midi_store, "--parser", "simple_midi",
+                 "--midi", "--emb_model_path", ae_run, "--num_signal", str(n),
+                 "--batch_size", str(PREP_BATCH), "--device", DEVICE]) != 0:
+        fail("prepare_dataset --parser simple_midi: non-zero exit")
+    midi_reader = RecordReader(midi_store)
+    notes = midi_io.loads(AudioExample(midi_reader.get(
+        midi_reader.keys()[0])).get_bytes("midi_bytes")).notes
+    source = midi_io.MidiFile(os.path.join(midi_corpus, "with_midi.mid"))
+    if [(x.pitch, x.start) for x in notes] != [
+            (x.pitch, x.start) for x in source.slice(0.0, n / sr).notes]:
+        fail("prepare_dataset --midi: the record's notes are not the .mid's")
+
+    # the store feeds train, then update_dataset re-encodes it
+    runs = os.path.join(root, "runs")
+    rc, out, steps, _ = cli_run(
+        ["train", "--name", "from_store", "--db_path", store, "--out_path",
+         runs, "--config", "base", "--batch_size", str(PREP_BATCH),
+         "--max_steps", str(PREP_TRAIN_STEPS), "--device", DEVICE,
+         "--override", f"train.n_signal={DIFF_FRAMES}",
+         "--override", f"train.steps_save={PREP_TRAIN_STEPS}",
+         "--override", f"train.steps_valid={10 * PREP_TRAIN_STEPS}"],
+        DiffusionTrainer)
+    if rc != 0 or len(steps) != PREP_TRAIN_STEPS:
+        fail(f"train on the prepared store: exit code {rc}, {len(steps)} "
+             f"steps")
+    updated = os.path.join(root, "updated")
+    reset_device_launches(DEVICE)
+    if cli_main(["update_dataset", "--dataset_path", store, "--output_path",
+                 updated, "--emb_model_path", ae_run, "--device",
+                 DEVICE]) != 0:
+        fail("update_dataset: non-zero exit")
+    up_launches = device_launches(DEVICE)[0]
+    _, encode = make_codec_coder(ae_run, DEVICE)
+    up_err = 0.0
+    up_reader = RecordReader(updated)
+    for key in up_reader.keys():
+        ae = AudioExample(up_reader.get(key))
+        direct = encode(ae.get("waveform")[None, :, None])[0].T.cpu().numpy()
+        up_err = max(up_err, float(np.abs(ae.get("z") - direct).max()
+                                   / np.abs(direct).max()))
+    if len(up_reader) != n_chunks or up_launches != n_chunks * len(enc_path):
+        fail(f"update_dataset: {len(up_reader)} records, {up_launches} "
+             f"{KERNEL_NAME} launches counted on the device")
+    if not up_err <= GRAPH_TOL:
+        fail(f"update_dataset: z {up_err} x max|z| off a direct encode")
+    log(f"dataset preparation: train took {PREP_TRAIN_STEPS} steps on the "
+        f"prepared store (wall ms a step {wall_ms(steps)[0]:.2f}); "
+        f"update_dataset re-encoded {len(up_reader)} records, "
+        f"{up_launches // n_chunks} {KERNEL_NAME} launches a record counted "
+        f"on the device, each z within {up_err:.3e} x max|z| of a direct "
+        f"encode (limit {GRAPH_TOL})")
+    no_forbidden_modules("dataset preparation")
+    row["launches_prepare_dataset"] = launches
+    row["launches_per_encoded_batch"] = launches // encodes
+    if per_batch is not None:
+        row["ms_per_encoded_batch"] = per_batch["ms"]
+        row["plain_ms_per_encoded_batch"] = per_batch["plain_ms"]
+        row["bound_ms_per_encoded_batch"] = per_batch["bound_ms"]
+        row["library_ms_per_encoded_batch"] = per_batch["library_ms"]
+        row["max_abs_err"] = max(row["max_abs_err"], per_batch["max_abs_err"])
+    row["prepare_records_per_s"] = n_chunks / wall
+    row["prepare_records_per_s_steady"] = steady
+    row["prepare_encode_ms_median"] = timers["encode"].median()
+    row["prepare_z_card_vs_cpu"] = max(errs) / scale
 
 
 def main() -> None:
@@ -3031,6 +3437,9 @@ def main() -> None:
 
     # 13. export and serving, from phase 12's runs
     export_phase(row, a, b, attrs)
+
+    # 14. dataset preparation with phase 12's codec run
+    dataset_phase(row)
 
     # the card again, so that the end of a long output still names it
     log(f"card: {card_line()}")

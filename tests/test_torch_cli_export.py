@@ -191,7 +191,7 @@ def test_compute_dtype_is_refused(command, tmp_path):
 @pytest.mark.parametrize("command", ["export", "export_midi",
                                      "export_autoencoder", "serve"])
 def test_export_and_serve_are_ported(command, capsys):
-    assert command in cli.PORTED and command not in cli.NOT_PORTED
+    assert command in cli.PORTED
     with pytest.raises(SystemExit) as e:
         cli.main([command, "--help"])
     assert e.value.code == 0

@@ -300,3 +300,56 @@ def test_op_in_an_exported_program_under_a_graph_capture(cuda, tmp_path):
         err = (y.cpu() - ref).abs().max().item()
         assert err <= 1e-4 * ref.abs().max().item(), (i, err)
     assert card.graphs.captures == 3 and card.graphs.replays == 4
+
+
+@pytest.mark.cuda
+def test_kernel_at_the_encoders_batch_8_shapes(cuda):
+    """``prepare_dataset``'s encode: the base codec's encoder at batch 8 x
+    524288 samples.  Each ConvBlock1d's input, as the encode hands it over,
+    through the kernel against the plain version, and on the first 256
+    frames a row against float64 at most 4x strict-f32 F.conv1d's error."""
+    from after_tpu_torch.config import get_ae_config
+    from after_tpu_torch.models.autoencoder import AudioCodec, ConvBlock1d
+    from after_tpu_torch.ops.kernels.fused_conv import snake_conv
+    from after_tpu_torch.utils.init import init_weights
+
+    codec = AudioCodec(get_ae_config()).eval()
+    init_weights(codec, 0)
+    codec.to(cuda)
+    seen = []
+    hooks = [m.register_forward_pre_hook(
+        lambda mod, args: seen.append((mod, args[0])))
+        for m in codec.encoder.modules() if isinstance(m, ConvBlock1d)]
+    x = 0.1 * torch.randn((8, 524288, 1), device=cuda,
+                          generator=torch.Generator(cuda).manual_seed(0))
+    reset_device_launches()
+    with torch.inference_mode():
+        codec.encode(x)
+        assert device_launches()[0] == len(seen) > 0
+        for h in hooks:
+            h.remove()
+        for block, inp in seen:
+            h = block.gn(inp).contiguous()
+            args = (h, block.act.alpha, block.act.beta)
+            conv = block.conv
+            w = conv.effective_weight()
+            y = snake_conv(*args, *conv.kernel_weights(), conv.bias,
+                           conv.dilation, conv.mode)
+            ref = snake_conv_reference(*args, w, conv.bias, conv.dilation,
+                                       conv.mode)
+            assert y.shape[0] == 8 and y.shape == ref.shape
+            err = (y - ref).abs().max().item()
+            assert err <= 1e-4 * ref.abs().max().item(), (h.shape, err)
+            h = h[:, :256].contiguous()
+            args = (h, block.act.alpha, block.act.beta)
+            ref64 = snake_conv_reference(
+                *(t.double() for t in (*args, w, conv.bias)), conv.dilation,
+                conv.mode)
+            y = snake_conv(*args, *conv.kernel_weights(), conv.bias,
+                           conv.dilation, conv.mode)
+            strict = snake_conv_reference(*args, w, conv.bias, conv.dilation,
+                                          conv.mode)
+            err64 = (y.double() - ref64).abs().max().item()
+            err_conv1d = (strict.double() - ref64).abs().max().item()
+            assert err64 <= 4 * max(err_conv1d, 1e-30), (h.shape, err64,
+                                                         err_conv1d)

@@ -108,11 +108,22 @@ def test_import_pulls_in_no_jax():
             "after_tpu_torch.dataset.transforms, "
             "after_tpu_torch.utils.logging, "
             "after_tpu_torch.streaming.export, after_tpu_torch.cli.export, "
-            "after_tpu_torch.cli.serve, after_tpu_torch.frontend.server; "
+            "after_tpu_torch.cli.serve, after_tpu_torch.frontend.server, "
+            "after_tpu_torch.cli.prepare_dataset, "
+            "after_tpu_torch.cli.import_dataset, "
+            "after_tpu_torch.cli.import_torch, "
+            "after_tpu_torch.dataset.parsers, "
+            "after_tpu_torch.dataset.basic_pitch, "
+            "after_tpu_torch.dataset.beat_tracker, "
+            "after_tpu_torch.dataset.lmdb_import, "
+            "after_tpu_torch.ops.streaming_spectral, "
+            "after_tpu_torch.utils.port_torch, "
+            "after_tpu_torch.utils.gin_import; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'flax' or m == 'after_tpu' or "
             "m.startswith('after_tpu.') or m == 'google.protobuf' or "
-            "m.startswith('google.protobuf.')]; print(bad); "
+            "m.startswith('google.protobuf.') or m == 'yaml' or "
+            "m.startswith('yaml.')]; print(bad); "
             "sys.exit(1 if bad else 0)")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)

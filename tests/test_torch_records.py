@@ -331,8 +331,16 @@ def test_midi_pickles_of_either_package_and_nothing_else():
         assert type(got) is port_midi.MidiFile
         assert all(type(n) is port_midi.Note for n in got.notes)
         np.testing.assert_array_equal(got.get_piano_roll(times), want)
+    # the JAX package's transcriptions carry numpy numbers: read as Python's
+    got = port_midi.loads(pickle.dumps(JaxMidi(notes=[JaxNote(
+        np.int64(60), np.int32(100), np.float32(0.25), np.float64(1.0))])))
+    assert [(type(v), v) for v in vars(got.notes[0]).values()] == [
+        (int, 60), (int, 100), (float, 0.25), (float, 1.0)]
     for evil in (pickle.dumps(np.float64(1.0)), pickle.dumps(print),
-                 pickle.dumps(JaxMidi(notes=[JaxNote(np.int64(60), 100,
+                 pickle.dumps(np.arange(3)),
+                 pickle.dumps(JaxMidi(notes=[JaxNote(np.complex128(60), 100,
+                                                     0.0, 1.0)])),
+                 pickle.dumps(JaxMidi(notes=[JaxNote(np.str_("C4"), 100,
                                                      0.0, 1.0)]))):
         with pytest.raises(pickle.UnpicklingError):
             port_midi.loads(evil)
