@@ -16,7 +16,9 @@ card by default: export on the device that will serve).  ``--db_path``
 trains the XY pad's projector on the store's timbre vectors and bakes its
 maps, ``projector.npz`` and ``map.png`` into the artifact.
 ``export_autoencoder`` writes the codec-only artifact
-(``streaming.export.export_codec``).
+(``streaming.export.export_codec``).  ``--native`` also packages the stages
+the native host plays (``streaming.native.package_artifact``) for
+``--device``.
 """
 
 from __future__ import annotations
@@ -63,7 +65,19 @@ def build_argparser(cmd: str):
     p.add_argument("--device", default="cuda",
                    help="'cuda' (the card; raises without one) or 'cpu': "
                         "the device the artifact is traced on")
+    p.add_argument("--native", action="store_true",
+                   help="also package the stages the native host "
+                        "(csrc/stream_host.cc) plays, for --device, with "
+                        "AOTInductor (minutes a stage at full width, the "
+                        "stages at once)")
     return p
+
+
+def _package(cmd: str, out: str, device: str) -> None:
+    from ..streaming.native import package_artifact
+    seconds = package_artifact(out, device)
+    print(f"[{cmd}] packaged for the native host on {device}: " + ", ".join(
+        f"{k} {v:.1f} s" for k, v in seconds.items()))
 
 
 def load_run(model_path: str, emb_model_path: str, step=None, device=None,
@@ -159,6 +173,8 @@ def main(cmd: str, argv=None) -> int:
         from ..utils.latent_map import save_projector
         save_projector(out, projector, embeddings)
     print(f"[{cmd}] exported -> {out}")
+    if args.native:
+        _package(cmd, out, args.device)
     return 0
 
 
@@ -183,4 +199,6 @@ def export_autoencoder(args) -> int:
                  crossfade=crossfade, device=args.device)
     print(f"[export_autoencoder] exported "
           f"({'crossfade' if crossfade else 'cached-conv'}) -> {out}")
+    if args.native:
+        _package("export_autoencoder", out, args.device)
     return 0

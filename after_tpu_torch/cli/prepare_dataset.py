@@ -10,15 +10,15 @@ optional pitch/stretch-augmented latents, MIDI slices (from a .mid file or
 basic-pitch), descriptors and beat clocks (Beat This or the energy-flux
 estimator).  ``--device cpu`` runs the plain PyTorch versions on the CPU.
 
-MIDI slices are stored as ``pickle.dumps`` of the port's
-``dataset.midi.MidiFile``; ``dataset.midi.loads`` reads them, and so does a
-plain ``pickle.loads`` where the port is importable.
+MIDI slices are stored as the JAX package stores them, ``pickle.dumps`` of
+its ``MidiFile`` (written by hand, ``dataset.midi.dumps``), so that the JAX
+collate reads the store without torch; ``dataset.midi.loads`` reads them
+back onto the port's classes.
 """
 
 from __future__ import annotations
 
 import argparse
-import pickle
 from typing import List, Optional, Union
 
 import numpy as np
@@ -27,6 +27,7 @@ import torch
 from ..dataset import AudioExample, RecordReader, RecordWriter
 from ..dataset.audio import load_wav, normalize_signal
 from ..dataset.midi import MidiFile
+from ..dataset.midi import dumps as midi_dumps
 from ..dataset.parsers import get_parser
 from ..dataset.transforms import (audio_descriptors, estimate_beats,
                                   estimate_downbeats, get_beat_signal,
@@ -235,7 +236,7 @@ def main(argv=None) -> int:
                 midi_bytes = None
                 if midi is not None:
                     t0 = ci * args.num_signal / args.sr
-                    midi_bytes = pickle.dumps(midi.slice(t0, t0 + duration))
+                    midi_bytes = midi_dumps(midi.slice(t0, t0 + duration))
                 pending.append(chunk.astype(np.float32))
                 pending_meta.append((dict(meta, chunk=str(ci)), midi_bytes))
                 if len(pending) >= args.batch_size:

@@ -49,6 +49,7 @@ import numpy as np
 
 from .audio_example import AudioExample
 from .midi import MidiFile, Note
+from .midi import dumps as midi_dumps
 
 P_BRANCH, P_LEAF, P_OVERFLOW, P_META = 0x01, 0x02, 0x04, 0x08
 P_LEAF2, P_SUBP = 0x20, 0x40
@@ -311,8 +312,9 @@ def convert_example(buffers: Dict[str, RefBuffer],
 
     - "metadata" is stored by the reference as a JSON *buffer*; it lands in
       our typed metadata map;
-    - "midi" is a pickled pretty_midi.PrettyMIDI; it becomes the port's
-      MidiFile pickled under "midi_bytes" (what the collate reads);
+    - "midi" is a pickled pretty_midi.PrettyMIDI; it becomes a MidiFile
+      under "midi_bytes" (what the collate reads), in the JAX package's
+      pickle stream (``dataset.midi.dumps``);
     - everything else ("waveform" int16, "z"/augments/descriptors float32)
       maps dtype-for-dtype.
     """
@@ -328,7 +330,7 @@ def convert_example(buffers: Dict[str, RefBuffer],
                 meta.update(decoded)
             continue
         if name == "midi":
-            blob = pickle.dumps(midi_from_pretty_midi_pickle(buf.data))
+            blob = midi_dumps(midi_from_pretty_midi_pickle(buf.data))
             ae.put_buffer("midi_bytes", blob, [len(blob)])
             continue
         dtype = _REF_PRECISION_DTYPE.get(buf.precision, None)

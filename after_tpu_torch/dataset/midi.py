@@ -5,10 +5,12 @@ SMF format 0/1 parsing with tempo-map tick-to-second conversion, note
 extraction, ``get_piano_roll(times)`` (what the diffusion collate reads),
 ``slice`` (what ``prepare_dataset`` stores a chunk) and ``save``.
 
-Record stores keep a record's MIDI as ``pickle.dumps`` of a ``MidiFile``:
-stores prepared by the JAX package name ``after_tpu.dataset.midi``'s
-classes, stores prepared by the port this module's.  ``loads`` reads
-either onto this module's classes without importing the JAX package.  The
+Record stores keep a record's MIDI as ``pickle.dumps`` of a ``MidiFile``
+that names ``after_tpu.dataset.midi``'s classes: the JAX package pickles
+its own, and the port writes the same bytes by hand (``dumps``), so that
+the JAX collate reads either store without torch.  Stores that earlier
+versions of the port prepared name this module's classes.  ``loads`` reads
+all of them onto this module's classes without importing the JAX package.  The
 JAX package's transcriptions carry numpy integers and floats, which load as
 Python numbers; a pickle that names any other global is refused.
 """
@@ -265,3 +267,54 @@ def loads(data: bytes) -> MidiFile:
         raise pickle.UnpicklingError(
             f"midi_bytes hold a {type(midi).__name__}, not a MidiFile")
     return midi
+
+
+# ---------------------------------------------------------------------------
+# writing: the JAX package's pickle stream
+# ---------------------------------------------------------------------------
+
+JAX_MODULE = "after_tpu.dataset.midi"
+
+
+class _JaxPickler(pickle._Pickler):
+    """Python's own pickler, naming this module's ``MidiFile`` and ``Note``
+    as the JAX package's and numpy numbers as Python numbers, batching as
+    ``pickle.dumps`` (the C pickler) does."""
+
+    def save(self, obj, save_persistent_id=True):
+        if isinstance(obj, np.generic):
+            obj = obj.item()
+        super().save(obj, save_persistent_id)
+
+    def _batch_appends(self, items, *rest):
+        # as the C pickler batches a list: a list of one item with APPEND,
+        # any other in batches of MARK ... APPENDS, a last one of one too
+        items = list(items)
+        if len(items) == 1:
+            self.save(items[0])
+            self.write(pickle.APPEND)
+            return
+        for i in range(0, len(items), self._BATCHSIZE):
+            self.write(pickle.MARK)
+            for x in items[i:i + self._BATCHSIZE]:
+                self.save(x)
+            self.write(pickle.APPENDS)
+
+    def save_global(self, obj, name=None):
+        if obj not in (MidiFile, Note):
+            return super().save_global(obj, name)
+        self.save(JAX_MODULE)
+        self.save(obj.__qualname__)
+        self.write(pickle.STACK_GLOBAL)
+        self.memoize(obj)
+
+
+def dumps(midi: MidiFile) -> bytes:
+    """A record's ``midi_bytes`` for ``midi``: the bytes the JAX package
+    stores (``pickle.dumps`` of its own ``MidiFile`` of these notes), so
+    that the JAX collate reads a store the port prepared with a plain
+    ``pickle.loads``, without torch or the port.  Nothing of the JAX package
+    is imported.  ``loads`` reads it back."""
+    out = io.BytesIO()
+    _JaxPickler(out, pickle.DEFAULT_PROTOCOL).dump(midi)
+    return out.getvalue()

@@ -7,11 +7,29 @@ from typing import Optional, Union
 import torch
 
 
+_CPU_WARM = False
+
+
+def warm_cpu_math() -> None:
+    """One call each of torch.sin, cos, exp and tanh on 65,536 values, once
+    a process.  PyTorch's first vectorised call of such an op in a CPU
+    process may compute one thread's share of a large tensor about 1.5e-4
+    off float64 (``python scripts/torch_cpu_first_call.py``); after one
+    call on another tensor it is exact to f32."""
+    global _CPU_WARM
+    if not _CPU_WARM:
+        x = torch.linspace(-4.0, 4.0, 1 << 16)
+        for op in (torch.sin, torch.cos, torch.exp, torch.tanh):
+            op(x)
+        _CPU_WARM = True
+
+
 def resolve_device(device: Optional[Union[str, torch.device]] = None
                    ) -> torch.device:
     """The device an entry point runs on: ``cuda`` unless the caller names
     another.  Without a CUDA device and without an explicit ``device`` this
-    raises instead of carrying on on the CPU."""
+    raises instead of carrying on on the CPU.  On the CPU it warms up the
+    math ops first (``warm_cpu_math``)."""
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError(
@@ -25,6 +43,8 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
             "to run the port's plain PyTorch versions on the CPU")
     if device.type == "cuda" and device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
+    if device.type == "cpu":
+        warm_cpu_math()
     return device
 
 

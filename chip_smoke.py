@@ -230,8 +230,29 @@ Phases, each printed before the last line:
    (synchronized), Beat This ms a chunk, basic-pitch ms a file, the host
    ms of augmentation and descriptors a record.
 
+15. the native streaming host (after_tpu_torch/csrc/stream_host.cc), on
+   phase 13's artifacts: the host and its op library built with the C++
+   compiler against libtorch (the kernel with nvcc), and the stages the
+   host plays packaged with AOTInductor, the main artifact, the two-voice
+   one and the codec artifact for the card and the two-voice one for the
+   CPU, each timed, in parallel processes; the program links no
+   libpython.  Then the host as a subprocess, with ``--x0`` set to the
+   noise the Python host is given: phase 6's request as 64 buffers at
+   nb_steps 1 and 4 (readback depth 1) against ``ExportedStreamer`` on
+   the same inputs within CARD_VS_CPU_TOL, their median / p90 / max ms a
+   buffer side by side; 64 buffers with nb_steps and both guidances
+   changing through AFTER_NATIVE_CTRL; ``--pcm`` through pipes against
+   file mode within GRAPH_TOL; the two-voice artifact on the card against
+   the Python host and against the same host with ``--device cpu`` (the
+   op's plain version) within CARD_VS_CPU_TOL; the codec artifact against
+   ``ExportedCodec``.  The host counts the kernel's launches on the
+   device: 96 a buffer (64 a codec forward), its split sum's as phase 6.
+   Printed with the card's name and power limit: build and packaging
+   seconds, the host's ms a buffer beside the Python host's, the kernel's
+   bound a codec artifact forward.
+
 Any failure exits non-zero.  The card's name and power limit are printed
-again after phase 14.  The line before the last is the kernel table as
+again after phase 15.  The line before the last is the kernel table as
 JSON (the snake+conv kernel and its split sum); the last line is ``{"ok":
 true, "device": {...}}``.  Imports nothing of JAX or of after_tpu.
 """
@@ -2615,6 +2636,332 @@ def export_phase(row, a, b, attrs) -> None:
     row["serve_ms"] = serve_ms
 
 
+NATIVE_DIR = "build/native_phase"   # phase 15's WAVs, noise and outputs
+NATIVE_TIMEOUT = 600         # seconds a host run may take
+
+
+def _write_f32_wav(path: str, x, sr: int) -> None:
+    import struct
+
+    import numpy as np
+    data = np.asarray(x, "<f4").tobytes()
+    with open(path, "wb") as f:
+        f.write(b"RIFF" + struct.pack("<I", 36 + len(data)) + b"WAVEfmt "
+                + struct.pack("<IHHIIHH", 16, 3, 1, sr, sr * 4, 4, 32)
+                + b"data" + struct.pack("<I", len(data)) + data)
+
+
+def _read_f32_wav(path: str):
+    import numpy as np
+    with open(path, "rb") as f:
+        return np.frombuffer(f.read()[44:], "<f4").copy()
+
+
+def _host_run(label, host, args, env=None, stdin=None, device=DEVICE):
+    """One run of the native host: its stdout, and its stderr's numbers
+    (ms a buffer, the launches the device counted)."""
+    import os
+    cmd = [str(host), *map(str, args), "--device", device]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, input=stdin, capture_output=True,
+                          env=dict(os.environ, **(env or {})),
+                          timeout=NATIVE_TIMEOUT)
+    seconds = time.perf_counter() - t0
+    err = proc.stderr.decode(errors="replace")
+    if proc.returncode != 0:
+        fail(f"native host, {label}: exit {proc.returncode}:\n{err[-3000:]}")
+    info = {"seconds": seconds, "stderr": err}
+    for line in err.splitlines():
+        if line.startswith("[stream_host] buffer ms: "):
+            info["ms"] = [float(v) / 1e3 for v in
+                          line.split(": ", 1)[1].split(",")]
+        elif line.startswith("[stream_host] launches counted on the "
+                             "device: "):
+            words = line.split()
+            info["launches"] = (int(words[7].rstrip(",")), int(words[9]))
+        elif line.startswith("[stream_host] load "):
+            info["load_s"] = float(line.split()[2])
+    return proc.stdout, info
+
+
+def path_bound(path, batch: int = 1):
+    """(ms, "bytes" or "operations"): the least time the card takes for the
+    kernel's launches over ``path`` ((ConvBlock1d, T) pairs) at ``batch``,
+    each launch the larger of its operations (3xTF32 at PEAK_TF32_FLOPS)
+    and its bytes (inputs read once, output written once, at PEAK_BYTES),
+    as phase 3 counts them."""
+    ms = ops_ms = bytes_ms = 0.0
+    for block, T in path:
+        k, d, C, O, T, mode = block_shape(block, T)
+        flops = 2.0 * k * C * O * T * batch
+        nbytes = 4.0 * (batch * T * C + 2 * C + O * C * k + O
+                        + batch * T * O)
+        ops_ms += 1e3 * 3 * flops / PEAK_TF32_FLOPS
+        bytes_ms += 1e3 * nbytes / PEAK_BYTES
+        ms += 1e3 * max(3 * flops / PEAK_TF32_FLOPS, nbytes / PEAK_BYTES)
+    return ms, "operations" if ops_ms >= bytes_ms else "bytes"
+
+
+def native_phase(row, a, b, attrs) -> None:
+    """Phase 15: the native streaming host on phase 13's artifacts (see the
+    module docstring); ``a`` and ``b`` are phase 6's request and ``attrs``
+    its changing attributes."""
+    import os
+    import threading
+
+    import numpy as np
+    import torch
+    from after_tpu_torch.ops.kernels.build import native_host
+    from after_tpu_torch.streaming.export import (ExportedCodec,
+                                                  ExportedStreamer)
+
+    runs = os.path.join(CLI_DIR, "runs")
+    art = os.path.join(runs, "diff", "after.audio.diff")
+    art2 = os.path.join(CLI_DIR, "after.audio.diff.voices2")
+    codec_art = os.path.join(runs, "ae", "codec_export")
+    per_buffer = row["launches_per_buffer"]
+    per_sums = row["sum_splits_launches_per_buffer"]
+    os.makedirs(NATIVE_DIR, exist_ok=True)
+
+    # the host's build and the stages' packages, all at once: one process
+    # a package job (its stages at once, a process each), the build beside
+    built = {}
+
+    def build():
+        t0 = time.perf_counter()
+        built["host"] = native_host()
+        built["seconds"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    build_thread = threading.Thread(target=build)
+    build_thread.start()
+    jobs = [(art, "cuda"), (art2, "cuda"), (art2, "cpu"), (codec_art, "cuda")]
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "after_tpu_torch.streaming.native", path,
+         "--device", dev],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for path, dev in jobs]
+    packaging, job_s = {}, {}
+    for (path, dev), proc in zip(jobs, procs):
+        out, err = proc.communicate()
+        if proc.returncode != 0:
+            fail(f"packaging {path} for {dev} failed:\n{err[-3000:]}")
+        name = f"{os.path.basename(path)} ({dev})"
+        packaging[name] = json.loads(out.strip().splitlines()[-1])
+        job_s[name] = time.perf_counter() - t0
+    build_thread.join()
+    if "host" not in built:
+        fail("the native host did not build (see the error above)")
+    host = built["host"]
+    wall = time.perf_counter() - t0
+    log(f"native: card {card_line()}; host built in {built['seconds']:.2f} "
+        f"s ({host.name}, with nvcc's kernel); packages (AOTInductor, "
+        f"a job's stages at once, 4 jobs at once, "
+        f"{wall:.2f} s wall): " + "; ".join(
+            f"{k}: " + ", ".join(f"{s} {v:.1f} s" for s, v in d.items())
+            + f" (done at {job_s[k]:.1f} s)" for k, d in packaging.items()))
+    ldd = subprocess.run(["ldd", str(host)], capture_output=True,
+                         text=True).stdout
+    if "libpython" in ldd or "libtorch_cuda" not in ldd:
+        fail(f"the native host links {ldd}")
+
+    with open(os.path.join(art, "manifest.json")) as f:
+        manifest = json.load(f)
+    A, T = manifest["audio_chunk"], manifest["chunk_size"]
+    sr = manifest["sr"]
+    C = manifest["config"]["denoiser"]["n_channels"]
+    S = int(manifest["attributes"]["nb_steps"]["max"])
+    n_buffers = a.shape[1] // A
+    x0s = np.random.RandomState(SEED + 13).randn(
+        n_buffers, 1, T, C).astype(np.float32)
+    d = NATIVE_DIR
+    _write_f32_wav(f"{d}/s.wav", a[0, :, 0], sr)
+    _write_f32_wav(f"{d}/t.wav", b[0, :, 0], sr)
+    x0s.tofile(f"{d}/x0.f32")
+
+    # the Python host on the same artifact, inputs and noise
+    gc.collect()
+    torch.cuda.empty_cache()
+    py = ExportedStreamer(art, DEVICE)
+
+    def py_stream(nb_steps, attributes=None, n=n_buffers):
+        times, ys = [], []
+        for i in range(n):
+            nb, gt, gs = (attributes[i] if attributes is not None
+                          else (nb_steps, GUIDANCE_TIMBRE, 1.0))
+            py.set_attribute("nb_steps", nb)
+            py.set_attribute("guidance_timbre", gt)
+            py.set_attribute("guidance_structure", gs)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            y = py.call("forward", a[:, i * A:(i + 1) * A],
+                        b[:, i * A:(i + 1) * A], x0=x0s[i]).cpu()
+            times.append(time.perf_counter() - t)
+            ys.append(y.numpy().ravel())
+        return times, np.concatenate(ys)
+
+    def check(label, y, ref, limit=CARD_VS_CPU_TOL):
+        if y.shape != ref.shape or not np.isfinite(y).all():
+            fail(f"native host, {label}: shape {y.shape} or non-finite")
+        err = float(np.abs(y - ref).max())
+        scale = float(np.abs(ref).max())
+        log(f"native: {label}: max abs err {err:.3e}, max |y| {scale:.4f}, "
+            f"tolerance {limit} * max |y| = {limit * scale:.3e}")
+        if not err <= limit * scale:
+            fail(f"native host, {label}: outside the tolerance")
+        return err / scale
+
+    def launches(label, info, n):
+        got = info.get("launches")
+        if got != (per_buffer * n, per_sums * n):
+            fail(f"native host, {label}: the device counted {got} "
+                 f"{KERNEL_NAME} and {SUM_NAME} launches in {n} buffers, "
+                 f"expected {per_buffer} and {per_sums} a buffer")
+        return got[0]
+
+    py_stream(STREAM_STEPS[-1], n=STREAM_WARMUP)                # warm-up
+    total = 0
+    medians, readings = {}, {}
+    for nb in STREAM_STEPS:
+        py.reset()
+        py_times, ref = py_stream(nb)
+        _, info = _host_run(f"nb_steps {nb}", host, [
+            art, f"{d}/s.wav", f"{d}/t.wav", f"{d}/o{nb}.wav", n_buffers,
+            nb, GUIDANCE_TIMBRE, 1.0, "--x0", f"{d}/x0.f32"],
+            env={"AFTER_NATIVE_PIPELINE": "1"})
+        y = _read_f32_wav(f"{d}/o{nb}.wav")
+        total += launches(f"nb_steps {nb}", info, n_buffers)
+        medians[nb] = (sorted(info["ms"])[n_buffers // 2] * 1e3,
+                       sorted(py_times)[n_buffers // 2] * 1e3)
+        log(f"native: nb_steps {nb}, {n_buffers} buffers of {A} samples "
+            f"(readback depth 1): median / p90 / max ms a buffer "
+            f"{spread(info['ms'])}, the Python host's {spread(py_times)}; "
+            f"load {info['load_s']:.2f} s (3 + {S} graphs captured), run "
+            f"{info['seconds']:.2f} s; {KERNEL_NAME} and {SUM_NAME} "
+            f"launches counted on the device "
+            f"{info['launches'][0] / n_buffers:g} and "
+            f"{info['launches'][1] / n_buffers:g} a buffer")
+        readings[f"nb_steps {nb}"] = check(
+            f"nb_steps {nb}, host vs Python host, {n_buffers} buffers", y,
+            ref)
+        if nb == STREAM_STEPS[-1]:
+            y_file = y
+
+    # nb_steps and both guidances changing every buffer, by AFTER_NATIVE_CTRL
+    n = len(attrs)
+    with open(f"{d}/ctrl.txt", "w") as f:
+        for i, (nb, gt, gs) in enumerate(attrs):
+            f.write(f"@{i} nb_steps {nb}\n@{i} guidance_timbre {gt!r}\n"
+                    f"@{i} guidance_structure {gs!r}\n")
+    py.reset()
+    py_times, ref = py_stream(None, attrs, n)
+    _, info = _host_run("changing attributes", host, [
+        art, f"{d}/s.wav", f"{d}/t.wav", f"{d}/oc.wav", n, 1,
+        "--x0", f"{d}/x0.f32"], env={"AFTER_NATIVE_CTRL": f"{d}/ctrl.txt",
+                                     "AFTER_NATIVE_PIPELINE": "1"})
+    total += launches("changing attributes", info, n)
+    log(f"native: {n} buffers with nb_steps 1-{S} and both guidances "
+        f"changing every buffer (AFTER_NATIVE_CTRL): median / p90 / max ms "
+        f"{spread(info['ms'])} (readback depth 1), the Python host's "
+        f"{spread(py_times)}")
+    readings["changing"] = check(
+        f"changing attributes, host vs Python host, {n} buffers",
+        _read_f32_wav(f"{d}/oc.wav"), ref)
+
+    # live: interleaved 2-channel f32 in through a pipe, mono f32 out
+    frames = np.stack([a[0, :, 0], b[0, :, 0]], axis=1).astype("<f4")
+    out, info = _host_run("--pcm", host, [
+        art, "--pcm", STREAM_STEPS[-1], GUIDANCE_TIMBRE, 1.0,
+        "--x0", f"{d}/x0.f32"], stdin=frames.tobytes())
+    total += launches("--pcm", info, n_buffers)
+    y = np.frombuffer(out, "<f4")
+    readings["pcm"] = check(f"--pcm through pipes vs file mode, nb_steps "
+                            f"{STREAM_STEPS[-1]}", y, y_file, GRAPH_TOL)
+    del py
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the two voices: the host on the card against the Python host and
+    # against the same host on the CPU (the op's plain version there)
+    rng = np.random.RandomState(SEED + 14)
+    m = STREAM_VS_CPU_BUFFERS * A
+    a2 = 0.1 * rng.randn(2, m, 1).astype(np.float32)
+    b2 = 0.1 * rng.randn(2, m, 1).astype(np.float32)
+    x2 = rng.randn(STREAM_VS_CPU_BUFFERS, 2, T, C).astype(np.float32)
+    x2.tofile(f"{d}/x2.f32")
+    files = {}
+    for name, x in (("s", a2), ("t", b2)):
+        files[name] = ",".join(f"{d}/{name}2_{v}.wav" for v in range(2))
+        for v in range(2):
+            _write_f32_wav(f"{d}/{name}2_{v}.wav", x[v, :, 0], sr)
+    ys = {}
+    for dev in ("cuda", "cpu"):
+        outs = ",".join(f"{d}/o2_{dev}_{v}.wav" for v in range(2))
+        _, info = _host_run(f"two voices on {dev}", host, [
+            art2, files["s"], files["t"], outs, STREAM_VS_CPU_BUFFERS, 2,
+            GUIDANCE_TIMBRE, 1.0, "--x0", f"{d}/x2.f32"], device=dev)
+        ys[dev] = np.stack([_read_f32_wav(f"{d}/o2_{dev}_{v}.wav")
+                            for v in range(2)])
+        if dev == "cuda":
+            total += launches("two voices", info, STREAM_VS_CPU_BUFFERS)
+    voices = ExportedStreamer(art2, DEVICE)
+    voices.set_attribute("nb_steps", 2)
+    voices.set_attribute("guidance_timbre", GUIDANCE_TIMBRE)
+    ref = np.concatenate([voices.call(
+        "forward", a2[:, i * A:(i + 1) * A], b2[:, i * A:(i + 1) * A],
+        x0=x2[i]).cpu().numpy()[..., 0]
+        for i in range(STREAM_VS_CPU_BUFFERS)], axis=1)
+    del voices
+    readings["voices"] = check(
+        f"two voices, host vs Python host, {STREAM_VS_CPU_BUFFERS} buffers",
+        ys["cuda"], ref)
+    readings["card_vs_cpu"] = check(
+        f"two voices, host on the card vs the host on the CPU, "
+        f"{STREAM_VS_CPU_BUFFERS} buffers", ys["cuda"], ys["cpu"])
+
+    # the codec-only artifact: its forward, buffer by buffer
+    _, info = _host_run("codec artifact", host, [
+        codec_art, f"{d}/s.wav", f"{d}/oa.wav", n_buffers])
+    codec_launches = info["launches"][0]
+    if codec_launches != 2 * per_buffer // 3 * n_buffers:
+        fail(f"native host, codec artifact: the device counted "
+             f"{codec_launches} {KERNEL_NAME} launches in {n_buffers} "
+             "forwards")
+    total += codec_launches
+    codec = ExportedCodec(codec_art, DEVICE)
+    ref = np.concatenate([codec.forward(a[:, i * A:(i + 1) * A]).cpu()
+                          .numpy().ravel() for i in range(n_buffers)])
+    del codec
+    readings["codec"] = check(
+        f"codec artifact forward, host vs ExportedCodec, {n_buffers} buffers",
+        _read_f32_wav(f"{d}/oa.wav"), ref)
+    log(f"native: codec artifact, {n_buffers} forwards, median / p90 / max "
+        f"ms {spread(info['ms'])}, {codec_launches // n_buffers} "
+        f"{KERNEL_NAME} launches a forward, counted on the device")
+    log(f"native: card {card_line()}")
+    # the codec artifact forward's bound: one encode and one decode of a
+    # crossfade window, at the codec run's shapes
+    from after_tpu_torch.config import load_codec_config
+    from after_tpu_torch.models.autoencoder import AudioCodec
+    ccfg = load_codec_config(os.path.join(runs, "ae"))
+    enc_w, dec_w = codec_conv_blocks(AudioCodec(ccfg),
+                                     (N_FADE + CHUNK) * ccfg.ratio)
+    codec_bound, codec_by = path_bound(enc_w + dec_w)
+    log(f"native: the kernel's bound a codec artifact forward "
+        f"({len(enc_w + dec_w)} launches): {codec_bound:.4f} ms ({codec_by}"
+        f"), a host buffer's ({per_buffer} launches) "
+        f"{row['bound_ms_per_buffer']:.4f} ms")
+    row["bound_ms_per_codec_artifact_forward"] = codec_bound
+    row["launches_native_host"] = total
+    row["launches_per_native_buffer"] = per_buffer
+    row["native_buffer_ms_median"] = {k: v[0] for k, v in medians.items()}
+    row["native_python_buffer_ms_median"] = {k: v[1]
+                                             for k, v in medians.items()}
+    row["native_build_seconds"] = built["seconds"]
+    row["native_package_seconds"] = packaging
+    row["native_readings"] = readings
+
+
 class _Timer:
     """Wraps ``owner.name`` (a function or method) so that each call's host
     ms, synchronized before and after on the card where ``sync``, lands in
@@ -3440,6 +3787,9 @@ def main() -> None:
 
     # 14. dataset preparation with phase 12's codec run
     dataset_phase(row)
+
+    # 15. the native streaming host on phase 13's artifacts
+    native_phase(row, a, b, attrs)
 
     # the card again, so that the end of a long output still names it
     log(f"card: {card_line()}")

@@ -144,6 +144,13 @@ def _same_stores(port_path, jax_path):
                                               err_msg=f"{key}/{name}")
         assert (midi_a is None) == (midi_b is None), key
         if midi_b is not None:
+            # the JAX package's bytes, where its notes hold Python numbers
+            # (its basic-pitch notes pickle numpy's, which the port writes
+            # as Python numbers)
+            if not any(isinstance(v, np.generic)
+                       for n in pickle.loads(midi_b).notes
+                       for v in vars(n).values()):
+                assert midi_a == midi_b, key
             # the port's records read back through its loader and a plain
             # pickle.loads (what the JAX collate calls)
             assert (_notes(port_midi.loads(midi_a))
@@ -155,13 +162,6 @@ def _same_stores(port_path, jax_path):
 
 @pytest.fixture(scope="module")
 def prepared(tmp_path_factory):
-    # PyTorch's first torch.sin of a CPU process may compute one thread's
-    # share of a large tensor about 1.5e-4 off float64, in some processes
-    # (5 of 40 that import torch alone: scripts/torch_cpu_first_call.py,
-    # ROADMAP section C): one call first,
-    # so that the codec's snake activations are exact to f32 from their
-    # first
-    torch.sin(torch.linspace(-4.0, 4.0, 1 << 16))
     root = tmp_path_factory.mktemp("prepare")
     corpus, to_transcribe = _corpus(root)
     jax_run, port_run = _codec_runs(root)
@@ -250,6 +250,47 @@ def test_the_port_reads_a_jax_transcribed_store(prepared):
     assert got["x_time_cond"].any()
     for name in want:
         np.testing.assert_array_equal(got[name], want[name], err_msg=name)
+
+
+# the JAX collate over a store the port wrote, in a process where neither
+# torch nor the port can be imported
+_JAX_COLLATE = """
+import sys
+
+class Blocked:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("torch", "after_tpu_torch"):
+            raise ImportError(f"{name} is blocked in this process")
+
+sys.meta_path.insert(0, Blocked())
+from after_tpu.dataset import AudioExample, RecordReader
+from after_tpu.dataset.collate import make_collate_fn
+reader = RecordReader(sys.argv[1])
+batch = [{"z": ae.get("z"), "midi_bytes": ae.get_bytes("midi_bytes")}
+         for ae in (AudioExample(reader.get(k)) for k in reader.keys())]
+out = make_collate_fn(n_signal=int(sys.argv[2]), structure_type="midi",
+                      ae_ratio=16, sr=44100)(batch)
+assert "torch" not in sys.modules and "after_tpu_torch" not in sys.modules
+print(len(batch), int((out["x_time_cond"] != 0).sum()))
+"""
+
+
+@pytest.mark.parametrize("store", ["midi", "transcribed"])
+def test_the_jax_collate_reads_the_ports_midi_without_torch(prepared, store):
+    """C8: the port's MIDI records name the JAX package's classes, so its
+    collate reads them with neither torch nor the port importable, and makes
+    the piano rolls it makes of the JAX package's own store."""
+    import subprocess
+    _, stores, _ = prepared
+    rolls = []
+    for pkg in ("port", "jax"):
+        out = subprocess.run(
+            [sys.executable, "-c", _JAX_COLLATE, stores[pkg, store],
+             str(N // 32)], capture_output=True, text=True,
+            cwd=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+        assert out.returncode == 0, out.stderr[-3000:]
+        rolls.append(out.stdout.split())
+    assert rolls[0] == rolls[1] and int(rolls[0][1]) > 0
 
 
 def test_update_dataset_matches_jax(prepared):

@@ -390,3 +390,20 @@ def test_wav_files_read_as_in_the_jax_package(tmp_path, dtype, sr):
     jax_audio.save_wav(str(tmp_path / "c.wav"), 2 * ours, ours_sr)
     assert (tmp_path / "b.wav").read_bytes() == \
         (tmp_path / "c.wav").read_bytes()
+
+
+@pytest.mark.parametrize("n_notes", [0, 1, 2, 1000, 1001, 2001])
+def test_port_midi_dumps_is_the_jax_pickle(n_notes):
+    """``dataset.midi.dumps`` writes the bytes ``pickle.dumps`` writes of the
+    JAX package's MidiFile, numpy numbers as Python's, across pickle's
+    batches of 1000 list items (a last batch of one included)."""
+    rng = np.random.default_rng(n_notes)
+    rows = [(int(p), int(v), float(s), float(s + d)) for p, v, s, d in zip(
+        rng.integers(0, 128, n_notes), rng.integers(1, 70000, n_notes),
+        rng.random(n_notes) * 10, rng.random(n_notes))]
+    want = pickle.dumps(JaxMidi(notes=[JaxNote(*r) for r in rows]))
+    assert port_midi.dumps(port_midi.MidiFile(
+        notes=[port_midi.Note(*r) for r in rows])) == want
+    assert port_midi.dumps(port_midi.MidiFile(notes=[port_midi.Note(
+        np.int64(p), np.int32(v), np.float64(s), np.float64(e))
+        for p, v, s, e in rows])) == want
