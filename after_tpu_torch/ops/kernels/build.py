@@ -77,6 +77,23 @@ def load(source: str) -> ctypes.CDLL:
         return lib
 
 
+def load_all(*sources: str):
+    """The loaded libraries of several sources, those not yet built compiled
+    at once (an nvcc each)."""
+    with _LOCK:
+        missing = [s for s in sources
+                   if s not in _LOADED and not _target(s).exists()]
+        if missing:
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmps = {s: _target(s).with_suffix(f".{os.getpid()}.tmp")
+                    for s in missing}
+            _wait(_start(*[[_nvcc(), *NVCC_FLAGS, "-o", str(tmps[s]),
+                            str(CSRC / s)] for s in missing]))
+            for s in missing:
+                os.replace(tmps[s], _target(s))
+    return [load(s) for s in sources]
+
+
 # ---------------------------------------------------------------------------
 # the native streaming host: the op library (csrc/snake_conv_op.cc, the op
 # after_tpu_torch::snake_conv registered from C++) and the host program

@@ -34,15 +34,24 @@ their own launches on the device (``device_launches``,
 ``reset_device_launches``), replays included.
 
 The op is differentiable, as the JAX package's custom VJP makes its kernel
-(``_fused_with_vjp``): its registered gradient (``_plain_vjp``) is the VJP
-of the plain version, recomputed from the saved inputs (x, alpha, beta,
-w_k, b).  There is no backward kernel, as the JAX package has none.
+(``_fused_with_vjp``): its registered gradient calls a second registered op,
+``after_tpu_torch::snake_conv_backward`` (``snake_conv_backward``), on the
+saved inputs (x, alpha, beta, w_k, b) for the inputs that need a gradient.
+On CUDA tensors that op launches two kernels of its own
+(csrc/snake_conv_backward.cu, 3xTF32 on the tensor cores: dgrad for x,
+alpha, beta and b, wgrad for the weight) and their fixed-order sum of
+partials, or raises; on CPU tensors it is the plain version
+(``snake_conv_backward_reference``, the VJP of ``snake_conv_reference``,
+which the JAX package's custom VJP also is).  The backward kernels count
+their launches on the device beside the forward's
+(``backward_device_launches``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
-from typing import Dict, Tuple
+from typing import Dict, List, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -51,6 +60,7 @@ from ..conv import get_padding
 from ..snake import snake_beta
 
 SOURCE = "fused_snake_conv.cu"
+BACKWARD_SOURCE = "snake_conv_backward.cu"
 
 
 def snake_conv_reference(x: torch.Tensor, alpha: torch.Tensor,
@@ -85,6 +95,28 @@ def _lib():
     return _LIB
 
 
+_BWD_LIB = None
+
+
+def _bwd_lib():
+    global _BWD_LIB
+    if _BWD_LIB is None:
+        from .build import load
+        lib = load(BACKWARD_SOURCE)
+        p = ctypes.c_void_p
+        i = ctypes.c_int
+        lib.snake_conv_backward_plan.argtypes = [i] * 6 + [p]
+        lib.snake_conv_backward_plan.restype = ctypes.c_int
+        lib.snake_conv_backward_dgrad_f32.argtypes = [p] * 10 + [i] * 8 + [
+            p, p]
+        lib.snake_conv_backward_dgrad_f32.restype = ctypes.c_int
+        lib.snake_conv_backward_wgrad_f32.argtypes = [p] * 6 + [i] * 8 + [
+            p, p]
+        lib.snake_conv_backward_wgrad_f32.restype = ctypes.c_int
+        _BWD_LIB = lib
+    return _BWD_LIB
+
+
 _PLANS: Dict[Tuple[int, ...], Tuple[int, int, int]] = {}
 
 
@@ -105,14 +137,40 @@ def kernel_plan(B: int, T: int, C: int, O: int, k: int, dilation: int = 1
     return _PLANS[key]
 
 
+_BWD_PLANS: Dict[Tuple[int, ...], Tuple[int, ...]] = {}
+
+
+def backward_plan(B: int, T: int, C: int, O: int, k: int, dilation: int = 1
+                  ) -> Tuple[int, ...]:
+    """(dgrad's input channels per block, output channels per stage, rows
+    of partial sums; wgrad's input channels per block, splits of the frame
+    sum) that a backward at this shape takes; builds the kernels if
+    needed."""
+    key = (B, T, C, O, k, dilation)
+    if key not in _BWD_PLANS:
+        out = (ctypes.c_int * 5)()
+        err = _bwd_lib().snake_conv_backward_plan(B, T, C, O, k, dilation,
+                                                   ctypes.addressof(out))
+        if err != 0:
+            raise ValueError(f"no backward tiling for B={B} T={T} C={C} "
+                             f"O={O} k={k} d={dilation} (CUDA error {err})")
+        _BWD_PLANS[key] = tuple(out)
+    return _BWD_PLANS[key]
+
+
 _COUNTS: Dict[torch.device, torch.Tensor] = {}
+# slots of the device counters: the forward kernel's and its split sum's
+# (what the kernel of fused_snake_conv.cu writes), then the backward's:
+# dgrad, wgrad and their sum of partials
+_FORWARD_SLOTS = 2
+_BACKWARD_SLOTS = 3
 
 
 def _device_counts(device: torch.device) -> torch.Tensor:
-    """The two int64 launch counters on ``device`` that the kernels add to
-    (the conv kernel's, then the split sum's), made at the first launch; a
-    first launch inside a CUDA graph capture raises, since the counters
-    must not come from the graph's pool."""
+    """The int64 launch counters on ``device`` that the kernels add to (the
+    conv kernel's, the split sum's, then the backward kernels' three), made
+    at the first launch; a first launch inside a CUDA graph capture raises,
+    since the counters must not come from the graph's pool."""
     device = torch.device("cuda", torch.cuda.current_device()
                           if device.index is None else device.index)
     counts = _COUNTS.get(device)
@@ -124,8 +182,9 @@ def _device_counts(device: torch.device) -> torch.Tensor:
         # a normal tensor even under inference mode, so that it can be
         # reset outside it
         with torch.inference_mode(False):
-            counts = _COUNTS[device] = torch.zeros(2, dtype=torch.int64,
-                                                   device=device)
+            counts = _COUNTS[device] = torch.zeros(
+                _FORWARD_SLOTS + _BACKWARD_SLOTS, dtype=torch.int64,
+                device=device)
     return counts
 
 
@@ -134,11 +193,22 @@ def device_launches(device="cuda") -> Tuple[int, int]:
     kernel) on ``device`` since the last ``reset_device_launches``, as the
     kernels counted them on the device: eager launches and those replayed
     from CUDA graphs alike.  Waits for the device's work to end."""
-    return tuple(_device_counts(torch.device(device)).tolist())
+    return tuple(_device_counts(torch.device(device))[:_FORWARD_SLOTS]
+                 .tolist())
+
+
+def backward_device_launches(device="cuda") -> Tuple[int, int, int]:
+    """(launches of the backward's dgrad kernel, of its wgrad kernel, of
+    their sum of partials) on ``device`` since the last
+    ``reset_device_launches``, counted on the device as
+    ``device_launches`` counts the forward's.  Waits for the device."""
+    return tuple(_device_counts(torch.device(device))[_FORWARD_SLOTS:]
+                 .tolist())
 
 
 def reset_device_launches(device="cuda") -> None:
-    """Sets ``device``'s launch counters to 0, in stream order."""
+    """Sets ``device``'s launch counters (forward and backward) to 0, in
+    stream order."""
     _device_counts(torch.device(device)).zero_()
 
 
@@ -252,32 +322,183 @@ def _snake_conv_fake(x, alpha, beta, w_k, w_lo, b, dilation, mode):
     return x.new_empty((x.shape[0], x.shape[1], w_k.shape[1]))
 
 
+@contextlib.contextmanager
+def _autograd_inside_op():
+    """Grad mode on, and autograd recording even inside a registered op's
+    kernel, which the dispatcher runs with the autograd keys excluded: the
+    plain backward differentiates the plain version."""
+    excluded = torch._C._dispatch_tls_local_exclude_set()
+    for key in (torch._C.DispatchKey.AutogradFunctionality,
+                torch._C.DispatchKey.AutogradOther,
+                torch._C.DispatchKey.AutogradNestedTensor):
+        excluded = excluded.remove(key)
+    with torch._C._ForceDispatchKeyGuard(
+            torch._C._dispatch_tls_local_include_set(), excluded), \
+            torch.enable_grad():
+        yield
+
+
+def snake_conv_backward_reference(g: torch.Tensor, x: torch.Tensor,
+                                  alpha: torch.Tensor, beta: torch.Tensor,
+                                  w_k: torch.Tensor, b: torch.Tensor,
+                                  dilation: int, mode: str, needs: List[bool]
+                                  ) -> Tuple[torch.Tensor, ...]:
+    """Plain version of the backward: the VJP of ``snake_conv_reference``
+    against g, recomputed from the inputs, as the JAX package's custom VJP
+    computes it.  Returns (gx, galpha, gbeta, gw_k, gb), gw_k in w_k's
+    (k, O, Cw) layout; an output whose ``needs`` entry is false is an empty
+    tensor."""
+    saved = [t.detach().requires_grad_(n)
+             for t, n in zip((x, alpha, beta, w_k, b), needs)]
+    wanted = [t for t in saved if t.requires_grad]
+    with _autograd_inside_op():
+        x, alpha, beta, w_k, b = saved
+        y = snake_conv_reference(x, alpha, beta,
+                                 torch_weight(w_k, x.shape[2]), b,
+                                 dilation, mode)
+        grads = iter(torch.autograd.grad(y, wanted, g) if wanted else ())
+    return tuple(next(grads) if t.requires_grad else x.new_empty(0)
+                 for t in saved)
+
+
+def backward_weight(w_k: torch.Tensor, channels: int) -> torch.Tensor:
+    """The weight as the dgrad kernel reads it, a copy made at each
+    backward: (k, C, Ow) contiguous, out[j] = w_k[j] transposed, Ow = O
+    rounded up to a multiple of 4, zeros past O (the kernel takes the taps
+    in reverse and makes the low tf32 half on chip)."""
+    k, O, _ = w_k.shape
+    Ow = -(-O // 4) * 4
+    wt = torch.empty((k, channels, Ow), dtype=w_k.dtype, device=w_k.device)
+    wt[:, :, :O] = w_k.detach()[:, :, :channels].transpose(1, 2)
+    if Ow > O:
+        wt[:, :, O:] = 0
+    return wt
+
+
+def _launch_backward(g, x, alpha, beta, w_k, b, dilation, mode, needs):
+    """Checks the inputs and launches the backward's kernels on x's device:
+    dgrad (with its sum of partials) for the gradients of x, alpha, beta
+    and b, wgrad for w_k's, each only when one of its outputs is wanted."""
+    if x.dim() != 3 or w_k.dim() != 3 or len(needs) != 5:
+        raise ValueError(f"x must be (B, T, C), w_k (k, O, Cw) and needs 5 "
+                         f"flags; got {tuple(x.shape)}, {tuple(w_k.shape)} "
+                         f"and {len(needs)}")
+    B, T, C = x.shape
+    k, O, Cw = w_k.shape
+    if Cw % 4 or not C <= Cw < C + 4:
+        raise ValueError(f"w_k has {Cw} input channels for x's {C}: the "
+                         "kernels read C rounded up to a multiple of 4")
+    _check("x", x, x.device, (B, T, C))
+    _check("g", g, x.device, (B, T, O))
+    _check("alpha", alpha, x.device, (C,))
+    _check("beta", beta, x.device, (C,))
+    _check("w_k", w_k, x.device, (k, O, Cw))
+    _check("b", b, x.device, (O,))
+    need_x, need_alpha, need_beta, need_w, need_b = (bool(n) for n in needs)
+    left, _ = get_padding(k, 1, dilation, mode)
+    plan = backward_plan(B, T, C, O, k, dilation)
+    dgrad_rows, splits = plan[2], plan[4]
+
+    def out(wanted, shape):
+        return (torch.empty(shape, device=x.device, dtype=torch.float32)
+                if wanted else x.new_empty(0))
+
+    def ptr(t):
+        return t.data_ptr() if t.numel() else None
+
+    gx, galpha, gbeta = (out(need_x, (B, T, C)), out(need_alpha, (C,)),
+                         out(need_beta, (C,)))
+    gw, gb = out(need_w, (k, O, Cw)), out(need_b, (O,))
+    counts = _device_counts(x.device).data_ptr() + 8 * _FORWARD_SLOTS
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        if need_x or need_alpha or need_beta or need_b:
+            wt = backward_weight(w_k, C)
+            sums = need_alpha or need_beta or need_b
+            ws = (torch.empty((dgrad_rows, 2 * C + O), device=x.device,
+                              dtype=torch.float32) if sums else None)
+            err = _bwd_lib().snake_conv_backward_dgrad_f32(
+                g.data_ptr(), x.data_ptr(), alpha.data_ptr(),
+                beta.data_ptr(), wt.data_ptr(), ptr(gx),
+                None if ws is None else ws.data_ptr(), ptr(galpha),
+                ptr(gbeta), ptr(gb), B, T, C, O, k, dilation, left,
+                wt.shape[2], counts, stream)
+            if err != 0:
+                raise RuntimeError(
+                    f"snake_conv_backward dgrad launch failed with CUDA "
+                    f"error {err} (B={B} T={T} C={C} O={O} k={k} "
+                    f"d={dilation} mode={mode})")
+            snake_conv_backward.launches["dgrad"] += 1
+        if need_w:
+            ws = (torch.empty((splits, k * O * Cw), device=x.device,
+                              dtype=torch.float32) if splits > 1 else None)
+            err = _bwd_lib().snake_conv_backward_wgrad_f32(
+                x.data_ptr(), alpha.data_ptr(), beta.data_ptr(),
+                g.data_ptr(), gw.data_ptr(),
+                None if ws is None else ws.data_ptr(), B, T, C, O, k,
+                dilation, left, Cw, counts, stream)
+            if err != 0:
+                raise RuntimeError(
+                    f"snake_conv_backward wgrad launch failed with CUDA "
+                    f"error {err} (B={B} T={T} C={C} O={O} k={k} "
+                    f"d={dilation} mode={mode})")
+            snake_conv_backward.launches["wgrad"] += 1
+    return gx, galpha, gbeta, gw, gb
+
+
+@torch.library.custom_op("after_tpu_torch::snake_conv_backward",
+                         mutates_args=(), device_types="cuda")
+def snake_conv_backward(g: torch.Tensor, x: torch.Tensor, alpha: torch.Tensor,
+                        beta: torch.Tensor, w_k: torch.Tensor,
+                        b: torch.Tensor, dilation: int, mode: str,
+                        needs: List[bool]
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                                   torch.Tensor, torch.Tensor]:
+    """The registered op ``after_tpu_torch::snake_conv_backward``: the
+    gradients (gx, galpha, gbeta, gw_k, gb) of ``snake_conv`` against g =
+    dL/dy, for the inputs whose ``needs`` flag is set (x, alpha, beta, w_k,
+    b); the others come back as empty tensors.  On CUDA tensors it launches
+    the backward's kernels (``_launch_backward``) or raises; on CPU tensors
+    it is the plain version (``snake_conv_backward_reference``)."""
+    return _launch_backward(g, x, alpha, beta, w_k, b, dilation, mode, needs)
+
+
+snake_conv_backward.launches = {"dgrad": 0, "wgrad": 0}
+
+
+@snake_conv_backward.register_kernel("cpu")
+def _snake_conv_backward_cpu(g, x, alpha, beta, w_k, b, dilation, mode,
+                             needs):
+    return snake_conv_backward_reference(g, x, alpha, beta, w_k, b, dilation,
+                                         mode, needs)
+
+
+@snake_conv_backward.register_fake
+def _snake_conv_backward_fake(g, x, alpha, beta, w_k, b, dilation, mode,
+                              needs):
+    shapes = (x.shape, alpha.shape, beta.shape, w_k.shape, b.shape)
+    return tuple(x.new_empty(s if n else (0,)) for s, n in zip(shapes, needs))
+
+
 def _save_inputs(ctx, inputs, output):
     x, alpha, beta, w_k, _, b, dilation, mode = inputs
     ctx.save_for_backward(x, alpha, beta, w_k, b)
     ctx.dilation, ctx.mode = dilation, mode
 
 
-def _plain_vjp(ctx, g):
-    """The op's gradient, the counterpart of ``_fused_with_vjp``'s: the VJP
-    of the plain version, recomputed from the saved inputs (x, alpha, beta,
-    w_k, b), for the inputs that need one; none for the low half."""
-    need = [ctx.needs_input_grad[i] for i in (0, 1, 2, 3, 5)]
-    saved = [t.detach().requires_grad_(n)
-             for t, n in zip(ctx.saved_tensors, need)]
-    wanted = [t for t in saved if t.requires_grad]
-    with torch.enable_grad():
-        x, alpha, beta, w_k, b = saved
-        y = snake_conv_reference(x, alpha, beta,
-                                 torch_weight(w_k, x.shape[2]), b,
-                                 ctx.dilation, ctx.mode)
-        grads = iter(torch.autograd.grad(y, wanted, g))
-    gx, galpha, gbeta, gw, gb = (next(grads) if t.requires_grad else None
-                                 for t in saved)
+def _backward(ctx, g):
+    """The op's gradient, the counterpart of ``_fused_with_vjp``'s: the op
+    ``snake_conv_backward`` on the saved inputs (x, alpha, beta, w_k, b),
+    for the inputs that need one; none for the low half."""
+    needs = [ctx.needs_input_grad[i] for i in (0, 1, 2, 3, 5)]
+    grads = snake_conv_backward(g.contiguous(), *ctx.saved_tensors,
+                                ctx.dilation, ctx.mode, needs)
+    gx, galpha, gbeta, gw, gb = (t if n else None
+                                 for t, n in zip(grads, needs))
     return gx, galpha, gbeta, gw, None, gb, None, None
 
 
-snake_conv.register_autograd(_plain_vjp, setup_context=_save_inputs)
+snake_conv.register_autograd(_backward, setup_context=_save_inputs)
 
 
 def fused_snake_conv(x: torch.Tensor, alpha: torch.Tensor, beta: torch.Tensor,

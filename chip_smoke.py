@@ -5,7 +5,8 @@
 Phases, each printed before the last line:
 
 1. card: name and power limit (nvidia-smi), torch and CUDA versions;
-2. build: the CUDA kernel from its source in the checkout, with nvcc;
+2. build: the CUDA kernels from their two sources in the checkout (the
+   forward's and the backward's), an nvcc each, started together;
 3. kernels: each kernel against its plain PyTorch version at every shape
    the base codec gives it for a 524288-sample transfer and for one
    streamed buffer (the crossfade windows of 16384 samples), with times of
@@ -79,15 +80,24 @@ Phases, each printed before the last line:
    median of each kind without its first step; every metric finite, no
    skipped update, the codec's parameters changed by each generator step
    and the discriminator's by each discriminator step, 64 kernel launches
-   a step (one codec forward); one more GAN generator step under
-   torch.profiler as in phase 4 (no TF32 kernel but the port's own); peak
-   device memory; the cost of weight norm and of the kernel's weight split
-   per codec forward; then the kernel at every shape of a training codec
-   forward (batch 8), as in phase 3, and its autograd Function's gradients
-   for x, alpha, beta, w and b against plain autograd (each within
-   GRAD_TOL x max |g| of its tensor), with the backward's time per
-   generator step from CUDA graphs (and eager) beside ``F.conv1d``'s
-   autograd backward at the same shapes from CUDA graphs;
+   a step (one codec forward), and in each generator step 64 launches of
+   each backward kernel (dgrad and wgrad) and of their sums of partials as
+   their plans ask, none in a discriminator step, counted on the device
+   (the counts set to 0 before ``fit`` and after each step's callback);
+   one more GAN generator step under torch.profiler as in phase 4 (no TF32
+   kernel but the port's own); peak device memory; the cost of weight norm
+   and of the kernel's weight split per codec forward; then the kernel at
+   every shape of a training codec forward (batch 8), as in phase 3, and
+   the op's backward kernels at the same shapes (``check_gradients``):
+   gradients through autograd against plain autograd (GRAD_TOL), the op
+   against its plain backward tensor by tensor (KERNEL_TOL), against
+   float64 within F64_RATIO of the strict-f32 plain backward, the same
+   bits from two launches and from a CUDA graph replay, and per generator
+   step from CUDA graphs the backward's time (and eager), dgrad's and
+   wgrad's each beside the plain backward's and ``F.conv1d``'s autograd
+   backward for the same gradients, and the whole of ``F.conv1d``'s, each
+   with cudnn.benchmark off and on, and the bound on the 3xTF32 tensor cores
+   beside the plain VJP's on the f32 CUDA cores;
 9. training card vs CPU: the same weights at batch 1 and 16384 samples,
    fixed bottleneck noise, one GAN generator step's and one discriminator
    step's losses (within CARD_VS_CPU_TOL) and gradients (each tensor within
@@ -253,7 +263,9 @@ Phases, each printed before the last line:
 
 Any failure exits non-zero.  The card's name and power limit are printed
 again after phase 15.  The line before the last is the kernel table as
-JSON (the snake+conv kernel and its split sum); the last line is ``{"ok":
+JSON (the snake+conv kernel, its split sum and the backward's dgrad and
+wgrad kernels); each phase's seconds are printed as it ends; the last
+line is ``{"ok":
 true, "device": {...}}``.  Imports nothing of JAX or of after_tpu.
 """
 
@@ -296,11 +308,14 @@ CARD_VS_CPU_TOL = 1e-4       # max abs error <= CARD_VS_CPU_TOL * max |y_cpu|
 GRAPH_TOL = 1e-6             # max abs difference <= GRAPH_TOL * max |y|
 KERNEL_NAME = "snake_conv_3xtf32"   # the kernel's device function
 SUM_NAME = "sum_splits"      # its second kernel, for split channel sums
+DGRAD_NAME = "snake_conv_dgrad_3xtf32"   # the backward's kernels
+WGRAD_NAME = "snake_conv_wgrad_3xtf32"
+PARTIALS_NAME = "sum_partials"           # their fixed-order sum of partials
 STREAM_CHANGING = 64         # buffers of the stream whose attributes change
 TOP_KERNELS = 12
 # the port's kernels that use TF32 on purpose (3xTF32, held to float64 in
 # the kernel phase); any other kernel with "tf32" in its name fails the run
-PORT_TF32_KERNELS = ("snake_conv_3xtf32",)
+PORT_TF32_KERNELS = ("snake_conv_3xtf32", DGRAD_NAME, WGRAD_NAME)
 TRAIN_STEPS = 10
 TRAIN_WARMUP = 2             # AETrainConfig.warmup_steps in phase 8
 TRAIN_KINDS = ["warmup"] * 3 + ["gan", "disc", "gan", "gan", "gan", "disc",
@@ -394,6 +409,21 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
+_CLOCK = {}
+
+
+def phase_time(label: str) -> None:
+    """Logs the seconds since the last call (the phases just ended) and
+    since the first."""
+    now = time.perf_counter()
+    start = _CLOCK.setdefault("start", now)
+    last = _CLOCK.get("last", start)
+    _CLOCK["last"] = now
+    if label != "start":
+        log(f"time: {label} {now - last:.1f} s, the script so far "
+            f"{now - start:.1f} s")
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -445,19 +475,23 @@ def rotating_ms(fn, inputs) -> float:
     return ms
 
 
-def vjp_ms(fwd, args, gy, reps: int = 5) -> float:
+def vjp_ms(fwd, args, gy, reps: int = 5, wrt=None) -> float:
     """Device time of one backward of fwd(*args) against gy, in ms: the
     forward captured in one CUDA graph and reps backwards in a second on
     the same pool and stream, as torch.cuda.make_graphed_callables captures
-    a backward; CUDA events around the backward graph's replay.  The inputs
-    are fresh leaves: a leaf already used on the default stream carries that
-    stream in its gradient node, and a captured backward would wait on it."""
+    a backward; CUDA events around the backward graph's replay.  The
+    gradient is taken for the args whose ``wrt`` flag is set (all by
+    default).  The inputs are fresh leaves: a leaf already used on the
+    default stream carries that stream in its gradient node, and a captured
+    backward would wait on it."""
     import torch
-    args = [a.detach().clone().requires_grad_() for a in args]
+    wrt = [True] * len(args) if wrt is None else wrt
+    args = [a.detach().clone().requires_grad_(n) for a, n in zip(args, wrt)]
+    leaves = [a for a in args if a.requires_grad]
     torch.cuda.synchronize()
     with torch.cuda.stream(torch.cuda.Stream()):
         for _ in range(2):
-            torch.autograd.grad(fwd(*args), args, gy)
+            torch.autograd.grad(fwd(*args), leaves, gy)
     torch.cuda.synchronize()
     pool = torch.cuda.graph_pool_handle()
     g_fwd, g_bwd = torch.cuda.CUDAGraph(), torch.cuda.CUDAGraph()
@@ -465,7 +499,7 @@ def vjp_ms(fwd, args, gy, reps: int = 5) -> float:
         y = fwd(*args)
     with torch.cuda.graph(g_bwd, pool=pool):
         for _ in range(reps):
-            torch.autograd.grad(y, args, gy, retain_graph=True)
+            torch.autograd.grad(y, leaves, gy, retain_graph=True)
     g_fwd.replay()
     g_bwd.replay()
     torch.cuda.synchronize()
@@ -670,34 +704,62 @@ def check_fused_conv(path, unit, batch: int = 1):
 
 
 def check_gradients(path, batch: int):
-    """The autograd Function (kernel forward, plain version's VJP backward)
-    against plain autograd at every distinct shape of ``path`` at
-    ``batch``: each input's gradient within GRAD_TOL x its max |g|.
-    Returns the worst ratio and the backward's time summed over one codec
-    forward's launches, with its operations (recompute, dgrad, wgrad)."""
+    """The op's gradient on the card, the backward's kernels, at every
+    distinct shape of ``path`` at ``batch``:
+
+    - through autograd (``fused_snake_conv``) against plain autograd, each
+      input's gradient within GRAD_TOL x its max |g|;
+    - the op ``snake_conv_backward`` against its plain version (the VJP of
+      the plain forward), each of the five gradients within KERNEL_TOL x
+      its max |g|, the weight gradient's padded columns zero; on
+      F64_FRAMES frames against a float64 plain backward, the kernels'
+      error (the worst tensor's, over its max |g|) within F64_RATIO x that
+      of the plain backward in strict f32 (cuDNN's F.conv1d autograd);
+    - the same bits from two launches and from a launch replayed from a
+      CUDA graph;
+    - times from CUDA graphs: the whole backward through autograd (and
+      eager), dgrad alone (the op asked for x, alpha, beta and b; with the
+      weight copy it makes, also timed alone) and wgrad alone (asked for
+      w), each beside the plain backward asked for the same and F.conv1d's
+      autograd backward for the same gradients (input; weight and bias),
+      and F.conv1d's whole autograd backward, each with cudnn.benchmark off
+      and on.
+
+    Returns these numbers summed over one generator step's launches."""
     import torch
     import torch.nn.functional as F
     from after_tpu_torch.ops.conv import get_padding, weight_norm
-    from after_tpu_torch.ops.kernels.fused_conv import (fused_snake_conv,
-                                                        snake_conv_reference)
+    from after_tpu_torch.ops.kernels.fused_conv import (
+        backward_plan, backward_weight, fused_snake_conv, kernel_weight,
+        snake_conv_backward, snake_conv_backward_reference,
+        snake_conv_reference)
     from after_tpu_torch.ops.snake import snake_beta
 
     counts = Counter(block_shape(b, T) for b, T in path)
     blocks = {block_shape(b, T): b for b, T in path}
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
-    worst, bwd_ms, bwd_flops, lib_ms, eager_ms = 0.0, 0.0, 0.0, 0.0, 0.0
-    log(f"gradients: SnakeConvFunction vs plain autograd at batch {batch} "
-        "(k d C O T mode: n, worst |g - g_plain| / max|g_plain| over x "
-        "alpha beta w b; backward ms from a CUDA graph / eager; F.conv1d's "
-        "autograd backward ms from a CUDA graph)")
+    every = [True] * 5
+    want = {"dgrad": [True, True, True, False, True],
+            "wgrad": [False, False, False, True, False]}
+    tot = Counter()
+    worst = Counter()
+    log(f"gradients: the op's backward kernels at batch {batch} (k d C O T "
+        "mode: n, plan dgrad bn/bk/partial rows wgrad bn/splits; worst "
+        "|g - g_plain| / max|g_plain| through autograd, the op's dgrad and "
+        "wgrad tensors; float64 errors kernels/strict f32; ms from CUDA "
+        "graphs: backward (eager), dgrad (weight copy), wgrad, plain "
+        "dgrad/wgrad, F.conv1d input/weight (cudnn.benchmark on), whole "
+        "F.conv1d benchmark off/on, bound 3xTF32 dgrad/wgrad)")
     for shape, block in sorted(blocks.items(), key=lambda kv: str(kv[0])):
         k, d, C, O, T, mode = shape
+        n = counts[shape]
         with torch.no_grad():
             w = weight_norm(block.conv.weight, block.conv.g)
-        args = [torch.randn((batch, T, C), generator=gen, device="cuda"),
-                block.act.alpha.detach(), block.act.beta.detach(), w,
-                block.conv.bias.detach()]
+        x = torch.randn((batch, T, C), generator=gen, device="cuda")
+        alpha, beta = block.act.alpha.detach(), block.act.beta.detach()
+        b = block.conv.bias.detach()
         gy = torch.randn((batch, T, O), generator=gen, device="cuda")
+        args = [x, alpha, beta, w, b]
         ours = [a.clone().requires_grad_() for a in args]
         y = fused_snake_conv(*ours, d, mode)
         g_ours = torch.autograd.grad(y, ours, gy, retain_graph=True)
@@ -707,35 +769,154 @@ def check_gradients(path, batch: int):
         ratio = max((a - p).abs().max().item() / p.abs().max().item()
                     for a, p in zip(g_ours, g_plain))
         if not ratio <= GRAD_TOL:
-            fail(f"SnakeConvFunction {shape}: gradients differ from plain "
+            fail(f"snake_conv's gradient {shape}: differs from plain "
                  f"autograd by {ratio:.3e} x max|g| > {GRAD_TOL}")
-        worst = max(worst, ratio)
+        worst["autograd"] = max(worst["autograd"], ratio)
+
+        # the op against its plain version, tensor by tensor
+        w_k = kernel_weight(w)[0]
+        op_args = (gy, x, alpha, beta, w_k, b, d, mode)
+        got = snake_conv_backward(*op_args, every)
+        ref = snake_conv_backward_reference(*op_args, every)
+        rel = {}
+        for i, (name, a, r) in enumerate(zip("x alpha beta w b".split(), got,
+                                             ref)):
+            err = (a - r).abs().max().item()
+            scale = r.abs().max().item()
+            if not err <= KERNEL_TOL * scale:
+                fail(f"snake_conv_backward {shape}: g{name} max abs err "
+                     f"{err} > {KERNEL_TOL} * {scale}")
+            kind = "wgrad" if i == 3 else "dgrad"
+            rel[kind] = max(rel.get(kind, 0.0), err / scale)
+            worst[kind] = max(worst[kind], err / scale)
+            worst[kind + "_abs"] = max(worst[kind + "_abs"], err)
+        if got[3][:, :, C:].any():
+            fail(f"snake_conv_backward {shape}: gw's padded columns are not "
+                 "zero")
+        # the same bits again, and replayed from a CUDA graph
+        again = snake_conv_backward(*op_args, every)
+        graph = torch.cuda.CUDAGraph()
+        torch.cuda.synchronize()
+        with torch.cuda.graph(graph):
+            captured = snake_conv_backward(*op_args, every)
+        graph.replay()
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, c) for a, c in zip(got, again)):
+            fail(f"snake_conv_backward {shape}: two launches differ")
+        if not all(torch.equal(a, c) for a, c in zip(got, captured)):
+            fail(f"snake_conv_backward {shape}: a CUDA graph replay differs "
+                 "from the eager launch")
+        del graph, captured, again, got, ref
+        # against float64 on the first F64_FRAMES frames
+        f = max(1, F64_FRAMES // batch)
+        cut = (gy[:, :f].contiguous(), x[:, :f].contiguous(), alpha, beta,
+               w_k, b, d, mode)
+        r64 = snake_conv_backward_reference(
+            *(t.double() if torch.is_tensor(t) else t for t in cut), every)
+
+        def err64(ts):
+            return max(((a.double() - r).abs().max() / r.abs().max()).item()
+                       for a, r in zip(ts, r64))
+        e64 = (err64(snake_conv_backward(*cut, every)),
+               err64(snake_conv_backward_reference(*cut, every)))
+        if not e64[0] <= F64_RATIO * e64[1]:
+            fail(f"snake_conv_backward {shape}: error against float64 "
+                 f"{e64[0]:.3e} > {F64_RATIO} x the strict-f32 plain "
+                 f"backward's {e64[1]:.3e}")
+        worst["f64"] = max(worst["f64"], e64[0])
+        worst["f64_plain"] = max(worst["f64_plain"], e64[1])
+
+        # times
+        ms = vjp_ms(lambda *t: fused_snake_conv(*t, d, mode), ours, gy)
         eager = cuda_ms(lambda: torch.autograd.grad(y, ours, gy,
                                                     retain_graph=True),
                         reps=5, warmup=1, graph=False)
-        ms = vjp_ms(lambda *t: fused_snake_conv(*t, d, mode), ours, gy)
+        t = {kind: cuda_ms(lambda: snake_conv_backward(*op_args, m), reps=5,
+                           warmup=1) for kind, m in want.items()}
+        t_plain = {kind: cuda_ms(
+            lambda: snake_conv_backward_reference(*op_args, m), reps=5,
+            warmup=1) for kind, m in want.items()}
+        copy_ms = cuda_ms(lambda: backward_weight(w_k, C), reps=5, warmup=1)
         left, right = get_padding(k, 1, d, mode)
-        lib_args = [F.pad(snake_beta(*args[:3]).transpose(1, 2),
-                          (left, right)).detach().requires_grad_(),
-                    w.detach().clone().requires_grad_(),
-                    args[4].detach().clone().requires_grad_()]
-        lib = vjp_ms(lambda a, wl, bl: F.conv1d(a, wl, bl, dilation=d),
-                     lib_args, gy.transpose(1, 2).contiguous())
-        n = counts[shape]
-        bwd_ms += n * ms
-        eager_ms += n * eager
-        lib_ms += n * lib
-        bwd_flops += n * 3 * 2.0 * k * C * O * T * batch
-        log(f"  {k} {d} {C} {O} {T} {mode}: {n}, {ratio:.3e}; {ms:.4f} / "
-            f"{eager:.4f}; {lib:.4f}")
-    bound_ms = 1e3 * bwd_flops / PEAK_F32_FLOPS
-    log(f"gradients: worst {worst:.3e} x max|g| (limit {GRAD_TOL}); backward "
-        f"per generator step ({len(path)} launches' VJPs) {bwd_ms:.3f} ms "
-        f"from CUDA graphs ({eager_ms:.3f} ms eager), F.conv1d's autograd "
-        f"backward {lib_ms:.3f} ms from CUDA graphs; {bwd_flops / 1e9:.1f} "
-        f"GFLOP (recompute + dgrad + wgrad in strict f32; bound on the f32 "
-        f"CUDA cores {bound_ms:.3f} ms)")
-    return worst, bwd_ms, bound_ms, lib_ms, eager_ms
+        a_pad = F.pad(snake_beta(x, alpha, beta).transpose(1, 2),
+                      (left, right))
+        gyt = gy.transpose(1, 2).contiguous()
+
+        def conv(a, wl, bl):
+            return F.conv1d(a, wl, bl, dilation=d)
+        # F.conv1d's autograd backward for each kernel's gradients (input;
+        # weight and bias) and for all three, cudnn.benchmark off and on
+        lib, whole = {}, []
+        for bench in (False, True):
+            torch.backends.cudnn.benchmark = bench
+            lib["dgrad", bench] = vjp_ms(conv, [a_pad, w, b], gyt,
+                                         wrt=[True, False, False])
+            lib["wgrad", bench] = vjp_ms(conv, [a_pad, w, b], gyt,
+                                         wrt=[False, True, True])
+            whole.append(vjp_ms(conv, [a_pad, w, b], gyt))
+        torch.backends.cudnn.benchmark = False
+        flops = 2.0 * k * C * O * T * batch
+        nbytes = {"dgrad": 4.0 * (2 * batch * T * C + batch * T * O
+                                  + k * O * C + 4 * C + O),
+                  "wgrad": 4.0 * (batch * T * C + batch * T * O + 2 * C
+                                  + k * O * w_k.shape[2])}
+        bound = {kind: 1e3 * max(3 * flops / PEAK_TF32_FLOPS,
+                                 nbytes[kind] / PEAK_BYTES)
+                 for kind in want}
+        for kind in want:
+            tot[f"{kind}_ms"] += n * t[kind]
+            tot[f"{kind}_plain_ms"] += n * t_plain[kind]
+            tot[f"{kind}_library_ms"] += n * lib[kind, False]
+            tot[f"{kind}_library_benchmark_ms"] += n * lib[kind, True]
+            tot[f"{kind}_bound_ms"] += n * bound[kind]
+            tot[f"{kind}_flops"] += n * flops
+            tot[f"{kind}_bytes"] += n * nbytes[kind]
+        tot.update(ms=n * ms, eager_ms=n * eager, copy_ms=n * copy_ms,
+                   library_ms=n * whole[0], library_benchmark_ms=n * whole[1],
+                   plain_f32_flops=n * 3 * flops, launches=n)
+        plan = backward_plan(batch, T, C, O, k, d)
+        tot["partial_sums"] += n * (1 + (plan[4] > 1))
+        log(f"  {k} {d} {C} {O} {T} {mode}: {n}, "
+            f"{'/'.join(map(str, plan))}; {ratio:.2e} {rel['dgrad']:.2e} "
+            f"{rel['wgrad']:.2e}; {e64[0]:.2e}/{e64[1]:.2e}; {ms:.4f} "
+            f"({eager:.4f}), {t['dgrad']:.4f} ({copy_ms:.4f}), "
+            f"{t['wgrad']:.4f}, {t_plain['dgrad']:.4f}/{t_plain['wgrad']:.4f}"
+            f", {lib['dgrad', False]:.4f}/{lib['wgrad', False]:.4f} "
+            f"({lib['dgrad', True]:.4f}/{lib['wgrad', True]:.4f}), "
+            f"{whole[0]:.4f}/"
+            f"{whole[1]:.4f}, {bound['dgrad']:.4f}/{bound['wgrad']:.4f}")
+    for kind in want:
+        ops = 3 * tot[f"{kind}_flops"] / PEAK_TF32_FLOPS
+        tot[f"{kind}_bound_by"] = ("operations" if ops >= tot[f"{kind}_bytes"]
+                                   / PEAK_BYTES else "bytes")
+    tot["bound_ms"] = tot["dgrad_bound_ms"] + tot["wgrad_bound_ms"]
+    tot["bound_f32_ms"] = 1e3 * tot["plain_f32_flops"] / PEAK_F32_FLOPS
+    tot.update({f"worst_{k}": v for k, v in worst.items()})
+    log(f"gradients: per generator step ({tot['launches']} launches of each "
+        f"kernel, {tot['partial_sums']} of {PARTIALS_NAME}): the backward "
+        f"through autograd {tot['ms']:.3f} ms from CUDA graphs "
+        f"({tot['eager_ms']:.3f} ms eager); dgrad {tot['dgrad_ms']:.3f} ms "
+        f"(its weight copy {tot['copy_ms']:.3f}), wgrad "
+        f"{tot['wgrad_ms']:.3f} ms; the plain backward's dgrad "
+        f"{tot['dgrad_plain_ms']:.3f} ms and wgrad "
+        f"{tot['wgrad_plain_ms']:.3f} ms; F.conv1d's autograd backward "
+        f"{tot['library_ms']:.3f} ms with cudnn.benchmark off, "
+        f"{tot['library_benchmark_ms']:.3f} ms with it on (input alone "
+        f"{tot['dgrad_library_ms']:.3f} and "
+        f"{tot['dgrad_library_benchmark_ms']:.3f}, weight and bias alone "
+        f"{tot['wgrad_library_ms']:.3f} and "
+        f"{tot['wgrad_library_benchmark_ms']:.3f}); bound on the 3xTF32 "
+        f"tensor cores "
+        f"{tot['dgrad_bound_ms']:.3f} + {tot['wgrad_bound_ms']:.3f} = "
+        f"{tot['bound_ms']:.3f} ms ({tot['dgrad_bound_by']}; "
+        f"{2 * tot['dgrad_flops'] / 1e9:.1f} GFLOP), the plain VJP's "
+        f"recompute + dgrad + wgrad on the f32 CUDA cores "
+        f"{tot['bound_f32_ms']:.3f} ms; worst error ratios: autograd "
+        f"{worst['autograd']:.3e} (limit {GRAD_TOL}), dgrad "
+        f"{worst['dgrad']:.3e}, wgrad {worst['wgrad']:.3e} (limit "
+        f"{KERNEL_TOL}); against float64 kernels {worst['f64']:.3e}, strict "
+        f"f32 plain {worst['f64_plain']:.3e}")
+    return tot
 
 
 def synthetic_audio(gen, batch: int, n: int, sr: int):
@@ -765,7 +946,8 @@ def train_phase(row) -> None:
     from after_tpu_torch.autoencoder import AutoencoderTrainer
     from after_tpu_torch.config import (AETrainConfig, DiscriminatorConfig,
                                         get_ae_config)
-    from after_tpu_torch.ops.kernels.fused_conv import fused_snake_conv
+    from after_tpu_torch.ops.kernels.fused_conv import (
+        backward_device_launches, fused_snake_conv, reset_device_launches)
 
     ae = get_ae_config()
     tc = AETrainConfig(warmup_steps=TRAIN_WARMUP)
@@ -798,14 +980,18 @@ def train_phase(row) -> None:
         dt = time.perf_counter() - snap["t0"]
         kind = kinds[tr.step - 1]
         launches = fused_snake_conv.launches - snap["launches"]
+        # the backward's kernels, counted on the device over this step
+        bwd = backward_device_launches()
+        reset_device_launches()
         values = {k: float(v) for k, v in metrics.items()}
         codec, disc = flat_params(tr.codec), flat_params(tr.disc)
         moved = (not torch.equal(codec, snap["codec"]),
                  not torch.equal(disc, snap["disc"]))
-        records.append((kind, dt, launches, values, moved))
+        records.append((kind, dt, launches, values, moved, bwd))
         log(f"training: step {tr.step - 1} ({kind}): {dt * 1e3:.2f} ms, "
-            f"fused_snake_conv launches +{launches}, " + ", ".join(
-                f"{k} {v:.5g}" for k, v in values.items()))
+            f"fused_snake_conv launches +{launches}, backward launches "
+            f"(dgrad, wgrad, {PARTIALS_NAME}) {bwd} on the device, " +
+            ", ".join(f"{k} {v:.5g}" for k, v in values.items()))
         snap.update(codec=codec, disc=disc,
                     launches=fused_snake_conv.launches)
         torch.cuda.synchronize()
@@ -816,6 +1002,7 @@ def train_phase(row) -> None:
     torch.cuda.reset_peak_memory_stats()
     fused_snake_conv.launches = 0
     snap["launches"] = 0
+    reset_device_launches()
     torch.cuda.synchronize()
     snap["t0"] = time.perf_counter()
     trainer.fit(iter(batches[:TRAIN_STEPS]), max_steps=TRAIN_STEPS,
@@ -824,11 +1011,18 @@ def train_phase(row) -> None:
     peak = torch.cuda.max_memory_allocated()
     if launches == 0 or len(records) != TRAIN_STEPS:
         fail(f"fit ran {len(records)} steps with {launches} kernel launches")
-    for i, (kind, _, n, values, (codec_moved, disc_moved)) in enumerate(
+    for i, (kind, _, n, values, (codec_moved, disc_moved), bwd) in enumerate(
             records):
         if n != per_forward:
             fail(f"training step {i}: {n} kernel launches, expected "
                  f"{per_forward} (one codec forward)")
+        # a generator step differentiates every conv of the codec: each
+        # asks for every gradient, so each launches dgrad and wgrad once; a
+        # discriminator step runs the codec without gradients
+        want = per_forward if kind != "disc" else 0
+        if bwd[:2] != (want, want):
+            fail(f"training step {i} ({kind}): backward launches {bwd} on "
+                 f"the device, expected {want} dgrad and {want} wgrad")
         if not all(math.isfinite(v) for v in values.values()):
             fail(f"training step {i}: non-finite metrics {values}")
         if values.get("skipped_nonfinite", 0) != 0:
@@ -865,8 +1059,14 @@ def train_phase(row) -> None:
     with torch.no_grad():
         per_forward_k = check_fused_conv(enc + dec, "training codec forward",
                                          tc.batch_size)
-    grad_worst, bwd_ms, bwd_bound, bwd_lib_ms, bwd_eager_ms = check_gradients(
-        enc + dec, tc.batch_size)
+    bwd = check_gradients(enc + dec, tc.batch_size)
+    bwd_launches = [sum(r[5][i] for r in records) for i in range(3)]
+    want_sums = sum(1 for k in kinds if k != "disc") * bwd["partial_sums"]
+    if bwd_launches[2] != want_sums:
+        fail(f"training: {bwd_launches[2]} {PARTIALS_NAME} launches on the "
+             f"device, expected {want_sums}")
+    rows = [backward_row(kind, bwd, n)
+            for kind, n in zip(("dgrad", "wgrad"), bwd_launches)]
     row.update({
         "launches_training": launches,
         "launches_per_gen_step": per_forward,
@@ -877,11 +1077,15 @@ def train_phase(row) -> None:
         "plain_ms_per_codec_forward_training": per_forward_k["plain_ms"],
         "library_ms_per_codec_forward_training": per_forward_k["library_ms"],
         "tflops_training": per_forward_k["tflops"],
-        "backward_ms_per_gen_step": bwd_ms,
-        "backward_eager_ms_per_gen_step": bwd_eager_ms,
-        "backward_library_ms_per_gen_step": bwd_lib_ms,
-        "backward_bound_f32_ms_per_gen_step": bwd_bound,
-        "grad_err_training": grad_worst,
+        "backward_ms_per_gen_step": bwd["ms"],
+        "backward_eager_ms_per_gen_step": bwd["eager_ms"],
+        "backward_library_ms_per_gen_step": bwd["library_ms"],
+        "backward_library_benchmark_ms_per_gen_step":
+            bwd["library_benchmark_ms"],
+        "backward_bound_ms_per_gen_step": bwd["bound_ms"],
+        "backward_bound_f32_ms_per_gen_step": bwd["bound_f32_ms"],
+        "backward_launches_training": bwd_launches,
+        "grad_err_training": bwd["worst_autograd"],
         "weight_split_ms_per_codec_forward": wn_ms,
         "step_ms_median": medians,
         "training_peak_memory_gib": peak / 2**30,
@@ -894,6 +1098,7 @@ def train_phase(row) -> None:
     del trainer, batches
     gc.collect()
     torch.cuda.empty_cache()
+    return rows
 
 
 def train_card_vs_cpu() -> None:
@@ -1590,6 +1795,30 @@ def sum_row(per_transfer, per_buffer):
             "launches_per_buffer": per_buffer["sum_launches"]}
 
 
+def backward_row(kind: str, bwd, launches: int):
+    """A backward kernel's row of the kernel table (``kind`` dgrad or
+    wgrad): its launches in phase 8's 10 training steps (counted on the
+    device), its times per generator step from CUDA graphs (the kernel
+    through the op, asked for its gradients alone), its plain version's
+    (the VJP of the plain forward asked for the same) and F.conv1d's
+    autograd backward for the same gradients (cudnn.benchmark off, and
+    on beside it)."""
+    return {"name": DGRAD_NAME if kind == "dgrad" else WGRAD_NAME,
+            "route": "cuda",
+            "source": "after_tpu_torch/csrc/snake_conv_backward.cu",
+            "replaces": "after_tpu/ops/pallas/fused_conv.py:84",
+            "launches": launches,
+            "max_abs_err": bwd[f"worst_{kind}_abs"],
+            "max_err_ratio": bwd[f"worst_{kind}"],
+            "ms": bwd[f"{kind}_ms"], "plain_ms": bwd[f"{kind}_plain_ms"],
+            "bound_ms": bwd[f"{kind}_bound_ms"],
+            "bound_by": bwd[f"{kind}_bound_by"],
+            "library_ms": bwd[f"{kind}_library_ms"],
+            "library_benchmark_ms": bwd[f"{kind}_library_benchmark_ms"],
+            "unit": "generator step",
+            "f64_err": bwd["worst_f64"], "f64_err_plain": bwd["worst_f64_plain"]}
+
+
 def profile_call(label: str, fn):
     """One call of fn under torch.profiler: wall time, device busy time (the
     union of kernel intervals), idle share, kernel launches and the kernels
@@ -2038,9 +2267,9 @@ def cli_phase(row) -> None:
     from after_tpu_torch.config import load_codec_config
     from after_tpu_torch.dataset import AudioExample, RecordWriter
     from after_tpu_torch.diffusion.trainer import DiffusionTrainer
-    from after_tpu_torch.ops.kernels.fused_conv import (device_launches,
-                                                        fused_snake_conv,
-                                                        reset_device_launches)
+    from after_tpu_torch.ops.kernels.fused_conv import (
+        backward_device_launches, device_launches, fused_snake_conv,
+        reset_device_launches)
     from after_tpu_torch.utils.checkpoint import restore_checkpoint
     from torch.nn.modules.module import register_module_forward_hook
 
@@ -2102,6 +2331,15 @@ def cli_phase(row) -> None:
         ae_args + ["--max_steps", str(CLI_AE_STEPS)], AutoencoderTrainer,
         CLI_AE_EVERY)
     ae_launches = (fused_snake_conv.launches, device_launches()[0])
+    # the backward's kernels on the device: dgrad and wgrad once a conv in
+    # each generator step (phase 8's schedule), none in the others
+    ae_bwd = backward_device_launches()
+    want = (sum(1 for k in TRAIN_KINDS[:CLI_AE_STEPS] if k != "disc")
+            * row["launches_per_gen_step"])
+    if ae_bwd[:2] != (want, want):
+        fail(f"train_autoencoder: backward launches {ae_bwd} on the device "
+             f"(dgrad, wgrad, {PARTIALS_NAME}), expected {want} dgrad and "
+             f"{want} wgrad")
     ae_loader, ae_sizes = cli_checks(
         "train_autoencoder", rc, out, ae_run, [5, 10],
         ["mrstft", "regularisation_loss", "total_loss", "skipped_nonfinite",
@@ -2139,7 +2377,9 @@ def cli_phase(row) -> None:
         + f"; the loader {ae_loader[0]:.3f} ms a batch over {ae_loader[2]} "
         f"batches, its queue empty at {ae_loader[1]} of {CLI_AE_STEPS} "
         f"requests; {KERNEL_NAME} launches {ae_launches[0]} (device "
-        f"{ae_launches[1]}); the restart's {ae_checked[0]} (device "
+        f"{ae_launches[1]}), the backward's on the device {DGRAD_NAME} "
+        f"{ae_bwd[0]}, {WGRAD_NAME} {ae_bwd[1]}, {PARTIALS_NAME} "
+        f"{ae_bwd[2]}; the restart's {ae_checked[0]} (device "
         f"{ae_checked[1]}) each within {ae_worst:.3e} x max|y| of its plain "
         f"version (limit {KERNEL_TOL}); checkpoints " + ", ".join(
             f"{s}: {v:.1f} MiB" for s, v in ae_sizes.items()))
@@ -2228,6 +2468,7 @@ def cli_phase(row) -> None:
         + ", ".join(f"{s}: {v:.1f} MiB" for s, v in diff_sizes.items()))
 
     no_forbidden_modules("command line")
+    row["backward_launches_cli"] = list(ae_bwd)
     row["launches_cli"] = {"train_autoencoder": ae_launches[1],
                            "train_autoencoder_restart": ae_checked[1],
                            "train": diff_launches[1],
@@ -3329,22 +3570,25 @@ def main() -> None:
     from after_tpu_torch import TransferPipeline, get_config
     from after_tpu_torch.models.autoencoder import ConvBlock1d
     from after_tpu_torch.streaming import Streamer
-    from after_tpu_torch.ops.kernels.build import load
-    from after_tpu_torch.ops.kernels.fused_conv import (SOURCE,
+    from after_tpu_torch.ops.kernels.build import load_all
+    from after_tpu_torch.ops.kernels.fused_conv import (BACKWARD_SOURCE,
+                                                        SOURCE,
                                                         device_launches,
                                                         fused_snake_conv,
                                                         reset_device_launches)
     from after_tpu_torch.utils.device import strict_f32
 
+    phase_time("start")
     # 1. card
     log(f"card: {card_line()}")
     log(f"card: torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
 
-    # 2. build
+    # 2. build: every kernel source at once, an nvcc each
     t0 = time.perf_counter()
-    load(SOURCE)
-    log(f"build: {SOURCE} in {time.perf_counter() - t0:.2f} s")
+    load_all(SOURCE, BACKWARD_SOURCE)
+    log(f"build: {SOURCE} and {BACKWARD_SOURCE} in "
+        f"{time.perf_counter() - t0:.2f} s")
 
     cfg = get_config("base")
     cfg = cfg.resolved(in_size=cfg.autoencoder.z_channels,
@@ -3354,6 +3598,8 @@ def main() -> None:
     torch.cuda.synchronize()
     log(f"serving: base config, port-native init (seed {SEED}) in "
         f"{time.perf_counter() - t0:.2f} s")
+
+    phase_time("phase 1-2 (card, build)")
 
     # 3. kernels against their plain versions at the main paths' shapes:
     # a transfer (two encodes, one decode) and a streamed buffer (two
@@ -3369,6 +3615,8 @@ def main() -> None:
         per_buffer = check_fused_conv(stream_path, "buffer")
     row = kernel_row(per_transfer, per_buffer)
     srow = sum_row(per_transfer, per_buffer)
+
+    phase_time("phase 3 (kernels)")
 
     # 4. serving: the transfer as one CUDA graph (the main path), then the
     # same requests op by op; peak memory from here.  The kernel phase's
@@ -3557,6 +3805,8 @@ def main() -> None:
     no_host_sync("one transfer op by op", lambda: pipe.transfer(a, b, **kw))
     pipe.eager = False
 
+    phase_time("phase 4 (serving)")
+
     # 5. card vs CPU on a short clip, same weights, through the graphs
     cpu = TransferPipeline(cfg, device="cpu")
     cpu.codec.load_state_dict(pipe.codec.state_dict())
@@ -3584,6 +3834,8 @@ def main() -> None:
         f"* max |y| = {CARD_VS_CPU_TOL * scale:.3e}")
     if not (torch.isfinite(y_card).all() and err <= CARD_VS_CPU_TOL * scale):
         fail("card and CPU disagree")
+
+    phase_time("phase 5 (card vs CPU)")
 
     # 6. streaming: phase 4's first request, buffer by buffer, as CUDA
     # graphs and op by op on the same weights and noise
@@ -3745,6 +3997,8 @@ def main() -> None:
         f"capture time {streamer.graphs.capture_seconds / states * 1e3:.1f} "
         f"ms a state, with its warm-up in init_state)")
 
+    phase_time("phase 6 (streaming)")
+
     # 7. streaming card vs CPU, for the base config and the causal one,
     # the card through its graphs
     if stream_card_vs_cpu(
@@ -3767,33 +4021,47 @@ def main() -> None:
             SEED + 3):
         fail("the causal codec launched the kernel on its cached convs")
 
+    phase_time("phase 7 (streaming card vs CPU)")
+
     # 8. codec training at full width; 9. training card vs CPU
     del streamer, eager_streamer, state, e_state, ccard, ccpu, cpu
     gc.collect()
     torch.cuda.empty_cache()
-    train_phase(row)
+    backward_rows = train_phase(row)
     grads = train_card_vs_cpu()
     row["grad_card_vs_cpu_training"] = {m: g[0] for m, g in grads.items()}
+
+    phase_time("phases 8-9 (codec training)")
 
     # 10. diffusion training at full width; 11. its card vs CPU
     diffusion_phase(row, pipe.codec)
     row["grad_card_vs_cpu_diffusion"] = diffusion_card_vs_cpu()
 
+    phase_time("phases 10-11 (diffusion training)")
+
     # 12. training from the command line
     cli_phase(row)
+
+    phase_time("phase 12 (command line)")
 
     # 13. export and serving, from phase 12's runs
     export_phase(row, a, b, attrs)
 
+    phase_time("phase 13 (export and serving)")
+
     # 14. dataset preparation with phase 12's codec run
     dataset_phase(row)
+
+    phase_time("phase 14 (dataset preparation)")
 
     # 15. the native streaming host on phase 13's artifacts
     native_phase(row, a, b, attrs)
 
+    phase_time("phase 15 (native host)")
+
     # the card again, so that the end of a long output still names it
     log(f"card: {card_line()}")
-    print(json.dumps({"kernels": [row, srow]}), flush=True)
+    print(json.dumps({"kernels": [row, srow, *backward_rows]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -8,8 +8,8 @@ card has no JAX, so run them there without the suite's conftest:
 
 Tolerance: max abs error <= 1e-4 * max |y| (3xTF32 on the tensor cores in
 another summation order than cuDNN's strict f32, TF32 off in cuDNN).  The
-registered op's gradients (the plain version's VJP, recomputed) are
-within 1e-4 * max |g| of plain autograd's for each input.  Against
+registered op's gradients (the backward's dgrad and wgrad kernels, 3xTF32
+too) are within 1e-4 * max |g| of plain autograd's for each input.  Against
 a float64 plain version the kernel's error may be at most 4x that of
 strict-f32 F.conv1d.  The streamed waveform on the card is within
 1e-4 * max |y| of the CPU's.
@@ -353,3 +353,114 @@ def test_kernel_at_the_encoders_batch_8_shapes(cuda):
             err_conv1d = (strict.double() - ref64).abs().max().item()
             assert err64 <= 4 * max(err_conv1d, 1e-30), (h.shape, err64,
                                                          err_conv1d)
+
+
+KERNEL_TOL = 1e-4
+
+
+def _training_shapes():
+    """(k, d, C, O, T, mode) of every distinct ConvBlock1d of the base
+    codec's forward on 131072 samples (a training crop), with its block."""
+    from after_tpu_torch.config import get_ae_config
+    from after_tpu_torch.models.autoencoder import AudioCodec, ConvBlock1d
+    from after_tpu_torch.utils.init import init_weights
+
+    codec = AudioCodec(get_ae_config()).cuda()
+    init_weights(codec, 0)
+    seen = {}
+
+    def record(mod, args):
+        c = mod.conv
+        seen.setdefault((c.kernel_size, c.dilation, c.in_features,
+                         c.features, args[0].shape[1], c.mode), mod)
+    hooks = [m.register_forward_pre_hook(record) for m in codec.modules()
+             if isinstance(m, ConvBlock1d)]
+    with torch.no_grad():
+        codec(torch.zeros((1, 131072, 1), device="cuda"))
+    for h in hooks:
+        h.remove()
+    return seen
+
+
+@pytest.mark.cuda
+def test_backward_kernels_at_the_training_shapes(cuda):
+    """dgrad and wgrad against the plain backward (the VJP of the plain
+    forward) at every distinct ConvBlock1d shape of a training codec forward
+    at batch 8 x 131072 samples, each of the five gradients within
+    KERNEL_TOL x its max |g|; each launch counted on the device."""
+    from after_tpu_torch.ops.kernels.fused_conv import (
+        backward_device_launches, snake_conv_backward,
+        snake_conv_backward_reference)
+
+    shapes = _training_shapes()
+    assert len(shapes) == 39
+    gen = torch.Generator(cuda).manual_seed(0)
+    reset_device_launches()
+    for (k, d, C, O, T, mode), block in sorted(shapes.items(),
+                                                key=lambda kv: str(kv[0])):
+        x = torch.randn((8, T, C), device=cuda, generator=gen)
+        g = torch.randn((8, T, O), device=cuda, generator=gen)
+        with torch.no_grad():
+            w_k = block.conv.kernel_weights()[0]
+        args = (g, x, block.act.alpha.detach(), block.act.beta.detach(),
+                w_k.detach(), block.conv.bias.detach(), d, mode)
+        ours = snake_conv_backward(*args, [True] * 5)
+        ref = snake_conv_backward_reference(*args, [True] * 5)
+        for name, a, r in zip("x alpha beta w b".split(), ours, ref):
+            err = (a - r).abs().max().item()
+            assert err <= KERNEL_TOL * r.abs().max().item(), (
+                (k, d, C, O, T), name, err)
+    assert backward_device_launches()[:2] == (len(shapes), len(shapes))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,C,O,k,d,mode", [
+    (8, 256, 768, 768, 3, 9, "centered"), (8, 8192, 64, 64, 3, 1, "centered"),
+    (2, 700, 96, 300, 3, 3, "causal"), (2, 37, 130, 70, 1, 1, "causal")])
+def test_backward_kernels_give_the_same_bits_eager_and_in_a_graph(
+        cuda, B, T, C, O, k, d, mode):
+    """Every cross-block sum is added in a fixed order: two launches give
+    the same bits, and so does a launch captured in a CUDA graph and
+    replayed."""
+    from after_tpu_torch.ops.kernels.fused_conv import snake_conv_backward
+
+    x, alpha, beta, w, b = _inputs(11, B, T, C, O, k, cuda)
+    g = torch.randn((B, T, O), device=cuda,
+                    generator=torch.Generator(cuda).manual_seed(1))
+    args = (g, x, alpha, beta, kernel_weight(w)[0], b, d, mode, [True] * 5)
+    first = snake_conv_backward(*args)
+    again = snake_conv_backward(*args)
+    graph = torch.cuda.CUDAGraph()
+    torch.cuda.synchronize()
+    with torch.cuda.graph(graph):
+        captured = snake_conv_backward(*args)
+    graph.replay()
+    torch.cuda.synchronize()
+    for a, b2, c in zip(first, again, captured):
+        assert torch.equal(a, b2) and torch.equal(a, c)
+
+
+@pytest.mark.cuda
+def test_backward_wrapper_refuses_what_the_kernels_do_not_take(cuda):
+    """Another dtype, a non-contiguous or misplaced tensor, a wrong shape
+    and a window longer than the kernels stage raise."""
+    from after_tpu_torch.ops.kernels.fused_conv import snake_conv_backward
+
+    x, alpha, beta, w, b = _inputs(12, 1, 64, 16, 24, 3, cuda)
+    g = torch.randn((1, 64, 24), device=cuda)
+    w_k = kernel_weight(w)[0]
+    every = [True] * 5
+    with pytest.raises(TypeError):
+        snake_conv_backward(g.double(), x, alpha, beta, w_k, b, 1, "causal",
+                            every)
+    with pytest.raises(ValueError):
+        snake_conv_backward(g.transpose(1, 2).contiguous().transpose(1, 2),
+                            x, alpha, beta, w_k, b, 1, "causal", every)
+    with pytest.raises(ValueError):
+        snake_conv_backward(g, x, alpha.cpu(), beta, w_k, b, 1, "causal",
+                            every)
+    with pytest.raises(ValueError):
+        snake_conv_backward(g[:, :32].contiguous(), x, alpha, beta, w_k, b,
+                            1, "causal", every)
+    with pytest.raises(ValueError):
+        snake_conv_backward(g, x, alpha, beta, w_k, b, 100, "causal", every)

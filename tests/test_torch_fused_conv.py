@@ -167,9 +167,9 @@ def test_gradients_match_the_pallas_kernels_vjp(d, mode):
 
 
 def test_function_backward_is_the_plain_versions_vjp():
-    """The registered op's gradient (the card's path for inputs that need a
-    gradient, and the CPU's): its backward returns the plain version's VJP
-    for each input that needs one, bit for bit, and None for the others."""
+    """The registered op's gradient on the CPU (on the card the backward's
+    kernels compute it): its backward returns the plain version's VJP for
+    each input that needs one, bit for bit, and None for the others."""
     x, alpha, beta, w, b = _inputs(5, 2, 40, 12, 20, 3)
     gy = np.random.RandomState(6).randn(2, 40, 20).astype(np.float32)
     for mode in ("causal", "centered"):
