@@ -54,7 +54,8 @@ class AutoencoderTrainer:
         if self.tc.compute_dtype is not None or self.tc.stft_bf16_dft:
             raise NotImplementedError(
                 "the port trains in f32 only (compute_dtype=None, "
-                "stft_bf16_dft=False)")
+                "stft_bf16_dft=False): bf16 codec training is not ported "
+                "yet (ROADMAP 10d)")
         self.device = resolve_device(device)
         strict_f32()
         self.codec = AudioCodec(ae_cfg).to(self.device)

@@ -16,7 +16,11 @@ card by default: export on the device that will serve).  ``--db_path``
 trains the XY pad's projector on the store's timbre vectors and bakes its
 maps, ``projector.npz`` and ``map.png`` into the artifact.
 ``export_autoencoder`` writes the codec-only artifact
-(``streaming.export.export_codec``).  ``--native`` also packages the stages
+(``streaming.export.export_codec``).  ``--compute_dtype bfloat16`` exports
+the streamer at bf16 (its weights and state; the XY pad's projector is
+trained on f32 timbre vectors and stays f32), as the JAX command does;
+``export_autoencoder`` takes the flag and exports in f32, as the JAX
+command does too.  ``--native`` also packages the stages
 the native host plays (``streaming.native.package_artifact``) for
 ``--device``.
 """
@@ -54,7 +58,8 @@ def build_argparser(cmd: str):
     p.add_argument("--map_steps", type=int, default=5000,
                    help="projector training steps")
     p.add_argument("--compute_dtype", default=None,
-                   help="reduced-precision compute (not ported: refused)")
+                   help="reduced-precision compute of the streamer, e.g. "
+                        "bfloat16 (export_autoencoder: f32 regardless)")
     p.add_argument("--out", default=None)
     p.add_argument("--crossfade", action="store_true",
                    help="export_autoencoder: force the non-causal crossfade "
@@ -136,9 +141,6 @@ def main(cmd: str, argv=None) -> int:
     from ..streaming.streamer import Streamer
 
     args = build_argparser(cmd).parse_args(argv)
-    if args.compute_dtype is not None:
-        raise SystemExit(f"[{cmd}] --compute_dtype is not ported: the port "
-                         "exports in f32 only (ROADMAP A.5)")
     if cmd == "export_autoencoder":
         return export_autoencoder(args)
     if not args.emb_model_path:
@@ -157,6 +159,10 @@ def main(cmd: str, argv=None) -> int:
         projector = train_projector(embeddings, num_steps=args.map_steps,
                                     device=pipe.device)
 
+    # the weights cast once to the compute dtype, after the projector's
+    # embeddings were taken in f32 (the JAX command casts after them too)
+    if args.compute_dtype is not None:
+        pipe = pipe.with_compute_dtype(args.compute_dtype)
     streamer = Streamer(cfg, chunk_size=args.chunk_size,
                         latent_range=args.latent_range, n_fade=args.n_fade,
                         pipeline=pipe)

@@ -47,13 +47,16 @@ def build_argparser():
 
 def find_artifact_projector(model_path: str, zt_channels: int, device=None):
     """(projector, artifact dir) of the newest artifact under the run dir
-    that carries a projector (``projector.npz``), else (None, None)."""
-    from ..utils.latent_map import PROJECTOR_FILE, load_projector
+    that carries a projector (``projector.npz``, or a JAX artifact's
+    ``projector.msgpack``), else (None, None)."""
+    from ..utils.latent_map import (JAX_PROJECTOR_FILE, PROJECTOR_FILE,
+                                    load_projector)
 
     candidates = sorted(
         d for d in os.listdir(model_path)
         if d.startswith(("after.audio", "after.midi"))
-        and os.path.exists(os.path.join(model_path, d, PROJECTOR_FILE))
+        and any(os.path.exists(os.path.join(model_path, d, f))
+                for f in (PROJECTOR_FILE, JAX_PROJECTOR_FILE))
     ) if os.path.isdir(model_path) else []
     for d in reversed(candidates):
         art = os.path.join(model_path, d)

@@ -76,7 +76,8 @@
 
 #ifdef AFTER_TPU_TORCH_CUDA
 namespace after_tpu_torch {
-// snake_conv_op.cc: the kernel's two launch counters on a card
+// snake_conv_op.cc: the kernel's four launch counters on a card (f32 conv
+// and split sum, bf16 conv and split sum)
 at::Tensor device_counts(c10::DeviceIndex device);
 }  // namespace after_tpu_torch
 #endif
@@ -294,6 +295,8 @@ void WriteWav(const std::string& path, const std::vector<float>& x, int sr) {
 
 at::ScalarType DtypeOf(const std::string& name) {
   if (name == "float32") return at::kFloat;
+  // a bf16 leaf's .bin holds its raw 2-byte values
+  if (name == "bfloat16") return at::kBFloat16;
   if (name == "int32") return at::kInt;
   if (name == "int64") return at::kLong;
   if (name == "uint8") return at::kByte;
@@ -1008,6 +1011,10 @@ int main(int argc, char** argv) {
     std::cerr << "[stream_host] launches counted on the device: snake_conv "
               << n[0].item<int64_t>() << ", sum_splits "
               << n[1].item<int64_t>() << " in " << c << " buffers\n";
+    std::cerr << "[stream_host] bf16 launches counted on the device: "
+                 "snake_conv "
+              << n[2].item<int64_t>() << ", sum_splits "
+              << n[3].item<int64_t>() << " in " << c << " buffers\n";
   }
 #endif
   if (!on_card)

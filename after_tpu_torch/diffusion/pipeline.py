@@ -18,6 +18,15 @@ with ``generator`` outside the graph and copied in as an input.  Outputs are
 copies, not the graph's buffers.  ``eager=True`` (or setting
 ``pipeline.eager``) runs the same calls op by op instead; on the CPU they
 always run so.
+
+``compute_dtype="bfloat16"`` (or "bf16") runs the codec, both conditioning
+encoders and the denoiser at bf16, as the JAX pipeline's ``compute_dtype``
+does: the models are cast once when the pipeline is made, so ``init``,
+``load_jax`` and ``load_state_dict`` write bf16 weights (rounded from the
+f32 values they are given; ``with_compute_dtype`` makes one from an f32
+pipeline's weights), inputs are cast to bf16 on the way in and outputs
+widened to f32 on the way out, and the sampler keeps its Euler state in
+f32.  Every snake+conv then launches the kernel's bf16 instantiation.
 """
 
 from __future__ import annotations
@@ -33,6 +42,8 @@ from ..models.autoencoder import AudioCodec
 from ..utils.device import (copy_from_host, resolve_device, strict_f32,
                             to_device)
 from ..utils.graphs import GraphPool, capture_key
+from ..utils.precision import compute_dtype as resolve_compute_dtype
+from ..utils.precision import to_compute, to_f32
 from .rectified_flow import RectifiedFlow, guidance_mix
 
 ArrayLike = Union[torch.Tensor, np.ndarray]
@@ -47,14 +58,20 @@ class TransferPipeline:
 
     def __init__(self, cfg: AfterConfig,
                  device: Optional[Union[str, torch.device]] = None, *,
-                 eager: bool = False):
+                 compute_dtype=None, eager: bool = False):
         self.cfg = cfg
         self.device = resolve_device(device)
         self.eager = eager
-        # every matmul and convolution in strict f32 (no TF32 on the card)
+        # None (f32) or the dtype the models run at, their weights cast once
+        self.compute_dtype = resolve_compute_dtype(compute_dtype)
+        # every f32 matmul and convolution in strict f32 (no TF32 on the
+        # card), bf16 ones summed in f32
         strict_f32()
         self.codec = AudioCodec(cfg.autoencoder).eval().to(self.device)
         self.rf = RectifiedFlow(cfg).eval().to(self.device)
+        if self.compute_dtype is not None:
+            self.codec.to(self.compute_dtype)
+            self.rf.to(self.compute_dtype)
         # the CUDA graphs, made at the first capture: {key: (capture key,
         # graph, static inputs)}
         self.graphs: Optional[GraphPool] = None
@@ -68,10 +85,44 @@ class TransferPipeline:
         return self
 
     def load_jax(self, variables: Mapping[str, Any]) -> "TransferPipeline":
-        """Weights of the JAX pipeline, as nested dicts of numpy arrays."""
+        """Weights of the JAX pipeline, as nested dicts of numpy arrays
+        (cast to the compute dtype, as the JAX ``prepare_variables`` casts
+        them)."""
         from ..utils.from_jax import load_pipeline
         load_pipeline(self, variables)
         return self
+
+    def with_compute_dtype(self, compute_dtype) -> "TransferPipeline":
+        """A pipeline on the same device whose models run at
+        ``compute_dtype``, with this pipeline's weights cast once."""
+        other = TransferPipeline(self.cfg, self.device,
+                                 compute_dtype=compute_dtype,
+                                 eager=self.eager)
+        other.codec.load_state_dict(self.codec.state_dict())
+        other.rf.load_state_dict(self.rf.state_dict())
+        return other
+
+    def _encode(self, audio: torch.Tensor) -> torch.Tensor:
+        """The codec's encode at the compute dtype, latents in f32."""
+        cd = self.compute_dtype
+        return to_f32(self.codec.encode(to_compute(audio, cd)), cd)
+
+    def _decode(self, z: torch.Tensor) -> torch.Tensor:
+        """The codec's decode at the compute dtype, audio in f32."""
+        cd = self.compute_dtype
+        return to_f32(self.codec.decode(to_compute(z, cd)), cd)
+
+    def _timbre(self, z: torch.Tensor) -> torch.Tensor:
+        cd = self.compute_dtype
+        return to_f32(self.rf.encode_timbre(to_compute(z, cd))[0], cd)
+
+    def _structure(self, z: torch.Tensor) -> torch.Tensor:
+        cd = self.compute_dtype
+        return to_f32(self.rf.encode_structure(to_compute(z, cd))[0], cd)
+
+    def _sample(self, x0, cond, time_cond, nb_steps, mix) -> torch.Tensor:
+        return self.rf.sample(x0, cond, time_cond, nb_steps, mix=mix,
+                              compute_dtype=self.compute_dtype)
 
     def _tensor(self, x: ArrayLike) -> torch.Tensor:
         return to_device(x, self.device)
@@ -115,25 +166,24 @@ class TransferPipeline:
     @torch.inference_mode()
     def encode(self, audio: ArrayLike) -> torch.Tensor:
         """(B, T, 1) waveform -> (B, T / ratio, z) codec latents."""
-        return self._run("encode", self.codec.encode, [audio])
+        return self._run("encode", self._encode, [audio])
 
     @torch.inference_mode()
     def decode(self, z: ArrayLike) -> torch.Tensor:
         """(B, Tl, z) latents -> waveform (B, Tl * ratio (+ M centered), 1)."""
-        return self._run("decode", self.codec.decode, [z])
+        return self._run("decode", self._decode, [z])
 
     # -- conditioning entry points ----------------------------------------
 
     @torch.inference_mode()
     def timbre(self, z: ArrayLike) -> torch.Tensor:
         """Codec latents -> global timbre vector (B, zt)."""
-        return self._run("timbre", lambda x: self.rf.encode_timbre(x)[0], [z])
+        return self._run("timbre", self._timbre, [z])
 
     @torch.inference_mode()
     def structure(self, z: ArrayLike) -> torch.Tensor:
         """Codec latents -> per-frame structure codes (B, T, zs)."""
-        return self._run("structure",
-                         lambda x: self.rf.encode_structure(x)[0], [z])
+        return self._run("structure", self._structure, [z])
 
     # -- generation --------------------------------------------------------
 
@@ -144,8 +194,8 @@ class TransferPipeline:
         """The Euler sampler from x0; ``nb_steps`` is static (one graph for
         each), the guidances are runtime values."""
         return self._run(
-            "diffuse", lambda x, c, tc, mix: self.rf.sample(
-                x, c, tc, nb_steps, mix=mix),
+            "diffuse", lambda x, c, tc, mix: self._sample(
+                x, c, tc, nb_steps, mix),
             [x0, cond, time_cond,
              guidance_mix(guidance_timbre, guidance_structure)], (nb_steps,))
 
@@ -169,8 +219,7 @@ class TransferPipeline:
 
     def _generate(self, time_cond, cond, x0, mix, nb_steps):
         """Diffuse from x0 under the conditions, then decode."""
-        return self.codec.decode(
-            self.rf.sample(x0, cond, time_cond, nb_steps, mix=mix))
+        return self._decode(self._sample(x0, cond, time_cond, nb_steps, mix))
 
     @torch.inference_mode()
     def generate(self, time_cond: ArrayLike, zsem: ArrayLike,
@@ -206,7 +255,7 @@ class TransferPipeline:
             x0 = self._noise(*self._frames(audio_structure), generator)
 
         def run(a, c, noise, mix):
-            time_cond = self.rf.encode_structure(self.codec.encode(a))[0]
+            time_cond = self._structure(self._encode(a))
             return self._generate(time_cond, c, noise, mix, nb_steps)
         return self._run(
             "generate_timbre", run,
@@ -216,12 +265,12 @@ class TransferPipeline:
     def _transfer(self, audio_structure, audio_timbre, x0, mix, nb_steps):
         """The transfer's chain on device tensors, from the sampler's noise
         ``x0``."""
-        z_struct = self.codec.encode(audio_structure)
-        z_timbre = self.codec.encode(audio_timbre)
-        time_cond = self.rf.encode_structure(z_struct)[0]
-        cond = self.rf.encode_timbre(z_timbre)[0]
-        z_out = self.rf.sample(x0, cond, time_cond, nb_steps, mix=mix)
-        return self.codec.decode(z_out)
+        z_struct = self._encode(audio_structure)
+        z_timbre = self._encode(audio_timbre)
+        time_cond = self._structure(z_struct)
+        cond = self._timbre(z_timbre)
+        z_out = self._sample(x0, cond, time_cond, nb_steps, mix)
+        return self._decode(z_out)
 
     @torch.inference_mode()
     def transfer(self, audio_structure: ArrayLike, audio_timbre: ArrayLike,

@@ -153,28 +153,40 @@ class RectifiedFlow(nn.Module):
                       cache_index: Union[int, torch.Tensor] = 0):
         """3-way CFG velocity in one batched forward of 3B rows, mixed with
         ``mix`` = [total, factor] (``guidance_mix``) on x's device; a
-        streaming net takes its KV cache and the Euler step's slot."""
+        streaming net takes its KV cache and the Euler step's slot.  A
+        compute-dtype velocity is widened to f32 before the mix."""
         dx = self.net(*self._cfg_inputs(x, time, cond, time_cond),
                       cache=cache, cache_index=cache_index)
+        if dx.dtype != torch.float32:
+            dx = dx.float()
         return self._cfg_mix(dx, mix[0], mix[1])
 
     def sample(self, x0, cond, time_cond, nb_steps: int,
                guidance_timbre: float = 1.0, guidance_structure: float = 1.0,
-               mix: Optional[torch.Tensor] = None):
+               mix: Optional[torch.Tensor] = None,
+               compute_dtype: Optional[torch.dtype] = None):
         """Euler integration from noise x0 at t = 0 to t = 1 on the exact
         grid t_i = i / n.  ``nb_steps`` is fixed, as it is static in the JAX
         sampler; the guidances are runtime values: ``mix`` (``guidance_mix``
         on x0's device, a CUDA graph's static input) when given, else made
-        from ``guidance_timbre`` and ``guidance_structure``."""
+        from ``guidance_timbre`` and ``guidance_structure``.  With
+        ``compute_dtype`` (the net's weights already at it) the net runs at
+        that dtype on the state cast to it, while the Euler state stays in
+        x0's dtype."""
         if mix is None:
             mix = to_device(guidance_mix(guidance_timbre, guidance_structure),
                             x0.device)
+        cd = compute_dtype
+        if cd is not None:
+            cond, time_cond = cond.to(cd), time_cond.to(cd)
         dt = 1.0 / nb_steps
         t_values = torch.arange(nb_steps, dtype=torch.float32) / nb_steps
         x = x0
         for t in t_values.tolist():
-            time = torch.full((x.shape[0],), t, dtype=x.dtype, device=x.device)
-            dx = self.model_forward(x, time, cond, time_cond, mix)
+            xi = x if cd is None else x.to(cd)
+            time = torch.full((x.shape[0],), t, dtype=xi.dtype,
+                              device=x.device)
+            dx = self.model_forward(xi, time, cond, time_cond, mix)
             x = x + dx * dt
         return x
 
@@ -185,29 +197,39 @@ class RectifiedFlow(nn.Module):
                               guidance_timbre, guidance_structure)
 
     def stream_step(self, cache: Cache, i: Union[int, torch.Tensor], x, cond,
-                    time_cond, scalars: torch.Tensor):
+                    time_cond, scalars: torch.Tensor,
+                    compute_dtype: Optional[torch.dtype] = None):
         """Euler step i of a streaming buffer, on KV slot i: x + v * dt, with
         t_i, dt and the guidance mix read from ``scalars``
         (``stream_scalars``, on x's device); the cache is updated in place.
         ``i`` is a Python int or an int64 0-d tensor (``KVSlot``).  A CUDA
-        graph of each slot serves every nb_steps."""
+        graph of each slot serves every nb_steps.  With ``compute_dtype``
+        the net runs at it (x, t and the conditions cast to it, the cache
+        already at it); x stays in its own dtype."""
         S = self.cfg.denoiser.max_diffusion_steps
         time = KVSlot(i).read(scalars, 0).expand(x.shape[0])
-        dx = self.model_forward(x, time, cond, time_cond, scalars[S + 1:],
+        xi, cd = x, compute_dtype
+        if cd is not None:
+            xi, time = x.to(cd), time.to(cd)
+            cond, time_cond = cond.to(cd), time_cond.to(cd)
+        dx = self.model_forward(xi, time, cond, time_cond, scalars[S + 1:],
                                 cache=cache, cache_index=i)
         return x + dx * scalars[S]
 
     def sample_stream(self, cache: Cache, x0, cond, time_cond, nb_steps=1,
-                      guidance_timbre=1.0, guidance_structure=1.0):
+                      guidance_timbre=1.0, guidance_structure=1.0,
+                      compute_dtype: Optional[torch.dtype] = None):
         """One streaming buffer: ``nb_steps`` Euler steps over x0's chunk of
         frames, step i on KV slot i (``stream_step``); the cache is updated
         in place.  ``nb_steps`` and the guidances are runtime values (Python
         numbers or 0-d tensors) that may change from one buffer to the
-        next (``stream_scalars``)."""
+        next (``stream_scalars``).  ``compute_dtype`` as in
+        ``stream_step``."""
         nb, values = self.stream_scalars(nb_steps, guidance_timbre,
                                          guidance_structure)
         scalars = to_device(values, x0.device)
         x = x0
         for i in range(nb):
-            x = self.stream_step(cache, i, x, cond, time_cond, scalars)
+            x = self.stream_step(cache, i, x, cond, time_cond, scalars,
+                                 compute_dtype)
         return x

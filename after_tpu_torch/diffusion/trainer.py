@@ -141,8 +141,8 @@ class DiffusionTrainer:
         tc = cfg.train
         if tc.compute_dtype is not None:
             raise NotImplementedError(
-                "the port trains in f32 only: train.compute_dtype is not "
-                "ported")
+                "the port trains in f32 only: train.compute_dtype (bf16 "
+                "training) is not ported yet (ROADMAP 9c)")
         et = cfg.encoder_time
         if (tc.cycle_consistency and et is not None and et.quantizer_levels
                 and et.quantizer_noise_dropout > 0):

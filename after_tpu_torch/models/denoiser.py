@@ -58,11 +58,14 @@ def fourier_features(t: torch.Tensor, num_channels: int,
                      max_positions: float = 10_000.0,
                      factor: float = 100.0) -> torch.Tensor:
     """Noise-level embedding: (B,) times in [0, 1] -> (B, num_channels)
-    [cos | sin] features."""
+    [cos | sin] features, computed in f32 and returned at t's dtype (bf16
+    under a compute dtype), as in the JAX package."""
+    dtype = t.dtype
     t = t.reshape(-1).to(torch.float32) * factor
     freqs = _freqs(num_channels // 2, max_positions, t.device)
     ang = t[:, None] * freqs[None, :]
-    return torch.cat([torch.cos(ang), torch.sin(ang)], dim=-1)
+    out = torch.cat([torch.cos(ang), torch.sin(ang)], dim=-1)
+    return out if dtype == torch.float32 else out.to(dtype)
 
 
 class MLP(nn.Module):
@@ -174,11 +177,15 @@ class ChunkCausalAttention(nn.Module, Streaming):
         if k_ang is not None:
             q = apply_rotary(q, q_ang)
             full_k = apply_rotary(full_k, k_ang)
-        logits = torch.matmul(q, full_k.transpose(-1, -2)) * (1.0 / np.sqrt(D))
+        # the logits and the softmax in f32 (bf16 q and k widened: their
+        # products are exact in f32, as preferred_element_type=f32 sums
+        # them), the probabilities back at the compute dtype
+        logits = torch.matmul(q.float(), full_k.float().transpose(-1, -2)
+                              ) * (1.0 / np.sqrt(D))
         if bias is not None:
             logits = logits + bias
         probs = dropout(torch.softmax(logits, dim=-1), cfg.dropout, train)
-        out = torch.matmul(probs, full_v)
+        out = torch.matmul(probs.to(full_v.dtype), full_v)
         return out.transpose(1, 2).reshape(B, T, E)
 
 

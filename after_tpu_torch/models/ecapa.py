@@ -15,6 +15,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..config import ECAPAConfig
+from ..ops.conv import conv1d
 from ..ops.norms import BatchNorm
 from ..ops.train_mode import TrainMode
 
@@ -35,7 +36,9 @@ class ReflectConv(nn.Module):
         pad = self.span // 2
         if pad > 0:
             h = F.pad(h, (pad, self.span - pad), mode="reflect")
-        return self.Conv_0(h).transpose(1, 2)
+        c = self.Conv_0
+        return conv1d(h, c.weight, c.bias, dilation=c.dilation,
+                      groups=c.groups).transpose(1, 2)
 
 
 class TDNNBlock(nn.Module):

@@ -43,6 +43,30 @@ def get_padding(kernel_size: int, stride: int = 1, dilation: int = 1,
     raise ValueError(f"unknown padding mode {mode!r}")
 
 
+def conv1d(x: torch.Tensor, w: torch.Tensor,
+           b: Optional[torch.Tensor] = None, **kw) -> torch.Tensor:
+    """``F.conv1d``.  A bf16 convolution on the CPU runs on the widened
+    values and is rounded once, which is what a bf16 convolution computes
+    (sums in f32): PyTorch's oneDNN bf16 conv1d on the CPU returns wrong
+    sums at some shapes (a 32-tap kernel over 4 channels, the PQMF's)."""
+    if x.dtype == torch.bfloat16 and x.device.type == "cpu":
+        return F.conv1d(x.float(), w.float(),
+                        None if b is None else b.float(), **kw
+                        ).to(torch.bfloat16)
+    return F.conv1d(x, w, b, **kw)
+
+
+def conv_transpose1d(x: torch.Tensor, w: torch.Tensor,
+                     b: Optional[torch.Tensor] = None, **kw) -> torch.Tensor:
+    """``F.conv_transpose1d``, a bf16 one on the CPU as ``conv1d`` runs
+    it."""
+    if x.dtype == torch.bfloat16 and x.device.type == "cpu":
+        return F.conv_transpose1d(x.float(), w.float(),
+                                  None if b is None else b.float(), **kw
+                                  ).to(torch.bfloat16)
+    return F.conv_transpose1d(x, w, b, **kw)
+
+
 def weight_norm(w: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     """w * g / ||w|| per slice of the first axis (output channels of a conv,
     input channels of a transposed conv), the norm clamped at 1e-12."""
@@ -190,8 +214,8 @@ class StreamConv1d(_WeightNormed, Streaming):
             if self.mode != "valid":
                 h = F.pad(h, get_padding(self.kernel_size, self.stride,
                                          self.dilation, self.mode))
-        y = F.conv1d(h, self.effective_weight(), self.bias,
-                     stride=self.stride, dilation=self.dilation)
+        y = conv1d(h, self.effective_weight(), self.bias,
+                   stride=self.stride, dilation=self.dilation)
         return y.transpose(1, 2)
 
 
@@ -224,12 +248,12 @@ class StreamConvTranspose1d(_WeightNormed, Streaming):
         T = x.shape[1]
         f = self.stride
         if not self.streaming:
-            y = F.conv_transpose1d(x.transpose(1, 2), self.effective_weight(),
-                                   self.bias, stride=f, padding=f // 2)
+            y = conv_transpose1d(x.transpose(1, 2), self.effective_weight(),
+                                 self.bias, stride=f, padding=f // 2)
             return y[:, :, :T * f].transpose(1, 2)
         tail = self.kernel_size - f
-        y = F.conv_transpose1d(x.transpose(1, 2), self.effective_weight(),
-                               stride=f).transpose(1, 2)
+        y = conv_transpose1d(x.transpose(1, 2), self.effective_weight(),
+                             stride=f).transpose(1, 2)
         overlap = self.slot(cache, "overlap", lambda: x.new_zeros(
             (x.shape[0], tail, self.features)))
         if tail > 0:

@@ -27,6 +27,17 @@ to launch, eager or replayed in a CUDA graph.  That second kernel,
 ``sum_splits``, is also callable alone (on the card; its plain version
 ``sum_splits_reference`` on the CPU), to check and time it.
 
+The op also takes bf16 tensors (the pipeline's and the streamer's
+``compute_dtype``): x, alpha, beta, b and a single bf16 weight w_k, (k, O,
+Cw) with Cw a multiple of 8, its low half an empty tensor.  On the card that
+launches the kernel's bf16 instantiation (``snake_conv_bf16``: the snake in
+f32, rounded to bf16 once; one bf16 wgmma product, summed in f32 with the
+bias; the output rounded once), whose split sums keep f32 partials
+(``sum_splits(ws, torch.bfloat16)``); its plain version is
+``snake_conv_reference`` on bf16 inputs, with the same roundings.  Any other
+type raises.  The bf16 form has no backward on the card (its gradient op
+refuses non-f32 tensors).
+
 Two counts of launches: ``fused_snake_conv.launches`` counts the op's
 launches on the card (an eager launch, or one recorded by a CUDA graph
 capture; a replay runs no Python and adds nothing), and the kernels count
@@ -67,10 +78,24 @@ def snake_conv_reference(x: torch.Tensor, alpha: torch.Tensor,
                          beta: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                          dilation: int = 1, mode: str = "causal"
                          ) -> torch.Tensor:
-    """Plain version: snake_beta, then F.conv1d with the same zero pad."""
+    """Plain version: snake_beta, then F.conv1d with the same zero pad.  On
+    bf16 inputs, what the kernel's bf16 instantiation computes: the snake in
+    f32 from the widened inputs, rounded to bf16, the conv summed in f32
+    with the f32 bias, the output rounded to bf16 once."""
+    if x.dtype == torch.bfloat16:
+        a = snake_beta(x.float(), alpha.float(), beta.float())
+        return _conv(a.to(torch.bfloat16).float(), w.float(), b.float(),
+                     dilation, mode).to(torch.bfloat16)
+    return _conv(snake_beta(x, alpha, beta), w, b, dilation, mode)
+
+
+def _conv(a: torch.Tensor, w: torch.Tensor, b: torch.Tensor, dilation: int,
+          mode: str) -> torch.Tensor:
+    """F.conv1d over (B, T, C) activations with the length-keeping zero
+    pad of ``mode``, (B, T, O) contiguous out."""
     left, right = get_padding(w.shape[-1], 1, dilation, mode)
-    a = snake_beta(x, alpha, beta).transpose(1, 2)
-    y = F.conv1d(F.pad(a, (left, right)), w, b, dilation=dilation)
+    y = F.conv1d(F.pad(a.transpose(1, 2), (left, right)), w, b,
+                 dilation=dilation)
     return y.transpose(1, 2).contiguous()
 
 
@@ -91,6 +116,13 @@ def _lib():
         lib.fused_snake_conv_sum_splits.argtypes = [p, p, ctypes.c_longlong,
                                                     i, p, p]
         lib.fused_snake_conv_sum_splits.restype = ctypes.c_int
+        lib.fused_snake_conv_bf16.argtypes = [p] * 7 + [i] * 8 + [p, p]
+        lib.fused_snake_conv_bf16.restype = ctypes.c_int
+        lib.fused_snake_conv_plan_bf16.argtypes = [i] * 6 + [p]
+        lib.fused_snake_conv_plan_bf16.restype = ctypes.c_int
+        lib.fused_snake_conv_sum_splits_bf16.argtypes = [
+            p, p, ctypes.c_longlong, i, p, p]
+        lib.fused_snake_conv_sum_splits_bf16.restype = ctypes.c_int
         _LIB = lib
     return _LIB
 
@@ -120,16 +152,18 @@ def _bwd_lib():
 _PLANS: Dict[Tuple[int, ...], Tuple[int, int, int]] = {}
 
 
-def kernel_plan(B: int, T: int, C: int, O: int, k: int, dilation: int = 1
-                ) -> Tuple[int, int, int]:
+def kernel_plan(B: int, T: int, C: int, O: int, k: int, dilation: int = 1,
+                dtype: torch.dtype = torch.float32) -> Tuple[int, int, int]:
     """(output channels per block, channels per stage, splits of the
-    channel sum) that a launch at this shape takes; builds the kernel if
-    needed."""
-    key = (B, T, C, O, k, dilation)
+    channel sum) that a launch at this shape and type (f32 or bf16) takes;
+    builds the kernel if needed."""
+    bf16 = dtype == torch.bfloat16
+    key = (B, T, C, O, k, dilation, bf16)
     if key not in _PLANS:
         out = (ctypes.c_int * 3)()
-        err = _lib().fused_snake_conv_plan(B, T, C, O, k, dilation,
-                                           ctypes.addressof(out))
+        plan = (_lib().fused_snake_conv_plan_bf16 if bf16
+                else _lib().fused_snake_conv_plan)
+        err = plan(B, T, C, O, k, dilation, ctypes.addressof(out))
         if err != 0:
             raise ValueError(f"no tiling for B={B} T={T} C={C} O={O} k={k} "
                              f"d={dilation} (CUDA error {err})")
@@ -159,16 +193,20 @@ def backward_plan(B: int, T: int, C: int, O: int, k: int, dilation: int = 1
 
 
 _COUNTS: Dict[torch.device, torch.Tensor] = {}
-# slots of the device counters: the forward kernel's and its split sum's
-# (what the kernel of fused_snake_conv.cu writes), then the backward's:
-# dgrad, wgrad and their sum of partials
+# slots of the device counters: the f32 forward kernel's and its split
+# sum's (what the kernel of fused_snake_conv.cu writes), then the
+# backward's: dgrad, wgrad and their sum of partials, then the bf16
+# instantiation's kernel and its split sum
 _FORWARD_SLOTS = 2
 _BACKWARD_SLOTS = 3
+_BF16 = _FORWARD_SLOTS + _BACKWARD_SLOTS
+_BF16_SLOTS = 2
 
 
 def _device_counts(device: torch.device) -> torch.Tensor:
     """The int64 launch counters on ``device`` that the kernels add to (the
-    conv kernel's, the split sum's, then the backward kernels' three), made
+    conv kernel's, the split sum's, the backward kernels' three, then the
+    bf16 conv kernel's and its split sum's), made
     at the first launch; a first launch inside a CUDA graph capture raises,
     since the counters must not come from the graph's pool."""
     device = torch.device("cuda", torch.cuda.current_device()
@@ -183,18 +221,21 @@ def _device_counts(device: torch.device) -> torch.Tensor:
         # reset outside it
         with torch.inference_mode(False):
             counts = _COUNTS[device] = torch.zeros(
-                _FORWARD_SLOTS + _BACKWARD_SLOTS, dtype=torch.int64,
-                device=device)
+                _BF16 + _BF16_SLOTS, dtype=torch.int64, device=device)
     return counts
 
 
-def device_launches(device="cuda") -> Tuple[int, int]:
+def device_launches(device="cuda", dtype: torch.dtype = torch.float32
+                    ) -> Tuple[int, int]:
     """(launches of the snake+conv kernel, launches of its split-sum
     kernel) on ``device`` since the last ``reset_device_launches``, as the
     kernels counted them on the device: eager launches and those replayed
-    from CUDA graphs alike.  Waits for the device's work to end."""
-    return tuple(_device_counts(torch.device(device))[:_FORWARD_SLOTS]
-                 .tolist())
+    from CUDA graphs alike; those of the f32 kernels, or with ``dtype``
+    torch.bfloat16 those of the bf16 instantiation.  Waits for the
+    device's work to end."""
+    start = _BF16 if dtype == torch.bfloat16 else 0
+    return tuple(_device_counts(torch.device(device))[
+        start:start + _FORWARD_SLOTS].tolist())
 
 
 def backward_device_launches(device="cuda") -> Tuple[int, int, int]:
@@ -207,8 +248,8 @@ def backward_device_launches(device="cuda") -> Tuple[int, int, int]:
 
 
 def reset_device_launches(device="cuda") -> None:
-    """Sets ``device``'s launch counters (forward and backward) to 0, in
-    stream order."""
+    """Sets ``device``'s launch counters (forward, backward and bf16) to 0,
+    in stream order."""
     _device_counts(torch.device(device)).zero_()
 
 
@@ -225,14 +266,25 @@ def weight_low(w: torch.Tensor) -> torch.Tensor:
     return ((r.view(torch.int32) + 4096) & -8192).view(torch.float32)
 
 
+def weight_channels(C: int, dtype: torch.dtype = torch.float32) -> int:
+    """Cw, the input channels of the kernel's weight layout: C rounded up
+    to 16 bytes of the type (4 f32 or 8 bf16 values)."""
+    m = 8 if dtype == torch.bfloat16 else 4
+    return -(-C // m) * m
+
+
 def kernel_weight(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """w (O, C, k) as the kernel reads it: (k, O, Cw) contiguous, Cw = C
-    rounded up to a multiple of 4, zeros past C, and its low tf32 half in the
-    same layout: a copy, which carries w's gradient, and its split, which
-    carries none."""
+    rounded up to 16 bytes (``weight_channels``), zeros past C, and its low
+    tf32 half in the same layout: a copy, which carries w's gradient, and
+    its split, which carries none.  A bf16 weight has no low half: an empty
+    tensor stands in its place."""
     O, C, k = w.shape
-    hi = torch.zeros((k, O, -(-C // 4) * 4), dtype=w.dtype, device=w.device)
+    hi = torch.zeros((k, O, weight_channels(C, w.dtype)), dtype=w.dtype,
+                     device=w.device)
     hi[:, :, :C] = w.permute(2, 0, 1)
+    if w.dtype == torch.bfloat16:
+        return hi, w.new_empty(0)
     return hi, weight_low(hi.detach())
 
 
@@ -242,11 +294,12 @@ def torch_weight(w_k: torch.Tensor, channels: int) -> torch.Tensor:
     return w_k[:, :, :channels].permute(1, 2, 0).contiguous()
 
 
-def _check(name: str, t: torch.Tensor, device: torch.device, shape) -> None:
+def _check(name: str, t: torch.Tensor, device: torch.device, shape,
+           dtype: torch.dtype = torch.float32) -> None:
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, x on {device}")
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name} must be float32, got {t.dtype}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
     if tuple(t.shape) != tuple(shape):
@@ -257,39 +310,52 @@ def _check(name: str, t: torch.Tensor, device: torch.device, shape) -> None:
 def _launch(x: torch.Tensor, alpha: torch.Tensor, beta: torch.Tensor,
             w_k: torch.Tensor, w_lo: torch.Tensor, b: torch.Tensor,
             dilation: int, mode: str) -> torch.Tensor:
-    """Checks the inputs, launches the kernel on x's device and counts the
-    call in ``fused_snake_conv.launches`` (the kernel counts its launch on
-    the device, ``device_launches``)."""
+    """Checks the inputs, launches the kernel on x's device (the f32
+    kernel, or the bf16 instantiation for bf16 x) and counts the call in
+    ``fused_snake_conv.launches`` (the kernel counts its launch on the
+    device, ``device_launches``)."""
     if x.dim() != 3 or w_k.dim() != 3:
         raise ValueError(f"x must be (B, T, C) and w_k (k, O, Cw); got "
                          f"{tuple(x.shape)} and {tuple(w_k.shape)}")
     B, T, C = x.shape
     k, O, Cw = w_k.shape
-    if Cw % 4 or not C <= Cw < C + 4:
+    bf16 = x.dtype == torch.bfloat16
+    dtype = torch.bfloat16 if bf16 else torch.float32
+    if Cw != weight_channels(C, dtype):
         raise ValueError(f"w_k has {Cw} input channels for x's {C}: the "
-                         "kernel reads C rounded up to a multiple of 4")
-    _check("x", x, x.device, (B, T, C))
-    _check("alpha", alpha, x.device, (C,))
-    _check("beta", beta, x.device, (C,))
-    _check("w_k", w_k, x.device, (k, O, Cw))
-    _check("w_lo", w_lo, x.device, (k, O, Cw))
-    _check("b", b, x.device, (O,))
-    if w_k.data_ptr() % 16 or w_lo.data_ptr() % 16:
+                         f"{dtype} kernel reads C rounded up to "
+                         f"{weight_channels(C, dtype)}")
+    _check("x", x, x.device, (B, T, C), dtype)
+    _check("alpha", alpha, x.device, (C,), dtype)
+    _check("beta", beta, x.device, (C,), dtype)
+    _check("w_k", w_k, x.device, (k, O, Cw), dtype)
+    _check("w_lo", w_lo, x.device, (0,) if bf16 else (k, O, Cw), dtype)
+    _check("b", b, x.device, (O,), dtype)
+    if w_k.data_ptr() % 16 or (not bf16 and w_lo.data_ptr() % 16):
         raise ValueError("the kernel's weight tiles must be 16-byte aligned")
     left, _ = get_padding(k, 1, dilation, mode)
-    y = torch.empty((B, T, O), device=x.device, dtype=torch.float32)
-    # the partial sums of a split channel sum, added in split order
-    splits = kernel_plan(B, T, C, O, k, dilation)[2]
+    y = torch.empty((B, T, O), device=x.device, dtype=dtype)
+    # the f32 partial sums of a split channel sum, added in split order
+    splits = kernel_plan(B, T, C, O, k, dilation, dtype)[2]
     ws = (torch.empty((splits, B, T, O), device=x.device, dtype=torch.float32)
           if splits > 1 else None)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = _lib().fused_snake_conv_f32(
-            x.data_ptr(), alpha.data_ptr(), beta.data_ptr(), w_k.data_ptr(),
-            w_lo.data_ptr(), b.data_ptr(), y.data_ptr(),
-            None if ws is None else ws.data_ptr(),
-            B, T, C, O, k, dilation, left, Cw,
-            _device_counts(x.device).data_ptr(), stream)
+        counts = _device_counts(x.device)
+        if bf16:
+            err = _lib().fused_snake_conv_bf16(
+                x.data_ptr(), alpha.data_ptr(), beta.data_ptr(),
+                w_k.data_ptr(), b.data_ptr(), y.data_ptr(),
+                None if ws is None else ws.data_ptr(),
+                B, T, C, O, k, dilation, left, Cw,
+                counts.data_ptr() + 8 * _BF16, stream)
+        else:
+            err = _lib().fused_snake_conv_f32(
+                x.data_ptr(), alpha.data_ptr(), beta.data_ptr(),
+                w_k.data_ptr(), w_lo.data_ptr(), b.data_ptr(), y.data_ptr(),
+                None if ws is None else ws.data_ptr(),
+                B, T, C, O, k, dilation, left, Cw, counts.data_ptr(),
+                stream)
     if err != 0:
         raise RuntimeError(f"fused_snake_conv kernel launch failed with CUDA "
                            f"error {err} (B={B} T={T} C={C} O={O} k={k} "
@@ -305,9 +371,10 @@ def snake_conv(x: torch.Tensor, alpha: torch.Tensor, beta: torch.Tensor,
                dilation: int, mode: str) -> torch.Tensor:
     """The registered op ``after_tpu_torch::snake_conv``: conv(snake_beta(x))
     with the weight in the kernel's layout, w_k (k, O, Cw) and its low tf32
-    half w_lo (``kernel_weight``).  On CUDA tensors it launches the kernel
-    (``_launch``) or raises; on CPU tensors it is the plain version; traced
-    (``torch.export``) it is one node of the program."""
+    half w_lo (``kernel_weight``; bf16: an empty w_lo).  On CUDA tensors it
+    launches the kernel (``_launch``) or raises; on CPU tensors it is the
+    plain version; traced (``torch.export``) it is one node of the
+    program."""
     return _launch(x, alpha, beta, w_k, w_lo, b, dilation, mode)
 
 
@@ -519,32 +586,42 @@ def fused_snake_conv(x: torch.Tensor, alpha: torch.Tensor, beta: torch.Tensor,
 fused_snake_conv.launches = 0
 
 
-def sum_splits_reference(ws: torch.Tensor) -> torch.Tensor:
-    """ws[0] + ws[1] + ... + ws[-1], added in that order (the plain version
-    of the split sum)."""
+def sum_splits_reference(ws: torch.Tensor,
+                         dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """ws[0] + ws[1] + ... + ws[-1], added in that order, then stored as
+    ``dtype`` (the plain version of the split sum)."""
     y = ws[0].clone()
     for part in ws[1:]:
         y += part
-    return y
+    return y.to(dtype)
 
 
-def sum_splits(ws: torch.Tensor) -> torch.Tensor:
-    """The kernel's split sum over the first axis of ``ws`` (splits, ...),
-    in split order: on a CUDA tensor it launches ``sum_splits`` (which
-    counts itself in ``device_launches()[1]``) or raises; on a CPU tensor it
-    is the plain version."""
+def sum_splits(ws: torch.Tensor,
+               dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """The kernel's split sum over the first axis of the f32 ``ws``
+    (splits, ...), in split order, stored as ``dtype`` (f32, or bf16 as the
+    bf16 instantiation stores it): on a CUDA tensor it launches
+    ``sum_splits`` or ``sum_splits_bf16`` (which count themselves in
+    ``device_launches(dtype=dtype)[1]``) or raises; on a CPU tensor it is
+    the plain version."""
     if ws.device.type == "cpu":
-        return sum_splits_reference(ws)
+        return sum_splits_reference(ws, dtype)
     if ws.device.type != "cuda":
         raise ValueError(f"sum_splits runs on cuda or cpu, not {ws.device}")
     if ws.dtype != torch.float32 or not ws.is_contiguous() or ws.dim() < 2:
         raise ValueError("sum_splits takes a contiguous f32 (splits, ...) "
                          "tensor")
-    y = torch.empty(ws.shape[1:], device=ws.device, dtype=torch.float32)
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"sum_splits stores f32 or bf16, not {dtype}")
+    bf16 = dtype == torch.bfloat16
+    y = torch.empty(ws.shape[1:], device=ws.device, dtype=dtype)
     with torch.cuda.device(ws.device):
-        err = _lib().fused_snake_conv_sum_splits(
+        launch = (_lib().fused_snake_conv_sum_splits_bf16 if bf16
+                  else _lib().fused_snake_conv_sum_splits)
+        err = launch(
             ws.data_ptr(), y.data_ptr(), y.numel(), ws.shape[0],
-            _device_counts(ws.device).data_ptr(),
+            _device_counts(ws.device).data_ptr() + (8 * _BF16 if bf16
+                                                    else 0),
             torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"sum_splits launch failed with CUDA error {err} "

@@ -1,6 +1,7 @@
 """Normalisations over the channels of (B, T, C) tensors, with the JAX
 package's epsilons (flax GroupNorm at 1e-5 as the codec sets it, flax
-BatchNorm's default 1e-5)."""
+BatchNorm's default 1e-5).  A bf16 input is normalised in f32, statistics
+and all, and the result returned in bf16, as flax computes them."""
 
 from __future__ import annotations
 
@@ -24,10 +25,11 @@ class GroupNorm(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         B, T, C = x.shape
-        h = x.reshape(B, T, self.num_groups, C // self.num_groups)
+        h = x.float().reshape(B, T, self.num_groups, C // self.num_groups)
         var, mean = torch.var_mean(h, dim=(1, 3), unbiased=False, keepdim=True)
         h = (h - mean) * torch.rsqrt(var + self.eps)
-        return h.reshape(B, T, C) * self.weight + self.bias
+        y = h.reshape(B, T, C) * self.weight.float() + self.bias.float()
+        return y.to(x.dtype)
 
 
 class BatchNorm(nn.Module):
@@ -52,15 +54,17 @@ class BatchNorm(nn.Module):
 
     def forward(self, x: torch.Tensor,
                 train: Optional[TrainMode] = None) -> torch.Tensor:
+        dtype = x.dtype
+        x = x.float()
         if train is None:
-            mean, var = self.running_mean, self.running_var
+            mean, var = self.running_mean.float(), self.running_var.float()
         else:
             axes = tuple(range(x.dim() - 1))
             mean = x.mean(axes)
             var = torch.clamp_min((x * x).mean(axes) - mean * mean, 0.0)
             train.batch_stats[self] = (mean.detach(), var.detach())
-        mul = torch.rsqrt(var + self.eps) * self.weight
-        return (x - mean) * mul + self.bias
+        mul = torch.rsqrt(var + self.eps) * self.weight.float()
+        return ((x - mean) * mul + self.bias.float()).to(dtype)
 
     @torch.no_grad()
     def update_running(self, mean: torch.Tensor, var: torch.Tensor,

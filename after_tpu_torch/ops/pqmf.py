@@ -30,6 +30,7 @@ from scipy.signal import firwin, kaiserord
 from torch import nn
 
 from ..streaming.state import Streaming
+from .conv import conv1d
 
 
 def _kaiser_filter(wc: float, atten: float, N: int = None) -> np.ndarray:
@@ -137,12 +138,12 @@ class PQMFAnalysis(nn.Module, Streaming):
         K = self.kernel.shape[-1]
         xp = x.reshape(B, T // M, M).transpose(1, 2)
         if self.streaming:
-            y = F.conv1d(_streaming_pad(self, cache, xp), self.kernel)
+            y = conv1d(_streaming_pad(self, cache, xp), self.kernel)
         elif self.causal:
-            y = F.conv1d(F.pad(xp, (K - 1, 0)), self.kernel)
+            y = conv1d(F.pad(xp, (K - 1, 0)), self.kernel)
         else:
             p = K // 2
-            y = F.conv1d(F.pad(xp, (p, p)), self.kernel)[:, :, :-1]
+            y = conv1d(F.pad(xp, (p, p)), self.kernel)[:, :, :-1]
         return _apply_mask(y.transpose(1, 2), self.mask)
 
 
@@ -171,12 +172,12 @@ class PQMFSynthesis(nn.Module, Streaming):
         K = self.kernel.shape[-1]
         x = _apply_mask(xb, self.mask, self.parity).transpose(1, 2)
         if self.streaming:
-            y = F.conv1d(_streaming_pad(self, cache, x), self.kernel) * M
+            y = conv1d(_streaming_pad(self, cache, x), self.kernel) * M
         elif self.causal:
-            y = F.conv1d(F.pad(x, (K - 1, 0)), self.kernel) * M
+            y = conv1d(F.pad(x, (K - 1, 0)), self.kernel) * M
         else:
             pad = K // 2 + 1
-            y = F.conv1d(F.pad(x, (pad, pad)), self.kernel)[:, :, :-1] * M
+            y = conv1d(F.pad(x, (pad, pad)), self.kernel)[:, :, :-1] * M
         # (B, phase, T) -> phases in reverse order, interleaved in time
         wav = y.flip(1).transpose(1, 2).reshape(B, -1, 1)
         return wav if self.causal else wav[:, M:]

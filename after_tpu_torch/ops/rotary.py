@@ -35,8 +35,12 @@ def _rotate_half(x: torch.Tensor) -> torch.Tensor:
 
 def apply_rotary(x: torch.Tensor, angles: torch.Tensor) -> torch.Tensor:
     """Rotate (..., T, head_dim) by (T, rot_dim) angles; features beyond
-    rot_dim pass through."""
+    rot_dim pass through.  The f32 angles' cosines and sines are applied at
+    x's dtype (a bf16 x stays bf16, as in the JAX package)."""
     rot_dim = angles.shape[-1]
     x_rot, x_pass = x[..., :rot_dim], x[..., rot_dim:]
-    x_rot = x_rot * torch.cos(angles) + _rotate_half(x_rot) * torch.sin(angles)
+    cos, sin = torch.cos(angles), torch.sin(angles)
+    if cos.dtype != x.dtype:
+        cos, sin = cos.to(x.dtype), sin.to(x.dtype)
+    x_rot = x_rot * cos + _rotate_half(x_rot) * sin
     return torch.cat([x_rot, x_pass], dim=-1)

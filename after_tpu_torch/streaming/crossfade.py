@@ -41,13 +41,14 @@ class CrossfadeDecoder:
                                 else False)
         self._alpha = {}
 
-    def _device(self) -> torch.device:
-        return next(self.codec.parameters()).device
-
     def _window(self, batch_size: int, channels: int, scale: int = 1
                 ) -> torch.Tensor:
+        """Zeros of a window on the codec's device, at its dtype (bf16
+        under a compute dtype, so that the buffers of a state are too)."""
+        p = next(self.codec.parameters())
         return torch.zeros((batch_size, (self.n_fade + self.chunk_size)
-                            * scale, channels), device=self._device())
+                            * scale, channels), device=p.device,
+                           dtype=p.dtype)
 
     def init_state(self, batch_size: int = 1) -> CrossfadeState:
         """Zeroed buffers, and the GroupNorm pads as one pass over a zero

@@ -31,6 +31,14 @@ guidances are runtime inputs in both, and the manifest keeps the JAX keys,
 adding ``runtime``, ``stages`` and ``state_paths``; and it holds
 torch.export programs, no StableHLO, MLIR bytecode or compile options.
 
+A streamer with a ``compute_dtype`` exports at it: its programs hold bf16
+weights (each snake+conv a node of the op's bf16 form), its state leaves
+are bf16 (``state_dtypes`` says "bfloat16"), stored as their raw 16 bits
+(uint16 in ``initial_state.npz``, two bytes a value in ``leaf_<i>.bin``),
+as the JAX exporter stores them; the hosts read them back as bf16 from the
+manifest's ``state_dtypes``, a JAX artifact's state too.  Inputs and
+outputs stay f32.
+
 Export on the device that will serve: a program traced on the CPU holds CPU
 constants, and a host that loads it onto the card moves them
 (``torch.export.passes.move_to_device_pass``), as the hosts below do.
@@ -115,11 +123,13 @@ class _Stage(nn.Module, StreamStages):
 
     def __init__(self, key: str, template, latent_range: float,
                  codec: Optional[nn.Module] = None, crossfade=None,
-                 rf: Optional[nn.Module] = None):
+                 rf: Optional[nn.Module] = None,
+                 compute_dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.key = key
         self.template = template
         self.latent_range = latent_range
+        self.compute_dtype = compute_dtype
         self.codec = codec
         self.rf = rf
         if crossfade is not None:
@@ -195,7 +205,18 @@ def _export(module: nn.Module, args: tuple, path: str) -> None:
 
 
 def _dtype_name(t: torch.Tensor) -> str:
-    return str(t.detach().cpu().numpy().dtype)
+    """The numpy name of a tensor's dtype ("float32", "int32", ...), and
+    "bfloat16" for bf16, as the JAX exporter names it."""
+    return str(t.dtype).replace("torch.", "")
+
+
+def _storable(t: torch.Tensor) -> np.ndarray:
+    """A state leaf as numpy stores it: a bf16 one as the uint16 view of its
+    bits (numpy has no bf16)."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(np.uint16)
+    return t.numpy()
 
 
 def _write_state(sdir: str, name: str, leaves: Sequence[torch.Tensor]
@@ -203,7 +224,7 @@ def _write_state(sdir: str, name: str, leaves: Sequence[torch.Tensor]
     """``<name>.npz`` of the leaves (leaf_<i>) and, for the stream state,
     the raw leaf_<i>.bin of each."""
     os.makedirs(sdir, exist_ok=True)
-    arrays = [t.detach().cpu().numpy() for t in leaves]
+    arrays = [_storable(t) for t in leaves]
     np.savez(os.path.join(sdir, f"{name}.npz"),
              **{f"leaf_{i}": a for i, a in enumerate(arrays)})
     if name == "initial_state":
@@ -244,14 +265,16 @@ def export_streamer(streamer: Streamer, out_dir: str, nb_steps: int = 1,
     enc = _without(codec, "decoder", "pqmf_inv")
     dec = _without(codec, "encoder", "pqmf")
     lr, cf = streamer.latent_range, streamer.crossfade
+    cd = streamer.compute_dtype
     stages = {
         "structure": _Stage("structure", template, lr, enc, cf,
-                            _without(rf, "net", "encoder", "classifier")),
+                            _without(rf, "net", "encoder", "classifier"), cd),
         "timbre": _Stage("timbre", template, lr, enc, cf,
-                         _without(rf, "net", "encoder_time", "classifier")),
+                         _without(rf, "net", "encoder_time", "classifier"),
+                         cd),
         "step": _Stage("step", template, lr, rf=_without(
-            rf, "encoder", "encoder_time", "classifier")),
-        "decode": _Stage("decode", template, lr, dec, cf),
+            rf, "encoder", "encoder_time", "classifier"), compute_dtype=cd),
+        "decode": _Stage("decode", template, lr, dec, cf, compute_dtype=cd),
     }
 
     def zeros(*shape):
@@ -395,10 +418,22 @@ def load_program(path: str, device: torch.device) -> nn.Module:
     return program.module()
 
 
-def _load_state(path: str, device: torch.device) -> List[torch.Tensor]:
+def load_state(path: str, device: torch.device,
+               dtypes: Optional[Sequence[str]] = None) -> List[torch.Tensor]:
+    """The leaves of a state ``.npz`` (leaf_<i>) on ``device``; a leaf whose
+    entry of ``dtypes`` (a manifest's ``state_dtypes``) is "bfloat16" holds
+    the uint16 bits of bf16 values (the port's and the JAX exporter's
+    storage) and comes back as bf16."""
     z = np.load(path)
-    return [torch.from_numpy(z[f"leaf_{i}"]).to(device)
-            for i in range(len(z.files))]
+    leaves = []
+    for i in range(len(z.files)):
+        a = z[f"leaf_{i}"]
+        if dtypes is not None and dtypes[i] == "bfloat16":
+            t = torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+        else:
+            t = torch.from_numpy(a)
+        leaves.append(t.to(device))
+    return leaves
 
 
 class _Host:
@@ -476,8 +511,9 @@ class ExportedStreamer(_Host):
         self.programs = self._programs(
             ["structure", "timbre", "step", "decode", "piano_roll",
              "latent2map", "map2latent"])
-        self.state = _load_state(
-            os.path.join(path, "state", "initial_state.npz"), self.device)
+        self.state = load_state(
+            os.path.join(path, "state", "initial_state.npz"), self.device,
+            m["state_dtypes"])
         B, T = int(m["batch_size"]), int(m["chunk_size"])
 
         def zeros(*shape):
@@ -572,8 +608,9 @@ class ExportedStreamer(_Host):
     def reset(self, path: Optional[str] = None) -> None:
         """The initial state (of ``path``'s artifact, by default this one's)
         written into the state's tensors, in place."""
-        init = _load_state(os.path.join(path or self.path, "state",
-                                        "initial_state.npz"), self.device)
+        init = load_state(os.path.join(path or self.path, "state",
+                                       "initial_state.npz"), self.device,
+                          self.manifest["state_dtypes"])
         for t, v in zip(self.state, init):
             t.copy_(v)
 
@@ -588,7 +625,7 @@ class ExportedCodec(_Host):
         super().__init__(path, device)
         m = self.manifest
         self.programs = self._programs(CODEC_METHODS)
-        self._states = {n: _load_state(os.path.join(path, f"{n}_state.npz"),
+        self._states = {n: load_state(os.path.join(path, f"{n}_state.npz"),
                                        self.device) for n in self.programs}
         A, T = int(m["audio_chunk"]), int(m["chunk_size"])
         self._inputs = {
@@ -621,7 +658,7 @@ class ExportedCodec(_Host):
 
     def reset(self, path: Optional[str] = None) -> None:
         for n, state in self._states.items():
-            init = _load_state(os.path.join(path or self.path,
+            init = load_state(os.path.join(path or self.path,
                                             f"{n}_state.npz"), self.device)
             for t, v in zip(state, init):
                 t.copy_(v)

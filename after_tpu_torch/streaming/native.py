@@ -51,6 +51,9 @@ STATELESS = ("piano_roll",)
 # the directory that holds the package, for the packaging processes
 _ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
+# the pid of the process that started this one, where it asks this one to
+# die with it (``die_with_parent``)
+PARENT_ENV = "AFTER_NATIVE_PARENT"
 
 
 def artifact_kind(manifest: dict) -> str:
@@ -208,12 +211,14 @@ def _inductor_cxx() -> None:
 def _package_one(path: str, device: torch.device, stage: str) -> dict:
     from torch._inductor import config
     _inductor_cxx()
+    # compile time: the large C++ wrapper (it only calls the kernels)
+    # unoptimised, on either device
+    config.aot_inductor.compile_wrapper_opt_level = "O0"
     if device.type == "cuda":
         strict_f32()
-        # compile time: one Triton config a pointwise kernel (no
-        # benchmarking of several), the large C++ wrapper unoptimised
+        # and one Triton config a pointwise kernel (no benchmarking of
+        # several)
         config.triton.autotune_pointwise = False
-        config.aot_inductor.compile_wrapper_opt_level = "O0"
     t0 = time.perf_counter()
     writes = package_stage(os.path.join(path, f"{stage}.pt2"),
                            os.path.join(path, "native", device.type,
@@ -224,11 +229,13 @@ def _package_one(path: str, device: torch.device, stage: str) -> dict:
 
 def _in_processes(path: str, device: torch.device, stages: Sequence[str]
                   ) -> Dict[str, dict]:
-    """Each stage packaged by a process of its own, all at once."""
+    """Each stage packaged by a process of its own, all at once, each dying
+    with this process (``die_with_parent``)."""
     import subprocess
     import sys
     env = dict(os.environ, TORCHINDUCTOR_COMPILE_THREADS=os.environ.get(
         "TORCHINDUCTOR_COMPILE_THREADS", "2"))
+    env[PARENT_ENV] = str(os.getpid())
     procs = {stage: subprocess.Popen(
         [sys.executable, "-m", "after_tpu_torch.streaming.native",
          os.path.abspath(path), "--device", str(device), "--stage", stage],
@@ -247,6 +254,22 @@ def _in_processes(path: str, device: torch.device, stages: Sequence[str]
     return done
 
 
+def die_with_parent() -> None:
+    """Where the process that started this one named itself in
+    ``AFTER_NATIVE_PARENT`` (Linux): this process is killed when that one
+    dies (PR_SET_PDEATHSIG), however it dies, so that a killed packaging
+    leaves no compile running; it exits at once if that one is already
+    gone."""
+    import ctypes
+    import sys
+    parent = os.environ.get(PARENT_ENV)
+    if parent is None or not sys.platform.startswith("linux"):
+        return
+    ctypes.CDLL(None, use_errno=True).prctl(1, 9)    # PDEATHSIG, SIGKILL
+    if os.getppid() != int(parent):
+        os._exit(1)
+
+
 def main(argv=None) -> int:
     import argparse
     p = argparse.ArgumentParser(
@@ -259,6 +282,7 @@ def main(argv=None) -> int:
                    help="package this one stage and print its JSON record "
                         "(the manifest is left to the caller)")
     args = p.parse_args(argv)
+    die_with_parent()
     device = resolve_device(args.device)
     if args.stage is not None:
         print(json.dumps(_package_one(args.path, device, args.stage)))

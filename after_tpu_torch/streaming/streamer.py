@@ -39,6 +39,13 @@ into its buffer outside the graphs, and outputs are copies.  A stage is
 replayed from its graph, or, with ``Streamer(..., eager=True)`` (or
 ``streamer.eager`` set) and always on the CPU, run op by op over the same
 buffers.
+
+``compute_dtype="bfloat16"`` streams at bf16, as the JAX streamer's
+``compute_dtype`` does: the models run at it (a pipeline of the same
+compute dtype shares its cast weights: ``TransferPipeline(...,
+compute_dtype=...)`` or ``pipeline.with_compute_dtype``), the caches, ring
+buffers and KV slots of a state live at it, and audio, latents, structure
+codes and timbre vectors go in and out in f32, the Euler state too.
 """
 
 from __future__ import annotations
@@ -57,6 +64,8 @@ from ..diffusion.rectified_flow import RectifiedFlow
 from ..models.autoencoder import AudioCodec, decoder_band_delay
 from ..utils.device import copy_from_host, resolve_device, to_device
 from ..utils.graphs import Graph, GraphPool, capture_key, restored
+from ..utils.precision import compute_dtype as resolve_compute_dtype
+from ..utils.precision import to_compute, to_f32
 from .state import StreamState, clone_state, flatten_state, init_cache
 
 ArrayLike = Union[torch.Tensor, np.ndarray]
@@ -120,18 +129,25 @@ class StreamStages:
     ``StreamState`` and its inputs that returns its output and writes the
     state in place: what a ``Streamer``'s CUDA graphs capture and what
     ``streaming.export`` writes as programs.  A class that mixes it in has
-    ``codec``, ``crossfade`` (None for a causal codec), ``rf`` and
-    ``latent_range``."""
+    ``codec``, ``crossfade`` (None for a causal codec), ``rf``,
+    ``latent_range`` and ``compute_dtype`` (None for f32).  Each stage takes
+    and returns f32 tensors and runs the models at the compute dtype."""
+
+    compute_dtype: Optional[torch.dtype] = None
 
     def _codec_encode(self, cache, audio: torch.Tensor) -> torch.Tensor:
+        audio = to_compute(audio, self.compute_dtype)
         if self.crossfade is not None:
             return self.crossfade.encode(cache, audio)
         return self.codec.encode(audio, cache)
 
     def _codec_decode(self, cache, z: torch.Tensor) -> torch.Tensor:
+        z = to_compute(z, self.compute_dtype)
         if self.crossfade is not None:
-            return self.crossfade.decode(cache, z)
-        return self.codec.decode(z, cache)
+            y = self.crossfade.decode(cache, z)
+        else:
+            y = self.codec.decode(z, cache)
+        return to_f32(y, self.compute_dtype)
 
     def structure_stage(self, state: StreamState, audio: torch.Tensor
                         ) -> torch.Tensor:
@@ -140,7 +156,7 @@ class StreamStages:
         z = self._codec_encode(state.codec_struct, audio)
         if self.rf.encoder_time is not None:
             z = self.rf.encoder_time(z, state.enc_time)[0]
-        return z
+        return to_f32(z, self.compute_dtype)
 
     def timbre_stage(self, state: StreamState, audio: torch.Tensor
                      ) -> torch.Tensor:
@@ -148,9 +164,9 @@ class StreamStages:
         ring, which it moves on by one chunk."""
         z = self._codec_encode(state.codec_timbre, audio)
         ring = torch.cat([state.prev_timbre, z], dim=1)[:, z.shape[1]:]
-        zt = self.rf.encoder(ring)[0] / self.latent_range
+        zt = to_f32(self.rf.encoder(ring)[0], self.compute_dtype)
         state.prev_timbre.copy_(ring)
-        return zt
+        return zt / self.latent_range
 
     def step_stage(self, state: StreamState, slot, x: torch.Tensor,
                    cond: torch.Tensor, tcond: torch.Tensor,
@@ -158,7 +174,7 @@ class StreamStages:
         """The Euler step on KV slot ``slot`` (an int, or an int64 0-d
         tensor): x + v * dt (``RectifiedFlow.stream_step``)."""
         return self.rf.stream_step(state.denoiser, slot, x, cond, tcond,
-                                   scalars)
+                                   scalars, self.compute_dtype)
 
     def decode_stage(self, state: StreamState, z: torch.Tensor
                      ) -> torch.Tensor:
@@ -176,16 +192,23 @@ class Streamer(StreamStages):
                  latent_range: float = 1.0, compute_dtype=None,
                  eager: bool = False):
         """n_fade: crossfade overlap in latent frames for non-causal codecs
-        (ignored for causal ones); eager: run op by op on the card instead
+        (ignored for causal ones); compute_dtype: None (f32) or "bfloat16"
+        for the pipeline built here, and the given pipeline's by default
+        (another one given raises); eager: run op by op on the card instead
         of replaying CUDA graphs."""
-        if compute_dtype is not None:
-            raise NotImplementedError(
-                "the port streams in f32 only: compute_dtype is not ported")
         if pipeline is None:
-            pipeline = TransferPipeline(cfg, device)
+            cd = resolve_compute_dtype(compute_dtype)
+            pipeline = TransferPipeline(cfg, device, compute_dtype=cd)
         elif device is not None and resolve_device(device) != pipeline.device:
             raise ValueError(f"the pipeline runs on {pipeline.device}, "
                              f"not {device}")
+        cd = pipeline.compute_dtype
+        if compute_dtype is not None and resolve_compute_dtype(
+                compute_dtype) != cd:
+            raise ValueError(
+                f"the pipeline computes at {cd}, the streamer at "
+                f"{compute_dtype}: pass pipeline.with_compute_dtype(...)")
+        self.compute_dtype = cd
         self.cfg = cfg
         self.pipeline = pipeline
         self.device = pipeline.device
@@ -210,9 +233,13 @@ class Streamer(StreamStages):
             self.crossfade = CrossfadeDecoder(cfg.autoencoder, n_fade=n_fade,
                                               chunk_size=chunk_size)
             self.codec = self.crossfade.codec
-        _share(self.codec.to(self.device), pipeline.codec)
-        self.rf = _share(RectifiedFlow(cfg, streaming=True).to(self.device),
-                         pipeline.rf)
+        # at the compute dtype first: the constants that no state dict holds
+        # (the PQMF filters) are cast with the weights
+        dtype = cd or torch.float32
+        _share(self.codec.to(self.device, dtype), pipeline.codec)
+        self.rf = _share(
+            RectifiedFlow(cfg, streaming=True).to(self.device, dtype),
+            pipeline.rf)
         self.generator = torch.Generator(self.device).manual_seed(0)
         self.eager = eager
         # the CUDA graphs' pool (made at the first capture), and each
@@ -245,14 +272,15 @@ class Streamer(StreamStages):
     def new_state(self, batch_size: int = 1) -> StreamState:
         """Zeroed stream state for ``batch_size`` parallel voices (the
         crossfade path's GroupNorm pads as one pass over silence leaves
-        them), with no graphs yet.  Every buffer is allocated here once;
-        each step writes into it in place."""
+        them), with no graphs yet, at the compute dtype.  Every buffer is
+        allocated here once; each step writes into it in place."""
         cfg = self.cfg
         B, A, T = batch_size, self.audio_chunk, self.chunk_size
         z_ch = cfg.autoencoder.z_channels
 
         def zeros(*shape):
-            return torch.zeros(shape, device=self.device)
+            return torch.zeros(shape, device=self.device,
+                               dtype=self.compute_dtype or torch.float32)
 
         if self.crossfade is not None:
             enc = self.crossfade.init_encode_state(B)

@@ -51,9 +51,12 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
 def strict_f32() -> None:
     """Full-f32 matmuls and convolutions on the card.  cuDNN convolutions
     default to TF32, which keeps about three decimal digits and breaks parity
-    with the f32 reference; matmuls are set explicitly too."""
+    with the f32 reference; matmuls are set explicitly too.  bf16 matmuls
+    (``compute_dtype``) sum in f32 and round once, as XLA's do, where cuBLAS
+    may otherwise reduce in bf16."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
 
 def copy_from_host(dst: torch.Tensor, src) -> torch.Tensor:

@@ -5,8 +5,12 @@ embeddings it trains on, and the density PNG behind the pad.
 The projector's weights load from the JAX projector's params with
 ``utils.from_jax.load_module``, and ``save_projector`` writes them under
 the same flax names (``projector.npz``), so that ``load_projector`` walks
-them the same way.  The density map is numpy only (histogram, Gaussian blur
-and a minimal PNG encoder).
+them the same way.  ``load_projector`` also reads a JAX artifact's
+``projector.msgpack`` (flax's ``serialization.to_bytes`` of the params):
+``read_msgpack`` decodes msgpack and flax's ndarray extension by hand, since
+neither msgpack nor flax need be installed where the port serves.  The
+density map is numpy only (histogram, Gaussian blur and a minimal PNG
+encoder).
 """
 
 from __future__ import annotations
@@ -21,6 +25,8 @@ import torch
 from torch import nn
 
 PROJECTOR_FILE = "projector.npz"
+# the JAX artifact's projector (after_tpu/utils/latent_map.py:save_projector)
+JAX_PROJECTOR_FILE = "projector.msgpack"
 
 
 class SmallAutoencoder(nn.Module):
@@ -137,24 +143,127 @@ def save_projector(out_dir: str, projector: SmallAutoencoder,
     generate_map_png(emb2d.cpu().numpy(), os.path.join(out_dir, "map.png"))
 
 
+# flax's msgpack extension types (flax/serialization.py:_MsgpackExtType)
+_EXT_NDARRAY, _EXT_COMPLEX, _EXT_NPSCALAR = 1, 2, 3
+
+
+def _flax_array(payload: bytes) -> np.ndarray:
+    """flax's ndarray extension: msgpack of (shape, dtype name, C-order
+    bytes); bf16 (no numpy dtype) widens to f32, exactly."""
+    shape, name, raw = read_msgpack(payload)
+    name = name.decode() if isinstance(name, bytes) else name
+    if name == "bfloat16":
+        bits = np.frombuffer(raw, "<u2").astype(np.uint32) << 16
+        return bits.view(np.float32).reshape(shape)
+    return np.frombuffer(raw, np.dtype(name)).reshape(shape).copy()
+
+
+def read_msgpack(data: bytes):
+    """The object of a msgpack document: maps, arrays, strings, bytes,
+    numbers, booleans and nil, and flax's extensions (ndarrays and numpy
+    scalars as numpy arrays, complex numbers)."""
+    pos = 0
+
+    def take(n: int) -> bytes:
+        nonlocal pos
+        if pos + n > len(data):
+            raise ValueError("msgpack: truncated document")
+        out = data[pos:pos + n]
+        pos += n
+        return out
+
+    def unsigned(n: int) -> int:
+        return int.from_bytes(take(n), "big")
+
+    def ext(code: int, n: int):
+        payload = take(n)
+        if code in (_EXT_NDARRAY, _EXT_NPSCALAR):
+            return _flax_array(payload)
+        if code == _EXT_COMPLEX:
+            re, im = read_msgpack(payload)
+            return complex(re, im)
+        raise ValueError(f"msgpack: unknown extension type {code}")
+
+    def value():
+        b = take(1)[0]
+        if b <= 0x7F:
+            return b
+        if b >= 0xE0:
+            return b - 0x100
+        if 0x80 <= b <= 0x8F:
+            return {value(): value() for _ in range(b & 0x0F)}
+        if 0x90 <= b <= 0x9F:
+            return [value() for _ in range(b & 0x0F)]
+        if 0xA0 <= b <= 0xBF:
+            return take(b & 0x1F).decode()
+        if b == 0xC0:
+            return None
+        if b in (0xC2, 0xC3):
+            return b == 0xC3
+        if b in (0xC4, 0xC5, 0xC6):                 # bin 8/16/32
+            return take(unsigned(1 << (b - 0xC4)))
+        if b in (0xC7, 0xC8, 0xC9):                 # ext 8/16/32
+            n = unsigned(1 << (b - 0xC7))
+            return ext(int.from_bytes(take(1), "big", signed=True), n)
+        if b == 0xCA:
+            return struct.unpack(">f", take(4))[0]
+        if b == 0xCB:
+            return struct.unpack(">d", take(8))[0]
+        if 0xCC <= b <= 0xCF:                       # uint 8/16/32/64
+            return unsigned(1 << (b - 0xCC))
+        if 0xD0 <= b <= 0xD3:                       # int 8/16/32/64
+            return int.from_bytes(take(1 << (b - 0xD0)), "big", signed=True)
+        if 0xD4 <= b <= 0xD8:                       # fixext 1/2/4/8/16
+            code = int.from_bytes(take(1), "big", signed=True)
+            return ext(code, 1 << (b - 0xD4))
+        if b in (0xD9, 0xDA, 0xDB):                 # str 8/16/32
+            return take(unsigned(1 << (b - 0xD9))).decode()
+        if b in (0xDC, 0xDD):                       # array 16/32
+            return [value() for _ in range(unsigned(2 if b == 0xDC else 4))]
+        if b in (0xDE, 0xDF):                       # map 16/32
+            return {value(): value()
+                    for _ in range(unsigned(2 if b == 0xDE else 4))}
+        raise ValueError(f"msgpack: unknown type byte {b:#x}")
+
+    out = value()
+    if pos != len(data):
+        raise ValueError("msgpack: bytes after the document")
+    return out
+
+
+def _projector_tree(art_dir: str) -> Optional[Dict]:
+    """The projector's params of an artifact dir as a nested dict of numpy
+    arrays under flax names: from the port's ``projector.npz``, else from a
+    JAX artifact's ``projector.msgpack``; None where there is neither."""
+    path = os.path.join(art_dir, PROJECTOR_FILE)
+    if os.path.exists(path):
+        tree: Dict = {}
+        with np.load(path) as z:
+            for key in z.files:
+                node = tree
+                *parents, leaf = key.split("/")
+                for p in parents:
+                    node = node.setdefault(p, {})
+                node[leaf] = z[key]
+        return tree
+    path = os.path.join(art_dir, JAX_PROJECTOR_FILE)
+    if os.path.exists(path):
+        with open(path, "rb") as f:
+            return read_msgpack(f.read())
+    return None
+
+
 def load_projector(art_dir: str, in_dim: int,
                    device=None) -> Optional[SmallAutoencoder]:
-    """The projector of an artifact dir (``projector.npz``), or None where
-    it has none; on the card unless ``device`` is "cpu"."""
+    """The projector of an artifact dir (the port's ``projector.npz``, or a
+    JAX artifact's ``projector.msgpack``), or None where it has none; on
+    the card unless ``device`` is "cpu"."""
     from .device import resolve_device
     from .from_jax import load_module
 
-    path = os.path.join(art_dir, PROJECTOR_FILE)
-    if not os.path.exists(path):
+    tree = _projector_tree(art_dir)
+    if tree is None:
         return None
-    tree: Dict = {}
-    with np.load(path) as z:
-        for key in z.files:
-            node = tree
-            *parents, leaf = key.split("/")
-            for p in parents:
-                node = node.setdefault(p, {})
-            node[leaf] = z[key]
     projector = SmallAutoencoder(in_dim=in_dim)
     load_module(projector, tree)
     return projector.to(resolve_device(device)).eval()

@@ -245,8 +245,12 @@ Phases, each printed before the last line:
    compiler against libtorch (the kernel with nvcc), and the stages the
    host plays packaged with AOTInductor, the main artifact, the two-voice
    one and the codec artifact for the card and the two-voice one for the
-   CPU, each timed, in parallel processes; the program links no
-   libpython.  Then the host as a subprocess, with ``--x0`` set to the
+   CPU, each timed, in parallel processes started as phase 13 exports
+   each artifact, at the lowest CPU priority, beside the rest of phase 13
+   and phase 16 (which runs before this phase's host checks; phase 14
+   runs last), stopped while those phases time a section and killed with
+   the script; the program links no libpython.  Then the host as a
+   subprocess, with ``--x0`` set to the
    noise the Python host is given: phase 6's request as 64 buffers at
    nb_steps 1 and 4 (readback depth 1) against ``ExportedStreamer`` on
    the same inputs within CARD_VS_CPU_TOL, their median / p90 / max ms a
@@ -261,12 +265,38 @@ Phases, each printed before the last line:
    seconds, the host's ms a buffer beside the Python host's, the kernel's
    bound a codec artifact forward.
 
-Any failure exits non-zero.  The card's name and power limit are printed
-again after phase 15.  The line before the last is the kernel table as
-JSON (the snake+conv kernel, its split sum and the backward's dgrad and
-wgrad kernels); each phase's seconds are printed as it ends; the last
-line is ``{"ok":
-true, "device": {...}}``.  Imports nothing of JAX or of after_tpu.
+16. bf16 serving (``compute_dtype="bfloat16"``) on phase 4's weights,
+   cast once: the kernel's bf16 instantiation (``snake_conv_bf16``) at
+   every shape of a bf16 transfer and of a bf16 buffer against its plain
+   bf16 version (within BF16_ULPS bf16 ulps of max |y|) and against float64
+   on the same bf16 inputs (within BF16_F64_RATIO x bf16 F.conv1d's error),
+   timed with CUDA graphs beside its plain version and bf16 F.conv1d,
+   against its bound (989 TFLOP/s of dense bf16 or 3.35 TB/s), and its
+   bf16 split sum alone as in phase 3; 3 bf16 transfers replayed from their
+   graph (96 bf16 launches a replay and no f32 one counted on the device,
+   the output f32 and finite, its cosine to phase 4's f32 output of the
+   same request and noise at least BF16_COS) and op by op, per-phase ms,
+   one profiled replay; card against CPU in bf16 on phase 5's clip: the
+   card's bf16 output within BF16_CARD_CPU_TOL x max |y| of the CPU's bf16
+   output and at a cosine of at least BF16_CARD_CPU_COS to it, and its
+   distance from the CPU's f32 output at most twice the CPU bf16 output's
+   plus 1e-6 x max |y| (the rule of tests/test_torch_precision.py);
+   the bf16 streamer on phase 4's first request as 64 buffers at nb_steps 1
+   and 4, as graphs and op by op (96 bf16 launches a buffer, its state's
+   floating leaves bf16, graph and op by op within GRAPH_TOL); a bf16
+   artifact of phase 12's runs (``export --compute_dtype bfloat16``), its
+   manifest's state_dtypes holding bfloat16, its size beside phase 13's
+   f32 artifact's, loaded and played as 64 buffers at nb_steps 4 against
+   the live bf16 streamer over the same checkpoints within GRAPH_TOL.
+
+Any failure exits non-zero.  The phases run in the order 1-13, 16, 15,
+14.  The card's name and power limit are printed again at the end.  The
+line before the last is the kernel table as JSON (the snake+conv kernel,
+its split sum, the backward's dgrad and wgrad kernels, the bf16
+instantiation and its split sum); each phase's seconds are printed as it
+ends, and the seconds the background packaging was stopped for timed
+sections with phase 15; the last line is ``{"ok": true, "device":
+{...}}``.  Imports nothing of JAX or of after_tpu.
 """
 
 from __future__ import annotations
@@ -295,6 +325,7 @@ STREAM_VS_CPU_BUFFERS = 8
 PEAK_TF32_FLOPS = 495e12     # H100 SXM, dense TF32 on the tensor cores
 PEAK_F32_FLOPS = 67e12       # H100 SXM, f32 outside the tensor cores
 PEAK_BYTES = 3.35e12         # H100 SXM HBM3
+PEAK_BF16_FLOPS = 989e12     # H100 SXM, dense bf16 on the tensor cores
 # a kernel timed against its byte bound reads inputs the L2 cache (50 MB
 # on an H100) does not hold: one call on each of a set of inputs this large
 ROTATE_BYTES = 4 * 50e6
@@ -312,6 +343,20 @@ DGRAD_NAME = "snake_conv_dgrad_3xtf32"   # the backward's kernels
 WGRAD_NAME = "snake_conv_wgrad_3xtf32"
 PARTIALS_NAME = "sum_partials"           # their fixed-order sum of partials
 STREAM_CHANGING = 64         # buffers of the stream whose attributes change
+KERNEL16_NAME = "snake_conv_bf16"   # the kernel's bf16 instantiation
+SUM16_NAME = "sum_splits_bf16"      # and its split sum (f32 in, bf16 out)
+BF16_ULPS = 2                # bf16 kernel vs its plain bf16 version, in bf16
+                             # ulps of max |y| (both round an f32 sum once)
+BF16_F64_RATIO = 2.0         # bf16 kernel's float64 error <= this x bf16
+                             # F.conv1d's on the same bf16 activation
+BF16_COS = 0.99              # a bf16 transfer's cosine to the f32 one (the
+                             # JAX package's bound, tests/test_precision.py)
+# the card's bf16 transfer of phase 5's clip against the CPU's bf16 one: 1.5x
+# the reading of an H100 run (max abs err 0.1315 x max |y|, 1 - cosine
+# 0.00507 at SHORT_STEPS; PERF.md section 6), so that a fault on either
+# side shows
+BF16_CARD_CPU_TOL = 0.2      # max abs err <= this x max |y|
+BF16_CARD_CPU_COS = 0.9925   # cosine >= this
 TOP_KERNELS = 12
 # the port's kernels that use TF32 on purpose (3xTF32, held to float64 in
 # the kernel phase); any other kernel with "tf32" in its name fails the run
@@ -1871,33 +1916,38 @@ def profile_call(label: str, fn):
         {k: us / 1e3 for k, us in by_name.items()})
 
 
-def profile_kept(label: str, fn, expected):
+def profile_kept(label: str, fn, expected, bf16: bool = False):
     """Up to PROFILE_TRIES profiles of fn (profile_call), the device's
     launch counts set to 0 before each; fails unless the device counts
-    ``expected`` (launches of the kernel, of its split sum) in each.
+    ``expected`` (launches of the kernel, of its split sum; with ``bf16``
+    those of the bf16 instantiation) in each.
     Returns (busy ms, the kernel's device ms, the split sum's device ms) of
     the first profile that recorded every launch the device counted, else
     (None, None, None): the profiler may lose a kernel record late in a
     long process, and a profile that did lacks part of the kernel's time."""
+    import torch
     from after_tpu_torch.ops.kernels.fused_conv import (device_launches,
                                                         reset_device_launches)
 
+    kernel, split_sum = ((KERNEL16_NAME, SUM16_NAME) if bf16
+                         else (KERNEL_NAME, SUM_NAME))
+    dtype = torch.bfloat16 if bf16 else torch.float32
     for attempt in range(1, PROFILE_TRIES + 1):
         reset_device_launches(DEVICE)
         _, busy, counts, ms = profile_call(f"{label}, profile {attempt}", fn)
-        device = device_launches(DEVICE)
+        device = device_launches(DEVICE, dtype)
         if device != tuple(expected):
             fail(f"{label} launched {device}, expected {tuple(expected)}")
         recorded = tuple(kernel_launches(counts, k)
-                         for k in (KERNEL_NAME, SUM_NAME))
+                         for k in (kernel, split_sum))
         log(f"profile: {label}, profile {attempt}: the device counted "
-            f"{device[0]} {KERNEL_NAME} and {device[1]} {SUM_NAME} launches, "
+            f"{device[0]} {kernel} and {device[1]} {split_sum} launches, "
             f"the profiler recorded {recorded[0]} and {recorded[1]}")
         if recorded == device:
-            kernel_ms = kernel_launches(ms, KERNEL_NAME)
-            sum_ms = kernel_launches(ms, SUM_NAME)
-            log(f"profile: {label}: {KERNEL_NAME} {kernel_ms:.3f} ms and "
-                f"{SUM_NAME} {sum_ms:.3f} ms on the device, busy "
+            kernel_ms = kernel_launches(ms, kernel)
+            sum_ms = kernel_launches(ms, split_sum)
+            log(f"profile: {label}: {kernel} {kernel_ms:.3f} ms and "
+                f"{split_sum} {sum_ms:.3f} ms on the device, busy "
                 f"{busy:.2f} ms")
             return busy, kernel_ms, sum_ms
     log(f"profile: {label}: no profile kept all launches in {PROFILE_TRIES}: "
@@ -2573,6 +2623,7 @@ def serve_phase(art: str, sr: int, audio_chunk: int) -> dict:
             if "frontend at http://" in line:
                 base = line.strip().split(" at ")[1]
         ms["start"] = (time.perf_counter() - t0) * 1e3
+        pause_background()  # the timed requests, the compiles stopped
         status, ctype, body, ms["info"] = _request(base, "/api/info")
         info = json.loads(body)
         if status != 200 or info.get("artifact") != art:
@@ -2583,6 +2634,7 @@ def serve_phase(art: str, sr: int, audio_chunk: int) -> dict:
         status, ctype, body, ms["transfer"] = _request(
             base, f"/api/transfer?steps={EXPORT_STEPS}&gt={GUIDANCE_TIMBRE}"
             "&seed=1", wav)
+        resume_background()
         got_sr, y = scipy.io.wavfile.read(io.BytesIO(body))
         want = -(-len(t) // audio_chunk) * audio_chunk
         if (status != 200 or ctype != "audio/wav" or got_sr != sr
@@ -2608,10 +2660,12 @@ def serve_phase(art: str, sr: int, audio_chunk: int) -> dict:
     return ms
 
 
-def export_phase(row, a, b, attrs) -> None:
+def export_phase(row, a, b, attrs, on_export=None) -> None:
     """Phase 13: export and serving (see the module docstring), from the
     runs phase 12 left; ``a`` and ``b`` are phase 6's request and
-    ``attrs`` its changing attributes."""
+    ``attrs`` its changing attributes; ``on_export(path)`` is called as
+    each artifact is written.  Its timed sections run with the background
+    stopped (``background_paused``)."""
     import os
 
     import numpy as np
@@ -2638,13 +2692,13 @@ def export_phase(row, a, b, attrs) -> None:
               "--chunk_size", str(CHUNK), "--nb_steps", str(EXPORT_STEPS),
               "--guidance_timbre", str(GUIDANCE_TIMBRE), "--device", DEVICE]
     seconds = {}
-    for label, argv in (
-            ("export", export),
-            ("export --batch_size 2", export + ["--batch_size", "2",
-                                                "--out", art2]),
-            ("export_autoencoder", ["export_autoencoder", "--model_path",
-                                    ae_run, "--chunk_size", str(CHUNK),
-                                    "--device", DEVICE])):
+    for label, path, argv in (
+            ("export", art, export),
+            ("export --batch_size 2", art2,
+             export + ["--batch_size", "2", "--out", art2]),
+            ("export_autoencoder", codec_art,
+             ["export_autoencoder", "--model_path", ae_run, "--chunk_size",
+              str(CHUNK), "--device", DEVICE])):
         gc.collect()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -2653,6 +2707,8 @@ def export_phase(row, a, b, attrs) -> None:
         seconds[label] = time.perf_counter() - t0
         if rc != 0:
             fail(f"{label} exited with {rc}")
+        if on_export is not None:
+            on_export(path)
     sizes = {}
     for label, path in (("artifact", art), ("codec artifact", codec_art)):
         files = _dir_bytes(path)
@@ -2662,8 +2718,9 @@ def export_phase(row, a, b, attrs) -> None:
             + ", ".join(f"{k} {v}" for k, v in files.items()
                         if not k.endswith(".bin"))
             + f", state/leaf_<i>.bin {len(bins)} files {sum(bins)} bytes")
-    log("export: seconds (on the card, in this process): " + ", ".join(
-        f"{k} {v:.2f}" for k, v in seconds.items()))
+    log("export: seconds (on the card, in this process; beside the "
+        "packaging of those before): " + ", ".join(
+            f"{k} {v:.2f}" for k, v in seconds.items()))
 
     # the artifact read back from disk; the live streamer over the same
     # checkpoints (the EMA in the denoiser)
@@ -2723,6 +2780,7 @@ def export_phase(row, a, b, attrs) -> None:
         return times, ys
 
     ptrs = [t.data_ptr() for t in host.state]
+    pause_background()      # the timed section, the compiles stopped
     host_stream(STREAM_STEPS[-1], n=STREAM_WARMUP)             # warm-up
     stream_audio(streamer, streamer.init_state(1), a[:, :STREAM_WARMUP * A],
                  b[:, :STREAM_WARMUP * A], STREAM_STEPS[-1])
@@ -2791,6 +2849,7 @@ def export_phase(row, a, b, attrs) -> None:
     log(f"artifact: capture_key of the live streamer's modules, "
         f"{key_ms:.3f} ms a call (host, mean of 100)")
     row["live_capture_key_ms"] = key_ms
+    resume_background()
 
     # the kernel against its plain version on this path: the two-voice
     # artifact on the card and moved to the CPU, where the op is the plain
@@ -2943,16 +3002,109 @@ def path_bound(path, batch: int = 1):
     return ms, "operations" if ops_ms >= bytes_ms else "bytes"
 
 
-def native_phase(row, a, b, attrs) -> None:
-    """Phase 15: the native streaming host on phase 13's artifacts (see the
-    module docstring); ``a`` and ``b`` are phase 6's request and ``attrs``
-    its changing attributes."""
+_BACKGROUND = []     # process groups started beside the phases
+_PAUSED = [0.0, 0.0, []]   # seconds they were stopped for timed
+                            # sections; the pause under way
+
+
+def _signal_background(procs, sig) -> None:
     import os
+    for proc in procs:
+        with contextlib.suppress(ProcessLookupError):
+            os.killpg(proc.pid, sig)
+
+
+def _stop_background() -> None:
+    """Stops every process group started beside the phases that still
+    runs (a failing phase exits while phase 15's packages compile)."""
+    import signal
+    live = [proc for proc in _BACKGROUND if proc.poll() is None]
+    _signal_background(live, signal.SIGKILL)
+    for proc in live:
+        proc.communicate()
+
+
+def pause_background() -> None:
+    """Stops the process groups started beside the phases (SIGSTOP) for a
+    timed section, so that their compiles share neither the CPU nor the
+    card with what is timed; ``resume_background`` continues them (a
+    failing section exits, and ``_stop_background`` kills them)."""
+    import signal
+    _PAUSED[1:] = [time.perf_counter(), [proc for proc in _BACKGROUND
+                                         if proc.poll() is None]]
+    _signal_background(_PAUSED[2], signal.SIGSTOP)
+
+
+def resume_background() -> None:
+    import signal
+    t0, stopped = _PAUSED[1:]
+    _signal_background(stopped, signal.SIGCONT)
+    if stopped:
+        _PAUSED[0] += time.perf_counter() - t0
+
+
+def start_packaging() -> dict:
+    """Phase 15's first half, run beside the rest of phases 13 and 16: the
+    native host's build (a thread, started here) and the stages' packages
+    (``package_in_background``, as each artifact is exported): the main
+    artifact, the codec artifact and the two-voice one for the card, the
+    two-voice one also for the CPU.  A job is a process group (its stages a
+    process each, all at once) at the lowest CPU priority, killed with the
+    script, and stopped while a section is timed (``background_paused``)."""
+    import atexit
     import threading
+
+    from after_tpu_torch.ops.kernels.build import native_host
+
+    built = {}
+
+    def build():
+        t0 = time.perf_counter()
+        built["host"] = native_host()
+        built["seconds"] = time.perf_counter() - t0
+
+    atexit.register(_stop_background)
+    build_thread = threading.Thread(target=build)
+    build_thread.start()
+    return {"built": built, "thread": build_thread, "jobs": [], "procs": [],
+            "t0": time.perf_counter()}
+
+
+def package_in_background(started: dict, path: str, *devices: str) -> None:
+    """Starts the packaging of the artifact at ``path`` for each of
+    ``devices``, a job each (see ``start_packaging``)."""
+    import os
+
+    from after_tpu_torch.streaming.native import PARENT_ENV
+
+    # each job dies with the script, however it dies (PR_SET_PDEATHSIG, as
+    # its stage processes die with it), at the lowest CPU priority, which
+    # the processes it starts inherit
+    env = dict(os.environ, **{PARENT_ENV: str(os.getpid())})
+    for dev in devices:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "after_tpu_torch.streaming.native", path,
+             "--device", dev],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            start_new_session=True, env=env)
+        os.setpriority(os.PRIO_PROCESS, proc.pid, 19)
+        _BACKGROUND.append(proc)
+        started["jobs"].append((path, dev))
+        started["procs"].append(proc)
+    log(f"native: packaging {path} for {', '.join(devices)} started "
+        f"(niced) beside the phases to come, "
+        f"{time.perf_counter() - started['t0']:.1f} s into phase 13")
+
+
+def native_phase(row, a, b, attrs, started) -> None:
+    """Phase 15: the native streaming host on phase 13's artifacts (see the
+    module docstring), once the build and the packages that
+    ``start_packaging`` started (``started``) are done; ``a`` and ``b`` are
+    phase 6's request and ``attrs`` its changing attributes."""
+    import os
 
     import numpy as np
     import torch
-    from after_tpu_torch.ops.kernels.build import native_host
     from after_tpu_torch.streaming.export import (ExportedCodec,
                                                   ExportedStreamer)
 
@@ -2964,41 +3116,29 @@ def native_phase(row, a, b, attrs) -> None:
     per_sums = row["sum_splits_launches_per_buffer"]
     os.makedirs(NATIVE_DIR, exist_ok=True)
 
-    # the host's build and the stages' packages, all at once: one process
-    # a package job (its stages at once, a process each), the build beside
-    built = {}
-
-    def build():
-        t0 = time.perf_counter()
-        built["host"] = native_host()
-        built["seconds"] = time.perf_counter() - t0
-
-    t0 = time.perf_counter()
-    build_thread = threading.Thread(target=build)
-    build_thread.start()
-    jobs = [(art, "cuda"), (art2, "cuda"), (art2, "cpu"), (codec_art, "cuda")]
-    procs = [subprocess.Popen(
-        [sys.executable, "-m", "after_tpu_torch.streaming.native", path,
-         "--device", dev],
-        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-        for path, dev in jobs]
+    built, t0 = started["built"], started["t0"]
+    t_wait = time.perf_counter()
     packaging, job_s = {}, {}
-    for (path, dev), proc in zip(jobs, procs):
+    for (path, dev), proc in zip(started["jobs"], started["procs"]):
         out, err = proc.communicate()
         if proc.returncode != 0:
             fail(f"packaging {path} for {dev} failed:\n{err[-3000:]}")
         name = f"{os.path.basename(path)} ({dev})"
         packaging[name] = json.loads(out.strip().splitlines()[-1])
         job_s[name] = time.perf_counter() - t0
-    build_thread.join()
+    started["thread"].join()
     if "host" not in built:
         fail("the native host did not build (see the error above)")
     host = built["host"]
     wall = time.perf_counter() - t0
     log(f"native: card {card_line()}; host built in {built['seconds']:.2f} "
         f"s ({host.name}, with nvcc's kernel); packages (AOTInductor, "
-        f"a job's stages at once, 4 jobs at once, "
-        f"{wall:.2f} s wall): " + "; ".join(
+        f"a job's stages at once, {len(packaging)} jobs, each started as "
+        f"its artifact was exported, niced, beside phases 13 and 16 and "
+        f"stopped for {_PAUSED[0]:.2f} s of their timed sections; "
+        f"{wall:.2f} s wall from phase 13's start, of it "
+        f"{time.perf_counter() - t_wait:.2f} s waited for after phase 16): "
+        + "; ".join(
             f"{k}: " + ", ".join(f"{s} {v:.1f} s" for s, v in d.items())
             + f" (done at {job_s[k]:.1f} s)" for k, d in packaging.items()))
     ldd = subprocess.run(["ldd", str(host)], capture_output=True,
@@ -3560,6 +3700,513 @@ def dataset_phase(row) -> None:
     row["prepare_z_card_vs_cpu"] = max(errs) / scale
 
 
+def bf16_ulp(v: float) -> float:
+    """One bf16 ulp at |v| (8 bits of mantissa with the hidden one)."""
+    return 2.0 ** (math.floor(math.log2(v)) - 7)
+
+
+def check_fused_conv_bf16(path, unit):
+    """The kernel's bf16 instantiation against its plain bf16 version at
+    every distinct shape of ``path`` ((ConvBlock1d of a bf16 codec, T) in
+    the order one ``unit`` runs them at batch 1): within BF16_ULPS bf16 ulps
+    of max |y|; against a float64 version of the same bf16 inputs within
+    BF16_F64_RATIO x bf16 F.conv1d's error (on the plain version's bf16
+    activation); times from CUDA graphs of the kernel, the plain version and
+    bf16 F.conv1d; the bound (bf16 tensor cores or bytes); then the bf16
+    split sum alone at each split shape, as check_fused_conv does the f32
+    one.  Returns its numbers summed over one unit."""
+    import torch
+    import torch.nn.functional as F
+    from after_tpu_torch.ops.conv import get_padding
+    from after_tpu_torch.ops.kernels.fused_conv import (kernel_plan,
+                                                        snake_conv,
+                                                        snake_conv_reference,
+                                                        sum_splits,
+                                                        sum_splits_reference)
+    from after_tpu_torch.ops.snake import snake_beta
+
+    bf16 = torch.bfloat16
+    path_counts = Counter(block_shape(b, T) for b, T in path)
+    blocks_by_shape = {block_shape(b, T): b for b, T in path}
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    total = Counter()
+    splits = Counter()
+    worst, worst_ulps, f64_worst = 0.0, 0.0, (0.0, 0.0)
+    log(f"bf16 kernels: {KERNEL16_NAME} per shape (k d C O T mode: n/{unit}, "
+        f"plan bn/bk/splits, max_abs_err in ulps of max|y|; kernel/plain/"
+        f"F.conv1d bf16/bound ms; TFLOP/s, share of bound; float64 errors "
+        f"kernel/F.conv1d bf16)")
+    for shape, block in sorted(blocks_by_shape.items(),
+                               key=lambda kv: str(kv[0])):
+        k, d, C, O, T, mode = shape
+        n = path_counts[shape]
+        x = torch.randn((1, T, C), generator=gen, device="cuda").to(bf16)
+        alpha, beta = block.act.alpha.detach(), block.act.beta.detach()
+        w_k, w_lo = block.conv.kernel_weights()
+        w = block.conv.effective_weight()
+        b = block.conv.bias.detach()
+        if not all(t.dtype == bf16 for t in (alpha, beta, w_k, w, b)):
+            fail(f"bf16 kernels {shape}: the block's weights are not bf16")
+        y = snake_conv(x, alpha, beta, w_k, w_lo, b, d, mode)
+        ref = snake_conv_reference(x, alpha, beta, w, b, d, mode)
+        torch.cuda.synchronize()
+        err = (y.float() - ref.float()).abs().max().item()
+        scale = ref.float().abs().max().item()
+        ulps = err / bf16_ulp(scale)
+        if not (y.dtype == bf16 and ulps <= BF16_ULPS):
+            fail(f"{KERNEL16_NAME} {shape}: {err} off its plain version, "
+                 f"{ulps:.2f} bf16 ulps of max |y| {scale} (limit "
+                 f"{BF16_ULPS})")
+        worst, worst_ulps = max(worst, err), max(worst_ulps, ulps)
+        # float64 on the same bf16 inputs, over F64_FRAMES frames
+        xs = x[:, :F64_FRAMES].contiguous()
+        r64 = snake_conv_reference(xs.double(), alpha.double(),
+                                   beta.double(), w.double(), b.double(), d,
+                                   mode)
+        left, right = get_padding(k, 1, d, mode)
+        e_kernel = (snake_conv(xs, alpha, beta, w_k, w_lo, b, d, mode)
+                    .double() - r64).abs().max().item()
+        act_s = F.pad(snake_beta(xs.float(), alpha.float(), beta.float())
+                      .to(bf16).transpose(1, 2), (left, right))
+        e_lib = (F.conv1d(act_s, w, b, dilation=d).transpose(1, 2).double()
+                 - r64).abs().max().item()
+        if not e_kernel <= BF16_F64_RATIO * e_lib:
+            fail(f"{KERNEL16_NAME} {shape}: error against float64 "
+                 f"{e_kernel} > {BF16_F64_RATIO} x bf16 F.conv1d's {e_lib}")
+        f64_worst = (max(f64_worst[0], e_kernel), max(f64_worst[1], e_lib))
+        act = F.pad(snake_beta(x.float(), alpha.float(), beta.float())
+                    .to(bf16).transpose(1, 2), (left, right))
+        ms = cuda_ms(lambda: snake_conv(x, alpha, beta, w_k, w_lo, b, d,
+                                        mode))
+        plain_ms = cuda_ms(
+            lambda: snake_conv_reference(x, alpha, beta, w, b, d, mode))
+        lib_ms = cuda_ms(lambda: F.conv1d(act, w, b, dilation=d))
+        flops = 2.0 * k * C * O * T
+        nbytes = 2.0 * (T * C + 2 * C + O * C * k + O + T * O)
+        bound_ms = 1e3 * max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES)
+        total.update(ms=n * ms, plain_ms=n * plain_ms, library_ms=n * lib_ms,
+                     bound_ms=n * bound_ms, flops=n * flops,
+                     bytes=n * nbytes)
+        plan = kernel_plan(1, T, C, O, k, d, bf16)
+        log(f"  {k} {d} {C} {O} {T} {mode}: {n}, {'/'.join(map(str, plan))}"
+            f", {err:.3e} ({ulps:.2f}); {ms:.4f}/{plain_ms:.4f}/"
+            f"{lib_ms:.4f}/{bound_ms:.4f}; {flops / ms / 1e9:.1f}, "
+            f"{bound_ms / ms:.3f}; {e_kernel:.3e}/{e_lib:.3e}")
+        if plan[2] > 1:
+            splits[(plan[2], 1, T, O)] += n
+    total["launches"] = len(path)
+    log(f"bf16 kernels: {SUM16_NAME} at each split shape of the {unit} "
+        f"(splits B T O: n/{unit}, inputs rotated, max_abs_err; kernel/plain/"
+        f"torch.sum/bound(bytes) ms, share of bound)")
+    sum_err = 0.0
+    for (parts, B_, T_, O_), n in sorted(splits.items()):
+        nbytes = (4.0 * parts + 2.0) * B_ * T_ * O_
+        wss = [torch.randn((parts, B_, T_, O_), generator=gen, device="cuda")
+               for _ in range(max(2, math.ceil(ROTATE_BYTES / nbytes)))]
+        err = max((sum_splits(ws, bf16).float()
+                   - sum_splits_reference(ws, bf16).float()).abs().max()
+                  .item() for ws in wss[:2])
+        if err != 0:
+            fail(f"{SUM16_NAME} {tuple(wss[0].shape)}: {err} off its plain "
+                 f"version")
+        sum_err = max(sum_err, err)
+        ms = rotating_ms(lambda ws: sum_splits(ws, bf16), wss)
+        plain_ms = rotating_ms(lambda ws: sum_splits_reference(ws, bf16),
+                               wss)
+        lib_ms = rotating_ms(lambda ws: torch.sum(ws, dim=0).to(bf16), wss)
+        del wss
+        bound_ms = 1e3 * nbytes / PEAK_BYTES
+        total.update(sum_ms=n * ms, sum_plain_ms=n * plain_ms,
+                     sum_library_ms=n * lib_ms, sum_bound_ms=n * bound_ms,
+                     sum_launches=n)
+        log(f"  {parts} {B_} {T_} {O_}: {n}, {err:.1e}; {ms:.4f}/"
+            f"{plain_ms:.4f}/{lib_ms:.4f}/{bound_ms:.4f}, "
+            f"{bound_ms / ms:.3f}")
+        if bound_ms > ms:
+            fail(f"{SUM16_NAME} {(parts, B_, T_, O_)}: {ms:.4f} ms beats its "
+                 f"byte bound {bound_ms:.4f} ms: the bound is wrong")
+    total["sum_max_abs_err"] = sum_err
+    total["bound_by"] = ("operations" if total["flops"] / PEAK_BF16_FLOPS
+                         >= total["bytes"] / PEAK_BYTES else "bytes")
+    total["share"] = total["bound_ms"] / total["ms"]
+    total["tflops"] = total["flops"] / total["ms"] / 1e9
+    total["max_abs_err"] = worst
+    total["ulps"] = worst_ulps
+    total["f64"] = f64_worst
+    log(f"bf16 kernels: {KERNEL16_NAME} per {unit} ({len(path)} launches, "
+        f"{total['flops'] / 1e9:.2f} GFLOP): kernel {total['ms']:.3f} ms "
+        f"({total['tflops']:.1f} TFLOP/s, {total['share']:.3f} of the "
+        f"bound), plain {total['plain_ms']:.3f} ms, F.conv1d bf16 "
+        f"{total['library_ms']:.3f} ms, bound {total['bound_ms']:.4f} ms "
+        f"(bf16 tensor cores at {PEAK_BF16_FLOPS / 1e12:g} TFLOP/s or "
+        f"{PEAK_BYTES / 1e12} TB/s: {total['bound_by']}); max abs err "
+        f"{worst:.3e} ({worst_ulps:.2f} ulps of max |y|); against float64: "
+        f"kernel {f64_worst[0]:.3e}, F.conv1d bf16 {f64_worst[1]:.3e}; "
+        f"{SUM16_NAME} {total['sum_launches']} launches, "
+        f"{total['sum_ms']:.4f} ms (plain {total['sum_plain_ms']:.4f}, "
+        f"torch.sum {total['sum_library_ms']:.4f}, bound "
+        f"{total['sum_bound_ms']:.4f})")
+    return total
+
+
+def bf16_rows(per_transfer, per_buffer, launches, sum_launches):
+    """The kernel table's rows of the bf16 instantiation and of its split
+    sum: launches of the bf16 main path's 3 replayed transfers (counted on
+    the device), times per transfer and per buffer."""
+    src = "after_tpu_torch/csrc/fused_snake_conv.cu"
+    kernel = {"name": KERNEL16_NAME, "route": "cuda", "source": src,
+              "replaces": "after_tpu/ops/pallas/fused_conv.py:129",
+              "launches": launches,
+              "max_abs_err": max(per_transfer["max_abs_err"],
+                                 per_buffer["max_abs_err"]),
+              "max_err_bf16_ulps": max(per_transfer["ulps"],
+                                       per_buffer["ulps"]),
+              "ms": per_transfer["ms"], "plain_ms": per_transfer["plain_ms"],
+              "bound_ms": per_transfer["bound_ms"],
+              "bound_by": per_transfer["bound_by"],
+              "library_ms": per_transfer["library_ms"],
+              "tflops": per_transfer["tflops"],
+              "share_of_bound": per_transfer["share"],
+              "ms_per_buffer": per_buffer["ms"],
+              "plain_ms_per_buffer": per_buffer["plain_ms"],
+              "bound_ms_per_buffer": per_buffer["bound_ms"],
+              "library_ms_per_buffer": per_buffer["library_ms"],
+              "f64_err": max(per_transfer["f64"][0], per_buffer["f64"][0]),
+              "f64_err_conv1d_bf16": max(per_transfer["f64"][1],
+                                         per_buffer["f64"][1])}
+    sums = {"name": SUM16_NAME, "route": "cuda", "source": src,
+            "replaces": "after_tpu/ops/pallas/fused_conv.py:129",
+            "launches": sum_launches,
+            "max_abs_err": max(per_transfer["sum_max_abs_err"],
+                               per_buffer["sum_max_abs_err"]),
+            "ms": per_transfer["sum_ms"],
+            "plain_ms": per_transfer["sum_plain_ms"],
+            "bound_ms": per_transfer["sum_bound_ms"], "bound_by": "bytes",
+            "library_ms": per_transfer["sum_library_ms"],
+            "ms_per_buffer": per_buffer["sum_ms"],
+            "bound_ms_per_buffer": per_buffer["sum_bound_ms"]}
+    return kernel, sums
+
+
+def bf16_phase(cfg, pipe, requests, ref_outs, short, size32=None) -> list:
+    """Phase 16: bf16 serving (see the module docstring).  ``pipe`` is the
+    f32 pipeline of phase 4, ``requests`` and ``ref_outs`` its requests and
+    the f32 outputs of its 3 replayed transfers (noise from generators
+    seeded 0, 1, 2), ``short`` phase 5's clip, noise and CPU f32 output,
+    ``size32`` the bytes of phase 13's f32 artifact where there is one.
+    Returns the kernel table's two bf16 rows."""
+    import os
+
+    import numpy as np
+    import torch
+    from after_tpu_torch import TransferPipeline
+    from after_tpu_torch.cli.export import load_run
+    from after_tpu_torch.cli.main import main as cli_main
+    from after_tpu_torch.models.autoencoder import ConvBlock1d
+    from after_tpu_torch.ops.kernels.fused_conv import (device_launches,
+                                                        fused_snake_conv,
+                                                        reset_device_launches)
+    from after_tpu_torch.streaming import Streamer
+    from after_tpu_torch.streaming.export import ExportedStreamer
+    from after_tpu_torch.streaming.state import flatten_state
+
+    bf16 = torch.bfloat16
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"bf16: card {card_line()}")
+    t0 = time.perf_counter()
+    p16 = pipe.with_compute_dtype("bfloat16")
+    torch.cuda.synchronize()
+    log(f"bf16: the pipeline at compute_dtype bfloat16 from phase 4's "
+        f"weights, cast once, in {time.perf_counter() - t0:.2f} s")
+
+    # 1. the kernel's bf16 instantiation at every shape of a bf16 transfer
+    # and of a bf16 buffer
+    enc, dec = codec_conv_blocks(p16.codec, N_SAMPLES)
+    path = enc + enc + dec
+    window = (N_FADE + CHUNK) * cfg.autoencoder.ratio
+    enc_w, dec_w = codec_conv_blocks(p16.codec, window)
+    stream_path = enc_w + enc_w + dec_w
+    pause_background()      # the timed section, the compiles stopped
+    with torch.no_grad():
+        per_transfer = check_fused_conv_bf16(path, "transfer")
+        per_buffer = check_fused_conv_bf16(stream_path, "buffer")
+    resume_background()
+
+    # 2. the main path in bf16: 3 transfers replayed from the graph, the
+    # device's counts (bf16 and f32) set to 0 just before and read after
+    kw = dict(nb_steps=NB_STEPS, guidance_timbre=GUIDANCE_TIMBRE)
+    seen = Counter()
+    hooks = [m.register_forward_pre_hook(lambda mod, args: seen.update(
+        [(block_shape(mod, args[0].shape[1]), args[0].dtype)]))
+        for m in p16.codec.modules() if isinstance(m, ConvBlock1d)]
+    pause_background()      # the timed section, the compiles stopped
+    t0 = time.perf_counter()
+    p16.transfer(*requests[0], **kw)
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    for h in hooks:
+        h.remove()
+    if {dt for _, dt in seen} != {bf16} or sum(seen.values()) != 2 * len(
+            path):
+        fail(f"bf16 transfer: the warm-up and the capture ran "
+             f"{sum(seen.values())} ConvBlock1d calls of types "
+             f"{ {dt for _, dt in seen} }")
+    fused_snake_conv.launches = 0
+    reset_device_launches()
+    times, outs = [], []
+    for i, (a, b) in enumerate(requests[1:]):
+        t0 = time.perf_counter()
+        y = p16.transfer(a, b, **kw,
+                         generator=torch.Generator("cuda").manual_seed(i))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        outs.append(y)
+    launches16, sums16 = device_launches(dtype=bf16)
+    launches32 = device_launches()
+    if launches16 != N_REQUESTS * len(path) or launches32 != (0, 0):
+        fail(f"bf16 transfers: the device counted {launches16} "
+             f"{KERNEL16_NAME} launches (expected {len(path)} a transfer) "
+             f"and {launches32} f32 ones (expected none)")
+    if fused_snake_conv.launches:
+        fail("a replayed bf16 transfer called the kernel's wrapper")
+    if sums16 != N_REQUESTS * per_transfer["sum_launches"]:
+        fail(f"bf16 transfers: the device counted {sums16} {SUM16_NAME} "
+             f"launches, the kernel phase expects "
+             f"{per_transfer['sum_launches']} a transfer")
+    coss = []
+    for i, (y, ref) in enumerate(zip(outs, ref_outs)):
+        if y.dtype != torch.float32 or tuple(y.shape) != tuple(ref.shape) \
+                or not torch.isfinite(y).all():
+            fail(f"bf16 request {i}: {y.dtype} {tuple(y.shape)} or "
+                 f"non-finite")
+        cos = torch.nn.functional.cosine_similarity(
+            y.flatten().double(), ref.flatten().double(), dim=0).item()
+        coss.append(cos)
+        if not cos >= BF16_COS:
+            fail(f"bf16 request {i}: cosine {cos} to phase 4's f32 output "
+                 f"< {BF16_COS}")
+    # the same requests op by op
+    p16.eager = True
+    p16.transfer(*requests[0], **kw)
+    reset_device_launches()
+    eager_times, eager_outs = [], []
+    for i, (a, b) in enumerate(requests[1:]):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eager_outs.append(p16.transfer(
+            a, b, **kw, generator=torch.Generator("cuda").manual_seed(i)))
+        torch.cuda.synchronize()
+        eager_times.append(time.perf_counter() - t0)
+    if device_launches(dtype=bf16) != (launches16, sums16):
+        fail(f"bf16 transfers op by op: the device counted "
+             f"{device_launches(dtype=bf16)}")
+    p16.eager = False
+    med, eager_med = (sorted(t)[len(t) // 2] for t in (times, eager_times))
+    log(f"bf16 serving: first request {first_ms:.2f} ms (warm-up, capture, "
+        f"replay); {N_REQUESTS} requests, median {med * 1e3:.2f} ms per "
+        f"transfer as a CUDA graph, {eager_med * 1e3:.2f} ms op by op; "
+        f"the device counted {launches16 // N_REQUESTS} {KERNEL16_NAME} and "
+        f"{sums16 // N_REQUESTS} {SUM16_NAME} launches a replayed transfer "
+        f"and no f32 one; output f32, cosine to phase 4's f32 outputs "
+        + ", ".join(f"{c:.6f}" for c in coss) + f" (limit {BF16_COS})")
+    agree(f"bf16 serving: graph vs eager, {N_REQUESTS} transfers", outs,
+          eager_outs)
+
+    a, b = requests[1]
+
+    def phase_times():
+        phases = {}
+
+        def timed(name, fn):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            phases[name] = (time.perf_counter() - t) * 1e3
+            return out
+
+        z_s = timed("encode_structure_audio", lambda: p16.encode(a))
+        z_t = timed("encode_timbre_audio", lambda: p16.encode(b))
+        tc = timed("structure", lambda: p16.structure(z_s))
+        c = timed("timbre", lambda: p16.timbre(z_t))
+        x0 = torch.randn(z_s.shape, generator=torch.Generator("cuda")
+                         .manual_seed(0), device="cuda")
+        z = timed("sample", lambda: p16.diffuse(x0, c, tc, NB_STEPS,
+                                                GUIDANCE_TIMBRE))
+        timed("decode", lambda: p16.decode(z))
+        return phases
+
+    for eager in (False, True):
+        p16.eager = eager
+        phase_times()
+        phases = phase_times()
+        log(f"bf16 serving: phases {'op by op' if eager else 'as CUDA graphs'}"
+            f" (ms) " + ", ".join(f"{k} {v:.2f}" for k, v in phases.items())
+            + f", sum {sum(phases.values()):.2f}")
+    p16.eager = False
+    # the profiler may lose a kernel record late in this process, as in
+    # phase 13: a profile is kept only where it recorded every launch
+    profile_kept("one bf16 transfer as a CUDA graph",
+                 lambda: p16.transfer(a, b, **kw),
+                 (launches16 // N_REQUESTS, sums16 // N_REQUESTS), bf16=True)
+    resume_background()
+
+    # 3. card against CPU in bf16 on phase 5's clip, both held to the CPU's
+    # f32 output by the bf16 rule of tests/test_torch_precision.py
+    a_s, b_s, x0_s, y_cpu32 = short
+    cpu16 = TransferPipeline(cfg, device="cpu", compute_dtype="bfloat16")
+    cpu16.codec.load_state_dict(p16.codec.state_dict())
+    cpu16.rf.load_state_dict(p16.rf.state_dict())
+    skw = dict(nb_steps=SHORT_STEPS, guidance_timbre=GUIDANCE_TIMBRE,
+               x0=x0_s)
+    pause_background()      # the timed section, the compiles stopped
+    t0 = time.perf_counter()
+    y16_cpu = cpu16.transfer(a_s, b_s, **skw)
+    cpu_s = time.perf_counter() - t0
+    resume_background()
+    y16_card = p16.transfer(a_s, b_s, **skw).cpu()
+    scale = y_cpu32.abs().max().item()
+    err = (y16_card - y16_cpu).abs().max().item()
+    err_card = (y16_card - y_cpu32).abs().max().item()
+    err_cpu = (y16_cpu - y_cpu32).abs().max().item()
+    limit = 2 * err_cpu + 1e-6 * scale
+    cos = torch.nn.functional.cosine_similarity(
+        y16_card.flatten().double(), y16_cpu.flatten().double(), dim=0).item()
+    scale16 = y16_cpu.abs().max().item()
+    log(f"bf16 card vs CPU: {SHORT_SAMPLES} samples, {SHORT_STEPS} steps: "
+        f"card bf16 vs CPU bf16 max abs err {err:.3e} ({err / scale16:.4f} x "
+        f"max |y| {scale16:.4f}, limit {BF16_CARD_CPU_TOL}), cosine "
+        f"{cos:.6f} (limit {BF16_CARD_CPU_COS}); card bf16 vs CPU f32 "
+        f"{err_card:.3e}, max |y| {scale:.4f}, limit 2 x CPU bf16 vs CPU "
+        f"f32 ({err_cpu:.3e}) + 1e-6 x max |y| = {limit:.3e}; the CPU's "
+        f"bf16 transfer {cpu_s:.1f} s")
+    if not (torch.isfinite(y16_card).all() and err_card <= limit
+            and err <= BF16_CARD_CPU_TOL * scale16
+            and cos >= BF16_CARD_CPU_COS):
+        fail("bf16: card and CPU disagree")
+    del cpu16
+
+    # 4. the bf16 streamer: phase 4's first request as 64 buffers at
+    # nb_steps 1 and 4, as graphs and op by op
+    streamer = Streamer(cfg, chunk_size=CHUNK, n_fade=N_FADE, pipeline=p16)
+    eager_streamer = Streamer(cfg, chunk_size=CHUNK, n_fade=N_FADE,
+                              pipeline=p16, eager=True)
+    A = streamer.audio_chunk
+    pause_background()      # the timed section, the compiles stopped
+    for st in (streamer, eager_streamer):                  # warm-up
+        stream_audio(st, st.init_state(1), a[:, :STREAM_WARMUP * A],
+                     b[:, :STREAM_WARMUP * A], STREAM_STEPS[-1])
+    n_buffers = N_SAMPLES // A
+    x0s = np.random.RandomState(SEED + 6).randn(
+        n_buffers, 1, CHUNK, cfg.denoiser.n_channels).astype(np.float32)
+    medians = {}
+    for nb in STREAM_STEPS:
+        state = streamer.init_state(1)
+        floating = {t.dtype for t in flatten_state(state).values()
+                    if t.is_floating_point()}
+        if floating != {bf16}:
+            fail(f"the bf16 stream state holds {floating}")
+        captures = streamer.graphs.captures
+        reset_device_launches()
+        times, ys = stream_audio(streamer, state, a, b, nb, x0s=x0s)
+        launches, sums = device_launches(dtype=bf16)
+        if launches != len(stream_path) * n_buffers or device_launches() != (
+                0, 0):
+            fail(f"bf16 streaming: the device counted {launches} "
+                 f"{KERNEL16_NAME} launches in {n_buffers} buffers, expected "
+                 f"{len(stream_path)} a buffer, and {device_launches()} f32")
+        if streamer.graphs.captures != captures:
+            fail("a bf16 stream state was captured again")
+        eager_times, eager_ys = stream_audio(
+            eager_streamer, eager_streamer.init_state(1), a, b, nb, x0s=x0s)
+        medians[nb] = sorted(times)[n_buffers // 2] * 1e3
+        log(f"bf16 streaming: nb_steps {nb}, {n_buffers} buffers, median / "
+            f"p90 / max ms per buffer as CUDA graphs {spread(times)}, op by "
+            f"op {spread(eager_times)}; {KERNEL16_NAME} and {SUM16_NAME} "
+            f"launches counted on the device {launches / n_buffers:g} and "
+            f"{sums / n_buffers:g} a buffer, none f32; the state's floating "
+            f"leaves bf16")
+        if any(y.dtype != torch.float32 for y in ys):
+            fail("a bf16 stream's output is not f32")
+        agree(f"bf16 streaming nb_steps {nb}: graph vs eager, {n_buffers} "
+              f"buffers", ys, eager_ys)
+    resume_background()
+    del eager_streamer
+
+    # 5. a bf16 artifact of phase 12's runs, exported by the command, loaded
+    # and played beside the live bf16 streamer over the same weights
+    runs = os.path.join(CLI_DIR, "runs")
+    ae_run, diff_run = os.path.join(runs, "ae"), os.path.join(runs, "diff")
+    art16 = os.path.join(CLI_DIR, "after.audio.diff.bf16")
+    gc.collect()
+    t0 = time.perf_counter()
+    rc = cli_main(["export", "--model_path", diff_run, "--emb_model_path",
+                   ae_run, "--chunk_size", str(CHUNK), "--nb_steps",
+                   str(EXPORT_STEPS), "--guidance_timbre",
+                   str(GUIDANCE_TIMBRE), "--compute_dtype", "bfloat16",
+                   "--out", art16, "--device", DEVICE])
+    torch.cuda.synchronize()
+    export_s = time.perf_counter() - t0
+    if rc != 0:
+        fail(f"export --compute_dtype bfloat16 exited with {rc}")
+    with open(os.path.join(art16, "manifest.json")) as f:
+        manifest = json.load(f)
+    if "bfloat16" not in manifest["state_dtypes"]:
+        fail("the bf16 artifact's state_dtypes hold no bfloat16")
+    size16 = sum(_dir_bytes(art16).values())
+    t0 = time.perf_counter()
+    host = ExportedStreamer(art16, DEVICE)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    cfg_run, pipe_run = load_run(diff_run, ae_run, device=DEVICE)
+    live = Streamer(cfg_run, CHUNK, N_FADE,
+                    pipeline=pipe_run.with_compute_dtype("bfloat16"))
+    del pipe_run
+    host_times, host_ys = [], []
+    nb = STREAM_STEPS[-1]
+    host.set_attribute("nb_steps", nb)
+    host.set_attribute("guidance_timbre", GUIDANCE_TIMBRE)
+    pause_background()      # the timed section, the compiles stopped
+    host.call("forward", a[:, :A], b[:, :A])                 # warm-up
+    host.reset()
+    reset_device_launches()
+    for i in range(n_buffers):
+        s = slice(i * A, (i + 1) * A)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        y = host.call("forward", a[:, s], b[:, s], x0=x0s[i])
+        torch.cuda.synchronize()
+        host_times.append(time.perf_counter() - t0)
+        host_ys.append(y)
+    resume_background()
+    launches, _ = device_launches(dtype=bf16)
+    if launches != len(stream_path) * n_buffers or device_launches() != (0,
+                                                                         0):
+        fail(f"bf16 artifact: the device counted {launches} {KERNEL16_NAME} "
+             f"launches in {n_buffers} buffers and {device_launches()} f32")
+    _, live_ys = stream_audio(live, live.init_state(1), a, b, nb, x0s=x0s)
+    log(f"bf16 artifact: {art16}, {size16 / 2**20:.1f} MiB (the f32 "
+        f"artifact of phase 13: "
+        + (f"{size32 / 2**20:.1f} MiB" if size32 else "not measured")
+        + f"); export {export_s:.2f} s, load with the capture {load_s:.2f} s;"
+        f" nb_steps {nb}, {n_buffers} buffers, median / p90 / max ms per "
+        f"buffer {spread(host_times)}; {launches / n_buffers:g} "
+        f"{KERNEL16_NAME} launches a buffer counted on the device")
+    agree(f"bf16 artifact nb_steps {nb}: artifact vs live bf16 streamer, "
+          f"{n_buffers} buffers", host_ys, live_ys)
+    log(f"bf16 summary: transfer {med * 1e3:.2f} ms (graph), buffer "
+        + ", ".join(f"nb_steps {k} {v:.2f} ms" for k, v in medians.items())
+        + f", {KERNEL16_NAME} {per_transfer['ms']:.3f} ms a transfer, "
+        f"artifact {size16 / 2**20:.1f} MiB, "
+        f"{sorted(host_times)[n_buffers // 2] * 1e3:.2f} ms an artifact "
+        f"buffer")
+    del host, live, streamer, p16
+    gc.collect()
+    torch.cuda.empty_cache()
+    return list(bf16_rows(per_transfer, per_buffer, launches16, sums16))
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -3752,6 +4399,7 @@ def main() -> None:
     pipe.eager = False
     row["transfer_ms_median"] = med * 1e3
     row["transfer_eager_ms_median"] = eager_med * 1e3
+    ref_outs = outs                      # phase 16's f32 reference
 
     # per-phase times of one more transfer, through the same entry points,
     # as graphs and op by op (each phase run once before, to capture it)
@@ -3834,6 +4482,7 @@ def main() -> None:
         f"* max |y| = {CARD_VS_CPU_TOL * scale:.3e}")
     if not (torch.isfinite(y_card).all() and err <= CARD_VS_CPU_TOL * scale):
         fail("card and CPU disagree")
+    short = (a, b, x0, y_cpu)            # for phase 16
 
     phase_time("phase 5 (card vs CPU)")
 
@@ -4044,24 +4693,41 @@ def main() -> None:
 
     phase_time("phase 12 (command line)")
 
-    # 13. export and serving, from phase 12's runs
-    export_phase(row, a, b, attrs)
+    # 13. export and serving, from phase 12's runs; phase 15's packages of
+    # its artifacts compile from each export on, beside phases 13 and 16
+    started = start_packaging()
+    devices = {"after.audio.diff": ("cuda",),
+               "after.audio.diff.voices2": ("cuda", "cpu"),
+               "codec_export": ("cuda",)}
+    export_phase(row, a, b, attrs, on_export=lambda path: (
+        package_in_background(started, path,
+                              *devices[path.rstrip("/").split("/")[-1]])))
 
     phase_time("phase 13 (export and serving)")
 
-    # 14. dataset preparation with phase 12's codec run
+    # 16. bf16 serving: the kernel's bf16 instantiation, the transfer, the
+    # streamer and an artifact at compute_dtype bfloat16
+    rows16 = bf16_phase(cfg, pipe, requests, ref_outs, short,
+                        row["artifact_bytes"]["artifact"])
+
+    phase_time("phase 16 (bf16 serving)")
+
+    # 15. the native streaming host on phase 13's artifacts, their
+    # packages done
+    native_phase(row, a, b, attrs, started)
+
+    phase_time("phase 15 (native host)")
+
+    # 14. dataset preparation with phase 12's codec run, last: its host
+    # transforms would share the CPU with phase 15's compiles
     dataset_phase(row)
 
     phase_time("phase 14 (dataset preparation)")
 
-    # 15. the native streaming host on phase 13's artifacts
-    native_phase(row, a, b, attrs)
-
-    phase_time("phase 15 (native host)")
-
     # the card again, so that the end of a long output still names it
     log(f"card: {card_line()}")
-    print(json.dumps({"kernels": [row, srow, *backward_rows]}), flush=True)
+    print(json.dumps({"kernels": [row, srow, *backward_rows, *rows16]}),
+          flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -42,15 +42,14 @@ def main() -> int:
     streamer = Streamer(cfg, cs.CHUNK, cs.N_FADE, pipeline=pipe)
     runs = os.path.join(cs.CLI_DIR, "runs")
     art = os.path.join(runs, "diff", "after.audio.diff")
+    art2 = os.path.join(cs.CLI_DIR, "after.audio.diff.voices2")
+    codec_art = os.path.join(runs, "ae", "codec_export")
     t0 = time.perf_counter()
     export_streamer(streamer, art, nb_steps=cs.EXPORT_STEPS,
                     guidance_timbre=cs.GUIDANCE_TIMBRE)
-    export_streamer(streamer, os.path.join(cs.CLI_DIR,
-                                           "after.audio.diff.voices2"),
-                    nb_steps=cs.EXPORT_STEPS,
+    export_streamer(streamer, art2, nb_steps=cs.EXPORT_STEPS,
                     guidance_timbre=cs.GUIDANCE_TIMBRE, batch_size=2)
-    export_codec(cfg.autoencoder, pipe.codec.state_dict(),
-                 os.path.join(runs, "ae", "codec_export"),
+    export_codec(cfg.autoencoder, pipe.codec.state_dict(), codec_art,
                  chunk_size=cs.CHUNK, n_fade=cs.N_FADE, device="cuda")
     with open(os.path.join(runs, "ae", "config.json"), "w") as f:
         f.write(ae_to_json(cfg.autoencoder))
@@ -78,7 +77,11 @@ def main() -> int:
            "sum_splits_launches_per_buffer": sums,
            "bound_ms_per_buffer": cs.path_bound(enc + enc + dec)[0]}
     t0 = time.perf_counter()
-    cs.native_phase(row, a, b, attrs)
+    started = cs.start_packaging()
+    for path, devices in ((art, ("cuda",)), (art2, ("cuda", "cpu")),
+                          (codec_art, ("cuda",))):
+        cs.package_in_background(started, path, *devices)
+    cs.native_phase(row, a, b, attrs, started)
     cs.log(f"phase 15 {time.perf_counter() - t0:.1f} s")
     return 0
 

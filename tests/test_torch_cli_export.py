@@ -9,7 +9,11 @@ tests/test_diffusion.py and tests/test_frontend.py:
   in;
 - ``export_midi`` of a MIDI run: a MIDI artifact;
 - refusals: a codec run without ``config.json``, a codec whose latent size
-  is not the denoiser's, ``--compute_dtype``;
+  is not the denoiser's;
+- ``--compute_dtype bfloat16``: ``export`` and ``export_midi`` write bf16
+  artifacts (bf16 state leaves; ``export``'s forward equal, bit for bit, to
+  a live bf16 ``Streamer`` over the run's weights), ``export_autoencoder``
+  takes the flag and exports in f32, as the JAX commands do;
 - ``serve --artifact`` in its own process (``after_tpu``, ``jax`` and
   ``flax`` refused there) on a free port: ``/api/info`` and a transfer.
 """
@@ -182,10 +186,41 @@ def test_serve_trains_the_projector_from_a_store(exported):
 
 @pytest.mark.parametrize("command", ["export", "export_midi",
                                      "export_autoencoder"])
-def test_compute_dtype_is_refused(command, tmp_path):
-    with pytest.raises(SystemExit, match="A.5"):
-        cli.main([command, "--model_path", str(tmp_path),
-                  "--compute_dtype", "bfloat16", "--device", "cpu"])
+def test_compute_dtype_is_refused(command, exported, tmp_path):
+    """No longer refused: ``--compute_dtype bfloat16`` exports bf16 state
+    and programs (``export``, ``export_midi``), and f32 where the JAX
+    command ignores it (``export_autoencoder``)."""
+    cfg, run, codec, pipe, _ = exported
+    out = str(tmp_path / "art")
+    if command == "export_midi":
+        cfg = port_config.from_json(jax_config.to_json(_micro_midi_config()))
+        run, codec, pipe = write_runs(tmp_path, cfg, seed=1)
+    model = codec if command == "export_autoencoder" else run
+    assert cli.main([command, "--model_path", model, "--emb_model_path",
+                     codec, "--compute_dtype", "bfloat16", "--nb_steps", "2",
+                     "--out", out, "--device", "cpu"]) == 0
+    with open(os.path.join(out, "manifest.json")) as f:
+        dtypes = set(json.load(f)["state_dtypes"])
+    if command == "export_autoencoder":
+        assert dtypes == {"float32"}
+        return
+    assert "bfloat16" in dtypes and "float32" not in dtypes
+    host = ExportedStreamer(out, "cpu")
+    assert {t.dtype for t in host.state if t.is_floating_point()} == {
+        torch.bfloat16}
+    if command == "export_midi":
+        return
+    p16 = pipe.with_compute_dtype("bfloat16")
+    streamer = Streamer(cfg, chunk_size=4, device="cpu", pipeline=p16)
+    state = streamer.init_state(1)
+    rng = np.random.RandomState(1)
+    for _ in range(2):
+        a, b = (0.3 * rng.randn(2, 1, streamer.audio_chunk, 1)).astype(
+            np.float32)
+        x0 = rng.randn(1, 4, cfg.denoiser.n_channels).astype(np.float32)
+        y, state = streamer.forward(state, a, b, 2, x0=x0)
+        assert y.dtype == torch.float32
+        assert torch.equal(host.call("forward", a, b, x0=x0), y)
 
 
 @pytest.mark.parametrize("command", ["export", "export_midi",

@@ -11,8 +11,9 @@ another summation order than cuDNN's strict f32, TF32 off in cuDNN).  The
 registered op's gradients (the backward's dgrad and wgrad kernels, 3xTF32
 too) are within 1e-4 * max |g| of plain autograd's for each input.  Against
 a float64 plain version the kernel's error may be at most 4x that of
-strict-f32 F.conv1d.  The streamed waveform on the card is within
-1e-4 * max |y| of the CPU's.
+strict-f32 F.conv1d.  The kernel's bf16 instantiation is within 2 bf16
+ulps of max |y| of its plain bf16 version.  The streamed waveform on the
+card is within 1e-4 * max |y| of the CPU's.
 """
 
 import numpy as np
@@ -65,6 +66,29 @@ def test_kernel_matches_plain_version(cuda, B, T, C, O, k, d, mode):
     ref = snake_conv_reference(x, alpha, beta, w, b, d, mode)
     err = (y - ref).abs().max().item()
     assert err <= 1e-4 * ref.abs().max().item(), err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["causal", "centered"])
+@pytest.mark.parametrize("B,T,C,O,k,d", [
+    (2, 512, 64, 64, 3, 1), (1, 100, 20, 40, 3, 3), (3, 37, 130, 70, 1, 1),
+    (1, 1024, 768, 768, 3, 9), (1, 8192, 384, 384, 3, 1),
+    (2, 700, 96, 300, 3, 3)])
+def test_bf16_kernel_matches_plain_version(cuda, B, T, C, O, k, d, mode):
+    """The bf16 instantiation against its plain bf16 version (both round an
+    f32 sum once): within 2 bf16 ulps of max |y|, the bf16 kernels counted
+    on the device and the f32 ones not."""
+    x, alpha, beta, w, b = (t.to(torch.bfloat16) for t in _inputs(
+        0, B, T, C, O, k, cuda))
+    reset_device_launches()
+    y = fused_snake_conv(x, alpha, beta, w, b, d, mode)
+    assert device_launches(dtype=torch.bfloat16)[0] == 1
+    assert device_launches() == (0, 0)
+    ref = snake_conv_reference(x, alpha, beta, w, b, d, mode)
+    assert y.dtype == torch.bfloat16
+    scale = ref.float().abs().max().item()
+    ulp = 2.0 ** (np.floor(np.log2(scale)) - 7)
+    assert (y.float() - ref.float()).abs().max().item() <= 2 * ulp
 
 
 @pytest.mark.cuda

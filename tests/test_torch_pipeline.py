@@ -118,6 +118,7 @@ def test_import_pulls_in_no_jax():
             "after_tpu_torch.dataset.lmdb_import, "
             "after_tpu_torch.ops.streaming_spectral, "
             "after_tpu_torch.utils.port_torch, "
+            "after_tpu_torch.utils.precision, "
             "after_tpu_torch.utils.gin_import; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'flax' or m == 'after_tpu' or "

@@ -182,5 +182,13 @@ def test_streamer_without_device_and_card_raises(monkeypatch):
     cfg = port_config.from_json(jax_config.to_json(micro_config()))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Streamer(cfg)
-    with pytest.raises(NotImplementedError, match="compute_dtype"):
-        Streamer(cfg, device="cpu", compute_dtype=torch.bfloat16)
+    # bf16 streams now: a pipeline of its own at the compute dtype, and a
+    # pipeline at another dtype refused
+    s16 = Streamer(cfg, device="cpu", compute_dtype=torch.bfloat16)
+    assert s16.pipeline.compute_dtype == torch.bfloat16
+    assert s16.new_state(1).prev_timbre.dtype == torch.bfloat16
+    # a given pipeline's compute dtype is the streamer's
+    assert Streamer(cfg, pipeline=s16.pipeline).compute_dtype == torch.bfloat16
+    with pytest.raises(ValueError, match="compute"):
+        Streamer(cfg, device="cpu", compute_dtype="bfloat16",
+                 pipeline=TransferPipeline(cfg, device="cpu"))
