@@ -14,19 +14,23 @@ from ..ops import stft as stft_ops
 
 
 def stft_magnitude(x: torch.Tensor, n_fft: int, hop: int, win: int,
-                   eps: float = 1e-8, center: bool = True) -> torch.Tensor:
+                   eps: float = 1e-8, center: bool = True,
+                   dft_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """(B, T) -> (B, frames, bins) magnitudes (torch.stft conventions)."""
-    z = stft_ops.stft(x, n_fft, hop, win, center=center)
+    z = stft_ops.stft(x, n_fft, hop, win, center=center, dft_dtype=dft_dtype)
     return torch.sqrt(torch.clamp_min(z.real ** 2 + z.imag ** 2, eps))
 
 
 def stft_loss(x: torch.Tensor, y: torch.Tensor, n_fft: int, hop: int,
               win: int, w_sc: float = 1.0, w_log_mag: float = 1.0,
-              w_lin_mag: float = 0.0, center: bool = True) -> torch.Tensor:
+              w_lin_mag: float = 0.0, center: bool = True,
+              dft_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """Single-scale loss: spectral convergence + log/linear magnitude L1
     (core.py:671-720).  x, y: (B, T) pre-filtered waveforms."""
-    x_mag = stft_magnitude(x, n_fft, hop, win, center=center)
-    y_mag = stft_magnitude(y, n_fft, hop, win, center=center)
+    x_mag = stft_magnitude(x, n_fft, hop, win, center=center,
+                           dft_dtype=dft_dtype)
+    y_mag = stft_magnitude(y, n_fft, hop, win, center=center,
+                           dft_dtype=dft_dtype)
     loss = 0.0
     if w_sc:
         sc = (torch.linalg.vector_norm(y_mag - x_mag, dim=(-2, -1))
@@ -45,7 +49,9 @@ def multi_resolution_stft_loss(x: torch.Tensor, y: torch.Tensor,
                                cfg: AETrainConfig,
                                sr: int = 44100) -> torch.Tensor:
     """MR-STFT loss over cfg's scales with the optional A-weighting
-    prefilter (core.py:723-813; baseAE.gin:87-100).  x, y: (B, T, 1)."""
+    prefilter (core.py:723-813; baseAE.gin:87-100).  x, y: (B, T, 1).
+    ``cfg.stft_bf16_dft`` takes each scale's DFT with bf16 operands and f32
+    sums (``stft_ops.stft``'s ``dft_dtype``); the rest stays f32."""
     xw, yw = x[..., 0], y[..., 0]
     if cfg.perceptual_weighting:
         taps = stft_ops.on_device(x.device, stft_ops.a_weighting_fir, sr)
@@ -58,6 +64,7 @@ def multi_resolution_stft_loss(x: torch.Tensor, y: torch.Tensor,
     P = max(cfg.stft_fft_sizes) // 2
     xp = F.pad(xw[:, None], (P, P), mode="reflect")[:, 0]
     yp = F.pad(yw[:, None], (P, P), mode="reflect")[:, 0]
+    dft_dtype = torch.bfloat16 if cfg.stft_bf16_dft else None
     total = 0.0
     for n_fft, hop, win in zip(cfg.stft_fft_sizes, cfg.stft_hop_sizes,
                                cfg.stft_win_lengths):
@@ -65,7 +72,7 @@ def multi_resolution_stft_loss(x: torch.Tensor, y: torch.Tensor,
         total = total + stft_loss(
             xp[..., off:off + T + n_fft], yp[..., off:off + T + n_fft],
             n_fft, hop, win, cfg.stft_w_sc, cfg.stft_w_log_mag,
-            cfg.stft_w_lin_mag, center=False)
+            cfg.stft_w_lin_mag, center=False, dft_dtype=dft_dtype)
     return total / len(cfg.stft_fft_sizes)
 
 

@@ -18,6 +18,20 @@ bottleneck noise is an argument of every step; without it the trainer
 draws it from its own seeded ``torch.Generator``.  Everything runs on the
 trainer's device, the CUDA card unless the caller passes ``device="cpu"``,
 in strict f32.
+
+Mixed precision (``AETrainConfig.compute_dtype="bfloat16"``), as the JAX
+trainer runs it: both models' f32 master parameters are cast to bf16
+inside each step's forward (``utils.precision.cast_call``), so their
+gradients, both optimizers and the checkpoints stay f32; the codec takes
+the waveform in bf16, the discriminator the real waveform in bf16 and the
+generated one as the codec returns it, and every loss is computed in f32
+on the widened outputs.  Each module computes at the promotion of its
+input's type and its parameters' (as jnp promotes them): the encoder runs
+in bf16 (the snake+conv op's bf16 kernels, forward and backward), while
+the bottleneck's f32 noise makes the decoder and, from there, the
+discriminator compute in f32 with their bf16 weights widened.
+``stft_bf16_dft`` takes the MR-STFT's DFTs with bf16 operands.  The
+validation stays f32.
 """
 
 from __future__ import annotations
@@ -33,6 +47,7 @@ from ..models.autoencoder import AudioCodec
 from ..models.discriminator import EncodecDiscriminator
 from ..utils.device import resolve_device, strict_f32
 from ..utils.optim import AdamW
+from ..utils.precision import cast_call, compute_dtype, to_compute
 from .losses import multi_resolution_stft_loss, spectral_distance
 
 ArrayLike = Union[torch.Tensor, np.ndarray]
@@ -51,11 +66,9 @@ class AutoencoderTrainer:
         self.cfg = ae_cfg
         self.tc = train_cfg or AETrainConfig()
         self.dcfg = disc_cfg or DiscriminatorConfig()
-        if self.tc.compute_dtype is not None or self.tc.stft_bf16_dft:
-            raise NotImplementedError(
-                "the port trains in f32 only (compute_dtype=None, "
-                "stft_bf16_dft=False): bf16 codec training is not ported "
-                "yet (ROADMAP 10d)")
+        # None (f32) or the type both models' forwards run at, their f32
+        # masters cast inside each step
+        self.compute_dtype = compute_dtype(self.tc.compute_dtype)
         self.device = resolve_device(device)
         strict_f32()
         self.codec = AudioCodec(ae_cfg).to(self.device)
@@ -169,8 +182,12 @@ class AutoencoderTrainer:
         """The generator step's metrics and the gradients of its loss for
         each codec parameter (in ``codec.parameters()`` order)."""
         x = self._tensor(x)
-        y, _, _, regloss, _ = self.codec(x, self._noise(x, noise))
-        metrics = self._reconstruction(x, y)
+        cd = self.compute_dtype
+        y, _, _, regloss, _ = cast_call(self.codec, cd, to_compute(x, cd),
+                                        self._noise(x, noise))
+        regloss = regloss.float()
+        # the loss math in f32, on the widened output
+        metrics = self._reconstruction(x, y.float())
         loss = w_wave * metrics["mrstft"] + w_reg * regloss
         metrics["regularisation_loss"] = regloss
         if "spectral_distance" in metrics:
@@ -178,10 +195,11 @@ class AutoencoderTrainer:
                            * metrics["spectral_distance"])
         if use_gan:
             n = min(x.shape[1], y.shape[1])
-            loss_gen, _, dmetrics = self.disc(x[:, :n], y[:, :n])
-            loss = loss + loss_gen
-            metrics["feature_matching"] = dmetrics["feature_matching"]
-            metrics["adversarial"] = dmetrics["adversarial"]
+            loss_gen, _, dmetrics = cast_call(
+                self.disc, cd, to_compute(x[:, :n], cd), y[:, :n])
+            loss = loss + loss_gen.float()
+            metrics["feature_matching"] = dmetrics["feature_matching"].float()
+            metrics["adversarial"] = dmetrics["adversarial"].float()
         metrics["total_loss"] = loss
         grads = torch.autograd.grad(loss, list(self.codec.parameters()))
         return {k: v.detach() for k, v in metrics.items()}, list(grads)
@@ -203,12 +221,16 @@ class AutoencoderTrainer:
         loss for each discriminator parameter; the codec runs without
         gradients but draws its bottleneck noise."""
         x = self._tensor(x)
+        cd = self.compute_dtype
         with torch.no_grad():
-            y = self.codec(x, self._noise(x, noise))[0]
+            y = cast_call(self.codec, cd, to_compute(x, cd),
+                          self._noise(x, noise))[0]
         n = min(x.shape[1], y.shape[1])
-        _, loss_dis, metrics = self.disc(x[:, :n], y[:, :n],
-                                         batched=self.tc.disc_batched)
-        grads = torch.autograd.grad(loss_dis, list(self.disc.parameters()))
+        _, loss_dis, metrics = cast_call(
+            self.disc, cd, to_compute(x[:, :n], cd), y[:, :n],
+            batched=self.tc.disc_batched)
+        grads = torch.autograd.grad(loss_dis.float(),
+                                    list(self.disc.parameters()))
         return {k: v.detach() for k, v in metrics.items()}, list(grads)
 
     def disc_step(self, x: ArrayLike, noise: Optional[ArrayLike] = None

@@ -73,17 +73,37 @@
 // kernel adds one to a device counter the caller passes, so launches
 // replayed from a CUDA graph are counted as eager ones are.  A launch error
 // is returned to the caller, which raises.
+//
+// The bf16 instantiations (snake_conv_dgrad_bf16, snake_conv_wgrad_bf16: the
+// same template bodies, plans and partial sums), the backward of the
+// forward's bf16 instantiation (fused_snake_conv.cu: snake_conv_bf16): g, x,
+// alpha, beta and the weight are bf16, and so are the five gradients.  Each
+// 16-channel (dgrad) or 16-frame (wgrad) step is one wgmma m64nNk16
+// .f32.bf16.bf16 in place of the three tf32 products; bf16 products are
+// exact in f32, the sums stay f32 and are folded as in f32.  dgrad reads g
+// and the transposed weight (Ow a multiple of 8) as they are, its window's
+// columns stored so that a thread's four values of a k16 fragment row are
+// side by side; the epilogue widens x, computes in f32 and rounds gx to bf16
+// once.  wgrad activates 64-frame chunks (one 128-byte row of bf16), the
+// snake in f32 from the widened inputs rounded to bf16 once, as the forward
+// rounds it; g's fragments pair two frames of one output channel in a
+// register.  galpha, gbeta, gb and gw leave the kernels as f32 partials (an
+// unsplit gw in registers), summed in the fixed order (sum_partials_bf16)
+// and rounded once: the same bits at every launch, eager or replayed.
 
 #include <cuda.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
 constexpr int kThreads = 256;   // two warpgroups
 constexpr int kRows = 128;      // dgrad: frames per block, 64 per warpgroup
 constexpr int kOuts = 128;      // wgrad: output channels per block
-constexpr int kFrames = 32;     // wgrad: frames per stage (one 128-byte row)
+constexpr int kFrames = 32;     // wgrad: f32 frames a chunk (one 128-byte row)
 constexpr int kGStride = kOuts + 8;   // wgrad: row stride of the g window
 constexpr int kSMs = 132;       // H100 SXM
 constexpr int kMaxSmem = 232448;          // per block, opt-in
@@ -100,16 +120,41 @@ __host__ __device__ constexpr int act_stride(int bk) {
   return bk % 16 == 0 ? bk + 8 : bk;
 }
 
+// the same for the bf16 window, in bf16 values: 16 or 48 mod 64, so that
+// the 8-byte loads of a fragment's rows g = 0..3 start 32 bytes apart mod 128
+__host__ __device__ constexpr int act_stride_bf16(int bk) {
+  return bk % 32 == 0 ? bk + 16 : bk;
+}
+
 // column of channel cc inside its group of 8: (cc, cc + 4) side by side
 __device__ __forceinline__ int act_col(int cc) {
   return (cc & ~7) + ((cc & 3) << 1) + ((cc >> 2) & 1);
+}
+
+// column of channel cc inside its group of 16 in the bf16 window: the four
+// values of a bf16 k16 fragment row that one thread holds, (2t, 2t + 1,
+// 2t + 8, 2t + 9), side by side at 4t
+__device__ __forceinline__ int act_col_bf16(int cc) {
+  return (cc & ~15) + (((cc >> 1) & 3) << 2) + (((cc >> 3) & 1) << 1) +
+         (cc & 1);
+}
+
+__device__ __forceinline__ float widen(float v) { return v; }
+__device__ __forceinline__ float widen(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
+// an f32 value stored as Out (f32, or bf16 rounded to nearest once)
+__device__ __forceinline__ void put(float* p, float v) { *p = v; }
+__device__ __forceinline__ void put(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16_rn(v);
 }
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
                                            bool ok) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
                    smem_addr(dst)),
@@ -161,7 +206,7 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
       : "memory");
 }
 
-__device__ __forceinline__ void tma_load_2d(float* dst, const CUtensorMap* map,
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
                                             uint64_t* bar, int c0, int c1) {
   asm volatile(
       "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
@@ -197,7 +242,7 @@ __device__ __forceinline__ void split_tf32(float v, uint32_t& hi,
 // K-major operand in the swizzled layout: rows of `row_bytes` (32, 64 or
 // 128: the swizzle span), 8-row groups `8 * row_bytes` apart
 template <int RowBytes>
-__device__ __forceinline__ uint64_t make_desc(const float* p) {
+__device__ __forceinline__ uint64_t make_desc(const void* p) {
   constexpr uint64_t layout = RowBytes == 128 ? 1 : RowBytes == 64 ? 2 : 3;
   return (uint64_t)((smem_addr(p) & 0x3FFFF) >> 4) | (1ull << 16) |
          ((uint64_t)(8 * RowBytes >> 4) << 32) | (layout << 62);
@@ -317,18 +362,106 @@ __device__ __forceinline__ void wgmma_tf32(float (&d)[BN / 2],
   else wgmma_n128(d, a, desc_b);
 }
 
+// wgmma.mma_async m64nNk16 .f32.bf16.bf16, A from registers (4 registers of
+// two bf16 each, the lower k in the low half), B K-major from shared memory
+// (trans-b 0), d += A * B
+
+__device__ __forceinline__ void wgmma_bf16_n32(float (&d)[16],
+                                               const uint32_t (&a)[4],
+                                               uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
+      " %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+        "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_bf16_n64(float (&d)[32],
+                                               const uint32_t (&a)[4],
+                                               uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
+      " %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+        "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_bf16_n128(float (&d)[64],
+                                               const uint32_t (&a)[4],
+                                               uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
+      " %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35,"
+      " %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59,"
+      " %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+        "r"(1));
+}
+
+template <int BN>
+__device__ __forceinline__ void wgmma_bf16(float (&d)[BN / 2],
+                                           const uint32_t (&a)[4],
+                                           uint64_t desc_b) {
+  if constexpr (BN == 32) wgmma_bf16_n32(d, a, desc_b);
+  else if constexpr (BN == 64) wgmma_bf16_n64(d, a, desc_b);
+  else wgmma_bf16_n128(d, a, desc_b);
+}
+
 int ceil_div(int a, int b) { return (a + b - 1) / b; }
 
 // ---------------------------------------------------------------------------
 // dgrad
 // ---------------------------------------------------------------------------
 
+// g, x, alpha, beta and gx are of the instance's element type (float or
+// __nv_bfloat16); the partial sums are f32 in both
 struct DgradParams {
-  const float* g;       // (B, T, O)
-  const float* x;       // (B, T, C)
-  const float* alpha;
-  const float* beta;
-  float* gx;            // (B, T, C), or null when not wanted
+  const void* g;        // (B, T, O)
+  const void* x;        // (B, T, C)
+  const void* alpha;
+  const void* beta;
+  void* gx;             // (B, T, C), or null when not wanted
   float* part;          // (B * ceil(T / 128), 2C + O) partial sums, or null
   unsigned long long* count;
   int T, C, O, k, dilation;
@@ -343,33 +476,42 @@ struct DgradParams {
   int need_gb;          // gb wanted
 };
 
-__host__ __device__ constexpr int weight_bytes(int bn, int bk, int kt) {
-  return 4 * kt * bk * bn;
+__host__ __device__ constexpr int weight_bytes(int bn, int bk, int kt,
+                                               int elem = 4) {
+  return elem * kt * bk * bn;
 }
 
-// the main loop's buffers, or the epilogue's x tile, coefficients and
+// the main loop's buffers (f32: weight tiles hi and lo, windows split in
+// hi and lo; bf16: one of each), or the epilogue's x tile, coefficients and
 // warp sums in the same space, whichever is larger
-size_t dgrad_smem(int bn, int bk, int kt, int win) {
-  const size_t main = (size_t)kRing * 2 * weight_bytes(bn, bk, kt) +
-                      (size_t)kRing * 4 * win * bk +
-                      (size_t)4 * 4 * win * act_stride(bk) + 2 * 4 * kThreads +
-                      kRing * sizeof(uint64_t);
+size_t dgrad_smem(int bn, int bk, int kt, int win, bool bf16 = false) {
+  const int elem = bf16 ? 2 : 4;
+  const size_t acts = bf16 ? (size_t)2 * 2 * win * act_stride_bf16(bk)
+                           : (size_t)4 * 4 * win * act_stride(bk);
+  const size_t main = (size_t)kRing * (bf16 ? 1 : 2) *
+                          weight_bytes(bn, bk, kt, elem) +
+                      (size_t)kRing * elem * win * bk + acts +
+                      2 * 4 * kThreads + kRing * sizeof(uint64_t);
   const size_t epilogue = (size_t)4 * (kRows * (bn + 8) + 2 * bn + 16 * bn);
   return 1024 + (main > epilogue ? main : epilogue);   // and alignment
 }
 
 // One block: 128 frames x BN input channels, its whole sum over output
 // channels and taps in stages of BK output channels x KT taps; then the
-// epilogue (gx, and the block's partials of galpha, gbeta and gb).
-template <int BN, int BK, int KT>
-__global__ void __launch_bounds__(kThreads, 1)
-snake_conv_dgrad_3xtf32(const __grid_constant__ CUtensorMap w_map,
-                        const DgradParams p) {
-  constexpr int kq = BK / 4;
-  constexpr int AS = act_stride(BK);
-  constexpr int WB = weight_bytes(BN, BK, KT);
+// epilogue (gx, and the block's partials of galpha, gbeta and gb).  T is
+// float (3xTF32: the weight's low half made on chip, the window split) or
+// __nv_bfloat16 (one bf16 product a 16-channel step).
+template <typename T, int BN, int BK, int KT>
+__device__ __forceinline__ void dgrad_block(const CUtensorMap* w_map,
+                                            const DgradParams& p) {
+  constexpr bool kBf = std::is_same<T, __nv_bfloat16>::value;
+  constexpr int per = 16 / (int)sizeof(T);   // elements of a 16-byte piece
+  constexpr int kq = BK / per;
+  constexpr int AS = kBf ? act_stride_bf16(BK) : act_stride(BK);
+  constexpr int WB = weight_bytes(BN, BK, KT, sizeof(T));
+  constexpr int WE = WB / (int)sizeof(T);    // elements of one ring slot
   constexpr int TAP = BN * BK;
-  constexpr int KS = BK / 8;
+  constexpr int KS = BK / (kBf ? 16 : 8);
   constexpr int STEPS = KT * KS;
   static_assert(kThreads % BK == 0, "a thread keeps its channel");
 
@@ -378,11 +520,13 @@ snake_conv_dgrad_3xtf32(const __grid_constant__ CUtensorMap w_map,
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
   const int xsz = p.win * BK;
   const int asz = p.win * AS;
-  float* const whi = reinterpret_cast<float*>(smem);          // [ring][WB]
-  float* const wlo = whi + kRing * WB / 4;                     // [ring][WB]
-  float* const graw = wlo + kRing * WB / 4;                    // [ring][xsz]
-  float* const act = graw + kRing * xsz;                       // [2][hi,lo]
-  float* const gbtmp = act + 4 * asz;                          // [2][threads]
+  T* const whi = reinterpret_cast<T*>(smem);                   // [ring][WE]
+  float* const wlo = reinterpret_cast<float*>(whi + kRing * WE);   // f32
+  T* const graw = whi + (kBf ? 1 : 2) * kRing * WE;            // [ring][xsz]
+  // f32: [2][hi, lo] windows of floats; bf16: [2] windows of bf16
+  T* const act = graw + kRing * xsz;
+  float* const gbtmp =
+      reinterpret_cast<float*>(act + (kBf ? 2 : 4) * asz);     // [2][threads]
   uint64_t* const full = reinterpret_cast<uint64_t*>(gbtmp + 2 * kThreads);
 
   const int tid = threadIdx.x;
@@ -393,7 +537,8 @@ snake_conv_dgrad_3xtf32(const __grid_constant__ CUtensorMap w_map,
   const int mb = b * gridDim.x + blockIdx.x;       // this block's partials
   const size_t stride = 2 * (size_t)p.C + p.O;
   const bool gb_block = p.need_gb && blockIdx.y == 0;
-  const float* const gbat = p.g + (size_t)b * p.T * p.O;
+  const T* const g = static_cast<const T*>(p.g);
+  const T* const gbat = g + (size_t)b * p.T * p.O;
 
   if (p.count != nullptr && tid == 0 && blockIdx.x == 0 && blockIdx.y == 0 &&
       blockIdx.z == 0)
@@ -405,7 +550,10 @@ snake_conv_dgrad_3xtf32(const __grid_constant__ CUtensorMap w_map,
   __syncthreads();
 
   // stage i into ring slot i % kRing: the weight tiles by TMA (thread 0),
-  // the g window by every thread; one cp.async group per call
+  // the g window by every thread; one cp.async group per call.  A bf16
+  // window without 16-byte rows comes by plain loads and stores: the slot's
+  // last reader (activate) finished before the barrier that ended stage
+  // i - 2
   auto issue = [&](int i) {
     if (i < n) {
       const int o0 = (i / p.groups) * BK;
@@ -417,19 +565,19 @@ snake_conv_dgrad_3xtf32(const __grid_constant__ CUtensorMap w_map,
 #pragma unroll
         for (int jj = 0; jj < KT; ++jj) {
           const int row = (p.k - 1 - j0 - jj) * p.C + c0;
-          tma_load_2d(whi + slot * WB / 4 + jj * TAP, &w_map, bar, o0, row);
+          tma_load_2d(whi + slot * WE + jj * TAP, w_map, bar, o0, row);
         }
       }
-      float* const dst = graw + slot * xsz;
+      T* const dst = graw + slot * xsz;
       if (p.vec_g) {
         for (int e = tid; e < p.win * kq; e += kThreads) {
           const int q = e % kq;
           const int r = e / kq;
           const int t = t0 - p.lead + r;
-          const int o = o0 + 4 * q;
+          const int o = o0 + per * q;
           const bool ok = t >= 0 && t < p.T && o < p.O;
-          cp_async16(dst + r * BK + 4 * q,
-                     ok ? gbat + (size_t)t * p.O + o : p.g, ok);
+          cp_async16(dst + r * BK + per * q,
+                     ok ? gbat + (size_t)t * p.O + o : g, ok);
         }
       } else {
         for (int e = tid; e < p.win * BK; e += kThreads) {
@@ -438,23 +586,28 @@ snake_conv_dgrad_3xtf32(const __grid_constant__ CUtensorMap w_map,
           const int t = t0 - p.lead + r;
           const int o = o0 + oo;
           const bool ok = t >= 0 && t < p.T && o < p.O;
-          cp_async4(dst + e, ok ? gbat + (size_t)t * p.O + o : p.g, ok);
+          if constexpr (kBf)
+            dst[e] = ok ? gbat[(size_t)t * p.O + o] : __float2bfloat16_rn(0.f);
+          else
+            cp_async4(dst + e, ok ? gbat + (size_t)t * p.O + o : g, ok);
         }
       }
     }
     cp_async_commit();
   };
 
-  // stage i's g window split into tf32 halves, into buffer i & 1; a thread
+  // stage i's g window into buffer i & 1 (f32: split into tf32 halves;
+  // bf16: as it is, its columns reordered for the k16 fragments); a thread
   // keeps one channel, and the first tap group's stage also sums the
-  // block's own 128 frames of it (gb).  And the low tf32 half of stage i's
-  // weight tiles, element by element in their swizzled layout: the tensor
-  // cores read the top 19 bits of w as its high half, lo = tf32(w - them).
+  // block's own 128 frames of it (gb).  f32 also makes the low tf32 half of
+  // stage i's weight tiles, element by element in their swizzled layout:
+  // the tensor cores read the top 19 bits of w as its high half, lo =
+  // tf32(w - them).
   auto activate = [&](int i) {
-    {
-      const float* const wh = whi + (i % kRing) * WB / 4;
-      float* const wl = wlo + (i % kRing) * WB / 4;
-      for (int e = tid; e < WB / 4; e += kThreads) {
+    if constexpr (!kBf) {
+      const float* const wh = whi + (i % kRing) * WE;
+      float* const wl = wlo + (i % kRing) * WE;
+      for (int e = tid; e < WE; e += kThreads) {
         const float v = wh[e];
         wl[e] = __uint_as_float(
             to_tf32(v - __uint_as_float(__float_as_uint(v) & 0xFFFFE000u)));
@@ -462,19 +615,22 @@ snake_conv_dgrad_3xtf32(const __grid_constant__ CUtensorMap w_map,
       fence_async_shared();
     }
     const int cc = tid % BK;
-    const float* const xr = graw + (i % kRing) * xsz;
-    float* const ah = act + (i & 1) * 2 * asz;
-    float* const alo = ah + asz;
-    const int col = act_col(cc);
+    const T* const xr = graw + (i % kRing) * xsz;
+    T* const ah = act + (i & 1) * (kBf ? 1 : 2) * asz;
+    const int col = kBf ? act_col_bf16(cc) : act_col(cc);
     float gsum = 0.f;
 #pragma unroll 2
     for (int r = tid / BK; r < p.win; r += kThreads / BK) {
-      const float v = xr[r * BK + cc];
-      float hi, lo;
-      split_tf32(v, hi, lo);
-      ah[r * AS + col] = hi;
-      alo[r * AS + col] = lo;
-      if (r >= p.lead && r < p.lead + kRows) gsum += v;
+      const T v = xr[r * BK + cc];
+      if constexpr (kBf) {
+        ah[r * AS + col] = v;
+      } else {
+        float hi, lo;
+        split_tf32(v, hi, lo);
+        ah[r * AS + col] = hi;
+        ah[asz + r * AS + col] = lo;
+      }
+      if (r >= p.lead && r < p.lead + kRows) gsum += widen(v);
     }
     if (gb_block && i % p.groups == 0) gbtmp[(i & 1) * kThreads + tid] = gsum;
   };
@@ -502,39 +658,64 @@ snake_conv_dgrad_3xtf32(const __grid_constant__ CUtensorMap w_map,
   for (int e = 0; e < BN / 2; ++e) acc[e] = tot[e] = 0.f;
   fence_acc(acc);
 
+  // all fragments of stage i in registers, then its MMAs in one group
+  // (f32: 3 x STEPS, small terms first; bf16: STEPS)
   auto mma = [&](int i) {
     const int j0 = (i % p.groups) * KT;
-    const float* const ah = act + (i & 1) * 2 * asz;
-    const float* const alo = ah + asz;
-    uint32_t fh[STEPS][4], fl[STEPS][4];
+    const T* const bh = whi + (i % kRing) * WE;
+    if constexpr (kBf) {
+      const T* const ah = act + (i & 1) * asz;
+      uint32_t fa[STEPS][4];
 #pragma unroll
-    for (int u = 0; u < STEPS; ++u) {
-      const int off = (row0 + (j0 + u / KS) * p.dilation) * AS +
-                      8 * (u % KS) + 2 * tig;
-      const float2 h0 = *reinterpret_cast<const float2*>(ah + off);
-      const float2 h1 = *reinterpret_cast<const float2*>(ah + off + 8 * AS);
-      const float2 l0 = *reinterpret_cast<const float2*>(alo + off);
-      const float2 l1 = *reinterpret_cast<const float2*>(alo + off + 8 * AS);
-      fh[u][0] = __float_as_uint(h0.x);
-      fh[u][1] = __float_as_uint(h1.x);
-      fh[u][2] = __float_as_uint(h0.y);
-      fh[u][3] = __float_as_uint(h1.y);
-      fl[u][0] = __float_as_uint(l0.x);
-      fl[u][1] = __float_as_uint(l1.x);
-      fl[u][2] = __float_as_uint(l0.y);
-      fl[u][3] = __float_as_uint(l1.y);
-    }
-    const float* const bh = whi + (i % kRing) * WB / 4;
-    const float* const bl = wlo + (i % kRing) * WB / 4;
-    wgmma_fence();
+      for (int u = 0; u < STEPS; ++u) {
+        const int off = (row0 + (j0 + u / KS) * p.dilation) * AS +
+                        16 * (u % KS) + 4 * tig;
+        const uint2 r0 = *reinterpret_cast<const uint2*>(ah + off);
+        const uint2 r1 = *reinterpret_cast<const uint2*>(ah + off + 8 * AS);
+        fa[u][0] = r0.x;
+        fa[u][1] = r1.x;
+        fa[u][2] = r0.y;
+        fa[u][3] = r1.y;
+      }
+      wgmma_fence();
 #pragma unroll
-    for (int u = 0; u < STEPS; ++u) {
-      const int off = (u / KS) * TAP + 8 * (u % KS);
-      const uint64_t dh = make_desc<BK * 4>(bh + off);
-      const uint64_t dl = make_desc<BK * 4>(bl + off);
-      wgmma_tf32<BN>(acc, fl[u], dh);
-      wgmma_tf32<BN>(acc, fh[u], dl);
-      wgmma_tf32<BN>(acc, fh[u], dh);
+      for (int u = 0; u < STEPS; ++u) {
+        // tap u / KS, channels 16 (u % KS) on: 32 bytes into the rows
+        const int off = (u / KS) * TAP + 16 * (u % KS);
+        wgmma_bf16<BN>(acc, fa[u], make_desc<BK * 2>(bh + off));
+      }
+    } else {
+      const float* const ah = act + (i & 1) * 2 * asz;
+      const float* const alo = ah + asz;
+      uint32_t fh[STEPS][4], fl[STEPS][4];
+#pragma unroll
+      for (int u = 0; u < STEPS; ++u) {
+        const int off = (row0 + (j0 + u / KS) * p.dilation) * AS +
+                        8 * (u % KS) + 2 * tig;
+        const float2 h0 = *reinterpret_cast<const float2*>(ah + off);
+        const float2 h1 = *reinterpret_cast<const float2*>(ah + off + 8 * AS);
+        const float2 l0 = *reinterpret_cast<const float2*>(alo + off);
+        const float2 l1 = *reinterpret_cast<const float2*>(alo + off + 8 * AS);
+        fh[u][0] = __float_as_uint(h0.x);
+        fh[u][1] = __float_as_uint(h1.x);
+        fh[u][2] = __float_as_uint(h0.y);
+        fh[u][3] = __float_as_uint(h1.y);
+        fl[u][0] = __float_as_uint(l0.x);
+        fl[u][1] = __float_as_uint(l1.x);
+        fl[u][2] = __float_as_uint(l0.y);
+        fl[u][3] = __float_as_uint(l1.y);
+      }
+      const float* const bl = wlo + (i % kRing) * WE;
+      wgmma_fence();
+#pragma unroll
+      for (int u = 0; u < STEPS; ++u) {
+        const int off = (u / KS) * TAP + 8 * (u % KS);
+        const uint64_t dh = make_desc<BK * 4>(bh + off);
+        const uint64_t dl = make_desc<BK * 4>(bl + off);
+        wgmma_tf32<BN>(acc, fl[u], dh);
+        wgmma_tf32<BN>(acc, fh[u], dl);
+        wgmma_tf32<BN>(acc, fh[u], dh);
+      }
     }
     wgmma_commit();
   };
@@ -564,9 +745,10 @@ snake_conv_dgrad_3xtf32(const __grid_constant__ CUtensorMap w_map,
   if (!p.need_ga) return;
 
   // epilogue: tot[4q + 2h + e] is ga at frame t0 + row0 + 8h, channel c0 + 8q
-  // + 2 tig + e.  The block's x tile comes into shared memory by coalesced
-  // copies (the ring is free), gx goes back in its place and out the same
-  // way; galpha's and gbeta's terms are summed over the thread's 2 frames,
+  // + 2 tig + e.  The block's x tile comes into shared memory (f32: by
+  // coalesced copies; bf16: widened by coalesced loads) while the ring is
+  // free, gx goes back in its place and out the same way (bf16: rounded
+  // once); galpha's and gbeta's terms are summed over the thread's 2 frames,
   // its warp's 8 lanes of a column (shuffles) and the 8 warps (shared
   // memory), in fixed orders
   constexpr int XS = BN + 8;     // row stride: float2 reads of a half-warp
@@ -575,16 +757,30 @@ snake_conv_dgrad_3xtf32(const __grid_constant__ CUtensorMap w_map,
   float* const coef = xs + kRows * XS;                 // [alpha, 1 / e][BN]
   float* const red = coef + 2 * BN;                    // [warp][2][BN]
   const int warp = tid / 32;
-  const float* const xb = p.x + (size_t)b * p.T * p.C;
-  float* const gxb = p.gx == nullptr ? nullptr : p.gx + (size_t)b * p.T * p.C;
-  if (p.vec_x) {
+  const T* const x = static_cast<const T*>(p.x);
+  const T* const xb = x + (size_t)b * p.T * p.C;
+  T* const gxb = p.gx == nullptr
+                     ? nullptr
+                     : static_cast<T*>(p.gx) + (size_t)b * p.T * p.C;
+  const T* const alpha = static_cast<const T*>(p.alpha);
+  const T* const beta = static_cast<const T*>(p.beta);
+  if constexpr (kBf) {
+    for (int e = tid; e < kRows * BN; e += kThreads) {
+      const int cc = e % BN;
+      const int r = e / BN;
+      const int t = t0 + r;
+      const int c = c0 + cc;
+      xs[r * XS + cc] =
+          t < p.T && c < p.C ? widen(xb[(size_t)t * p.C + c]) : 0.f;
+    }
+  } else if (p.vec_x) {
     for (int e = tid; e < kRows * BN / 4; e += kThreads) {
       const int q = e % (BN / 4);
       const int r = e / (BN / 4);
       const int t = t0 + r;
       const int c = c0 + 4 * q;
       const bool ok = t < p.T && c < p.C;
-      cp_async16(xs + r * XS + 4 * q, ok ? xb + (size_t)t * p.C + c : p.x, ok);
+      cp_async16(xs + r * XS + 4 * q, ok ? xb + (size_t)t * p.C + c : x, ok);
     }
   } else {
     for (int e = tid; e < kRows * BN; e += kThreads) {
@@ -593,14 +789,14 @@ snake_conv_dgrad_3xtf32(const __grid_constant__ CUtensorMap w_map,
       const int t = t0 + r;
       const int c = c0 + cc;
       const bool ok = t < p.T && c < p.C;
-      cp_async4(xs + r * XS + cc, ok ? xb + (size_t)t * p.C + c : p.x, ok);
+      cp_async4(xs + r * XS + cc, ok ? xb + (size_t)t * p.C + c : x, ok);
     }
   }
   cp_async_commit();
   for (int c = tid; c < BN; c += kThreads) {
     const bool live = c0 + c < p.C;
-    coef[c] = live ? __ldg(p.alpha + c0 + c) : 0.f;
-    coef[BN + c] = live ? 1.0f / (__ldg(p.beta + c0 + c) + 1e-9f) : 0.f;
+    coef[c] = live ? widen(__ldg(alpha + c0 + c)) : 0.f;
+    coef[BN + c] = live ? 1.0f / (widen(__ldg(beta + c0 + c)) + 1e-9f) : 0.f;
   }
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
   __syncthreads();
@@ -648,14 +844,15 @@ snake_conv_dgrad_3xtf32(const __grid_constant__ CUtensorMap w_map,
   }
   __syncthreads();
   if (gxb != nullptr) {
-    if (p.vec_x) {
+    if (!kBf && p.vec_x) {
+      float* const gxf = reinterpret_cast<float*>(gxb);
       for (int e = tid; e < kRows * BN / 4; e += kThreads) {
         const int q = e % (BN / 4);
         const int r = e / (BN / 4);
         const int t = t0 + r;
         const int c = c0 + 4 * q;
         if (t < p.T && c < p.C)
-          *reinterpret_cast<float4*>(gxb + (size_t)t * p.C + c) =
+          *reinterpret_cast<float4*>(gxf + (size_t)t * p.C + c) =
               *reinterpret_cast<const float4*>(xs + r * XS + 4 * q);
       }
     } else {
@@ -664,7 +861,7 @@ snake_conv_dgrad_3xtf32(const __grid_constant__ CUtensorMap w_map,
         const int r = e / BN;
         const int t = t0 + r;
         const int c = c0 + cc;
-        if (t < p.T && c < p.C) gxb[(size_t)t * p.C + c] = xs[r * XS + cc];
+        if (t < p.T && c < p.C) put(gxb + (size_t)t * p.C + c, xs[r * XS + cc]);
       }
     }
   }
@@ -681,54 +878,83 @@ snake_conv_dgrad_3xtf32(const __grid_constant__ CUtensorMap w_map,
   }
 }
 
+template <int BN, int BK, int KT>
+__global__ void __launch_bounds__(kThreads, 1)
+snake_conv_dgrad_3xtf32(const __grid_constant__ CUtensorMap w_map,
+                        const DgradParams p) {
+  dgrad_block<float, BN, BK, KT>(&w_map, p);
+}
+
+template <int BN, int BK, int KT>
+__global__ void __launch_bounds__(kThreads, 1)
+snake_conv_dgrad_bf16(const __grid_constant__ CUtensorMap w_map,
+                      const DgradParams p) {
+  dgrad_block<__nv_bfloat16, BN, BK, KT>(&w_map, p);
+}
+
 // ---------------------------------------------------------------------------
 // wgrad
 // ---------------------------------------------------------------------------
 
+// x, alpha, beta, g and an unsplit gw are of the instance's element type;
+// the split partial sums are f32 in both
 struct WgradParams {
-  const float* x;       // (B, T, C)
-  const float* alpha;
-  const float* beta;
-  const float* g;       // (B, T, O)
-  float* gw;            // (k, O, Cw), or the split's slab of ws
+  const void* x;        // (B, T, C)
+  const void* alpha;
+  const void* beta;
+  const void* g;        // (B, T, O)
+  void* gw;             // (k, O, Cw)
   float* ws;            // (splits, k * O * Cw) partial sums when splits > 1
   unsigned long long* count;
   int T, C, O, Cw, k, dilation, left;
   int groups;           // tap groups: k / KT
-  int chunks_per_b;     // 32-frame chunks of one signal
+  int chunks_per_b;     // chunks of one signal
   int n_chunks;         // B * chunks_per_b
   int per_split, splits;
   int vec_x, vec_g;
 };
 
-size_t wgrad_smem(int bn, int kt, int dilation) {
-  const int w = kFrames + (kt - 1) * dilation;
-  return 1024 +                                        // alignment
-         (size_t)2 * 2 * 4 * bn * kFrames +            // activated [2][hi,lo]
-         (size_t)kRing * 4 * w * kGStride +            // g windows
-         (size_t)kRing * 4 * kFrames * (bn + 8) +      // raw x
-         (size_t)2 * 4 * bn;                           // alpha, 1 / e
+// frames of one wgrad chunk: one 128-byte row of the activated tile (32
+// f32, 64 bf16)
+__host__ __device__ constexpr int chunk_frames(int elem) { return 128 / elem; }
+
+size_t wgrad_smem(int bn, int kt, int dilation, bool bf16 = false) {
+  const int elem = bf16 ? 2 : 4;
+  const int frames = chunk_frames(elem);
+  const int w = frames + (kt - 1) * dilation;
+  return 1024 +                                              // alignment
+         (size_t)2 * (bf16 ? 1 : 2) * elem * bn * frames +   // activated
+         (size_t)kRing * elem * w * kGStride +               // g windows
+         (size_t)kRing * elem * frames * (bn + 8) +          // raw x
+         (size_t)2 * 4 * bn;                                 // alpha, 1 / e
 }
 
 // One block: 128 output channels x BN input channels x KT taps, over its
-// split's 32-frame chunks in order.
-template <int BN, int KT>
-__global__ void __launch_bounds__(kThreads, 1)
-snake_conv_wgrad_3xtf32(const WgradParams p) {
-  constexpr int XS = BN + 8;                 // row stride of the raw x tile
-  constexpr int TILE = BN * kFrames;         // floats of an activated tile
-  constexpr int KS = kFrames / 8;            // 8-frame steps a stage
-  static_assert(BN % 8 == 0 && (kFrames * BN) % kThreads == 0, "tiling");
+// split's chunks in order.  T is float (3xTF32, 32-frame chunks) or
+// __nv_bfloat16 (one bf16 product a 16-frame step, 64-frame chunks).
+template <typename T, int BN, int KT>
+__device__ __forceinline__ void wgrad_block(const WgradParams& p) {
+  constexpr bool kBf = std::is_same<T, __nv_bfloat16>::value;
+  constexpr int kF = chunk_frames(sizeof(T));  // frames a chunk
+  constexpr int per = 16 / (int)sizeof(T);     // elements of a 16-byte piece
+  constexpr int XS = BN + 8;                   // row stride of the raw x tile
+  constexpr int TILE = BN * kF;                // elements of an activated tile
+  constexpr int KS = kF / (kBf ? 16 : 8);      // MMA steps a chunk
+  // fold every 128 frames
+  constexpr int kFold = kFoldW * kFrames / kF;
+  static_assert(BN % 8 == 0 && (kF * BN) % kThreads == 0, "tiling");
 
   extern __shared__ uint8_t smem_raw[];
   uint8_t* const smem = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
-  const int W = kFrames + (KT - 1) * p.dilation;   // g window rows
-  float* const act = reinterpret_cast<float*>(smem);   // [2][hi, lo][TILE]
-  float* const gwin = act + 4 * TILE;                   // [ring][W][kGStride]
-  float* const xraw = gwin + kRing * W * kGStride;      // [ring][32][XS]
-  float* const al_s = xraw + kRing * kFrames * XS;      // [BN]
-  float* const ib_s = al_s + BN;                        // [BN]
+  const int W = kF + (KT - 1) * p.dilation;      // g window rows
+  // f32: [2][hi, lo][TILE]; bf16: [2][TILE]
+  T* const act = reinterpret_cast<T*>(smem);
+  T* const gwin = act + (kBf ? 2 : 4) * TILE;          // [ring][W][kGStride]
+  T* const xraw = gwin + kRing * W * kGStride;         // [ring][kF][XS]
+  float* const al_s =
+      reinterpret_cast<float*>(xraw + kRing * kF * XS);  // [BN]
+  float* const ib_s = al_s + BN;                         // [BN]
 
   const int tid = threadIdx.x;
   const int o0 = blockIdx.x * kOuts;
@@ -738,59 +964,70 @@ snake_conv_wgrad_3xtf32(const WgradParams p) {
   const int first = split * p.per_split;
   const int n = min(p.n_chunks, first + p.per_split) - first;
   const int wg = tid / 128;
+  const T* const x = static_cast<const T*>(p.x);
+  const T* const g = static_cast<const T*>(p.g);
 
   if (p.count != nullptr && tid == 0 && blockIdx.x == 0 && blockIdx.y == 0 &&
       blockIdx.z == 0)
     atomicAdd(p.count, 1ull);
   for (int c = tid; c < BN; c += kThreads) {
     const bool live = c0 + c < p.C;
-    al_s[c] = live ? __ldg(p.alpha + c0 + c) : 0.f;
-    ib_s[c] = live ? 1.0f / (__ldg(p.beta + c0 + c) + 1e-9f) : 0.f;
+    al_s[c] = live ? widen(__ldg(static_cast<const T*>(p.alpha) + c0 + c))
+                   : 0.f;
+    ib_s[c] = live ? 1.0f / (widen(__ldg(static_cast<const T*>(p.beta) + c0 +
+                                         c)) +
+                             1e-9f)
+                   : 0.f;
   }
 
-  // chunk i of the split into ring slot i % kRing: its 32 frames of x
-  // (BN channels) and the g window every tap of the group reads (128
-  // channels); zero past every edge; one cp.async group per call
+  // chunk i of the split into ring slot i % kRing: its kF frames of x (BN
+  // channels) and the g window every tap of the group reads (128
+  // channels); zero past every edge; one cp.async group per call (a bf16
+  // tile without 16-byte rows by plain loads and stores, as in dgrad)
   auto issue = [&](int i) {
     if (i < n) {
       const int ch = first + i;
       const int b = ch / p.chunks_per_b;
-      const int f0 = (ch % p.chunks_per_b) * kFrames;
+      const int f0 = (ch % p.chunks_per_b) * kF;
       const int slot = i % kRing;
-      const float* const xb = p.x + (size_t)b * p.T * p.C;
-      const float* const gb = p.g + (size_t)b * p.T * p.O;
-      float* const xd = xraw + slot * kFrames * XS;
-      float* const gd = gwin + slot * W * kGStride;
+      const T* const xb = x + (size_t)b * p.T * p.C;
+      const T* const gb = g + (size_t)b * p.T * p.O;
+      T* const xd = xraw + slot * kF * XS;
+      T* const gd = gwin + slot * W * kGStride;
       const int tg0 = f0 + p.left - (j0 + KT - 1) * p.dilation;
       if (p.vec_x) {
-        for (int e = tid; e < kFrames * BN / 4; e += kThreads) {
-          const int q = e % (BN / 4);
-          const int f = e / (BN / 4);
+        for (int e = tid; e < kF * BN / per; e += kThreads) {
+          const int q = e % (BN / per);
+          const int f = e / (BN / per);
           const int t = f0 + f;
-          const int c = c0 + 4 * q;
+          const int c = c0 + per * q;
           const bool ok = t < p.T && c < p.C;
-          cp_async16(xd + f * XS + 4 * q, ok ? xb + (size_t)t * p.C + c : p.x,
+          cp_async16(xd + f * XS + per * q, ok ? xb + (size_t)t * p.C + c : x,
                      ok);
         }
       } else {
-        for (int e = tid; e < kFrames * BN; e += kThreads) {
+        for (int e = tid; e < kF * BN; e += kThreads) {
           const int cc = e % BN;
           const int f = e / BN;
           const int t = f0 + f;
           const int c = c0 + cc;
           const bool ok = t < p.T && c < p.C;
-          cp_async4(xd + f * XS + cc, ok ? xb + (size_t)t * p.C + c : p.x, ok);
+          if constexpr (kBf)
+            xd[f * XS + cc] =
+                ok ? xb[(size_t)t * p.C + c] : __float2bfloat16_rn(0.f);
+          else
+            cp_async4(xd + f * XS + cc, ok ? xb + (size_t)t * p.C + c : x, ok);
         }
       }
       if (p.vec_g) {
-        for (int e = tid; e < W * kOuts / 4; e += kThreads) {
-          const int q = e % (kOuts / 4);
-          const int r = e / (kOuts / 4);
+        for (int e = tid; e < W * kOuts / per; e += kThreads) {
+          const int q = e % (kOuts / per);
+          const int r = e / (kOuts / per);
           const int t = tg0 + r;
-          const int o = o0 + 4 * q;
+          const int o = o0 + per * q;
           const bool ok = t >= 0 && t < p.T && o < p.O;
-          cp_async16(gd + r * kGStride + 4 * q,
-                     ok ? gb + (size_t)t * p.O + o : p.g, ok);
+          cp_async16(gd + r * kGStride + per * q,
+                     ok ? gb + (size_t)t * p.O + o : g, ok);
         }
       } else {
         for (int e = tid; e < W * kOuts; e += kThreads) {
@@ -799,37 +1036,44 @@ snake_conv_wgrad_3xtf32(const WgradParams p) {
           const int t = tg0 + r;
           const int o = o0 + oo;
           const bool ok = t >= 0 && t < p.T && o < p.O;
-          cp_async4(gd + r * kGStride + oo,
-                    ok ? gb + (size_t)t * p.O + o : p.g, ok);
+          if constexpr (kBf)
+            gd[r * kGStride + oo] =
+                ok ? gb[(size_t)t * p.O + o] : __float2bfloat16_rn(0.f);
+          else
+            cp_async4(gd + r * kGStride + oo,
+                      ok ? gb + (size_t)t * p.O + o : g, ok);
         }
       }
     }
     cp_async_commit();
   };
 
-  // snake of chunk i's x, split, into activated buffer i & 1, transposed:
-  // channel n's 32 frames are one 128-byte row, its 16-byte pieces
-  // swizzled (piece ^ (n % 8)) as a 128-byte-swizzle descriptor reads them.
-  // A warp takes 8 channels x 4 frames: its reads of the raw tile and its
-  // writes of the swizzled one hit 32 distinct banks.
+  // snake of chunk i's x in f32, into activated buffer i & 1 (f32: split;
+  // bf16: rounded once, as the forward rounds it), transposed: channel n's
+  // kF frames are one 128-byte row, its 16-byte pieces swizzled (piece ^
+  // (n % 8)) as a 128-byte-swizzle descriptor reads them.  A warp takes 8
+  // channels x 4 frames.
   auto activate = [&](int i) {
-    const float* const xr = xraw + (i % kRing) * kFrames * XS;
-    float* const ah = act + (i & 1) * 2 * TILE;
-    float* const alo = ah + TILE;
+    const T* const xr = xraw + (i % kRing) * kF * XS;
+    T* const ah = act + (i & 1) * (kBf ? 1 : 2) * TILE;
 #pragma unroll 4
-    for (int e = tid; e < kFrames * BN; e += kThreads) {
+    for (int e = tid; e < kF * BN; e += kThreads) {
       const int lane = e & 31;
       const int w = e >> 5;
       const int nc = (w % (BN / 8)) * 8 + (lane & 7);
       const int f = (w / (BN / 8)) * 4 + (lane >> 3);
-      const float xv = xr[f * XS + nc];
+      const float xv = widen(xr[f * XS + nc]);
       const float sn = sinf(xv * al_s[nc]);
       const float v = xv + ib_s[nc] * (sn * sn);
-      float hi, lo;
-      split_tf32(v, hi, lo);
-      const int at = nc * kFrames + ((((f >> 2) ^ (nc & 7)) << 2) | (f & 3));
-      ah[at] = hi;
-      alo[at] = lo;
+      const int at = nc * kF + ((((f / per) ^ (nc & 7)) * per) | (f % per));
+      if constexpr (kBf) {
+        ah[at] = __float2bfloat16_rn(v);
+      } else {
+        float hi, lo;
+        split_tf32(v, hi, lo);
+        ah[at] = hi;
+        ah[TILE + at] = lo;
+      }
     }
     fence_async_shared();
   };
@@ -848,33 +1092,55 @@ snake_conv_wgrad_3xtf32(const WgradParams p) {
   }
 
   // chunk i: for each tap, A = g shifted by (KT - 1 - jj) * d rows of the
-  // window, split in registers; B = the activated tile; small terms first
+  // window, in registers (f32: split there, small terms first; bf16: two
+  // frames of one output channel a register); B = the activated tile
   auto mma = [&](int i) {
-    const float* const gd = gwin + (i % kRing) * W * kGStride;
-    const float* const bh = act + (i & 1) * 2 * TILE;
-    const float* const bl = bh + TILE;
+    const T* const gd = gwin + (i % kRing) * W * kGStride;
+    const T* const bh = act + (i & 1) * (kBf ? 1 : 2) * TILE;
 #pragma unroll
     for (int jj = 0; jj < KT; ++jj) {
       const int sh = (KT - 1 - jj) * p.dilation;
-      uint32_t fh[KS][4], fl[KS][4];
+      if constexpr (kBf) {
+        const uint16_t* const gs = reinterpret_cast<const uint16_t*>(gd);
+        uint32_t fa[KS][4];
 #pragma unroll
-      for (int ks = 0; ks < KS; ++ks) {
-        const float* const r0 = gd + (8 * ks + tig + sh) * kGStride + orow;
-        const float* const r4 = r0 + 4 * kGStride;
-        split_tf32(r0[0], fh[ks][0], fl[ks][0]);
-        split_tf32(r0[8], fh[ks][1], fl[ks][1]);
-        split_tf32(r4[0], fh[ks][2], fl[ks][2]);
-        split_tf32(r4[8], fh[ks][3], fl[ks][3]);
-      }
-      // the fragments were written since the last fence
-      wgmma_fence();
+        for (int ks = 0; ks < KS; ++ks) {
+          // frames 2 tig, 2 tig + 1 (a0, a1) and 8 on (a2, a3) of this
+          // step; rows orow and orow + 8
+          const uint16_t* const r0 =
+              gs + (16 * ks + 2 * tig + sh) * kGStride + orow;
+          const uint16_t* const r8 = r0 + 8 * kGStride;
+          fa[ks][0] = r0[0] | ((uint32_t)r0[kGStride] << 16);
+          fa[ks][1] = r0[8] | ((uint32_t)r0[kGStride + 8] << 16);
+          fa[ks][2] = r8[0] | ((uint32_t)r8[kGStride] << 16);
+          fa[ks][3] = r8[8] | ((uint32_t)r8[kGStride + 8] << 16);
+        }
+        wgmma_fence();
 #pragma unroll
-      for (int ks = 0; ks < KS; ++ks) {
-        const uint64_t dh = make_desc<128>(bh + 8 * ks);
-        const uint64_t dl = make_desc<128>(bl + 8 * ks);
-        wgmma_tf32<BN>(acc[jj], fl[ks], dh);
-        wgmma_tf32<BN>(acc[jj], fh[ks], dl);
-        wgmma_tf32<BN>(acc[jj], fh[ks], dh);
+        for (int ks = 0; ks < KS; ++ks)
+          wgmma_bf16<BN>(acc[jj], fa[ks], make_desc<128>(bh + 16 * ks));
+      } else {
+        uint32_t fh[KS][4], fl[KS][4];
+#pragma unroll
+        for (int ks = 0; ks < KS; ++ks) {
+          const float* const r0 = gd + (8 * ks + tig + sh) * kGStride + orow;
+          const float* const r4 = r0 + 4 * kGStride;
+          split_tf32(r0[0], fh[ks][0], fl[ks][0]);
+          split_tf32(r0[8], fh[ks][1], fl[ks][1]);
+          split_tf32(r4[0], fh[ks][2], fl[ks][2]);
+          split_tf32(r4[8], fh[ks][3], fl[ks][3]);
+        }
+        // the fragments were written since the last fence
+        wgmma_fence();
+        const float* const bl = bh + TILE;
+#pragma unroll
+        for (int ks = 0; ks < KS; ++ks) {
+          const uint64_t dh = make_desc<128>(bh + 8 * ks);
+          const uint64_t dl = make_desc<128>(bl + 8 * ks);
+          wgmma_tf32<BN>(acc[jj], fl[ks], dh);
+          wgmma_tf32<BN>(acc[jj], fh[ks], dl);
+          wgmma_tf32<BN>(acc[jj], fh[ks], dh);
+        }
       }
     }
     wgmma_commit();
@@ -897,7 +1163,7 @@ snake_conv_wgrad_3xtf32(const WgradParams p) {
     wgmma_wait_all();
 #pragma unroll
     for (int jj = 0; jj < KT; ++jj) fence_acc(acc[jj]);
-    if ((i + 1) % kFoldW == 0 || i + 1 == n) {
+    if ((i + 1) % kFold == 0 || i + 1 == n) {
 #pragma unroll
       for (int jj = 0; jj < KT; ++jj) fold(tot[jj], acc[jj]);
     }
@@ -905,11 +1171,11 @@ snake_conv_wgrad_3xtf32(const WgradParams p) {
   }
 
   // sums: tot[jj][4q + 2h + e] is output channel o0 + orow + 8h, input
-  // channel c0 + 8q + 2 tig + e of tap j0 + jj; a split block writes its
-  // partial sums to its own slab of ws.  Past C the activated tile is zero,
-  // so padded columns are written as 0.
-  float* const dst =
-      p.splits > 1 ? p.ws + (size_t)split * p.k * p.O * p.Cw : p.gw;
+  // channel c0 + 8q + 2 tig + e of tap j0 + jj; a split block writes its f32
+  // partial sums to its own slab of ws, an unsplit one gw (bf16: rounded
+  // once).  Past C the activated tile is zero, so padded columns are
+  // written as 0.
+  T* const gw = static_cast<T*>(p.gw);
 #pragma unroll
   for (int jj = 0; jj < KT; ++jj) {
 #pragma unroll
@@ -920,12 +1186,33 @@ snake_conv_wgrad_3xtf32(const WgradParams p) {
       for (int h = 0; h < 2; ++h) {
         const int o = o0 + orow + 8 * h;
         if (o >= p.O) continue;
-        *reinterpret_cast<float2*>(
-            dst + ((size_t)(j0 + jj) * p.O + o) * p.Cw + c) =
-            make_float2(tot[jj][4 * q + 2 * h], tot[jj][4 * q + 2 * h + 1]);
+        const size_t at = ((size_t)(j0 + jj) * p.O + o) * p.Cw + c;
+        const float v0 = tot[jj][4 * q + 2 * h];
+        const float v1 = tot[jj][4 * q + 2 * h + 1];
+        if (p.splits > 1 || !kBf) {
+          float* const dst =
+              p.splits > 1 ? p.ws + (size_t)split * p.k * p.O * p.Cw
+                           : reinterpret_cast<float*>(gw);
+          *reinterpret_cast<float2*>(dst + at) = make_float2(v0, v1);
+        } else {
+          *reinterpret_cast<__nv_bfloat162*>(gw + at) =
+              __floats2bfloat162_rn(v0, v1);
+        }
       }
     }
   }
+}
+
+template <int BN, int KT>
+__global__ void __launch_bounds__(kThreads, 1)
+snake_conv_wgrad_3xtf32(const WgradParams p) {
+  wgrad_block<float, BN, KT>(p);
+}
+
+template <int BN, int KT>
+__global__ void __launch_bounds__(kThreads, 1)
+snake_conv_wgrad_bf16(const WgradParams p) {
+  wgrad_block<__nv_bfloat16, BN, KT>(p);
 }
 
 // ---------------------------------------------------------------------------
@@ -934,12 +1221,14 @@ snake_conv_wgrad_3xtf32(const WgradParams p) {
 
 // Over parts slabs of `stride` floats, output i of [0, n0 + n1 + n2) is the
 // sum of ws[s * stride + i] over s, written to y0[i], y1[i - n0] or y2[i -
-// n0 - n1] (a null y skips its outputs).  A block takes 256 / G outputs and
-// G groups of slabs: group r adds slabs r, r + G, ... in order, then the G
-// group sums are added in order.  The same bits at every launch.
+// n0 - n1] as Out (f32, or bf16 rounded once; a null y skips its outputs).
+// A block takes 256 / G outputs and G groups of slabs: group r adds slabs
+// r, r + G, ... in order, then the G group sums are added in order.  The
+// same bits at every launch.
+template <typename Out>
 __global__ void sum_partials(const float* __restrict__ ws, long long stride,
-                             int parts, int G, float* y0, long long n0,
-                             float* y1, long long n1, float* y2, long long n2,
+                             int parts, int G, Out* y0, long long n0,
+                             Out* y1, long long n1, Out* y2, long long n2,
                              unsigned long long* count) {
   __shared__ float red[kThreads];
   if (count != nullptr && blockIdx.x == 0 && threadIdx.x == 0)
@@ -951,7 +1240,7 @@ __global__ void sum_partials(const float* __restrict__ ws, long long stride,
   for (long long base = (long long)blockIdx.x * per; base < n;
        base += (long long)gridDim.x * per) {
     const long long i = base + lo;
-    float* y = nullptr;
+    Out* y = nullptr;
     long long at = 0;
     if (i < n0) {
       y = y0;
@@ -971,15 +1260,16 @@ __global__ void sum_partials(const float* __restrict__ ws, long long stride,
     if (grp == 0 && y != nullptr) {
       float t = red[lo];
       for (int r = 1; r < G; ++r) t += red[r * per + lo];
-      y[at] = t;
+      put(y + at, t);
     }
     __syncthreads();
   }
 }
 
+template <typename Out>
 int launch_sum_partials(const float* ws, long long stride, int parts,
-                        float* y0, long long n0, float* y1, long long n1,
-                        float* y2, long long n2, unsigned long long* count,
+                        Out* y0, long long n0, Out* y1, long long n1,
+                        Out* y2, long long n2, unsigned long long* count,
                         cudaStream_t s) {
   int G = 1;
   while (G < parts && G < 32) G *= 2;
@@ -987,7 +1277,7 @@ int launch_sum_partials(const float* ws, long long stride, int parts,
   const long long n = n0 + n1 + n2;
   const long long most = (long long)kSMs * 8;
   const long long want = (n + per - 1) / per;
-  sum_partials<<<(int)(want < most ? want : most), kThreads, 0, s>>>(
+  sum_partials<Out><<<(int)(want < most ? want : most), kThreads, 0, s>>>(
       ws, stride, parts, G, y0, n0, y1, n1, y2, n2, count);
   return (int)cudaGetLastError();
 }
@@ -997,10 +1287,11 @@ int launch_sum_partials(const float* ws, long long stride, int parts,
 // ---------------------------------------------------------------------------
 
 // channels per stage of each dgrad instance: the most that fits beside the
-// other buffers at the main path's windows (146 rows at k = 3, d = 9)
-int stage_channels(int bn, int kt) {
-  if (kt == 3) return bn == 64 ? 16 : 8;
-  return bn == 64 ? 32 : 16;
+// other buffers at the main path's windows (146 rows at k = 3, d = 9); a
+// bf16 stage takes twice the channels (rows of 32, 64 or 128 bytes)
+int stage_channels(int bn, int kt, bool bf16 = false) {
+  const int f32 = kt == 3 ? (bn == 64 ? 16 : 8) : (bn == 64 ? 32 : 16);
+  return bf16 ? 2 * f32 : f32;
 }
 
 struct DgradPlan {
@@ -1011,9 +1302,10 @@ struct DgradPlan {
 // dgrad's tile width for one shape: the forward's cost model (a stage costs
 // its MMA cycles, its window's split and a fixed 600; a block its stages
 // plus three; the grid whole waves over the 132 SMs), without a split of
-// the channel sum, which the epilogue needs whole.
+// the channel sum, which the epilogue needs whole.  A bf16 k16 MMA counts
+// as one tf32 k8 MMA.
 int dgrad_plan(int B, int T, int C, int O, int k, int dilation,
-               DgradPlan* plan) {
+               DgradPlan* plan, bool bf16 = false) {
   const int win = kRows + (k - 1) * dilation;
   const int nt = ceil_div(T, kRows) * B;
   const int kt = k % 3 == 0 ? 3 : 1;
@@ -1021,12 +1313,13 @@ int dgrad_plan(int B, int T, int C, int O, int k, int dilation,
   if (win > 256) return (int)cudaErrorInvalidValue;
   for (int bn = 64; bn <= 128; bn *= 2) {
     if (bn > 64 && ceil_div(C, bn) * bn >= 2 * C) continue;
-    const int bk = stage_channels(bn, kt);
-    const size_t smem = dgrad_smem(bn, bk, kt, win);
+    const int bk = stage_channels(bn, kt, bf16);
+    const size_t smem = dgrad_smem(bn, bk, kt, win, bf16);
     if (smem > (size_t)kMaxSmem) continue;
     const int groups = k / kt;
     const int n_stages = ceil_div(O, bk) * groups;
-    const double stage = 3.0 * kt * bk / 8 * bn + 0.5 * win * bk + 600.0;
+    const double mma = bf16 ? 1.0 * kt * bk / 16 * bn : 3.0 * kt * bk / 8 * bn;
+    const double stage = mma + 0.5 * win * bk + 600.0;
     const int blocks = nt * ceil_div(C, bn);
     const double cost = (double)ceil_div(blocks, kSMs) * (n_stages + 3) * stage;
     if (best < 0 || cost < best) {
@@ -1047,22 +1340,25 @@ struct WgradPlan {
   size_t smem;
 };
 
-// wgrad's tile width and split of the frame sum: each 32-frame chunk costs
-// its MMA cycles, its activation and a fixed 600, a block its chunks plus
-// two, the grid whole waves; the split's partial sums cost their bytes,
-// written and read back, at the card's memory rate (1914 bytes a cycle).
+// wgrad's tile width and split of the frame sum: each chunk (32 f32 or 64
+// bf16 frames) costs its MMA cycles, its activation and a fixed 600, a
+// block its chunks plus two, the grid whole waves; the split's partial sums
+// cost their bytes, written and read back, at the card's memory rate (1914
+// bytes a cycle).
 int wgrad_plan(int B, int T, int C, int O, int k, int dilation,
-               WgradPlan* plan) {
+               WgradPlan* plan, bool bf16 = false) {
   const int kt = k % 3 == 0 ? 3 : 1;
-  const int n_chunks = B * ceil_div(T, kFrames);
+  const int frames = chunk_frames(bf16 ? 2 : 4);
+  const int n_chunks = B * ceil_div(T, frames);
   double best = -1.0;
   for (int bn = kt == 3 ? 32 : 64; bn <= (kt == 3 ? 32 : 128); bn *= 2) {
     if (bn > 64 && ceil_div(C, bn) * bn >= 2 * C) continue;
-    const size_t smem = wgrad_smem(bn, kt, dilation);
+    const size_t smem = wgrad_smem(bn, kt, dilation, bf16);
     if (smem > (size_t)kMaxSmem) continue;
     const int groups = k / kt;
     const int tiles = ceil_div(O, kOuts) * ceil_div(C, bn) * groups;
-    const double chunk = 12.0 * kt * bn + 0.4 * kFrames * bn + 600.0;
+    const double chunk = (bf16 ? 4.0 : 12.0) * kt * bn + 0.4 * frames * bn +
+                         600.0;
     const double out_bytes = 8.0 * k * O * (double)ceil_div(C, 4) * 4;
     for (int s = 1; s <= n_chunks && s <= 4 * kSMs; ++s) {
       const int per = ceil_div(n_chunks, s);
@@ -1093,9 +1389,10 @@ typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                                 CUtensorMapL2promotion,
                                 CUtensorMapFloatOOBfill);
 
-// (k * C, Ow) rows of a weight array, boxes of BK channels x BN rows
-int weight_map(CUtensorMap* map, const float* w, int rows, int cols, int bk,
-               int bn) {
+// (k * C, Ow) rows of a weight array of f32 or bf16 values, boxes of BK
+// channels x BN rows, swizzled by the box's row bytes
+int weight_map(CUtensorMap* map, const void* w, int rows, int cols, int bk,
+               int bn, bool bf16 = false) {
   static EncodeTiled encode = nullptr;
   if (encode == nullptr) {
     void* fn = nullptr;
@@ -1107,60 +1404,220 @@ int weight_map(CUtensorMap* map, const float* w, int rows, int cols, int bk,
       return (int)cudaErrorSymbolNotFound;
     encode = reinterpret_cast<EncodeTiled>(fn);
   }
+  const int elem = bf16 ? 2 : 4;
   const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)cols * sizeof(float)};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * elem};
   const cuuint32_t box[2] = {(cuuint32_t)bk, (cuuint32_t)bn};
   const cuuint32_t estrides[2] = {1, 1};
+  const int row_bytes = bk * elem;
   const CUtensorMapSwizzle swizzle =
-      bk == 32 ? CU_TENSOR_MAP_SWIZZLE_128B
-               : bk == 16 ? CU_TENSOR_MAP_SWIZZLE_64B
-                          : CU_TENSOR_MAP_SWIZZLE_32B;
+      row_bytes == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                       : row_bytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                         : CU_TENSOR_MAP_SWIZZLE_32B;
   const CUresult res = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<float*>(w), dims,
-      strides, box, estrides, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+      map,
+      bf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+      2, const_cast<void*>(w), dims, strides, box, estrides,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
       CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return res == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
-template <int BN, int BK, int KT>
-int launch_dgrad(const float* wt, int Ow,
-                 const DgradParams& p, const DgradPlan& plan, int B,
-                 cudaStream_t stream) {
+template <typename T, int BN, int BK, int KT>
+int launch_dgrad(const void* wt, int Ow, const DgradParams& p,
+                 const DgradPlan& plan, int B, cudaStream_t stream) {
+  constexpr bool kBf = std::is_same<T, __nv_bfloat16>::value;
   static bool configured = false;
   if (!configured) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        snake_conv_dgrad_3xtf32<BN, BK, KT>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+    cudaError_t err;
+    if constexpr (kBf)
+      err = cudaFuncSetAttribute(snake_conv_dgrad_bf16<BN, BK, KT>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 kMaxSmem);
+    else
+      err = cudaFuncSetAttribute(snake_conv_dgrad_3xtf32<BN, BK, KT>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 kMaxSmem);
     if (err != cudaSuccess) return (int)err;
     configured = true;
   }
   CUtensorMap map;
-  const int err = weight_map(&map, wt, p.k * p.C, Ow, BK, BN);
+  const int err = weight_map(&map, wt, p.k * p.C, Ow, BK, BN, kBf);
   if (err) return err;
   dim3 grid(ceil_div(p.T, kRows), ceil_div(p.C, BN), B);
-  snake_conv_dgrad_3xtf32<BN, BK, KT><<<grid, kThreads, plan.smem, stream>>>(
-      map, p);
+  if constexpr (kBf)
+    snake_conv_dgrad_bf16<BN, BK, KT><<<grid, kThreads, plan.smem, stream>>>(
+        map, p);
+  else
+    snake_conv_dgrad_3xtf32<BN, BK, KT><<<grid, kThreads, plan.smem, stream>>>(
+        map, p);
   return (int)cudaGetLastError();
 }
 
-template <int BN, int KT>
+template <typename T, int BN, int KT>
 int launch_wgrad(const WgradParams& p, const WgradPlan& plan,
                  cudaStream_t stream) {
+  constexpr bool kBf = std::is_same<T, __nv_bfloat16>::value;
   static bool configured = false;
   if (!configured) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        snake_conv_wgrad_3xtf32<BN, KT>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+    cudaError_t err;
+    if constexpr (kBf)
+      err = cudaFuncSetAttribute(snake_conv_wgrad_bf16<BN, KT>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 kMaxSmem);
+    else
+      err = cudaFuncSetAttribute(snake_conv_wgrad_3xtf32<BN, KT>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 kMaxSmem);
     if (err != cudaSuccess) return (int)err;
     configured = true;
   }
   dim3 grid(ceil_div(p.O, kOuts), ceil_div(p.C, BN) * plan.groups,
             plan.splits);
-  snake_conv_wgrad_3xtf32<BN, KT><<<grid, kThreads, plan.smem, stream>>>(p);
+  if constexpr (kBf)
+    snake_conv_wgrad_bf16<BN, KT><<<grid, kThreads, plan.smem, stream>>>(p);
+  else
+    snake_conv_wgrad_3xtf32<BN, KT><<<grid, kThreads, plan.smem, stream>>>(p);
   return (int)cudaGetLastError();
 }
 
 bool aligned16(const void* p) { return (uintptr_t)p % 16 == 0; }
+
+int backward_plan(int B, int T, int C, int O, int k, int dilation, int* out,
+                  bool bf16) {
+  if (B <= 0 || T <= 0 || C <= 0 || O <= 0 || k <= 0 || dilation <= 0)
+    return (int)cudaErrorInvalidValue;
+  DgradPlan dp;
+  WgradPlan wp;
+  int err = dgrad_plan(B, T, C, O, k, dilation, &dp, bf16);
+  if (err == 0) err = wgrad_plan(B, T, C, O, k, dilation, &wp, bf16);
+  if (err) return err;
+  out[0] = dp.bn;
+  out[1] = dp.bk;
+  out[2] = B * ceil_div(T, kRows);
+  out[3] = wp.bn;
+  out[4] = wp.splits;
+  return 0;
+}
+
+// dgrad and its sum of partials for element type T (see the extern entries)
+template <typename T>
+int run_dgrad(const void* g, const void* x, const void* alpha,
+              const void* beta, const void* wt, void* gx, float* ws,
+              void* galpha, void* gbeta, void* gb, int B, int T_, int C,
+              int O, int k, int dilation, int left, int Ow,
+              unsigned long long* counts, void* stream) {
+  constexpr bool kBf = std::is_same<T, __nv_bfloat16>::value;
+  constexpr int per = 16 / (int)sizeof(T);
+  if (B <= 0 || T_ <= 0 || C <= 0 || O <= 0 || k <= 0 || dilation <= 0 ||
+      left < 0 || left > (k - 1) * dilation || Ow < O || Ow % per != 0 ||
+      !aligned16(wt) || B > 65535)
+    return (int)cudaErrorInvalidValue;
+  const bool need_ab = galpha != nullptr || gbeta != nullptr;
+  const bool need_sums = need_ab || gb != nullptr;
+  if (gx == nullptr && !need_sums) return 0;
+  if (need_sums && ws == nullptr) return (int)cudaErrorInvalidValue;
+  DgradPlan plan;
+  const int err = dgrad_plan(B, T_, C, O, k, dilation, &plan, kBf);
+  if (err) return err;
+  cudaStream_t s = (cudaStream_t)stream;
+  DgradParams p;
+  p.g = g;
+  p.x = x;
+  p.alpha = alpha;
+  p.beta = beta;
+  p.gx = gx;
+  p.part = ws;
+  p.count = counts;
+  p.T = T_;
+  p.C = C;
+  p.O = O;
+  p.k = k;
+  p.dilation = dilation;
+  p.lead = (k - 1) * dilation - left;
+  p.win = kRows + (k - 1) * dilation;
+  p.groups = plan.groups;
+  p.n_stages = plan.n_stages;
+  p.vec_g = O % per == 0 && aligned16(g);
+  p.vec_x = C % per == 0 && aligned16(x) && (gx == nullptr || aligned16(gx));
+  p.need_ga = gx != nullptr || need_ab;
+  p.need_ab = need_ab;
+  p.need_gb = gb != nullptr;
+  int e;
+  if constexpr (kBf) {
+    switch (plan.bn * 4 + plan.kt) {
+      case 64 * 4 + 3: e = launch_dgrad<T, 64, 32, 3>(wt, Ow, p, plan, B, s); break;
+      case 128 * 4 + 3: e = launch_dgrad<T, 128, 16, 3>(wt, Ow, p, plan, B, s); break;
+      case 64 * 4 + 1: e = launch_dgrad<T, 64, 64, 1>(wt, Ow, p, plan, B, s); break;
+      default: e = launch_dgrad<T, 128, 32, 1>(wt, Ow, p, plan, B, s);
+    }
+  } else {
+    switch (plan.bn * 4 + plan.kt) {
+      case 64 * 4 + 3: e = launch_dgrad<T, 64, 16, 3>(wt, Ow, p, plan, B, s); break;
+      case 128 * 4 + 3: e = launch_dgrad<T, 128, 8, 3>(wt, Ow, p, plan, B, s); break;
+      case 64 * 4 + 1: e = launch_dgrad<T, 64, 32, 1>(wt, Ow, p, plan, B, s); break;
+      default: e = launch_dgrad<T, 128, 16, 1>(wt, Ow, p, plan, B, s);
+    }
+  }
+  if (e != 0 || !need_sums) return e;
+  return launch_sum_partials<T>(
+      ws, 2 * (long long)C + O, B * ceil_div(T_, kRows),
+      static_cast<T*>(galpha), C, static_cast<T*>(gbeta), C,
+      static_cast<T*>(gb), O, counts == nullptr ? nullptr : counts + 2, s);
+}
+
+// wgrad and (when its plan splits the frame sum) its sum of partials
+template <typename T>
+int run_wgrad(const void* x, const void* alpha, const void* beta,
+              const void* g, void* gw, float* ws, int B, int T_, int C, int O,
+              int k, int dilation, int left, int Cw,
+              unsigned long long* counts, void* stream) {
+  constexpr bool kBf = std::is_same<T, __nv_bfloat16>::value;
+  constexpr int per = 16 / (int)sizeof(T);
+  if (B <= 0 || T_ <= 0 || C <= 0 || O <= 0 || k <= 0 || dilation <= 0 ||
+      left < 0 || left > (k - 1) * dilation || Cw < C || Cw % per != 0 ||
+      !aligned16(gw))
+    return (int)cudaErrorInvalidValue;
+  WgradPlan plan;
+  const int err = wgrad_plan(B, T_, C, O, k, dilation, &plan, kBf);
+  if (err) return err;
+  if (plan.splits > 1 && (ws == nullptr || !aligned16(ws)))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  WgradParams p;
+  p.x = x;
+  p.alpha = alpha;
+  p.beta = beta;
+  p.g = g;
+  p.gw = gw;
+  p.ws = ws;
+  p.count = counts == nullptr ? nullptr : counts + 1;
+  p.T = T_;
+  p.C = C;
+  p.O = O;
+  p.Cw = Cw;
+  p.k = k;
+  p.dilation = dilation;
+  p.left = left;
+  p.groups = plan.groups;
+  p.chunks_per_b = ceil_div(T_, chunk_frames(sizeof(T)));
+  p.n_chunks = B * p.chunks_per_b;
+  p.per_split = plan.per_split;
+  p.splits = plan.splits;
+  p.vec_x = C % per == 0 && aligned16(x);
+  p.vec_g = O % per == 0 && aligned16(g);
+  int e;
+  switch (plan.bn * 4 + plan.kt) {
+    case 32 * 4 + 3: e = launch_wgrad<T, 32, 3>(p, plan, s); break;
+    case 64 * 4 + 1: e = launch_wgrad<T, 64, 1>(p, plan, s); break;
+    default: e = launch_wgrad<T, 128, 1>(p, plan, s);
+  }
+  if (e != 0 || plan.splits == 1) return e;
+  const long long n = (long long)k * O * Cw;
+  return launch_sum_partials<T>(ws, n, plan.splits, static_cast<T*>(gw), n,
+                                nullptr, 0, nullptr, 0,
+                                counts == nullptr ? nullptr : counts + 2, s);
+}
 
 }  // namespace
 
@@ -1172,25 +1629,19 @@ extern "C" {
 // block and splits of the frame sum.
 int snake_conv_backward_plan(int B, int T, int C, int O, int k, int dilation,
                              int* out) {
-  if (B <= 0 || T <= 0 || C <= 0 || O <= 0 || k <= 0 || dilation <= 0)
-    return (int)cudaErrorInvalidValue;
-  DgradPlan dp;
-  WgradPlan wp;
-  int err = dgrad_plan(B, T, C, O, k, dilation, &dp);
-  if (err == 0) err = wgrad_plan(B, T, C, O, k, dilation, &wp);
-  if (err) return err;
-  out[0] = dp.bn;
-  out[1] = dp.bk;
-  out[2] = B * ceil_div(T, kRows);
-  out[3] = wp.bn;
-  out[4] = wp.splits;
-  return 0;
+  return backward_plan(B, T, C, O, k, dilation, out, false);
+}
+
+// The same for the bf16 instantiations.
+int snake_conv_backward_plan_bf16(int B, int T, int C, int O, int k,
+                                  int dilation, int* out) {
+  return backward_plan(B, T, C, O, k, dilation, out, true);
 }
 
 // dgrad, then the sum of its partials, on `stream`; returns a CUDA error
 // code (0 on success).  wt is (k, C, Ow), wt[j] = W[j] transposed, Ow >= O
-// a multiple of 4 with zeros past O, 16-byte aligned.  gx, galpha, gbeta and gb may each be null (not
-// wanted); ws holds B * ceil(T / 128) * (2C + O) floats when galpha, gbeta
+// a multiple of 4 with zeros past O, 16-byte aligned.  gx, galpha, gbeta
+// and gb may each be null (not wanted); ws holds B * ceil(T / 128) * (2C + O) floats when galpha, gbeta
 // or gb is wanted.  counts, when not null, is three device counters:
 // counts[0] counts dgrad's launches, counts[2] those of sum_partials.
 int snake_conv_backward_dgrad_f32(const float* g, const float* x,
@@ -1201,51 +1652,24 @@ int snake_conv_backward_dgrad_f32(const float* g, const float* x,
                                   int C, int O, int k, int dilation, int left,
                                   int Ow, unsigned long long* counts,
                                   void* stream) {
-  if (B <= 0 || T <= 0 || C <= 0 || O <= 0 || k <= 0 || dilation <= 0 ||
-      left < 0 || left > (k - 1) * dilation || Ow < O || Ow % 4 != 0 ||
-      !aligned16(wt) || B > 65535)
-    return (int)cudaErrorInvalidValue;
-  const bool need_ab = galpha != nullptr || gbeta != nullptr;
-  const bool need_sums = need_ab || gb != nullptr;
-  if (gx == nullptr && !need_sums) return 0;
-  if (need_sums && ws == nullptr) return (int)cudaErrorInvalidValue;
-  DgradPlan plan;
-  const int err = dgrad_plan(B, T, C, O, k, dilation, &plan);
-  if (err) return err;
-  cudaStream_t s = (cudaStream_t)stream;
-  DgradParams p;
-  p.g = g;
-  p.x = x;
-  p.alpha = alpha;
-  p.beta = beta;
-  p.gx = gx;
-  p.part = ws;
-  p.count = counts;
-  p.T = T;
-  p.C = C;
-  p.O = O;
-  p.k = k;
-  p.dilation = dilation;
-  p.lead = (k - 1) * dilation - left;
-  p.win = kRows + (k - 1) * dilation;
-  p.groups = plan.groups;
-  p.n_stages = plan.n_stages;
-  p.vec_g = O % 4 == 0 && aligned16(g);
-  p.vec_x = C % 4 == 0 && aligned16(x) && (gx == nullptr || aligned16(gx));
-  p.need_ga = gx != nullptr || need_ab;
-  p.need_ab = need_ab;
-  p.need_gb = gb != nullptr;
-  int e;
-  switch (plan.bn * 4 + plan.kt) {
-    case 64 * 4 + 3: e = launch_dgrad<64, 16, 3>(wt, Ow, p, plan, B, s); break;
-    case 128 * 4 + 3: e = launch_dgrad<128, 8, 3>(wt, Ow, p, plan, B, s); break;
-    case 64 * 4 + 1: e = launch_dgrad<64, 32, 1>(wt, Ow, p, plan, B, s); break;
-    default: e = launch_dgrad<128, 16, 1>(wt, Ow, p, plan, B, s);
-  }
-  if (e != 0 || !need_sums) return e;
-  return launch_sum_partials(
-      ws, 2 * (long long)C + O, B * ceil_div(T, kRows), galpha, C, gbeta, C,
-      gb, O, counts == nullptr ? nullptr : counts + 2, s);
+  return run_dgrad<float>(g, x, alpha, beta, wt, gx, ws, galpha, gbeta, gb,
+                          B, T, C, O, k, dilation, left, Ow, counts, stream);
+}
+
+// The bf16 instantiation: g, x, alpha, beta, wt, gx, galpha, gbeta and gb
+// are bf16 (passed as untyped pointers), Ow a multiple of 8; ws stays f32,
+// its sums rounded to bf16 once.  counts as for f32, the bf16 kernels'
+// own three counters.
+int snake_conv_backward_dgrad_bf16(const void* g, const void* x,
+                                   const void* alpha, const void* beta,
+                                   const void* wt, void* gx, float* ws,
+                                   void* galpha, void* gbeta, void* gb, int B,
+                                   int T, int C, int O, int k, int dilation,
+                                   int left, int Ow,
+                                   unsigned long long* counts, void* stream) {
+  return run_dgrad<__nv_bfloat16>(g, x, alpha, beta, wt, gx, ws, galpha,
+                                  gbeta, gb, B, T, C, O, k, dilation, left,
+                                  Ow, counts, stream);
 }
 
 // wgrad, then (when its plan splits the frame sum) the sum of its partials,
@@ -1260,48 +1684,20 @@ int snake_conv_backward_wgrad_f32(const float* x, const float* alpha,
                                   int O, int k, int dilation, int left,
                                   int Cw, unsigned long long* counts,
                                   void* stream) {
-  if (B <= 0 || T <= 0 || C <= 0 || O <= 0 || k <= 0 || dilation <= 0 ||
-      left < 0 || left > (k - 1) * dilation || Cw < C || Cw % 4 != 0 ||
-      !aligned16(gw))
-    return (int)cudaErrorInvalidValue;
-  WgradPlan plan;
-  const int err = wgrad_plan(B, T, C, O, k, dilation, &plan);
-  if (err) return err;
-  if (plan.splits > 1 && (ws == nullptr || !aligned16(ws)))
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  WgradParams p;
-  p.x = x;
-  p.alpha = alpha;
-  p.beta = beta;
-  p.g = g;
-  p.gw = gw;
-  p.ws = ws;
-  p.count = counts == nullptr ? nullptr : counts + 1;
-  p.T = T;
-  p.C = C;
-  p.O = O;
-  p.Cw = Cw;
-  p.k = k;
-  p.dilation = dilation;
-  p.left = left;
-  p.groups = plan.groups;
-  p.chunks_per_b = ceil_div(T, kFrames);
-  p.n_chunks = B * p.chunks_per_b;
-  p.per_split = plan.per_split;
-  p.splits = plan.splits;
-  p.vec_x = C % 4 == 0 && aligned16(x);
-  p.vec_g = O % 4 == 0 && aligned16(g);
-  int e;
-  switch (plan.bn * 4 + plan.kt) {
-    case 32 * 4 + 3: e = launch_wgrad<32, 3>(p, plan, s); break;
-    case 64 * 4 + 1: e = launch_wgrad<64, 1>(p, plan, s); break;
-    default: e = launch_wgrad<128, 1>(p, plan, s);
-  }
-  if (e != 0 || plan.splits == 1) return e;
-  const long long n = (long long)k * O * Cw;
-  return launch_sum_partials(ws, n, plan.splits, gw, n, nullptr, 0, nullptr,
-                             0, counts == nullptr ? nullptr : counts + 2, s);
+  return run_wgrad<float>(x, alpha, beta, g, gw, ws, B, T, C, O, k, dilation,
+                          left, Cw, counts, stream);
+}
+
+// The bf16 instantiation: x, alpha, beta, g and gw bf16, Cw a multiple of
+// 8; ws f32, summed and rounded to bf16 once (an unsplit gw is rounded once
+// in the kernel).
+int snake_conv_backward_wgrad_bf16(const void* x, const void* alpha,
+                                   const void* beta, const void* g, void* gw,
+                                   float* ws, int B, int T, int C, int O,
+                                   int k, int dilation, int left, int Cw,
+                                   unsigned long long* counts, void* stream) {
+  return run_wgrad<__nv_bfloat16>(x, alpha, beta, g, gw, ws, B, T, C, O, k,
+                                  dilation, left, Cw, counts, stream);
 }
 
 }  // extern "C"

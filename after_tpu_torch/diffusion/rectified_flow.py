@@ -19,6 +19,7 @@ from ..models.encoder import Encoder1D
 from ..ops.train_mode import TrainMode
 from ..streaming.state import Cache
 from ..utils.device import to_device
+from ..utils.precision import cast_call, to_compute, to_f32
 
 
 def _f32(value) -> np.float32:
@@ -111,23 +112,36 @@ class RectifiedFlow(nn.Module):
         return out
 
     def diffusion_loss(self, x1, time_cond, cond, x0: torch.Tensor,
-                       t: torch.Tensor, train: Optional[TrainMode] = None):
+                       t: torch.Tensor, train: Optional[TrainMode] = None,
+                       compute_dtype: Optional[torch.dtype] = None):
         """Rectified-flow MSE on the velocity field, from the noise ``x0``
         (x1's shape) and the times ``t`` (B,) in [0, 1): returns (loss,
         (interpolant, t as (B, 1, 1))).  The denoiser runs in training form
-        (dropout) with ``train``."""
+        (dropout) with ``train``.  With ``compute_dtype`` (mixed-precision
+        training) the denoiser runs at that type, its f32 parameters cast
+        inside the call (``cast_call``) and its inputs cast; the noise, the
+        interpolant, the target and the MSE stay f32, as in the JAX
+        package."""
+        cd = compute_dtype
         target = x1 - x0
         tb = t[:, None, None]
         interpolant = (1 - tb) * x0 + tb * x1
-        out = self.net(interpolant, t, cond, time_cond, train=train)
-        return torch.mean(torch.square(out - target)), (interpolant, tb)
+        out = cast_call(self.net, cd, *(to_compute(a, cd) for a in (
+            interpolant, t, cond, time_cond)), train=train)
+        return (torch.mean(torch.square(to_f32(out, cd) - target)),
+                (interpolant, tb))
 
-    def transfer_estimate(self, interpolant, t, cond, tcond):
+    def transfer_estimate(self, interpolant, t, cond, tcond,
+                          compute_dtype: Optional[torch.dtype] = None):
         """One-shot estimate of the clean target from a noised batch, for
         the trainer's cycle step: integrate the velocity field from t (the
-        (B, 1, 1) times ``diffusion_loss`` returns) straight to 1."""
-        v = self.net(interpolant, t[:, 0, 0], cond, tcond)
-        return interpolant + (1 - t) * v
+        (B, 1, 1) times ``diffusion_loss`` returns) straight to 1.  Inputs
+        and output f32; with ``compute_dtype`` only the denoiser runs at
+        it."""
+        cd = compute_dtype
+        v = cast_call(self.net, cd, *(to_compute(a, cd) for a in (
+            interpolant, t[:, 0, 0], cond, tcond)))
+        return interpolant + (1 - t) * to_f32(v, cd)
 
     def _cfg_inputs(self, x, time, cond, time_cond):
         """Tile (x, time) 3x and build the [full | structure-only |

@@ -31,6 +31,16 @@ kept for the shared JSON form only.  Everything runs on the trainer's
 device, the CUDA card unless the caller passes ``device="cpu"``, in strict
 f32.
 
+Mixed precision (``train.compute_dtype="bfloat16"``), as the JAX trainer
+runs it: a diffusion step casts the f32 master parameters of the models it
+runs to bf16 inside the differentiated step (``utils.precision.cast_call``)
+and their inputs with them, so the gradients, the optimizers, the EMA, the
+BatchNorm running statistics (f32 batch statistics) and the checkpoints
+stay f32; the conditioning vectors, the noise, the interpolant, the
+targets and every loss stay f32 (the models' outputs widened).  The
+classifier step runs in f32, as the JAX one does.  On the card the casts
+are part of each step's CUDA graph.
+
 On the card each step runs as a CUDA graph, as the JAX package jits each
 step (utils/graphs.py): one graph per step signature (kind, phase1,
 train_encoder, train_encoder_time, use_cycle; at most 5 over the
@@ -75,6 +85,7 @@ from ..utils.device import copy_from_host, resolve_device, strict_f32, \
     to_device
 from ..utils.graphs import GraphPool, state_key
 from ..utils.optim import AdamW
+from ..utils.precision import cast_call, compute_dtype, to_compute, to_f32
 from .factory import make_model
 
 ArrayLike = Union[torch.Tensor, np.ndarray]
@@ -139,10 +150,6 @@ class DiffusionTrainer:
                  device: Optional[Union[str, torch.device]] = None,
                  seed: int = 0, *, eager: bool = False):
         tc = cfg.train
-        if tc.compute_dtype is not None:
-            raise NotImplementedError(
-                "the port trains in f32 only: train.compute_dtype (bf16 "
-                "training) is not ported yet (ROADMAP 9c)")
         et = cfg.encoder_time
         if (tc.cycle_consistency and et is not None and et.quantizer_levels
                 and et.quantizer_noise_dropout > 0):
@@ -158,6 +165,8 @@ class DiffusionTrainer:
                 "trainer cannot run this (its cycle re-encode raises flax's "
                 "InvalidRngError), so the port refuses it")
         self.cfg, self.tc = cfg, tc
+        # None (f32) or the type a diffusion step's models run at
+        self.compute_dtype = compute_dtype(tc.compute_dtype)
         self.device = resolve_device(device)
         self.eager = eager
         strict_f32()
@@ -292,15 +301,19 @@ class DiffusionTrainer:
               adversarial_weight: float, regularisation_weight: float):
         """(loss, metrics, the batch statistics the step keeps)."""
         cfg, tc, rf = self.cfg, self.tc, self.rf
-        gen, dev = self.generator, self.device
-        x1, x1_time_cond = batch["x"], batch["x_time_cond"]
+        gen, dev, cd = self.generator, self.device, self.compute_dtype
+        x1 = batch["x"]
+        x1_time_cond = to_compute(batch["x_time_cond"], cd)
         B = x1.shape[0]
         kept = TrainMode(gen)
 
-        # timbre stream: shuffled chunks -> ECAPA -> noise augmentation
-        x1_cond = self._shuffled(batch["x_cond"], take)
+        # timbre stream: shuffled chunks -> ECAPA -> noise augmentation (the
+        # conditioning vectors and the losses in f32)
+        x1_cond = self._shuffled(to_compute(batch["x_cond"], cd), take)
         with torch.set_grad_enabled(train_encoder):
-            cond, _, cond_reg = rf.encoder(x1_cond, train=kept)
+            cond, _, cond_reg = cast_call(rf.encoder, cd, x1_cond,
+                                          train=kept)
+        cond, cond_reg = to_f32(cond, cd), to_f32(cond_reg, cd)
         cond = cond + tc.zsem_noise_aug * take("cond_noise", lambda: (
             torch.randn(cond.shape, generator=gen, device=dev)))
 
@@ -308,8 +321,11 @@ class DiffusionTrainer:
         if rf.encoder_time is not None and not phase1:
             fsq_draws = take("fsq", lambda: None)
             with torch.set_grad_enabled(train_encoder_time):
-                time_cond, _, time_cond_reg = rf.encoder_time(
-                    x1_time_cond, train=kept, fsq_draws=fsq_draws)
+                time_cond, _, time_cond_reg = cast_call(
+                    rf.encoder_time, cd, x1_time_cond, train=kept,
+                    fsq_draws=fsq_draws)
+            time_cond = to_f32(time_cond, cd)
+            time_cond_reg = to_f32(time_cond_reg, cd)
         elif rf.encoder_time is None:
             time_cond, time_cond_reg = x1_time_cond, x1.new_zeros(())
         else:  # phase 1: the structure is dropped whole
@@ -332,8 +348,10 @@ class DiffusionTrainer:
         # the adversarial term: its gradient reaches encoder_time through
         # the classifier; the classifier's statistics are not kept
         if rf.classifier is not None and not phase1:
-            cond_pred = rf.classifier(time_cond, train=TrainMode(gen))[0]
-            classifier_loss = self._adversarial_loss(cond_pred, cond.detach())
+            cond_pred = cast_call(rf.classifier, cd, to_compute(time_cond, cd),
+                                  train=TrainMode(gen))[0]
+            classifier_loss = self._adversarial_loss(to_f32(cond_pred, cd),
+                                                     cond.detach())
         else:
             classifier_loss = x1.new_zeros(())
 
@@ -341,7 +359,8 @@ class DiffusionTrainer:
                                             device=dev))
         t = take("t", lambda: torch.rand((B,), generator=gen, device=dev))
         diffusion_loss, (interpolant, tb) = rf.diffusion_loss(
-            x1, time_cond_drop, cond_drop, x0, t, train=kept)
+            x1, time_cond_drop, cond_drop, x0, t, train=kept,
+            compute_dtype=cd)
 
         if use_cycle:
             cond_cycle, tcond_cycle = self._cycle_losses(
@@ -385,10 +404,15 @@ class DiffusionTrainer:
                                   time_cond)
         cond_t, tcond_t = cond_t.detach(), tcond_t.detach()
 
-        x_transfer = rf.transfer_estimate(interpolant, t, cond_t, tcond_t)
+        cd = self.compute_dtype
+        x_transfer = rf.transfer_estimate(interpolant, t, cond_t, tcond_t,
+                                          compute_dtype=cd)
         scratch = TrainMode(self.generator)
-        cond_rec = rf.encoder(x_transfer, train=scratch)[0]
-        tcond_rec = rf.encoder_time(x_transfer, train=scratch)[0]
+        x_in = to_compute(x_transfer, cd)
+        cond_rec = to_f32(cast_call(rf.encoder, cd, x_in, train=scratch)[0],
+                          cd)
+        tcond_rec = to_f32(cast_call(rf.encoder_time, cd, x_in,
+                                     train=scratch)[0], cd)
 
         lt = tc.cycle_loss_type
         if lt == "cosine":

@@ -39,6 +39,7 @@ from ..ops.norms import GroupNorm
 from ..ops.pqmf import PQMFAnalysis, PQMFSynthesis
 from ..ops.snake import SnakeBeta
 from ..streaming.state import Cache, Streaming, name_slots
+from ..utils.precision import at, promote
 
 StreamMode = Union[bool, str]
 
@@ -92,10 +93,15 @@ class ConvBlock1d(nn.Module):
         # the kernel reads (B, T, C) rows; GroupNorm keeps a transposed
         # input's strides and a streaming GroupNorm returns a slice, so make
         # the layout explicit.  The weight comes in the kernel's own layout
-        # (kernel_layout), so no call copies it.
-        return snake_conv(h.contiguous(), self.act.alpha, self.act.beta,
-                          *self.conv.kernel_weights(), self.conv.bias,
-                          self.conv.dilation, self.conv.mode)
+        # (kernel_layout), so no call copies it.  The op runs at the
+        # promotion of the input's type and the parameters' (an f32 input
+        # under bf16 training parameters: the f32 kernel on their widened
+        # values)
+        act, conv = self.act, self.conv
+        dtype = torch.promote_types(promote(h, act.alpha), conv.weight_dtype)
+        return snake_conv(h.contiguous().to(dtype), at(act.alpha, dtype),
+                          at(act.beta, dtype), *conv.kernel_weights(dtype),
+                          at(conv.bias, dtype), conv.dilation, conv.mode)
 
 
 class ResnetBlock1d(nn.Module):

@@ -9,6 +9,12 @@ GAN and normalized feature matching.
 The JAX package runs NHWC over (B, frames, bins, [re, im]); the port runs
 NCHW ``F.conv2d`` over (B, [re, im], frames, bins), with the same explicit
 symmetric padding and flax's weight norm.
+
+Under bf16 training parameters (``utils.precision.cast_call``) it computes
+what the JAX module computes there: the spectrogram of a bf16 waveform is
+f32 (its DFT is taken on the widened values), the weight is normed in bf16
+and every conv runs in f32 on it widened, so the logits, feature maps and
+losses are f32.
 """
 
 from __future__ import annotations
@@ -21,6 +27,7 @@ from torch import nn
 
 from ..config import DiscriminatorConfig
 from ..ops import stft as stft_ops
+from ..utils.precision import at, promote
 
 
 def _pad2d(k: Tuple[int, int], d: Tuple[int, int]) -> Tuple[int, int]:
@@ -43,14 +50,22 @@ class WNConv2d(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features))
         self.scale = nn.Parameter(torch.ones(features))
 
-    def effective_weight(self) -> torch.Tensor:
-        v = self.weight
+    def effective_weight(self, dtype=None) -> torch.Tensor:
+        """The normed weight, at ``dtype`` from the parameters brought to
+        it (``at``) where given."""
+        v, scale = self.weight, self.scale
+        if dtype is not None:
+            v, scale = at(v, dtype), at(scale, dtype)
         inv = torch.rsqrt(v.square().sum(dim=(1, 2, 3), keepdim=True) + 1e-12)
-        return v * inv * self.scale[:, None, None, None]
+        return v * inv * scale[:, None, None, None]
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.conv2d(x, self.effective_weight(), self.bias, self.stride,
-                        self.padding, self.dilation)
+        # flax promotes the input and the (normed) parameters to one type:
+        # bf16 training parameters meet the spectrogram's f32 channels in f32
+        dtype = promote(x, self.weight)
+        return F.conv2d(x.to(dtype), self.effective_weight(dtype),
+                        at(self.bias, dtype), self.stride, self.padding,
+                        self.dilation)
 
 
 class DiscriminatorSTFT(nn.Module):

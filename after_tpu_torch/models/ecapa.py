@@ -4,6 +4,12 @@ Codec latents (B, T, in_size) -> timbre vector (B, out_dim).  Convs use
 'same' reflect padding.  BatchNorm runs on its running statistics at
 inference and on the batch's in a training forward (``train``,
 ops/train_mode.py).
+
+Types follow the JAX module's: each conv and dense layer computes at the
+promotion of its input's type and its parameters' (``utils.precision``),
+and the pooling's global context is taken with f32 weights, so that under
+bf16 parameters the attention, the pooled statistics and everything after
+them are f32, as jnp promotes them.
 """
 
 from __future__ import annotations
@@ -18,6 +24,7 @@ from ..config import ECAPAConfig
 from ..ops.conv import conv1d
 from ..ops.norms import BatchNorm
 from ..ops.train_mode import TrainMode
+from ..utils.precision import at, linear, promote
 
 
 class ReflectConv(nn.Module):
@@ -37,8 +44,9 @@ class ReflectConv(nn.Module):
         if pad > 0:
             h = F.pad(h, (pad, self.span - pad), mode="reflect")
         c = self.Conv_0
-        return conv1d(h, c.weight, c.bias, dilation=c.dilation,
-                      groups=c.groups).transpose(1, 2)
+        dtype = promote(h, c.weight)
+        return conv1d(h.to(dtype), at(c.weight, dtype), at(c.bias, dtype),
+                      dilation=c.dilation, groups=c.groups).transpose(1, 2)
 
 
 class TDNNBlock(nn.Module):
@@ -90,7 +98,8 @@ class SEBlock(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         s = x.mean(dim=1, keepdim=True)
-        s = torch.sigmoid(self.conv2(torch.relu(self.conv1(s))))
+        s = torch.sigmoid(linear(self.conv2, torch.relu(linear(self.conv1,
+                                                               s))))
         return s * x
 
 
@@ -110,7 +119,8 @@ class SERes2NetBlock(nn.Module):
 
     def forward(self, x: torch.Tensor,
                 train: Optional[TrainMode] = None) -> torch.Tensor:
-        residual = self.shortcut(x) if self.shortcut is not None else x
+        residual = (linear(self.shortcut, x) if self.shortcut is not None
+                    else x)
         h = self.tdnn2(self.res2net(self.tdnn1(x, train), train), train)
         return self.se(h) + residual
 
@@ -137,12 +147,14 @@ class AttentiveStatisticsPooling(nn.Module):
                 train: Optional[TrainMode] = None) -> torch.Tensor:
         B, T, C = x.shape
         if self.global_context:
-            mean, std = _stats(x.new_full((B, T, 1), 1.0 / T), x)
+            # f32 weights, as jnp.full makes them: the context is f32
+            mean, std = _stats(torch.full((B, T, 1), 1.0 / T,
+                                          device=x.device), x)
             attn_in = torch.cat([x, mean[:, None].expand(B, T, C),
                                  std[:, None].expand(B, T, C)], dim=-1)
         else:
             attn_in = x
-        a = self.conv(torch.tanh(self.tdnn(attn_in, train)))
+        a = linear(self.conv, torch.tanh(self.tdnn(attn_in, train)))
         a = torch.softmax(a, dim=1)
         mean, std = _stats(a, x)
         return torch.cat([mean, std], dim=-1)
@@ -187,7 +199,7 @@ class ECAPAEncoder(nn.Module):
         h = self.mfa(torch.cat(feats, dim=-1), train)
         if self.asp is not None:
             h = self.asp_bn(self.asp(h, train), train)
-        z = self.fc(h)
+        z = linear(self.fc, h)
         if cfg.use_tanh:
             z = torch.tanh(z)
         if cfg.spherical_normalisation:

@@ -17,7 +17,12 @@ transposed conv keeps the overlap tail of its un-trimmed output
 Weights are kept in torch's layouts: (O, C, k) for a conv and
 (C_in, C_out, k) for a transposed conv.  Every conv has a bias and weight
 norm, which keeps the direction ``weight`` and the magnitude ``g`` as
-separate parameters, as torch.nn.utils.weight_norm(dim=0) does.
+separate parameters, as torch.nn.utils.weight_norm(dim=0) does.  The weight
+is normed in the parameters' type and a conv computes at the promotion of
+its input's type and its weight's (``utils.precision.promote``), as the
+JAX package's convs do: under bf16 training parameters an f32 input (the
+decoder's, after the bottleneck's f32 noise) convolves in f32 with the
+bf16-normed weight widened.
 """
 
 from __future__ import annotations
@@ -29,6 +34,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..streaming.state import Cache, Streaming
+from ..utils.precision import at
 
 
 def get_padding(kernel_size: int, stride: int = 1, dilation: int = 1,
@@ -80,7 +86,10 @@ class _WeightNormed(nn.Module):
     With gradients off (inference) the result is a constant, so it is kept
     until either parameter is moved or written in place (``init_weights``,
     ``load_jax`` and ``load_state_dict`` all write in place, which bumps the
-    tensor's version), unless ``keep_weight`` is off (``recompute_weights``).
+    tensor's version), unless ``keep_weight`` is off (``recompute_weights``)
+    or the weight is not the module's own parameter (a training step's
+    compute-dtype copy, ``utils.precision.cast_call``, made anew at every
+    call: a kept copy of it could be served again from a reused address).
     A module with ``kernel_layout`` set keeps, beside it, the pair the fused
     snake+conv kernel reads (``kernel_weights``): the weight in its (k, O,
     Cw) layout and its low tf32 half (ops/kernels/fused_conv.py:
@@ -102,6 +111,8 @@ class _WeightNormed(nn.Module):
         at each call."""
         w, g = self.weight, self.g
         if (not self.keep_weight or torch.is_grad_enabled()
+                or not isinstance(w, nn.Parameter)
+                or not isinstance(g, nn.Parameter)
                 or w.is_inference() or g.is_inference()):
             return None
         key = (w.data_ptr(), w._version, g.data_ptr(), g._version)
@@ -115,19 +126,39 @@ class _WeightNormed(nn.Module):
             self._kept, self._kept_key = (wn, pair), key
         return self._kept
 
-    def effective_weight(self) -> torch.Tensor:
+    @property
+    def weight_dtype(self) -> torch.dtype:
+        """The type of the module's weight (a folded module's kept one)."""
+        if self.folded:
+            return (self.weight_k if self.kernel_layout else self.weight).dtype
+        return self.weight.dtype
+
+    def effective_weight(self, dtype: Optional[torch.dtype] = None
+                         ) -> torch.Tensor:
+        """The normed weight; with ``dtype`` other than the weight's, normed
+        at that type from the parameters brought to it (``at``: under a
+        training step's cast, the f32 parameters themselves)."""
         if self.folded:
             if self.kernel_layout:
-                return self.weight_k[:, :, :self.in_features].permute(1, 2, 0)
-            return self.weight
+                w = self.weight_k[:, :, :self.in_features].permute(1, 2, 0)
+            else:
+                w = self.weight
+            return w if dtype is None else w.to(dtype)
+        if dtype is not None and dtype != self.weight.dtype:
+            return weight_norm(at(self.weight, dtype), at(self.g, dtype))
         kept = self._keep()
         return weight_norm(self.weight, self.g) if kept is None else kept[0]
 
-    def kernel_weights(self) -> Tuple[torch.Tensor, torch.Tensor]:
+    def kernel_weights(self, dtype: Optional[torch.dtype] = None
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
         """(w_k, w_lo): the weight in the fused kernel's (k, O, Cw) layout
         and its low tf32 half, as the op ``snake_conv`` takes them; the kept
         pair where there is one, else made from ``effective_weight`` (with
-        its gradient)."""
+        its gradient).  With ``dtype`` other than the weight's, the normed
+        weight cast to it first (the widened bf16 weight of an f32 conv)."""
+        if dtype is not None and dtype != self.weight_dtype:
+            from .kernels.fused_conv import kernel_weight
+            return kernel_weight(self.effective_weight(dtype))
         if self.folded and self.kernel_layout:
             return self.weight_k, self.weight_lo
         kept = None if self.folded else self._keep()
@@ -214,8 +245,10 @@ class StreamConv1d(_WeightNormed, Streaming):
             if self.mode != "valid":
                 h = F.pad(h, get_padding(self.kernel_size, self.stride,
                                          self.dilation, self.mode))
-        y = conv1d(h, self.effective_weight(), self.bias,
-                   stride=self.stride, dilation=self.dilation)
+        dtype = torch.promote_types(h.dtype, self.weight_dtype)
+        y = conv1d(h.to(dtype), self.effective_weight(dtype),
+                   at(self.bias, dtype), stride=self.stride,
+                   dilation=self.dilation)
         return y.transpose(1, 2)
 
 
@@ -247,17 +280,19 @@ class StreamConvTranspose1d(_WeightNormed, Streaming):
                 cache: Optional[Cache] = None) -> torch.Tensor:
         T = x.shape[1]
         f = self.stride
+        dtype = torch.promote_types(x.dtype, self.weight_dtype)
+        x, w, bias = (x.to(dtype), self.effective_weight(dtype),
+                      at(self.bias, dtype))
         if not self.streaming:
-            y = conv_transpose1d(x.transpose(1, 2), self.effective_weight(),
-                                 self.bias, stride=f, padding=f // 2)
+            y = conv_transpose1d(x.transpose(1, 2), w, bias, stride=f,
+                                 padding=f // 2)
             return y[:, :, :T * f].transpose(1, 2)
         tail = self.kernel_size - f
-        y = conv_transpose1d(x.transpose(1, 2), self.effective_weight(),
-                             stride=f).transpose(1, 2)
+        y = conv_transpose1d(x.transpose(1, 2), w, stride=f).transpose(1, 2)
         overlap = self.slot(cache, "overlap", lambda: x.new_zeros(
             (x.shape[0], tail, self.features)))
         if tail > 0:
             y = torch.cat([y[:, :tail] + overlap, y[:, tail:]], dim=1)
             overlap.copy_(y[:, y.shape[1] - tail:])
             y = y[:, :y.shape[1] - tail]
-        return y + self.bias
+        return y + bias

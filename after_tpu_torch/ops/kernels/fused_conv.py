@@ -35,8 +35,7 @@ f32, rounded to bf16 once; one bf16 wgmma product, summed in f32 with the
 bias; the output rounded once), whose split sums keep f32 partials
 (``sum_splits(ws, torch.bfloat16)``); its plain version is
 ``snake_conv_reference`` on bf16 inputs, with the same roundings.  Any other
-type raises.  The bf16 form has no backward on the card (its gradient op
-refuses non-f32 tensors).
+type raises.
 
 Two counts of launches: ``fused_snake_conv.launches`` counts the op's
 launches on the card (an eager launch, or one recorded by a CUDA graph
@@ -56,6 +55,15 @@ partials, or raises; on CPU tensors it is the plain version
 which the JAX package's custom VJP also is).  The backward kernels count
 their launches on the device beside the forward's
 (``backward_device_launches``).
+
+The backward takes bf16 tensors too, the gradient of the bf16 forward: on
+the card it launches the kernels' bf16 instantiations
+(``snake_conv_dgrad_bf16``, ``snake_conv_wgrad_bf16``: one bf16 wgmma a
+16-channel or 16-frame step, f32 sums, each gradient rounded to bf16 once),
+counted apart (``backward_device_launches(dtype=torch.bfloat16)``); its
+plain version is ``snake_conv_backward_reference`` on bf16 inputs, with
+the same roundings.  Every tensor of a call is f32 or every one bf16;
+anything else raises.
 """
 
 from __future__ import annotations
@@ -145,6 +153,14 @@ def _bwd_lib():
         lib.snake_conv_backward_wgrad_f32.argtypes = [p] * 6 + [i] * 8 + [
             p, p]
         lib.snake_conv_backward_wgrad_f32.restype = ctypes.c_int
+        lib.snake_conv_backward_plan_bf16.argtypes = [i] * 6 + [p]
+        lib.snake_conv_backward_plan_bf16.restype = ctypes.c_int
+        lib.snake_conv_backward_dgrad_bf16.argtypes = [p] * 10 + [i] * 8 + [
+            p, p]
+        lib.snake_conv_backward_dgrad_bf16.restype = ctypes.c_int
+        lib.snake_conv_backward_wgrad_bf16.argtypes = [p] * 6 + [i] * 8 + [
+            p, p]
+        lib.snake_conv_backward_wgrad_bf16.restype = ctypes.c_int
         _BWD_LIB = lib
     return _BWD_LIB
 
@@ -174,17 +190,19 @@ def kernel_plan(B: int, T: int, C: int, O: int, k: int, dilation: int = 1,
 _BWD_PLANS: Dict[Tuple[int, ...], Tuple[int, ...]] = {}
 
 
-def backward_plan(B: int, T: int, C: int, O: int, k: int, dilation: int = 1
-                  ) -> Tuple[int, ...]:
+def backward_plan(B: int, T: int, C: int, O: int, k: int, dilation: int = 1,
+                  dtype: torch.dtype = torch.float32) -> Tuple[int, ...]:
     """(dgrad's input channels per block, output channels per stage, rows
     of partial sums; wgrad's input channels per block, splits of the frame
-    sum) that a backward at this shape takes; builds the kernels if
-    needed."""
-    key = (B, T, C, O, k, dilation)
+    sum) that a backward at this shape and type (f32 or bf16) takes; builds
+    the kernels if needed."""
+    bf16 = dtype == torch.bfloat16
+    key = (B, T, C, O, k, dilation, bf16)
     if key not in _BWD_PLANS:
         out = (ctypes.c_int * 5)()
-        err = _bwd_lib().snake_conv_backward_plan(B, T, C, O, k, dilation,
-                                                   ctypes.addressof(out))
+        plan = (_bwd_lib().snake_conv_backward_plan_bf16 if bf16
+                else _bwd_lib().snake_conv_backward_plan)
+        err = plan(B, T, C, O, k, dilation, ctypes.addressof(out))
         if err != 0:
             raise ValueError(f"no backward tiling for B={B} T={T} C={C} "
                              f"O={O} k={k} d={dilation} (CUDA error {err})")
@@ -196,17 +214,20 @@ _COUNTS: Dict[torch.device, torch.Tensor] = {}
 # slots of the device counters: the f32 forward kernel's and its split
 # sum's (what the kernel of fused_snake_conv.cu writes), then the
 # backward's: dgrad, wgrad and their sum of partials, then the bf16
-# instantiation's kernel and its split sum
+# instantiation's kernel and its split sum, then the bf16 backward's three
 _FORWARD_SLOTS = 2
 _BACKWARD_SLOTS = 3
 _BF16 = _FORWARD_SLOTS + _BACKWARD_SLOTS
 _BF16_SLOTS = 2
+_BF16_BACKWARD = _BF16 + _BF16_SLOTS
+_SLOTS = _BF16_BACKWARD + _BACKWARD_SLOTS
 
 
 def _device_counts(device: torch.device) -> torch.Tensor:
     """The int64 launch counters on ``device`` that the kernels add to (the
     conv kernel's, the split sum's, the backward kernels' three, then the
-    bf16 conv kernel's and its split sum's), made
+    bf16 conv kernel's and its split sum's, then the bf16 backward's three),
+    made
     at the first launch; a first launch inside a CUDA graph capture raises,
     since the counters must not come from the graph's pool."""
     device = torch.device("cuda", torch.cuda.current_device()
@@ -221,7 +242,7 @@ def _device_counts(device: torch.device) -> torch.Tensor:
         # reset outside it
         with torch.inference_mode(False):
             counts = _COUNTS[device] = torch.zeros(
-                _BF16 + _BF16_SLOTS, dtype=torch.int64, device=device)
+                _SLOTS, dtype=torch.int64, device=device)
     return counts
 
 
@@ -238,18 +259,23 @@ def device_launches(device="cuda", dtype: torch.dtype = torch.float32
         start:start + _FORWARD_SLOTS].tolist())
 
 
-def backward_device_launches(device="cuda") -> Tuple[int, int, int]:
+def backward_device_launches(device="cuda",
+                             dtype: torch.dtype = torch.float32
+                             ) -> Tuple[int, int, int]:
     """(launches of the backward's dgrad kernel, of its wgrad kernel, of
     their sum of partials) on ``device`` since the last
     ``reset_device_launches``, counted on the device as
-    ``device_launches`` counts the forward's.  Waits for the device."""
-    return tuple(_device_counts(torch.device(device))[_FORWARD_SLOTS:]
-                 .tolist())
+    ``device_launches`` counts the forward's: the f32 kernels', or with
+    ``dtype`` torch.bfloat16 the bf16 instantiations'.  Waits for the
+    device."""
+    start = _BF16_BACKWARD if dtype == torch.bfloat16 else _FORWARD_SLOTS
+    return tuple(_device_counts(torch.device(device))[
+        start:start + _BACKWARD_SLOTS].tolist())
 
 
 def reset_device_launches(device="cuda") -> None:
-    """Sets ``device``'s launch counters (forward, backward and bf16) to 0,
-    in stream order."""
+    """Sets ``device``'s launch counters (forward and backward, f32 and
+    bf16) to 0, in stream order."""
     _device_counts(torch.device(device)).zero_()
 
 
@@ -414,27 +440,42 @@ def snake_conv_backward_reference(g: torch.Tensor, x: torch.Tensor,
     against g, recomputed from the inputs, as the JAX package's custom VJP
     computes it.  Returns (gx, galpha, gbeta, gw_k, gb), gw_k in w_k's
     (k, O, Cw) layout; an output whose ``needs`` entry is false is an empty
-    tensor."""
-    saved = [t.detach().requires_grad_(n)
+    tensor.
+
+    On bf16 inputs, what the kernels' bf16 instantiations compute: the
+    inputs widened to f32 and the VJP taken in f32, the weight's gradient
+    from the activation rounded to bf16 (the value the bf16 forward
+    multiplies), the snake's derivative from the f32 activation, and each
+    gradient rounded to bf16 once."""
+    bf16 = x.dtype == torch.bfloat16
+    saved = [(t.detach().float() if bf16 else t.detach()).requires_grad_(n)
              for t, n in zip((x, alpha, beta, w_k, b), needs)]
     wanted = [t for t in saved if t.requires_grad]
     with _autograd_inside_op():
         x, alpha, beta, w_k, b = saved
-        y = snake_conv_reference(x, alpha, beta,
-                                 torch_weight(w_k, x.shape[2]), b,
-                                 dilation, mode)
-        grads = iter(torch.autograd.grad(y, wanted, g) if wanted else ())
-    return tuple(next(grads) if t.requires_grad else x.new_empty(0)
-                 for t in saved)
+        w = torch_weight(w_k, x.shape[2])
+        if bf16:
+            a = snake_beta(x, alpha, beta)
+            # the rounded activation forward, the f32 one's derivative back
+            a = a + (a.to(torch.bfloat16).float() - a).detach()
+            y = _conv(a, w, b, dilation, mode)
+        else:
+            y = snake_conv_reference(x, alpha, beta, w, b, dilation, mode)
+        grads = iter(torch.autograd.grad(y, wanted, g.float() if bf16
+                                         else g) if wanted else ())
+    dtype = torch.bfloat16 if bf16 else x.dtype
+    return tuple(next(grads).to(dtype) if t.requires_grad
+                 else x.new_empty(0, dtype=dtype) for t in saved)
 
 
 def backward_weight(w_k: torch.Tensor, channels: int) -> torch.Tensor:
     """The weight as the dgrad kernel reads it, a copy made at each
     backward: (k, C, Ow) contiguous, out[j] = w_k[j] transposed, Ow = O
-    rounded up to a multiple of 4, zeros past O (the kernel takes the taps
-    in reverse and makes the low tf32 half on chip)."""
+    rounded up to 16 bytes of its type (4 f32 or 8 bf16 values), zeros past
+    O (the f32 kernel takes the taps in reverse and makes the low tf32 half
+    on chip)."""
     k, O, _ = w_k.shape
-    Ow = -(-O // 4) * 4
+    Ow = weight_channels(O, w_k.dtype)
     wt = torch.empty((k, channels, Ow), dtype=w_k.dtype, device=w_k.device)
     wt[:, :, :O] = w_k.detach()[:, :, :channels].transpose(1, 2)
     if Ow > O:
@@ -443,31 +484,35 @@ def backward_weight(w_k: torch.Tensor, channels: int) -> torch.Tensor:
 
 
 def _launch_backward(g, x, alpha, beta, w_k, b, dilation, mode, needs):
-    """Checks the inputs and launches the backward's kernels on x's device:
-    dgrad (with its sum of partials) for the gradients of x, alpha, beta
-    and b, wgrad for w_k's, each only when one of its outputs is wanted."""
+    """Checks the inputs and launches the backward's kernels on x's device
+    (the f32 kernels, or the bf16 instantiations for bf16 x): dgrad (with
+    its sum of partials) for the gradients of x, alpha, beta and b, wgrad
+    for w_k's, each only when one of its outputs is wanted."""
     if x.dim() != 3 or w_k.dim() != 3 or len(needs) != 5:
         raise ValueError(f"x must be (B, T, C), w_k (k, O, Cw) and needs 5 "
                          f"flags; got {tuple(x.shape)}, {tuple(w_k.shape)} "
                          f"and {len(needs)}")
     B, T, C = x.shape
     k, O, Cw = w_k.shape
-    if Cw % 4 or not C <= Cw < C + 4:
+    bf16 = x.dtype == torch.bfloat16
+    dtype = torch.bfloat16 if bf16 else torch.float32
+    if Cw != weight_channels(C, dtype):
         raise ValueError(f"w_k has {Cw} input channels for x's {C}: the "
-                         "kernels read C rounded up to a multiple of 4")
-    _check("x", x, x.device, (B, T, C))
-    _check("g", g, x.device, (B, T, O))
-    _check("alpha", alpha, x.device, (C,))
-    _check("beta", beta, x.device, (C,))
-    _check("w_k", w_k, x.device, (k, O, Cw))
-    _check("b", b, x.device, (O,))
+                         f"{dtype} kernels read C rounded up to "
+                         f"{weight_channels(C, dtype)}")
+    _check("x", x, x.device, (B, T, C), dtype)
+    _check("g", g, x.device, (B, T, O), dtype)
+    _check("alpha", alpha, x.device, (C,), dtype)
+    _check("beta", beta, x.device, (C,), dtype)
+    _check("w_k", w_k, x.device, (k, O, Cw), dtype)
+    _check("b", b, x.device, (O,), dtype)
     need_x, need_alpha, need_beta, need_w, need_b = (bool(n) for n in needs)
     left, _ = get_padding(k, 1, dilation, mode)
-    plan = backward_plan(B, T, C, O, k, dilation)
+    plan = backward_plan(B, T, C, O, k, dilation, dtype)
     dgrad_rows, splits = plan[2], plan[4]
 
     def out(wanted, shape):
-        return (torch.empty(shape, device=x.device, dtype=torch.float32)
+        return (torch.empty(shape, device=x.device, dtype=dtype)
                 if wanted else x.new_empty(0))
 
     def ptr(t):
@@ -476,15 +521,22 @@ def _launch_backward(g, x, alpha, beta, w_k, b, dilation, mode, needs):
     gx, galpha, gbeta = (out(need_x, (B, T, C)), out(need_alpha, (C,)),
                          out(need_beta, (C,)))
     gw, gb = out(need_w, (k, O, Cw)), out(need_b, (O,))
-    counts = _device_counts(x.device).data_ptr() + 8 * _FORWARD_SLOTS
+    counts = _device_counts(x.device).data_ptr() + 8 * (
+        _BF16_BACKWARD if bf16 else _FORWARD_SLOTS)
+    lib = _bwd_lib()
+    dgrad = (lib.snake_conv_backward_dgrad_bf16 if bf16
+             else lib.snake_conv_backward_dgrad_f32)
+    wgrad = (lib.snake_conv_backward_wgrad_bf16 if bf16
+             else lib.snake_conv_backward_wgrad_f32)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         if need_x or need_alpha or need_beta or need_b:
             wt = backward_weight(w_k, C)
             sums = need_alpha or need_beta or need_b
+            # f32 partial sums in both types, added in a fixed order
             ws = (torch.empty((dgrad_rows, 2 * C + O), device=x.device,
                               dtype=torch.float32) if sums else None)
-            err = _bwd_lib().snake_conv_backward_dgrad_f32(
+            err = dgrad(
                 g.data_ptr(), x.data_ptr(), alpha.data_ptr(),
                 beta.data_ptr(), wt.data_ptr(), ptr(gx),
                 None if ws is None else ws.data_ptr(), ptr(galpha),
@@ -494,12 +546,12 @@ def _launch_backward(g, x, alpha, beta, w_k, b, dilation, mode, needs):
                 raise RuntimeError(
                     f"snake_conv_backward dgrad launch failed with CUDA "
                     f"error {err} (B={B} T={T} C={C} O={O} k={k} "
-                    f"d={dilation} mode={mode})")
+                    f"d={dilation} mode={mode} {dtype})")
             snake_conv_backward.launches["dgrad"] += 1
         if need_w:
             ws = (torch.empty((splits, k * O * Cw), device=x.device,
                               dtype=torch.float32) if splits > 1 else None)
-            err = _bwd_lib().snake_conv_backward_wgrad_f32(
+            err = wgrad(
                 x.data_ptr(), alpha.data_ptr(), beta.data_ptr(),
                 g.data_ptr(), gw.data_ptr(),
                 None if ws is None else ws.data_ptr(), B, T, C, O, k,
@@ -508,7 +560,7 @@ def _launch_backward(g, x, alpha, beta, w_k, b, dilation, mode, needs):
                 raise RuntimeError(
                     f"snake_conv_backward wgrad launch failed with CUDA "
                     f"error {err} (B={B} T={T} C={C} O={O} k={k} "
-                    f"d={dilation} mode={mode})")
+                    f"d={dilation} mode={mode} {dtype})")
             snake_conv_backward.launches["wgrad"] += 1
     return gx, galpha, gbeta, gw, gb
 
@@ -556,7 +608,8 @@ def _save_inputs(ctx, inputs, output):
 def _backward(ctx, g):
     """The op's gradient, the counterpart of ``_fused_with_vjp``'s: the op
     ``snake_conv_backward`` on the saved inputs (x, alpha, beta, w_k, b),
-    for the inputs that need one; none for the low half."""
+    for the inputs that need one (f32, or bf16 for the bf16 form); none for
+    the low half."""
     needs = [ctx.needs_input_grad[i] for i in (0, 1, 2, 3, 5)]
     grads = snake_conv_backward(g.contiguous(), *ctx.saved_tensors,
                                 ctx.dilation, ctx.mode, needs)

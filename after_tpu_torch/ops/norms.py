@@ -1,7 +1,9 @@
 """Normalisations over the channels of (B, T, C) tensors, with the JAX
 package's epsilons (flax GroupNorm at 1e-5 as the codec sets it, flax
 BatchNorm's default 1e-5).  A bf16 input is normalised in f32, statistics
-and all, and the result returned in bf16, as flax computes them."""
+and all, and the result returned at the promotion of the input's type and
+the parameters' (bf16 for bf16 both; f32 for an f32 input under bf16
+parameters), as flax computes them; running statistics stay f32."""
 
 from __future__ import annotations
 
@@ -10,6 +12,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from ..utils.precision import at, promote
 from .train_mode import TrainMode
 
 
@@ -28,8 +31,9 @@ class GroupNorm(nn.Module):
         h = x.float().reshape(B, T, self.num_groups, C // self.num_groups)
         var, mean = torch.var_mean(h, dim=(1, 3), unbiased=False, keepdim=True)
         h = (h - mean) * torch.rsqrt(var + self.eps)
-        y = h.reshape(B, T, C) * self.weight.float() + self.bias.float()
-        return y.to(x.dtype)
+        f32 = torch.float32
+        y = h.reshape(B, T, C) * at(self.weight, f32) + at(self.bias, f32)
+        return y.to(promote(x, self.weight, self.bias))
 
 
 class BatchNorm(nn.Module):
@@ -54,7 +58,7 @@ class BatchNorm(nn.Module):
 
     def forward(self, x: torch.Tensor,
                 train: Optional[TrainMode] = None) -> torch.Tensor:
-        dtype = x.dtype
+        dtype = promote(x, self.weight, self.bias)
         x = x.float()
         if train is None:
             mean, var = self.running_mean.float(), self.running_var.float()
@@ -63,8 +67,9 @@ class BatchNorm(nn.Module):
             mean = x.mean(axes)
             var = torch.clamp_min((x * x).mean(axes) - mean * mean, 0.0)
             train.batch_stats[self] = (mean.detach(), var.detach())
-        mul = torch.rsqrt(var + self.eps) * self.weight.float()
-        return ((x - mean) * mul + self.bias.float()).to(dtype)
+        f32 = torch.float32
+        mul = torch.rsqrt(var + self.eps) * at(self.weight, f32)
+        return ((x - mean) * mul + at(self.bias, f32)).to(dtype)
 
     @torch.no_grad()
     def update_running(self, mean: torch.Tensor, var: torch.Tensor,

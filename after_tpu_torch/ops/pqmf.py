@@ -135,16 +135,18 @@ class PQMFAnalysis(nn.Module, Streaming):
     def forward(self, x: torch.Tensor, cache=None) -> torch.Tensor:
         B, T, _ = x.shape
         M = self.n_band
-        K = self.kernel.shape[-1]
+        # the filters at the input's type, as the JAX package makes them
+        kernel, mask = self.kernel.to(x.dtype), self.mask.to(x.dtype)
+        K = kernel.shape[-1]
         xp = x.reshape(B, T // M, M).transpose(1, 2)
         if self.streaming:
-            y = conv1d(_streaming_pad(self, cache, xp), self.kernel)
+            y = conv1d(_streaming_pad(self, cache, xp), kernel)
         elif self.causal:
-            y = conv1d(F.pad(xp, (K - 1, 0)), self.kernel)
+            y = conv1d(F.pad(xp, (K - 1, 0)), kernel)
         else:
             p = K // 2
-            y = conv1d(F.pad(xp, (p, p)), self.kernel)[:, :, :-1]
-        return _apply_mask(y.transpose(1, 2), self.mask)
+            y = conv1d(F.pad(xp, (p, p)), kernel)[:, :, :-1]
+        return _apply_mask(y.transpose(1, 2), mask)
 
 
 class PQMFSynthesis(nn.Module, Streaming):
@@ -169,15 +171,16 @@ class PQMFSynthesis(nn.Module, Streaming):
     def forward(self, xb: torch.Tensor, cache=None) -> torch.Tensor:
         B = xb.shape[0]
         M = self.n_band
-        K = self.kernel.shape[-1]
-        x = _apply_mask(xb, self.mask, self.parity).transpose(1, 2)
+        kernel, mask = self.kernel.to(xb.dtype), self.mask.to(xb.dtype)
+        K = kernel.shape[-1]
+        x = _apply_mask(xb, mask, self.parity).transpose(1, 2)
         if self.streaming:
-            y = conv1d(_streaming_pad(self, cache, x), self.kernel) * M
+            y = conv1d(_streaming_pad(self, cache, x), kernel) * M
         elif self.causal:
-            y = conv1d(F.pad(x, (K - 1, 0)), self.kernel) * M
+            y = conv1d(F.pad(x, (K - 1, 0)), kernel) * M
         else:
             pad = K // 2 + 1
-            y = conv1d(F.pad(x, (pad, pad)), self.kernel)[:, :, :-1] * M
+            y = conv1d(F.pad(x, (pad, pad)), kernel)[:, :, :-1] * M
         # (B, phase, T) -> phases in reverse order, interleaved in time
         wav = y.flip(1).transpose(1, 2).reshape(B, -1, 1)
         return wav if self.causal else wav[:, M:]

@@ -8,6 +8,8 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from ..utils.precision import at, promote
+
 
 def snake_beta(x: torch.Tensor, alpha: torch.Tensor,
                beta: torch.Tensor) -> torch.Tensor:
@@ -26,4 +28,7 @@ class SnakeBeta(nn.Module):
         self.beta = nn.Parameter(torch.ones(dim))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return snake_beta(x, self.alpha, self.beta)
+        # at the promotion of x's type and the parameters' (jnp's)
+        dtype = promote(x, self.alpha, self.beta)
+        return snake_beta(x.to(dtype), at(self.alpha, dtype),
+                          at(self.beta, dtype))

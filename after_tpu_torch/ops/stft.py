@@ -6,6 +6,15 @@ precision; the port takes the real FFT of the windowed frames
 (``torch.fft.rfft``, cuFFT on the card), the same transform in f32.  Windows,
 filterbanks and FIR taps are designed on the host with numpy and scipy, as
 in the JAX package, and cached per device.
+
+``stft(..., dft_dtype=torch.bfloat16)`` (the codec trainer's
+``stft_bf16_dft``) is the JAX package's bf16 DFT: the frames and the
+windowed DFT matrices rounded to bf16, their product summed in f32.  The
+JAX package computes it outside any kernel, as a matrix product with an
+f32 result; here the rounded operands are widened and multiplied in strict
+f32 (``torch.matmul``), where each product of two bf16 values is exact.
+Like the JAX package's, it covers n_fft up to 4096; a longer transform
+takes the FFT.
 """
 
 from __future__ import annotations
@@ -45,6 +54,22 @@ def _padded_window(win_length: int, n_fft: int) -> np.ndarray:
     return np.pad(window, (lpad, n_fft - win_length - lpad))
 
 
+# the longest transform the JAX package computes as DFT matrices (and so
+# at a reduced dft_dtype)
+_MATMUL_DFT_MAX_NFFT = 4096
+
+
+def _rdft_weights(win_length: int, n_fft: int) -> np.ndarray:
+    """(n_fft, 2 (n_fft // 2 + 1)) f32: [window * cos | window * sin] of
+    the real DFT, made as the JAX package makes its DFT operands."""
+    n = np.arange(n_fft, dtype=np.float64)[:, None]
+    k = np.arange(n_fft // 2 + 1, dtype=np.float64)[None, :]
+    ang = -2.0 * np.pi * n * k / n_fft
+    win = _padded_window(win_length, n_fft).astype(np.float32)[:, None]
+    return np.concatenate([win * np.cos(ang).astype(np.float32),
+                           win * np.sin(ang).astype(np.float32)], axis=1)
+
+
 def frame_signal(x: torch.Tensor, frame_length: int, hop: int
                  ) -> torch.Tensor:
     """(..., T) -> (..., n_frames, frame_length), n_frames = 1 + (T -
@@ -53,20 +78,29 @@ def frame_signal(x: torch.Tensor, frame_length: int, hop: int
 
 
 def stft(x: torch.Tensor, n_fft: int, hop: int,
-         win_length: Optional[int] = None, center: bool = True
-         ) -> torch.Tensor:
+         win_length: Optional[int] = None, center: bool = True,
+         dft_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """Complex STFT of (..., T) -> (..., n_frames, n_fft//2+1), Hann window.
 
     Matches torch.stft conventions (center=True reflect padding; window
-    zero-padded to n_fft when win_length < n_fft)."""
+    zero-padded to n_fft when win_length < n_fft).  ``dft_dtype`` rounds
+    the frames and the windowed DFT matrices to that type and sums their
+    product in f32 (n_fft up to 4096, as in the JAX package)."""
     win_length = win_length or n_fft
     if center:
         pad = n_fft // 2
         shape = x.shape
         x = F.pad(x.reshape(-1, 1, shape[-1]), (pad, pad), mode="reflect")
         x = x.reshape(shape[:-1] + (x.shape[-1],))
+    frames = frame_signal(x, n_fft, hop)
+    if dft_dtype is not None and n_fft <= _MATMUL_DFT_MAX_NFFT:
+        m = on_device(x.device, _rdft_weights, win_length, n_fft)
+        z = torch.matmul(frames.to(dft_dtype).float(),
+                         m.to(dft_dtype).float())
+        bins = n_fft // 2 + 1
+        return torch.complex(z[..., :bins], z[..., bins:])
     window = on_device(x.device, _padded_window, win_length, n_fft)
-    return torch.fft.rfft(frame_signal(x, n_fft, hop) * window, dim=-1)
+    return torch.fft.rfft(frames * window, dim=-1)
 
 
 def spectrogram(x: torch.Tensor, n_fft: int, hop: int,

@@ -287,13 +287,43 @@ Phases, each printed before the last line:
    artifact of phase 12's runs (``export --compute_dtype bfloat16``), its
    manifest's state_dtypes holding bfloat16, its size beside phase 13's
    f32 artifact's, loaded and played as 64 buffers at nb_steps 4 against
-   the live bf16 streamer over the same checkpoints within GRAPH_TOL.
+   the live bf16 streamer over the same checkpoints within GRAPH_TOL;
+17. bf16 training (``compute_dtype="bfloat16"``, f32 masters cast inside
+   each step): (a) phase 8's codec, discriminator, batch and schedule at
+   bf16 for BF16_TRAIN_STEPS steps of ``fit``, then BF16_DFT_STEPS more
+   with ``stft_bf16_dft``: metrics finite, no update skipped, the right
+   model moved, parameters and both optimizers' states f32; on the device
+   each step 32 bf16 forward launches (the encoder) and 32 f32 ones (the
+   decoder: the bottleneck's f32 noise promotes it, as in the JAX
+   trainer), each generator step 32 bf16 and 32 f32 dgrad and wgrad
+   launches, a discriminator step none; each kind's median, peak memory,
+   one profiled bf16 GAN generator step; (b) the bf16 backward kernels
+   (``snake_conv_dgrad_bf16``, ``snake_conv_wgrad_bf16``) at every shape
+   of the encoder at batch 8 against their plain bf16 version (within
+   BF16_ULPS bf16 ulps of each gradient's max), against float64 (within
+   BF16_GRAD_F64_RATIO x bf16 F.conv1d autograd's error), the same bits
+   twice and from a graph, timed from CUDA graphs per generator step
+   beside the plain version and bf16 F.conv1d's autograd backward
+   (cudnn.benchmark off and on), against the bound at 989 TFLOP/s or
+   3.35 TB/s; (c) a bf16 GAN generator and discriminator step card vs CPU
+   at phase 9's size and noise (BF16_TRAIN_CPU_TOL, set above the
+   reading); (d) phase 10's config and batches at bf16, DIFF_STEPS steps
+   as CUDA graphs and op by op under cuDNN's deterministic algorithms:
+   every kind, at most DIFF_MAX_GRAPHS captures, the same bits, masters,
+   EMA, statistics and optimizer states f32, medians, peak memory, one
+   profiled replayed phase-2 step; (e) ``train_autoencoder`` and ``train``
+   at bf16 from stores under build/cli16, 2 steps each, then a restart
+   for one more whose state is the saved one, f32 checkpoints, each
+   snake+conv launch of the restarts (the codec's steps, the diffusion
+   run's validation through the codec run at step 3) held to its plain
+   version of its type.
 
-Any failure exits non-zero.  The phases run in the order 1-13, 16, 15,
-14.  The card's name and power limit are printed again at the end.  The
-line before the last is the kernel table as JSON (the snake+conv kernel,
-its split sum, the backward's dgrad and wgrad kernels, the bf16
-instantiation and its split sum); each phase's seconds are printed as it
+Any failure exits non-zero.  The phases run in the order 1-13, 16, 17,
+15, 14.  The card's name and power limit are printed again at the end.
+The line before the last is the kernel table as JSON (the snake+conv
+kernel, its split sum, the backward's dgrad and wgrad kernels, the bf16
+instantiation and its split sum, the bf16 dgrad and wgrad); each phase's
+seconds are printed as it
 ends, and the seconds the background packaging was stopped for timed
 sections with phase 15; the last line is ``{"ok": true, "device":
 {...}}``.  Imports nothing of JAX or of after_tpu.
@@ -2240,28 +2270,37 @@ def wall_ms(steps):
 
 def snake_conv_check(label, worst, checked):
     """A forward hook for ``register_module_forward_hook`` that holds each
-    ``ConvBlock1d`` output (a launch of the kernel) to its plain version
-    on the same input: fails past KERNEL_TOL x max|y|, keeps the worst
-    ratio in ``worst[0]`` and counts the checks in ``checked[0]``."""
+    ``ConvBlock1d`` output (a launch of the kernel) to the plain version of
+    its type on the same input and parameters (inside a bf16 training
+    step's ``cast_call`` too): f32 within KERNEL_TOL x max|y|, bf16 within
+    BF16_ULPS bf16 ulps of max|y|; fails past it, keeps the worst ratio to
+    max|y| in ``worst[0]`` and counts the checks in ``checked[0]``."""
     import torch
     from after_tpu_torch.models.autoencoder import ConvBlock1d
-    from after_tpu_torch.ops.kernels.fused_conv import snake_conv_reference
+    from after_tpu_torch.ops.kernels.fused_conv import (snake_conv_reference,
+                                                        torch_weight)
+    from after_tpu_torch.utils.precision import at, promote
 
     @torch.no_grad()
     def check(mod, args, y):
         if not isinstance(mod, ConvBlock1d):
             return
         h = mod.gn(args[0]) if mod.gn is not None else args[0]
-        ref = snake_conv_reference(h.contiguous(), mod.act.alpha,
-                                   mod.act.beta, mod.conv.effective_weight(),
-                                   mod.conv.bias, mod.conv.dilation,
-                                   mod.conv.mode)
-        err = (y - ref).abs().max().item()
-        scale = ref.abs().max().item()
-        if not err <= KERNEL_TOL * scale:
-            fail(f"{label}: fused_snake_conv at {tuple(h.shape)} off its "
-                 f"plain version by {err} > {KERNEL_TOL} * {scale}")
-        worst[0] = max(worst[0], err / scale)
+        dtype = torch.promote_types(promote(h, mod.act.alpha),
+                                    mod.conv.weight_dtype)
+        w_k = mod.conv.kernel_weights(dtype)[0]
+        ref = snake_conv_reference(
+            h.contiguous().to(dtype), at(mod.act.alpha, dtype),
+            at(mod.act.beta, dtype), torch_weight(w_k, h.shape[2]),
+            at(mod.conv.bias, dtype), mod.conv.dilation, mod.conv.mode)
+        err = (y.float() - ref.float()).abs().max().item()
+        scale = ref.float().abs().max().item()
+        limit = (BF16_ULPS * bf16_ulp(scale) if dtype == torch.bfloat16
+                 else KERNEL_TOL * scale)
+        if not err <= limit:
+            fail(f"{label}: fused_snake_conv ({dtype}) at {tuple(h.shape)} "
+                 f"off its plain version by {err} > {limit}")
+        worst[0] = max(worst[0], err / max(scale, 1e-30))
         checked[0] += 1
     return check
 
@@ -4207,6 +4246,682 @@ def bf16_phase(cfg, pipe, requests, ref_outs, short, size32=None) -> list:
     return list(bf16_rows(per_transfer, per_buffer, launches16, sums16))
 
 
+# ---------------------------------------------------------------------------
+# phase 17: bf16 training
+# ---------------------------------------------------------------------------
+
+BF16_TRAIN_STEPS = 10         # phase 17's bf16 codec run of fit (phase 8's)
+BF16_DFT_STEPS = 3            # then on with stft_bf16_dft
+BF16_GRAD_F64_RATIO = 2.0     # a bf16 backward kernel's float64 error <= this
+                              # x that of bf16 F.conv1d's autograd backward
+# bf16 codec steps card vs CPU, 16384 samples: limits about 2x the first
+# reading (H100 80GB HBM3, 700 W: losses 6.266e-03 x max(|loss|, 0.01);
+# per model the worst gradient tensor x max(max|g|, 1e-3 x the model's
+# largest) and the median over tensors: codec 1.560 and 0.756, the
+# discriminator 0.816 and 0.0563).  The gradients part that far because a
+# bf16 rounding placed otherwise moves them by up to 2x a tensor's max at
+# these sizes (tests/test_torch_bf16_train_codec.py); the losses hold
+BF16_TRAIN_CPU_TOL = {"loss": 0.0125, "codec": (3.2, 1.5),
+                      "disc": (1.7, 0.12)}
+BF16_CLI_DIR = "build/cli16"  # phase 17's stores and runs
+DGRAD16_NAME = "snake_conv_dgrad_bf16"
+WGRAD16_NAME = "snake_conv_wgrad_bf16"
+
+
+def bf16_grad_f64(args, every):
+    """Float64 gradients of the bf16 backward's function (the activation
+    rounded to bf16 for the product, as the bf16 forward multiplies it)
+    on ``args`` = (g, x, alpha, beta, w_k, b, d, mode), each bf16."""
+    import torch
+    from after_tpu_torch.ops.kernels.fused_conv import _conv, torch_weight
+    from after_tpu_torch.ops.snake import snake_beta
+    g, *ins, d, mode = args
+    leaves = [t.double().requires_grad_() for t in ins]
+    x, alpha, beta, w_k, b = leaves
+    a = snake_beta(x, alpha, beta)
+    a = a + (a.to(torch.bfloat16).double() - a).detach()
+    y = _conv(a, torch_weight(w_k, x.shape[2]), b, d, mode)
+    return torch.autograd.grad(y, leaves, g.double())
+
+
+def check_gradients_bf16(path, batch: int):
+    """Phase 17(b): the bf16 backward kernels at every distinct shape of
+    ``path`` (the encoder of a bf16 training forward) at ``batch``: each of
+    the five gradients within BF16_ULPS bf16 ulps of its plain version's
+    max |g|; on F64_FRAMES frames the kernels' error against float64 (the
+    worst tensor's, over its max |g|) within BF16_GRAD_F64_RATIO x that of
+    bf16 F.conv1d's autograd backward of the bf16 snake + conv; the same
+    bits from two launches and from a CUDA graph replay; times from CUDA
+    graphs of dgrad and wgrad (each asked for its own gradients), their
+    plain versions' and bf16 F.conv1d's autograd backward for the same
+    gradients (cudnn.benchmark off and on), and the bound: the larger of
+    the work at 989 TFLOP/s (bf16 tensor cores) and the bytes (each bf16
+    input read once, each output written once) at 3.35 TB/s.  Returns
+    these summed over one generator step's launches."""
+    import torch
+    import torch.nn.functional as F
+    from after_tpu_torch.ops.conv import get_padding, weight_norm
+    from after_tpu_torch.ops.kernels.fused_conv import (
+        backward_plan, kernel_weight, snake_conv_backward,
+        snake_conv_backward_reference)
+    from after_tpu_torch.ops.snake import snake_beta
+
+    bf = torch.bfloat16
+    counts = Counter(block_shape(b, T) for b, T in path)
+    blocks = {block_shape(b, T): b for b, T in path}
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 17)
+    every = [True] * 5
+    want = {"dgrad": [True, True, True, False, True],
+            "wgrad": [False, False, False, True, False]}
+    tot, worst = Counter(), Counter()
+    log(f"bf16 gradients: the bf16 backward kernels at batch {batch} (k d C "
+        "O T mode: n, plan; worst |g - g_plain| in bf16 ulps of max|g_plain|"
+        " dgrad/wgrad; float64 errors kernels/bf16 F.conv1d; ms from CUDA "
+        "graphs: dgrad, wgrad, plain dgrad/wgrad, bf16 F.conv1d input/weight "
+        "(cudnn.benchmark on), bound dgrad/wgrad)")
+    for shape, block in sorted(blocks.items(), key=lambda kv: str(kv[0])):
+        k, d, C, O, T, mode = shape
+        n = counts[shape]
+        with torch.no_grad():
+            w = weight_norm(block.conv.weight, block.conv.g).to(bf)
+        x = torch.randn((batch, T, C), generator=gen, device="cuda").to(bf)
+        gy = torch.randn((batch, T, O), generator=gen, device="cuda").to(bf)
+        alpha, beta = (p.detach().to(bf) for p in (block.act.alpha,
+                                                   block.act.beta))
+        b = block.conv.bias.detach().to(bf)
+        w_k = kernel_weight(w)[0]
+        op_args = (gy, x, alpha, beta, w_k, b, d, mode)
+        got = snake_conv_backward(*op_args, every)
+        ref = snake_conv_backward_reference(*op_args, every)
+        ulps = {}
+        for i, (name, a, r) in enumerate(zip("x alpha beta w b".split(),
+                                             got, ref)):
+            scale = r.float().abs().max().item()
+            err = (a.float() - r.float()).abs().max().item()
+            u = err / bf16_ulp(scale) if scale else 0.0
+            if not u <= BF16_ULPS:
+                fail(f"bf16 snake_conv_backward {shape}: g{name} off its "
+                     f"plain version by {u:.2f} bf16 ulps of max |g| > "
+                     f"{BF16_ULPS}")
+            kind = "wgrad" if i == 3 else "dgrad"
+            ulps[kind] = max(ulps.get(kind, 0.0), u)
+            worst[kind] = max(worst[kind], u)
+            worst[kind + "_abs"] = max(worst[kind + "_abs"], err)
+        if got[3][:, :, C:].any():
+            fail(f"bf16 snake_conv_backward {shape}: gw's padded columns are "
+                 "not zero")
+        again = snake_conv_backward(*op_args, every)
+        graph = torch.cuda.CUDAGraph()
+        torch.cuda.synchronize()
+        with torch.cuda.graph(graph):
+            captured = snake_conv_backward(*op_args, every)
+        graph.replay()
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, c) for a, c in zip(got, again)):
+            fail(f"bf16 snake_conv_backward {shape}: two launches differ")
+        if not all(torch.equal(a, c) for a, c in zip(got, captured)):
+            fail(f"bf16 snake_conv_backward {shape}: a CUDA graph replay "
+                 "differs from the eager launch")
+        del graph, captured, again, got, ref
+        # against float64 on the first F64_FRAMES frames
+        f = max(1, F64_FRAMES // batch)
+        cut = (gy[:, :f].contiguous(), x[:, :f].contiguous(), alpha, beta,
+               w_k, b, d, mode)
+        r64 = bf16_grad_f64(cut, every)
+
+        def err64(ts):
+            return max(((t.double() - r).abs().max() / r.abs().max()).item()
+                       for t, r in zip(ts, r64) if r.abs().max() > 0)
+        left, right = get_padding(k, 1, d, mode)
+
+        def conv16(xx, al, be, ww, bb):
+            a = snake_beta(xx, al, be)
+            return F.conv1d(F.pad(a.transpose(1, 2), (left, right)), ww, bb,
+                            dilation=d).transpose(1, 2)
+        lib_in = [t.detach().clone().requires_grad_() for t in
+                  (cut[1], alpha, beta, w, b)]
+        lib = torch.autograd.grad(conv16(*lib_in), lib_in, cut[0])
+        lib = (lib[0], lib[1], lib[2], kernel_weight(lib[3])[0], lib[4])
+        e64 = (err64(snake_conv_backward(*cut, every)), err64(lib))
+        if not e64[0] <= BF16_GRAD_F64_RATIO * e64[1]:
+            fail(f"bf16 snake_conv_backward {shape}: error against float64 "
+                 f"{e64[0]:.3e} > {BF16_GRAD_F64_RATIO} x bf16 F.conv1d "
+                 f"autograd's {e64[1]:.3e}")
+        worst["f64"] = max(worst["f64"], e64[0])
+        worst["f64_conv1d"] = max(worst["f64_conv1d"], e64[1])
+
+        # times
+        t = {kind: cuda_ms(lambda: snake_conv_backward(*op_args, m), reps=5,
+                           warmup=1) for kind, m in want.items()}
+        t_plain = {kind: cuda_ms(
+            lambda: snake_conv_backward_reference(*op_args, m), reps=5,
+            warmup=1) for kind, m in want.items()}
+        a_pad = F.pad(snake_beta(x, alpha, beta).transpose(1, 2),
+                      (left, right))
+        gyt = gy.transpose(1, 2).contiguous()
+
+        def conv(a, wl, bl):
+            return F.conv1d(a, wl, bl, dilation=d)
+        lib_ms = {}
+        for bench in (False, True):
+            torch.backends.cudnn.benchmark = bench
+            lib_ms["dgrad", bench] = vjp_ms(conv, [a_pad, w, b], gyt,
+                                            wrt=[True, False, False])
+            lib_ms["wgrad", bench] = vjp_ms(conv, [a_pad, w, b], gyt,
+                                            wrt=[False, True, True])
+        torch.backends.cudnn.benchmark = False
+        flops = 2.0 * k * C * O * T * batch
+        nbytes = {"dgrad": 2.0 * (2 * batch * T * C + batch * T * O
+                                  + k * O * C + 4 * C + O),
+                  "wgrad": 2.0 * (batch * T * C + batch * T * O + 2 * C
+                                  + k * O * w_k.shape[2])}
+        bound = {kind: 1e3 * max(flops / PEAK_BF16_FLOPS,
+                                 nbytes[kind] / PEAK_BYTES) for kind in want}
+        for kind in want:
+            tot[f"{kind}_ms"] += n * t[kind]
+            tot[f"{kind}_plain_ms"] += n * t_plain[kind]
+            tot[f"{kind}_library_ms"] += n * lib_ms[kind, False]
+            tot[f"{kind}_library_benchmark_ms"] += n * lib_ms[kind, True]
+            tot[f"{kind}_bound_ms"] += n * bound[kind]
+            tot[f"{kind}_flops"] += n * flops
+            tot[f"{kind}_bytes"] += n * nbytes[kind]
+        tot["launches"] += n
+        plan = backward_plan(batch, T, C, O, k, d, bf)
+        log(f"  {k} {d} {C} {O} {T} {mode}: {n}, {'/'.join(map(str, plan))};"
+            f" {ulps['dgrad']:.2f}/{ulps['wgrad']:.2f}; {e64[0]:.2e}/"
+            f"{e64[1]:.2e}; {t['dgrad']:.4f}, {t['wgrad']:.4f}, "
+            f"{t_plain['dgrad']:.4f}/{t_plain['wgrad']:.4f}, "
+            f"{lib_ms['dgrad', False]:.4f}/{lib_ms['wgrad', False]:.4f} "
+            f"({lib_ms['dgrad', True]:.4f}/{lib_ms['wgrad', True]:.4f}), "
+            f"{bound['dgrad']:.4f}/{bound['wgrad']:.4f}")
+    for kind in want:
+        ops = tot[f"{kind}_flops"] / PEAK_BF16_FLOPS
+        tot[f"{kind}_bound_by"] = ("operations" if ops >= tot[f"{kind}_bytes"]
+                                   / PEAK_BYTES else "bytes")
+    tot.update({f"worst_{k}": v for k, v in worst.items()})
+    log(f"bf16 gradients: per generator step ({tot['launches']} launches of "
+        f"each bf16 kernel): dgrad {tot['dgrad_ms']:.3f} ms (plain "
+        f"{tot['dgrad_plain_ms']:.3f}, bf16 F.conv1d autograd input "
+        f"{tot['dgrad_library_ms']:.3f} / with cudnn.benchmark "
+        f"{tot['dgrad_library_benchmark_ms']:.3f}, bound "
+        f"{tot['dgrad_bound_ms']:.3f} by {tot['dgrad_bound_by']}; "
+        f"{2 * tot['dgrad_flops'] / 1e9:.1f} GFLOP), wgrad "
+        f"{tot['wgrad_ms']:.3f} ms (plain {tot['wgrad_plain_ms']:.3f}, bf16 "
+        f"F.conv1d autograd weight and bias {tot['wgrad_library_ms']:.3f} / "
+        f"{tot['wgrad_library_benchmark_ms']:.3f}, bound "
+        f"{tot['wgrad_bound_ms']:.3f} by {tot['wgrad_bound_by']}); worst "
+        f"{worst['dgrad']:.2f} / {worst['wgrad']:.2f} bf16 ulps (limit "
+        f"{BF16_ULPS}); against float64 kernels {worst['f64']:.3e}, bf16 "
+        f"F.conv1d {worst['f64_conv1d']:.3e}")
+    return tot
+
+
+def bf16_backward_row(kind: str, bwd, launches: int):
+    """A bf16 backward kernel's row of the kernel table: launches in phase
+    17's bf16 codec run (counted on the device), times per generator step
+    from CUDA graphs (the encoder's launches), its plain version's and bf16
+    F.conv1d's autograd backward for the same gradients."""
+    return {"name": DGRAD16_NAME if kind == "dgrad" else WGRAD16_NAME,
+            "route": "cuda",
+            "source": "after_tpu_torch/csrc/snake_conv_backward.cu",
+            "replaces": "after_tpu/ops/pallas/fused_conv.py:84",
+            "launches": launches,
+            "max_abs_err": bwd[f"worst_{kind}_abs"],
+            "max_err_ulps": bwd[f"worst_{kind}"],
+            "ms": bwd[f"{kind}_ms"], "plain_ms": bwd[f"{kind}_plain_ms"],
+            "bound_ms": bwd[f"{kind}_bound_ms"],
+            "bound_by": bwd[f"{kind}_bound_by"],
+            "library_ms": bwd[f"{kind}_library_ms"],
+            "library_benchmark_ms": bwd[f"{kind}_library_benchmark_ms"],
+            "unit": "bf16 generator step (the encoder's convs)",
+            "f64_err": bwd["worst_f64"],
+            "f64_err_conv1d": bwd["worst_f64_conv1d"]}
+
+
+def bf16_codec_training():
+    """Phase 17(a): the base codec trained at compute_dtype bfloat16; see
+    bf16_train_phase.  Returns the per-step device launch counts summed,
+    the encoder's path and the per-kind medians."""
+    import dataclasses
+
+    import torch
+    from after_tpu_torch.autoencoder import AutoencoderTrainer
+    from after_tpu_torch.config import (AETrainConfig, DiscriminatorConfig,
+                                        get_ae_config)
+    from after_tpu_torch.ops.kernels.fused_conv import (
+        backward_device_launches, device_launches, reset_device_launches)
+
+    bf = torch.bfloat16
+    ae = get_ae_config()
+    tc = AETrainConfig(warmup_steps=TRAIN_WARMUP, compute_dtype="bfloat16")
+    trainer = AutoencoderTrainer(ae, tc, DiscriminatorConfig(),
+                                 device="cuda", seed=SEED).init(SEED)
+    kinds = [trainer.step_kind(i)
+             for i in range(BF16_TRAIN_STEPS + BF16_DFT_STEPS)]
+    if kinds[:BF16_TRAIN_STEPS] != TRAIN_KINDS:
+        fail(f"fit's schedule {kinds} differs from {TRAIN_KINDS}")
+    enc, dec = codec_conv_blocks(trainer.codec, tc.num_signal)
+    gen = torch.Generator("cuda").manual_seed(SEED)
+    batches = [synthetic_audio(gen, tc.batch_size, tc.num_signal, ae.sr)
+               for _ in range(BF16_TRAIN_STEPS + BF16_DFT_STEPS + 1)]
+    records = []
+    snap = {"codec": flat_params(trainer.codec),
+            "disc": flat_params(trainer.disc)}
+
+    def callback(tr, metrics):
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - snap["t0"]
+        kind = kinds[tr.step - 1]
+        counts = {"fwd32": device_launches()[0],
+                  "fwd16": device_launches(dtype=bf)[0],
+                  "bwd32": backward_device_launches()[:2],
+                  "bwd16": backward_device_launches(dtype=bf)[:2]}
+        reset_device_launches()
+        values = {k: float(v) for k, v in metrics.items()}
+        codec, disc = flat_params(tr.codec), flat_params(tr.disc)
+        moved = (not torch.equal(codec, snap["codec"]),
+                 not torch.equal(disc, snap["disc"]))
+        records.append((kind, dt, counts, values, moved))
+        log(f"bf16 training: step {tr.step - 1} ({kind}"
+            f"{', bf16 DFT' if tr.tc.stft_bf16_dft else ''}): "
+            f"{dt * 1e3:.2f} ms, device launches {counts}, " +
+            ", ".join(f"{k} {v:.5g}" for k, v in values.items()))
+        snap.update(codec=codec, disc=disc)
+        torch.cuda.synchronize()
+        snap["t0"] = time.perf_counter()
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_device_launches()
+    torch.cuda.synchronize()
+    snap["t0"] = time.perf_counter()
+    trainer.fit(iter(batches[:BF16_TRAIN_STEPS]), max_steps=BF16_TRAIN_STEPS,
+                callback=callback)
+    peak = torch.cuda.max_memory_allocated()
+    # then on with the MR-STFT's DFTs in bf16
+    trainer.tc = dataclasses.replace(tc, stft_bf16_dft=True)
+    trainer.fit(iter(batches[BF16_TRAIN_STEPS:-1]),
+                max_steps=BF16_TRAIN_STEPS + BF16_DFT_STEPS,
+                callback=callback)
+    if len(records) != BF16_TRAIN_STEPS + BF16_DFT_STEPS:
+        fail(f"bf16 fit ran {len(records)} steps")
+    for i, (kind, _, c, values, moved) in enumerate(records):
+        # the encoder runs at bf16; the bottleneck's f32 noise makes the
+        # decoder run in f32 (as in the JAX trainer)
+        gen_step = kind != "disc"
+        want = {"fwd16": len(enc), "fwd32": len(dec),
+                "bwd16": (len(enc),) * 2 if gen_step else (0, 0),
+                "bwd32": (len(dec),) * 2 if gen_step else (0, 0)}
+        if {k: tuple(v) if isinstance(v, (list, tuple)) else v
+                for k, v in c.items()} != want:
+            fail(f"bf16 training step {i} ({kind}): device launches {c}, "
+                 f"expected {want}")
+        if not all(math.isfinite(v) for v in values.values()):
+            fail(f"bf16 training step {i}: non-finite metrics {values}")
+        if values.get("skipped_nonfinite", 0) != 0:
+            fail(f"bf16 training step {i}: a generator update was skipped")
+        if moved != ((True, False) if gen_step else (False, True)):
+            fail(f"bf16 training step {i} ({kind}): codec, discriminator "
+                 f"moved {moved}")
+    if trainer.disc_optimizer.total_notfinite:
+        fail("bf16 training: a discriminator update was skipped")
+    for name, model in (("codec", trainer.codec), ("disc", trainer.disc)):
+        if any(p.dtype != torch.float32 for p in model.parameters()):
+            fail(f"bf16 training: the {name}'s parameters are not all f32")
+    for opt in (trainer.optimizer, trainer.disc_optimizer):
+        if opt._mu.dtype != torch.float32 or opt._nu.dtype != torch.float32:
+            fail("bf16 training: an optimizer state is not f32")
+    medians = {}
+    for kind in ("warmup", "gan", "disc"):
+        times = [dt for k, dt, *_ in records[:BF16_TRAIN_STEPS]
+                 if k == kind][1:]
+        medians[kind] = sorted(times)[len(times) // 2] * 1e3
+    dft = [dt * 1e3 for _, dt, *_ in records[BF16_TRAIN_STEPS:]]
+    log(f"bf16 training: {BF16_TRAIN_STEPS} steps at bf16, then "
+        f"{BF16_DFT_STEPS} with the bf16 DFT; per step on the device "
+        f"{len(enc)} bf16 and {len(dec)} f32 forward launches, and in each "
+        f"generator step {len(enc)} bf16 and {len(dec)} f32 dgrad and wgrad "
+        f"launches; masters and optimizer states f32; median host ms "
+        f"without each kind's first step: warm-up generator "
+        f"{medians['warmup']:.2f}, GAN generator {medians['gan']:.2f}, "
+        f"discriminator {medians['disc']:.2f}; with the bf16 DFT "
+        f"{', '.join(f'{v:.2f}' for v in dft)}; peak device memory "
+        f"{peak / 2**30:.2f} GiB")
+    w_wave, w_reg = trainer._recon_weights(trainer.step)
+    trainer.tc = tc
+    _, busy, counts, _ = profile_call(
+        "one bf16 GAN generator step", lambda: trainer.gen_step(
+            batches[-1], True, w_wave, w_reg))
+    launches16 = [sum(c["bwd16"][j] for _, _, c, *_ in records)
+                  for j in range(2)]
+    del trainer, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    return enc, launches16, medians, peak
+
+
+def bf16_train_card_vs_cpu():
+    """Phase 17(c): one bf16 GAN generator step and one bf16 discriminator
+    step on the card and on the CPU, same weights, batch and noise."""
+    import numpy as np
+    import torch
+    from after_tpu_torch.autoencoder import AutoencoderTrainer
+    from after_tpu_torch.config import (AETrainConfig, DiscriminatorConfig,
+                                        get_ae_config)
+
+    ae = get_ae_config()
+    tc = AETrainConfig(warmup_steps=TRAIN_WARMUP, batch_size=1,
+                       num_signal=TRAIN_VS_CPU_SAMPLES,
+                       compute_dtype="bfloat16")
+    card = AutoencoderTrainer(ae, tc, DiscriminatorConfig(), device="cuda"
+                              ).init(SEED)
+    cpu = AutoencoderTrainer(ae, tc, DiscriminatorConfig(), device="cpu")
+    cpu.codec.load_state_dict(card.codec.state_dict())
+    cpu.disc.load_state_dict(card.disc.state_dict())
+    gen = torch.Generator("cuda").manual_seed(SEED + 4)
+    x = synthetic_audio(gen, 1, TRAIN_VS_CPU_SAMPLES, ae.sr).cpu().numpy()
+    noise = np.random.RandomState(SEED + 4).randn(
+        1, TRAIN_VS_CPU_SAMPLES // ae.ratio, ae.z_channels).astype(np.float32)
+    w_wave, w_reg = card._recon_weights(TRAIN_WARMUP + 1)
+
+    def run(tr):
+        gm, gg = tr.gen_grads(x, True, w_wave, w_reg, noise)
+        dm, dg = tr.disc_grads(x, noise)
+        return ({**{k: float(v) for k, v in gm.items()},
+                 **{"disc_" + k: float(v) for k, v in dm.items()}},
+                [g.cpu() for g in gg], [g.cpu() for g in dg])
+
+    a, b = run(card), run(cpu)
+    loss = max(abs(a[0][k] - v) / max(abs(v), 1e-2) for k, v in b[0].items())
+    grads = {}
+    for model, module, ga, gb in (("codec", card.codec, a[1], b[1]),
+                                  ("disc", card.disc, a[2], b[2])):
+        floor = 1e-3 * max(g.abs().max().item() for g in gb)
+        ratios = sorted(
+            ((p - q).abs().max().item() / max(q.abs().max().item(), floor),
+             n) for (n, _), p, q in zip(module.named_parameters(), ga, gb))
+        grads[model] = (*ratios[-1], ratios[len(ratios) // 2][0])
+    tol = BF16_TRAIN_CPU_TOL
+    log(f"bf16 training card vs CPU: {TRAIN_VS_CPU_SAMPLES} samples, a bf16 "
+        f"GAN generator and discriminator step, fixed noise: losses within "
+        f"{loss:.3e} x max(|loss|, 0.01) (limit {tol['loss']}); " +
+        ", ".join(f"{k} {v:.5g}" for k, v in b[0].items()))
+    ok = loss <= tol["loss"]
+    for model in ("codec", "disc"):
+        worst, name, median = grads[model]
+        log(f"bf16 training card vs CPU, {model} gradients (x max(max|g|, "
+            f"1e-3 x the model's largest)): worst {worst:.3e} ({name}; limit "
+            f"{tol[model][0]}), median {median:.3e} (limit {tol[model][1]})")
+        ok = ok and worst <= tol[model][0] and median <= tol[model][1]
+    if not ok:
+        fail("bf16 training: card and CPU disagree")
+    del card, cpu
+    gc.collect()
+    torch.cuda.empty_cache()
+    return loss, grads
+
+
+def bf16_diffusion_training():
+    """Phase 17(d): phase 10's config and batch at train.compute_dtype
+    bfloat16, DIFF_STEPS steps of fit as CUDA graphs and op by op under
+    cuDNN's deterministic algorithms; see bf16_train_phase."""
+    import torch
+    from after_tpu_torch.dataset import DeviceLatentBank
+    from after_tpu_torch.diffusion.trainer import DiffusionTrainer
+
+    cfg = diffusion_config(**{"train.compute_dtype": "bfloat16"})
+    items = [{"z": z} for z in synthetic_latents(
+        DIFF_RECORDS, cfg.denoiser.n_channels, DIFF_RECORD_FRAMES, SEED)]
+    bank = DeviceLatentBank(items, DIFF_FRAMES, device="cuda")
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+
+    def run(eager):
+        tr = DiffusionTrainer(cfg, device="cuda", seed=SEED,
+                              eager=eager).init(SEED)
+        records = []
+        snap = {}
+
+        def callback(t, metrics):
+            torch.cuda.synchronize()
+            step = t.step - 1
+            kind = t.step_kind(step)
+            records.append((kind, time.perf_counter() - snap["t0"],
+                            {k: v.clone() for k, v in metrics.items()},
+                            (kind,) if kind == "classifier"
+                            else (kind, *t.step_flags(step))))
+            snap["t0"] = time.perf_counter()
+        torch.cuda.synchronize()
+        snap["t0"] = time.perf_counter()
+        tr.fit(bank.batches(DIFF_BATCH, seed=SEED), max_steps=DIFF_STEPS,
+               callback=callback)
+        return tr, records
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    graphed, records = run(False)
+    peak = torch.cuda.max_memory_allocated()
+    eager, eager_records = run(True)
+    torch.backends.cudnn.deterministic = deterministic
+    kinds = [k for k, *_ in records]
+    if kinds != DIFF_KINDS:
+        fail(f"bf16 diffusion: the steps ran {kinds}, expected {DIFF_KINDS}")
+    if not 0 < graphed.graphs.captures <= DIFF_MAX_GRAPHS:
+        fail(f"bf16 diffusion: {graphed.graphs.captures} captures")
+    for (k, _, m, _), (_, _, e, _) in zip(records, eager_records):
+        if not all(torch.isfinite(v).all() for v in m.values()):
+            fail(f"bf16 diffusion: non-finite metrics in a {k} step")
+        if int(m.get("skipped_nonfinite", 0)) != 0:
+            fail(f"bf16 diffusion: a {k} update was skipped")
+        if not all(torch.equal(m[n], e[n]) for n in m):
+            fail(f"bf16 diffusion: a {k} step's metrics as a CUDA graph "
+                 "and op by op differ under deterministic cuDNN")
+    if not all(torch.equal(a, b) for a, b in zip(
+            graphed.rf.state_dict().values(), eager.rf.state_dict().values())):
+        fail("bf16 diffusion: parameters or statistics as CUDA graphs and "
+             "op by op differ under deterministic cuDNN")
+    if any(p.dtype != torch.float32 for p in graphed.rf.parameters()) or any(
+            e.dtype != torch.float32 for e in graphed.ema) or any(
+            b.dtype != torch.float32 for b in graphed.rf.buffers()
+            if b.is_floating_point()):
+        fail("bf16 diffusion: a master, the EMA or a statistic is not f32")
+    for opt in (graphed.optimizer, graphed.cls_optimizer):
+        if opt._mu.dtype != torch.float32:
+            fail("bf16 diffusion: an optimizer state is not f32")
+    medians = {}
+    for label, recs in (("graph", records), ("eager", eager_records)):
+        seen, times = set(), {}
+        for k, dt, _, sig in recs:
+            if sig in seen:        # not the first step of its signature
+                times.setdefault(k, []).append(dt * 1e3)
+            seen.add(sig)
+        for kind in ("phase1", "diffusion", "cycle", "classifier"):
+            t = sorted(times.get(kind, []))
+            medians[kind, label] = t[len(t) // 2] if t else None
+    # a kind whose every step above was its signature's first (the cycle
+    # steps): three more steps of its last signature, replayed and op by op
+    extra = next(iter(bank.batches(DIFF_BATCH, seed=SEED + 2)))
+    captures = graphed.graphs.captures
+    for kind in ("phase1", "diffusion", "cycle", "classifier"):
+        if medians[kind, "graph"] is not None:
+            continue
+        last = max(i for i, k in enumerate(DIFF_KINDS) if k == kind)
+        for label, t in (("graph", graphed), ("eager", eager)):
+            def one(t=t):
+                if kind == "classifier":
+                    return t._classifier(extra)
+                return t._diffusion(extra, t.step_flags(last),
+                                    t.schedule_weights(last))
+            times = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                one()
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+            medians[kind, label] = sorted(times)[1]
+    if graphed.graphs.captures != captures:
+        fail("bf16 diffusion: a step of a captured signature was captured "
+             "again")
+    log(f"bf16 diffusion: {DIFF_STEPS} steps of every kind at batch "
+        f"{DIFF_BATCH} as CUDA graphs ({graphed.graphs.captures} captures) "
+        f"and op by op, the same bits under deterministic cuDNN; masters, "
+        f"EMA, statistics and optimizer states f32; median host ms without "
+        f"each signature's first step (graph / op by op; a kind without "
+        f"such a step, of 3 more of its last signature): " + ", ".join(
+            f"{k} {fmt_ms(medians[k, 'graph'])} / "
+            f"{fmt_ms(medians[k, 'eager'])}" for k in (
+                "phase1", "diffusion", "cycle", "classifier"))
+        + f"; peak device memory {peak / 2**30:.2f} GiB")
+    step = DIFF_KINDS.index("diffusion")
+    batch = next(iter(bank.batches(DIFF_BATCH, seed=SEED + 1)))
+    flags, weights = graphed.step_flags(step), graphed.schedule_weights(step)
+    graphed._diffusion(batch, flags, weights)
+    captures = graphed.graphs.captures
+    profile_call("one replayed bf16 phase-2 diffusion step",
+                 lambda: graphed._diffusion(batch, flags, weights))
+    if graphed.graphs.captures != captures:
+        fail("bf16 diffusion: the profiled step was captured again")
+    del graphed, eager, bank
+    gc.collect()
+    torch.cuda.empty_cache()
+    return medians, peak
+
+
+def bf16_cli():
+    """Phase 17(e): train_autoencoder and train at bf16 from the command
+    line at full width, 2 steps each and a restart for one more (the
+    diffusion run's validates through the codec run), every kernel launch
+    of the restarts held to its plain version."""
+    import os
+    import shutil
+
+    import numpy as np
+    import torch
+    from after_tpu_torch.autoencoder import AutoencoderTrainer
+    from after_tpu_torch.dataset import AudioExample, RecordWriter
+    from after_tpu_torch.diffusion.trainer import DiffusionTrainer
+    from after_tpu_torch.ops.kernels.fused_conv import (
+        device_launches, fused_snake_conv, reset_device_launches)
+    from after_tpu_torch.utils.checkpoint import restore_checkpoint
+    from torch.nn.modules.module import register_module_forward_hook
+
+    sys.modules["torch.utils.tensorboard"] = None
+    shutil.rmtree(BF16_CLI_DIR, ignore_errors=True)
+    wave_db = os.path.join(BF16_CLI_DIR, "wavedb")
+    z_db = os.path.join(BF16_CLI_DIR, "zdb")
+    runs = os.path.join(BF16_CLI_DIR, "runs")
+    gen = torch.Generator("cuda").manual_seed(SEED + 17)
+    waves = synthetic_audio(gen, 8, CLI_RECORD_SAMPLES, 44100)[..., 0]
+    with RecordWriter(wave_db) as w:
+        for i, x in enumerate(waves.cpu().numpy()):
+            e = AudioExample()
+            e.put_array("waveform", x, dtype=np.int16, sampling_rate=44100)
+            w.put(f"{i:08d}", e.serialize())
+    with RecordWriter(z_db) as w:
+        for i, z in enumerate(synthetic_latents(8, 64, 512, SEED + 17)):
+            e = AudioExample()
+            e.put_array("z", z)
+            w.put(f"{i:08d}", e.serialize())
+    out = {}
+    for label, name, trainer_cls, args in (
+            ("train_autoencoder", "ae", AutoencoderTrainer, [
+                "train_autoencoder", "--name", "ae", "--db_path", wave_db,
+                "--out_path", runs, "--batch_size", "8", "--num_signal",
+                "131072", "--override", "train.warmup_steps=1",
+                "--override", "train.steps_save=2",
+                "--override", "train.steps_valid=100",
+                "--override", "train.compute_dtype=bfloat16"]),
+            ("train", "diff", DiffusionTrainer, [
+                "train", "--name", "diff", "--db_path", z_db, "--out_path",
+                runs, "--config", "base", "--config", "cycle",
+                "--batch_size", str(DIFF_BATCH), "--compute_dtype",
+                "bfloat16", "--emb_model_path", os.path.join(runs, "ae"),
+                "--override", f"train.n_signal={DIFF_FRAMES}",
+                "--override", "train.steps_save=2",
+                "--override", "train.steps_valid=3"])):
+        gc.collect()
+        torch.cuda.empty_cache()
+        rc, text, steps, _ = cli_run(args + ["--max_steps", "2"],
+                                     trainer_cls)
+        run = os.path.join(runs, name)
+        if rc != 0 or len(steps) != 2:
+            fail(f"{label} at bf16: exit code {rc}, {len(steps)} steps")
+        saved = restore_checkpoint(run, 2)
+        worst, checked = [0.0], [0]
+        hook = register_module_forward_hook(
+            snake_conv_check(f"{label} --restart at bf16", worst, checked))
+        fused_snake_conv.launches = 0
+        reset_device_launches()
+        try:
+            rc, text, steps, loaded = cli_run(
+                args + ["--max_steps", "3", "--restart", "0"], trainer_cls)
+        finally:
+            hook.remove()
+        launches = (fused_snake_conv.launches,
+                    device_launches()[0] + device_launches(
+                        dtype=torch.bfloat16)[0])
+        if rc != 0 or len(steps) != 1 or loaded is None or not trees_equal(
+                loaded, saved):
+            fail(f"{label} --restart at bf16 did not resume at step 2 with "
+                 "the saved state")
+        if launches[0] == 0 or checked[0] != launches[0]:
+            fail(f"{label} --restart at bf16: {launches} kernel launches, "
+                 f"{checked[0]} of them checked")
+        floats = [v for v in _flat_tensors(restore_checkpoint(run, 3))
+                  if v.is_floating_point()]
+        if not floats or any(v.dtype != torch.float32 for v in floats):
+            fail(f"{label} at bf16: the checkpoint is not f32")
+        out[label] = (step_medians(steps), launches, worst[0])
+        log(f"command line at bf16: {label}, 2 steps, a checkpoint, then a "
+            f"restart at 2 for one more (weights, optimizer states and the "
+            f"step as saved, f32 checkpoints); the restart's "
+            f"{launches[0]} snake+conv launches ({checked[0]} held to their "
+            f"plain versions, worst {worst[0]:.3e} of max |y|)")
+    return out
+
+
+def _flat_tensors(tree):
+    import torch
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _flat_tensors(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _flat_tensors(v)
+    elif isinstance(tree, torch.Tensor):
+        yield tree
+
+
+def bf16_train_phase(row) -> list:
+    """Phase 17: bf16 training (see the module docstring).  Returns the
+    kernel table's rows of the bf16 backward kernels."""
+    import torch
+    enc, launches16, medians, peak = bf16_codec_training()
+    phase_time("phase 17a (bf16 codec training)")
+    bwd = check_gradients_bf16(enc, 8)
+    phase_time("phase 17b (bf16 backward kernels)")
+    loss, grads = bf16_train_card_vs_cpu()
+    phase_time("phase 17c (bf16 training card vs CPU)")
+    diff_medians, diff_peak = bf16_diffusion_training()
+    phase_time("phase 17d (bf16 diffusion training)")
+    cli = bf16_cli()
+    phase_time("phase 17e (bf16 commands)")
+    row["bf16_training"] = {
+        "codec_step_ms_median": medians,
+        "codec_peak_memory_gib": peak / 2**30,
+        "card_vs_cpu_loss": loss,
+        "card_vs_cpu_grad": {m: g[0] for m, g in grads.items()},
+        "diffusion_step_ms_median": {f"{k}/{v}": ms for (k, v), ms in
+                                     diff_medians.items()},
+        "diffusion_peak_memory_gib": diff_peak / 2**30}
+    torch.cuda.empty_cache()
+    return [bf16_backward_row(kind, bwd, n)
+            for kind, n in zip(("dgrad", "wgrad"), launches16)]
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -4711,6 +5426,12 @@ def main() -> None:
                         row["artifact_bytes"]["artifact"])
 
     phase_time("phase 16 (bf16 serving)")
+
+    # 17. bf16 training: the codec (the bf16 backward kernels), card vs
+    # CPU, the diffusion model, and both commands
+    rows16 += bf16_train_phase(row)
+
+    phase_time("phase 17 (bf16 training)")
 
     # 15. the native streaming host on phase 13's artifacts, their
     # packages done

@@ -269,12 +269,6 @@ def test_load_codec_config(tmp_path):
 def test_trainer_refuses_what_is_not_ported():
     ae, tc, dc = _configs(port_config)
     with pytest.raises(NotImplementedError):
-        AutoencoderTrainer(ae, dataclasses.replace(
-            tc, compute_dtype="bfloat16"), dc, device="cpu")
-    with pytest.raises(NotImplementedError):
-        AutoencoderTrainer(ae, dataclasses.replace(tc, stft_bf16_dft=True),
-                           dc, device="cpu")
-    with pytest.raises(NotImplementedError):
         AutoencoderTrainer(ae, tc, dataclasses.replace(dc, kind="descript"),
                            device="cpu")
     with pytest.raises(NotImplementedError):

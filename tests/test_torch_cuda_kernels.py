@@ -12,8 +12,10 @@ registered op's gradients (the backward's dgrad and wgrad kernels, 3xTF32
 too) are within 1e-4 * max |g| of plain autograd's for each input.  Against
 a float64 plain version the kernel's error may be at most 4x that of
 strict-f32 F.conv1d.  The kernel's bf16 instantiation is within 2 bf16
-ulps of max |y| of its plain bf16 version.  The streamed waveform on the
-card is within 1e-4 * max |y| of the CPU's.
+ulps of max |y| of its plain bf16 version, and so is each gradient of the
+backward's bf16 instantiations (dgrad, wgrad) of its plain bf16 version's
+max |g|.  The streamed waveform on the card is within 1e-4 * max |y| of
+the CPU's.
 """
 
 import numpy as np
@@ -488,3 +490,83 @@ def test_backward_wrapper_refuses_what_the_kernels_do_not_take(cuda):
                             1, "causal", every)
     with pytest.raises(ValueError):
         snake_conv_backward(g, x, alpha, beta, w_k, b, 100, "causal", every)
+
+
+def _bf16_ulp(v: float) -> float:
+    """The spacing of bf16 values at |v| (8 significant bits)."""
+    return 2.0 ** (np.floor(np.log2(v)) - 7)
+
+
+BF16_BACKWARD_SHAPES = [
+    (8, 8192, 16, 64, 3, 1, "centered"), (8, 8192, 64, 64, 3, 9, "centered"),
+    (8, 1024, 256, 256, 1, 1, "centered"), (2, 1000, 20, 24, 3, 9, "causal"),
+    (1, 77, 40, 36, 1, 1, "centered")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,C,O,k,d,mode", BF16_BACKWARD_SHAPES)
+def test_bf16_backward_kernels_match_plain_version(cuda, B, T, C, O, k, d,
+                                                   mode):
+    """The bf16 dgrad and wgrad against the plain bf16 backward (f32 math
+    on the widened inputs, each gradient rounded once) at training shapes
+    of the encoder (k = 1 and 3, d up to 9) and ragged ones (T, C and O not
+    multiples of the tiles, C and O without 16-byte rows): each of the five
+    gradients within 2 bf16 ulps of its max |g|; the launches counted on
+    the device apart from the f32 kernels'."""
+    from after_tpu_torch.ops.kernels.fused_conv import (
+        backward_device_launches, snake_conv_backward,
+        snake_conv_backward_reference)
+
+    x, alpha, beta, w, b = (t.to(torch.bfloat16) for t in _inputs(
+        13, B, T, C, O, k, cuda))
+    g = torch.randn((B, T, O), device=cuda, generator=torch.Generator(
+        cuda).manual_seed(2)).to(torch.bfloat16)
+    args = (g, x, alpha, beta, kernel_weight(w)[0], b, d, mode, [True] * 5)
+    reset_device_launches()
+    ours = snake_conv_backward(*args)
+    assert backward_device_launches(dtype=torch.bfloat16)[:2] == (1, 1)
+    assert backward_device_launches()[:2] == (0, 0)
+    ref = snake_conv_backward_reference(*args)
+    for name, a, r in zip("x alpha beta w b".split(), ours, ref):
+        assert a.dtype == torch.bfloat16, name
+        scale = r.float().abs().max().item()
+        err = (a.float() - r.float()).abs().max().item()
+        assert err <= 2 * _bf16_ulp(scale), (name, err, scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,C,O,k,d,mode", BF16_BACKWARD_SHAPES[1::2])
+def test_bf16_backward_kernels_give_the_same_bits_eager_and_in_a_graph(
+        cuda, B, T, C, O, k, d, mode):
+    from after_tpu_torch.ops.kernels.fused_conv import snake_conv_backward
+
+    x, alpha, beta, w, b = (t.to(torch.bfloat16) for t in _inputs(
+        14, B, T, C, O, k, cuda))
+    g = torch.randn((B, T, O), device=cuda).to(torch.bfloat16)
+    args = (g, x, alpha, beta, kernel_weight(w)[0], b, d, mode, [True] * 5)
+    first = snake_conv_backward(*args)
+    again = snake_conv_backward(*args)
+    graph = torch.cuda.CUDAGraph()
+    torch.cuda.synchronize()
+    with torch.cuda.graph(graph):
+        captured = snake_conv_backward(*args)
+    graph.replay()
+    torch.cuda.synchronize()
+    for a, b2, c in zip(first, again, captured):
+        assert torch.equal(a, b2) and torch.equal(a, c)
+
+
+@pytest.mark.cuda
+def test_bf16_backward_refuses_an_f32_tensor_in_a_bf16_call(cuda):
+    from after_tpu_torch.ops.kernels.fused_conv import snake_conv_backward
+
+    x, alpha, beta, w, b = (t.to(torch.bfloat16) for t in _inputs(
+        15, 1, 64, 16, 24, 3, cuda))
+    g = torch.randn((1, 64, 24), device=cuda)
+    w_k = kernel_weight(w)[0]
+    every = [True] * 5
+    with pytest.raises(TypeError):
+        snake_conv_backward(g, x, alpha, beta, w_k, b, 1, "causal", every)
+    with pytest.raises(TypeError):
+        snake_conv_backward(g.to(torch.bfloat16), x, alpha.float(), beta,
+                            w_k, b, 1, "causal", every)

@@ -315,7 +315,7 @@ def test_filter_partial_load_matches_jax():
 
 
 @pytest.mark.parametrize("override", [
-    {"diffusion_type": "edm"}, {"train.compute_dtype": "bfloat16"},
+    {"diffusion_type": "edm"},
     {"encoder_time.vae_regularisation": True},
     {"encoder.regularisation": "vae"}])
 def test_what_is_not_ported_raises(override):
