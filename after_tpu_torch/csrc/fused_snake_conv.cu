@@ -64,17 +64,18 @@
 //    blocks run in, so every launch of a shape, eager or replayed from a
 //    CUDA graph, gives the same bits.
 //
-// The bf16 instantiation (snake_conv_bf16, the same source and plan): x,
-// alpha, beta, the weight and the bias are bf16, and the weight is one
+// The bf16 kernel (snake_conv_bf16) is a design of its own for bf16, in
+// snake_conv_bf16.cuh (the main loop it shares with the backward's dgrad):
+// x, alpha, beta, the weight and the bias are bf16, and the weight is one
 // (k, O, Cw) array, Cw a multiple of 8 (TMA rows of 16 bytes), with no low
-// half.  The snake runs in f32 registers from the widened inputs and its
-// value is rounded to bf16 once; each 16-channel step of each tap is one
-// wgmma m64nBNk16 .f32.bf16.bf16, A from registers (the window's columns
-// stored so that a thread's four values of a fragment row are side by
-// side), B from the swizzled TMA tile (rows of 32, 64 or 128 bytes: BK =
-// 16, 32 or 64).  The sums stay in f32 and take the bias in f32; the
-// output is rounded to bf16 once.  A split channel sum keeps its f32
-// partial slabs, which sum_splits_bf16 adds in split order before the one
+// half.  A producer warp keeps TMA loads of 64-channel stages (weight tiles
+// and the input window) in flight in a ring of slots, seven warps activate
+// each window in place (the snake in f32, rounded to bf16 once), and the
+// consumer warpgroups run one bf16 wgmma m64nNk16 a 16-channel step, A
+// from registers by ldmatrix, B from the swizzled tiles; blocks are
+// persistent over the output tiles.  The sums stay in f32 and take the bias in f32; the output
+// is rounded to bf16 once.  A split channel sum keeps its f32 partial
+// slabs, which sum_splits_bf16 adds in split order before the one
 // rounding: the output has the same bits from launch to launch.
 //
 // Every shape runs these kernels: ragged T, C and O are masked and any B
@@ -90,6 +91,8 @@
 
 #include <type_traits>
 
+#include "snake_conv_bf16.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;   // two warpgroups
@@ -98,8 +101,7 @@ constexpr int kSMs = 132;       // H100 SXM
 constexpr int kMaxSmem = 232448;          // per block, opt-in
 constexpr int kRing = 3;                  // stages in flight
 
-// x, alpha, beta, bias and y are of the instance's element type (float or
-// __nv_bfloat16); the partial sums are f32 in both
+// the f32 kernel's parameters (the bf16 kernel's: snake16::Params)
 struct Params {
   const void* x;
   const void* alpha;
@@ -122,23 +124,9 @@ __host__ __device__ constexpr int act_stride(int bk) {
   return bk % 16 == 0 ? bk + 8 : bk;
 }
 
-// the same for the bf16 window, in bf16 values: 16 or 48 mod 64, so that
-// the 8-byte loads of a fragment's rows g = 0..3 start 32 bytes apart mod 128
-__host__ __device__ constexpr int act_stride_bf16(int bk) {
-  return bk % 32 == 0 ? bk + 16 : bk;
-}
-
 // column of channel cc inside its group of 8: (cc, cc + 4) side by side
 __device__ __forceinline__ int act_col(int cc) {
   return (cc & ~7) + ((cc & 3) << 1) + ((cc >> 2) & 1);
-}
-
-// column of channel cc inside its group of 16 in the bf16 window: the four
-// values of a bf16 k16 fragment row that one thread holds, (2t, 2t + 1,
-// 2t + 8, 2t + 9), side by side at 4t
-__device__ __forceinline__ int act_col_bf16(int cc) {
-  return (cc & ~15) + (((cc >> 1) & 3) << 2) + (((cc >> 3) & 1) << 1) +
-         (cc & 1);
 }
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -362,160 +350,32 @@ __device__ __forceinline__ void wgmma_tf32(float (&d)[BN / 2],
   else wgmma_n256(d, a, desc_b);
 }
 
-// wgmma.mma_async m64nNk16 .f32.bf16.bf16, A from registers (4 registers of
-// two bf16 each), B K-major from shared memory (trans-b 0), d += A * B
-
-__device__ __forceinline__ void wgmma_bf16_n64(float (&d)[32],
-                                          const uint32_t (&a)[4],
-                                          uint64_t desc_b) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
-      " %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23,"
-      " %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
-        "r"(1));
+// Shared memory of one instance, in bytes: the ring of weight tiles (hi and
+// lo) and raw windows (with the chunk's alpha and beta as two more rows),
+// the double-buffered activated window (hi and lo), the barriers.
+__host__ __device__ constexpr int weight_bytes(int bn, int bk, int kt) {
+  return 4 * kt * bk * bn;
 }
 
-__device__ __forceinline__ void wgmma_bf16_n128(float (&d)[64],
-                                          const uint32_t (&a)[4],
-                                          uint64_t desc_b) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
-      " %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23,"
-      " %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35,"
-      " %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
-      " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59,"
-      " %60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
-        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
-        "r"(1));
-}
-
-__device__ __forceinline__ void wgmma_bf16_n256(float (&d)[128],
-                                          const uint32_t (&a)[4],
-                                          uint64_t desc_b) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %133, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
-      " %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23,"
-      " %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35,"
-      " %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
-      " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59,"
-      " %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71,"
-      " %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83,"
-      " %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95,"
-      " %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107,"
-      " %108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119,"
-      " %120, %121, %122, %123, %124, %125, %126, %127}, "
-      "{%128, %129, %130, %131}, %132, p, 1, 1, 0;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
-        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
-        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
-        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
-        "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
-        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
-        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
-        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]),
-        "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
-        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]),
-        "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
-        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
-        "+f"(d[126]), "+f"(d[127])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
-        "r"(1));
-}
-
-template <int BN>
-__device__ __forceinline__ void wgmma_bf16(float (&d)[BN / 2],
-                                           const uint32_t (&a)[4],
-                                           uint64_t desc_b) {
-  if constexpr (BN == 64) wgmma_bf16_n64(d, a, desc_b);
-  else if constexpr (BN == 128) wgmma_bf16_n128(d, a, desc_b);
-  else wgmma_bf16_n256(d, a, desc_b);
-}
-
-// Shared memory of one instance, in bytes: the ring of weight tiles (f32:
-// hi and lo; bf16: one) and raw windows (with the chunk's alpha and beta as
-// two more rows), the double-buffered activated window (f32: hi and lo), the
-// barriers.
-__host__ __device__ constexpr int weight_bytes(int bn, int bk, int kt,
-                                               int elem = 4) {
-  return elem * kt * bk * bn;
-}
-
-size_t smem_bytes(int bn, int bk, int kt, int win, bool bf16 = false) {
-  if (bf16)
-    return 1024 + (size_t)kRing * weight_bytes(bn, bk, kt, 2) +
-           (size_t)kRing * 2 * (win + 2) * bk +
-           (size_t)2 * 2 * win * act_stride_bf16(bk) +
-           kRing * sizeof(uint64_t);
+size_t smem_bytes(int bn, int bk, int kt, int win) {
   return 1024 +                                    // alignment
          (size_t)kRing * 2 * weight_bytes(bn, bk, kt) +
          (size_t)kRing * 4 * (win + 2) * bk +
          (size_t)4 * 4 * win * act_stride(bk) + kRing * sizeof(uint64_t);
 }
 
-__device__ __forceinline__ float widen(float v) { return v; }
-__device__ __forceinline__ float widen(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
 // One block: 128 frames x BN output channels.  A stage is BK channels x KT
 // taps; the stages of this block's share of the channel sum run in order.
-// T is float (3xTF32, weight tiles hi and lo) or __nv_bfloat16 (one bf16
-// product, one weight tile: w_lo is not read).
-template <typename T, int BN, int BK, int KT>
+template <int BN, int BK, int KT>
 __device__ __forceinline__ void snake_conv_block(const CUtensorMap* w_hi,
                                                  const CUtensorMap* w_lo,
                                                  const Params& p) {
-  constexpr bool kBf = std::is_same<T, __nv_bfloat16>::value;
-  constexpr int kq = BK * (int)sizeof(T) / 16;   // 16-byte pieces per row
-  constexpr int AS = kBf ? act_stride_bf16(BK) : act_stride(BK);
-  constexpr int WB = weight_bytes(BN, BK, KT, sizeof(T));
-  constexpr int WE = WB / (int)sizeof(T);    // elements of one ring slot
+  constexpr int kq = BK / 4;                 // 16-byte pieces per row
+  constexpr int AS = act_stride(BK);
+  constexpr int WB = weight_bytes(BN, BK, KT);
+  constexpr int WE = WB / 4;                 // elements of one ring slot
   constexpr int TAP = BN * BK;               // elements of one tap's tile
-  constexpr int KS = BK / (kBf ? 16 : 8);    // MMA steps per tap
+  constexpr int KS = BK / 8;                 // MMA steps per tap
   constexpr int STEPS = KT * KS;
   static_assert(kThreads % BK == 0, "a thread keeps its channel");
 
@@ -525,15 +385,13 @@ __device__ __forceinline__ void snake_conv_block(const CUtensorMap* w_hi,
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
   const int xsz = (p.win + 2) * BK;           // window, alpha, beta
   const int asz = p.win * AS;
-  T* const whi = reinterpret_cast<T*>(smem);                   // [ring][WE]
-  T* const wlo = whi + (kBf ? 0 : kRing * WE);                 // [ring][WE]
-  T* const xraw = wlo + kRing * WE;                            // [ring][xsz]
-  // f32: [2][hi, lo] windows of floats; bf16: [2] windows of bf16
-  T* const act = xraw + kRing * xsz;
-  uint64_t* const full =
-      reinterpret_cast<uint64_t*>(act + (kBf ? 2 : 4) * asz);
+  float* const whi = reinterpret_cast<float*>(smem);           // [ring][WE]
+  float* const wlo = whi + kRing * WE;                         // [ring][WE]
+  float* const xraw = wlo + kRing * WE;                        // [ring][xsz]
+  float* const act = xraw + kRing * xsz;   // [2][hi, lo] activated windows
+  uint64_t* const full = reinterpret_cast<uint64_t*>(act + 4 * asz);
 
-  const T* const x = static_cast<const T*>(p.x);
+  const float* const x = static_cast<const float*>(p.x);
   const int tid = threadIdx.x;
   const int t0 = blockIdx.x * kRows;
   const int o0 = blockIdx.y * BN;
@@ -541,7 +399,7 @@ __device__ __forceinline__ void snake_conv_block(const CUtensorMap* w_hi,
   const int b = blockIdx.z / p.splits;
   const int st0 = split * p.stages_per_split;
   const int n = min(p.n_stages, st0 + p.stages_per_split) - st0;
-  const T* const xb = x + (size_t)b * p.T * p.C;
+  const float* const xb = x + (size_t)b * p.T * p.C;
 
   // one block counts the launch, on the device: replays of a CUDA graph
   // count as eager launches do
@@ -555,10 +413,7 @@ __device__ __forceinline__ void snake_conv_block(const CUtensorMap* w_hi,
   __syncthreads();
 
   // stage i of this block into ring slot i % kRing: the weights by TMA
-  // (thread 0), the raw window by every thread; one cp.async group per call.
-  // A bf16 window without 16-byte rows, and bf16 alpha and beta, come by
-  // plain loads and stores: the slot's last readers finished before the
-  // barrier that ended stage i - 3
+  // (thread 0), the raw window by every thread; one cp.async group per call
   auto issue = [&](int i) {
     if (i < n) {
       const int st = st0 + i;
@@ -567,35 +422,31 @@ __device__ __forceinline__ void snake_conv_block(const CUtensorMap* w_hi,
       const int slot = i % kRing;
       if (tid == 0) {
         uint64_t* const bar = full + slot;
-        mbar_expect(bar, kBf ? WB : 2 * WB);
+        mbar_expect(bar, 2 * WB);
 #pragma unroll
         for (int jj = 0; jj < KT; ++jj) {
           const int row = (j0 + jj) * p.O + o0;
           tma_load_2d(whi + slot * WE + jj * TAP, w_hi, bar, c0, row);
-          if constexpr (!kBf)
-            tma_load_2d(wlo + slot * WE + jj * TAP, w_lo, bar, c0, row);
+          tma_load_2d(wlo + slot * WE + jj * TAP, w_lo, bar, c0, row);
         }
       }
-      T* const xdst = xraw + slot * xsz;
+      float* const xdst = xraw + slot * xsz;
       if (tid < 2 * BK) {
         const int c = c0 + tid % BK;
         const bool ok = c < p.C;
-        const T* src = static_cast<const T*>(tid < BK ? p.alpha : p.beta);
-        if constexpr (kBf)
-          xdst[p.win * BK + tid] = ok ? src[c] : __float2bfloat16_rn(0.f);
-        else
-          cp_async4(xdst + p.win * BK + tid,
-                    ok ? src + c : static_cast<const float*>(p.alpha), ok);
+        const float* src =
+            static_cast<const float*>(tid < BK ? p.alpha : p.beta);
+        cp_async4(xdst + p.win * BK + tid,
+                  ok ? src + c : static_cast<const float*>(p.alpha), ok);
       }
       if (p.vec_x) {
-        constexpr int per = 16 / (int)sizeof(T);   // elements of a piece
         for (int e = tid; e < p.win * kq; e += kThreads) {
           const int q = e % kq;
           const int r = e / kq;
           const int t = t0 - p.left + r;
-          const int c = c0 + per * q;
+          const int c = c0 + 4 * q;
           const bool ok = t >= 0 && t < p.T && c < p.C;
-          cp_async16(xdst + r * BK + per * q,
+          cp_async16(xdst + r * BK + 4 * q,
                      ok ? xb + (size_t)t * p.C + c : x, ok);
         }
       } else {
@@ -605,43 +456,35 @@ __device__ __forceinline__ void snake_conv_block(const CUtensorMap* w_hi,
           const int t = t0 - p.left + r;
           const int c = c0 + cc;
           const bool ok = t >= 0 && t < p.T && c < p.C;
-          if constexpr (kBf)
-            xdst[e] = ok ? xb[(size_t)t * p.C + c] : __float2bfloat16_rn(0.f);
-          else
-            cp_async4(xdst + e, ok ? xb + (size_t)t * p.C + c : x, ok);
+          cp_async4(xdst + e, ok ? xb + (size_t)t * p.C + c : x, ok);
         }
       }
     }
     cp_async_commit();
   };
 
-  // snake of stage i's window in f32, into activated buffer i & 1 (f32:
-  // split into its tf32 hi and lo; bf16: rounded once); a thread keeps one
-  // channel
+  // snake of stage i's window in f32, into activated buffer i & 1, split
+  // into its tf32 hi and lo; a thread keeps one channel
   auto activate = [&](int i) {
     const int st = st0 + i;
     const int cc = tid % BK;
     const int c = (st / p.groups) * BK + cc;
     const bool live = c < p.C;
-    const T* const xr = xraw + (i % kRing) * xsz;
-    const float al = widen(xr[p.win * BK + cc]);
-    const float ib = 1.0f / (widen(xr[(p.win + 1) * BK + cc]) + 1e-9f);
-    T* const ah = act + (i & 1) * (kBf ? 1 : 2) * asz;
-    T* const alo = ah + asz;
-    const int col = kBf ? act_col_bf16(cc) : act_col(cc);
+    const float* const xr = xraw + (i % kRing) * xsz;
+    const float al = xr[p.win * BK + cc];
+    const float ib = 1.0f / (xr[(p.win + 1) * BK + cc] + 1e-9f);
+    float* const ah = act + (i & 1) * 2 * asz;
+    float* const alo = ah + asz;
+    const int col = act_col(cc);
 #pragma unroll 2
     for (int r = tid / BK; r < p.win; r += kThreads / BK) {
-      const float xv = widen(xr[r * BK + cc]);
+      const float xv = xr[r * BK + cc];
       const float sn = sinf(xv * al);
       const float v = live ? xv + ib * (sn * sn) : 0.f;
-      if constexpr (kBf) {
-        ah[r * AS + col] = __float2bfloat16_rn(v);
-      } else {
-        float hi, lo;
-        split_tf32(v, hi, lo);
-        ah[r * AS + col] = hi;
-        alo[r * AS + col] = lo;
-      }
+      float hi, lo;
+      split_tf32(v, hi, lo);
+      ah[r * AS + col] = hi;
+      alo[r * AS + col] = lo;
     }
   };
 
@@ -656,35 +499,14 @@ __device__ __forceinline__ void snake_conv_block(const CUtensorMap* w_hi,
   for (int e = 0; e < BN / 2; ++e) acc[e] = 0.f;
   fence_acc(acc);
 
-  // all fragments of stage i in registers, then its MMAs in one group
-  // (f32: 3 x STEPS, small terms first; bf16: STEPS)
+  // all fragments of stage i in registers, then its 3 x STEPS MMAs in one
+  // group, small terms first
   auto mma = [&](int i) {
     const int j0 = ((st0 + i) % p.groups) * KT;
-    const T* const bh = whi + (i % kRing) * WE;
-    if constexpr (kBf) {
-      const T* const ah = act + (i & 1) * asz;
-      uint32_t fa[STEPS][4];
-#pragma unroll
-      for (int u = 0; u < STEPS; ++u) {
-        const int off = (row0 + (j0 + u / KS) * p.dilation) * AS +
-                        16 * (u % KS) + 4 * tig;
-        const uint2 r0 = *reinterpret_cast<const uint2*>(ah + off);
-        const uint2 r1 = *reinterpret_cast<const uint2*>(ah + off + 8 * AS);
-        fa[u][0] = r0.x;
-        fa[u][1] = r1.x;
-        fa[u][2] = r0.y;
-        fa[u][3] = r1.y;
-      }
-      wgmma_fence();
-#pragma unroll
-      for (int u = 0; u < STEPS; ++u) {
-        // tap u / KS, channels 16 (u % KS) on: 32 bytes into the rows
-        const int off = (u / KS) * TAP + 16 * (u % KS);
-        wgmma_bf16<BN>(acc, fa[u], make_desc<BK * 2>(bh + off));
-      }
-    } else {
-      const T* const ah = act + (i & 1) * 2 * asz;
-      const T* const alo = ah + asz;
+    const float* const bh = whi + (i % kRing) * WE;
+    {
+      const float* const ah = act + (i & 1) * 2 * asz;
+      const float* const alo = ah + asz;
       uint32_t fh[STEPS][4], fl[STEPS][4];
 #pragma unroll
       for (int u = 0; u < STEPS; ++u) {
@@ -704,7 +526,7 @@ __device__ __forceinline__ void snake_conv_block(const CUtensorMap* w_hi,
         fl[u][2] = __float_as_uint(l0.y);
         fl[u][3] = __float_as_uint(l1.y);
       }
-      const T* const bl = wlo + (i % kRing) * WE;
+      const float* const bl = wlo + (i % kRing) * WE;
       wgmma_fence();
 #pragma unroll
       for (int u = 0; u < STEPS; ++u) {
@@ -743,13 +565,13 @@ __device__ __forceinline__ void snake_conv_block(const CUtensorMap* w_hi,
   }
 
   // sums: d[4q + 2h + e] is row (lane / 4) + 8h, column 8q + 2 * tig + e;
-  // a split block writes its f32 partial sums to its own slab of ws, an
-  // unsplit one its output (bf16: rounded once)
+  // a split block writes its partial sums to its own slab of ws, an
+  // unsplit one its output
   const int batch = gridDim.z / p.splits;
   const bool to_ws = p.splits > 1;
   float* const wsb = p.ws + ((size_t)split * batch + b) * p.T * p.O;
-  T* const yb = static_cast<T*>(p.y) + (size_t)b * p.T * p.O;
-  const T* const bias = static_cast<const T*>(p.bias);
+  float* const yb = static_cast<float*>(p.y) + (size_t)b * p.T * p.O;
+  const float* const bias = static_cast<const float*>(p.bias);
   const bool pairs = p.O % 2 == 0;
 #pragma unroll
   for (int q = 0; q < BN / 8; ++q) {
@@ -757,8 +579,8 @@ __device__ __forceinline__ void snake_conv_block(const CUtensorMap* w_hi,
     if (o >= p.O) continue;
     const bool has1 = o + 1 < p.O;
     const bool with_bias = split == 0;
-    const float b0 = with_bias ? widen(bias[o]) : 0.f;
-    const float b1 = with_bias && has1 ? widen(bias[o + 1]) : 0.f;
+    const float b0 = with_bias ? bias[o] : 0.f;
+    const float b1 = with_bias && has1 ? bias[o + 1] : 0.f;
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int t = t0 + row0 + 8 * h;
@@ -766,21 +588,12 @@ __device__ __forceinline__ void snake_conv_block(const CUtensorMap* w_hi,
       const size_t at = (size_t)t * p.O + o;
       const float v0 = acc[4 * q + 2 * h] + b0;
       const float v1 = acc[4 * q + 2 * h + 1] + b1;
-      if (to_ws || !kBf) {
-        float* const dst =
-            to_ws ? wsb + at : reinterpret_cast<float*>(yb) + at;
-        if (pairs) {
-          *reinterpret_cast<float2*>(dst) = make_float2(v0, v1);
-        } else {
-          dst[0] = v0;
-          if (has1) dst[1] = v1;
-        }
-      } else if (pairs) {
-        *reinterpret_cast<__nv_bfloat162*>(yb + at) =
-            __floats2bfloat162_rn(v0, v1);
+      float* const dst = to_ws ? wsb + at : yb + at;
+      if (pairs) {
+        *reinterpret_cast<float2*>(dst) = make_float2(v0, v1);
       } else {
-        yb[at] = __float2bfloat16_rn(v0);
-        if (has1) yb[at + 1] = __float2bfloat16_rn(v1);
+        dst[0] = v0;
+        if (has1) dst[1] = v1;
       }
     }
   }
@@ -790,13 +603,17 @@ template <int BN, int BK, int KT>
 __global__ void __launch_bounds__(kThreads, 1)
 snake_conv_3xtf32(const __grid_constant__ CUtensorMap w_hi,
                   const __grid_constant__ CUtensorMap w_lo, const Params p) {
-  snake_conv_block<float, BN, BK, KT>(&w_hi, &w_lo, p);
+  snake_conv_block<BN, BK, KT>(&w_hi, &w_lo, p);
 }
 
-template <int BN, int BK, int KT>
-__global__ void __launch_bounds__(kThreads, 1)
-snake_conv_bf16(const __grid_constant__ CUtensorMap w, const Params p) {
-  snake_conv_block<__nv_bfloat16, BN, BK, KT>(&w, nullptr, p);
+// the bf16 kernel: M frames (64 a consumer warpgroup) x BN output channels
+// a tile, KT taps a stage (snake_conv_bf16.cuh)
+template <int M, int BN, int KT>
+__global__ void __launch_bounds__(snake16::block_threads(M, true), 1)
+snake_conv_bf16(const __grid_constant__ CUtensorMap w,
+                const __grid_constant__ CUtensorMap a,
+                const snake16::Params p) {
+  snake16::block<M, BN, KT, true>(&w, &a, p);
 }
 
 // y[i] = ws[0][i] + ws[1][i] + ... in split order, over n = B * T * O, f32
@@ -850,13 +667,8 @@ int launch_sum_splits(const float* ws, Out* y, long long n, int splits,
 int ceil_div(int a, int b) { return (a + b - 1) / b; }
 
 // channels per stage of each instance: the most that fits beside the other
-// buffers at the main path's windows (146 rows at k = 3, d = 9); bf16 stages
-// are whole 16-channel MMA steps, with rows of 32, 64 or 128 bytes
-int stage_channels(int bn, int kt, bool bf16) {
-  if (bf16) {
-    if (kt == 3) return bn == 64 ? 32 : 16;
-    return bn == 64 ? 64 : 32;
-  }
+// buffers at the main path's windows (146 rows at k = 3, d = 9)
+int stage_channels(int bn, int kt) {
   if (kt == 3) return bn == 64 ? 16 : 8;
   return bn == 64 ? 32 : 16;
 }
@@ -871,11 +683,8 @@ struct Plan {
 // activation cycles plus a fixed 600 (the activation does not hide behind
 // the MMAs in practice), a block costs its stages plus three for its
 // prologue and epilogue, and the grid costs whole waves over the 132 SMs.
-// The best plans fill one wave with about 128 blocks.  A bf16 k16 MMA is
-// counted as one 3xTF32 k8 product (the same 32 bytes of depth an
-// instruction), so its stages cost a sixth of the MMA cycles per channel.
-int make_plan(int B, int T, int C, int O, int k, int dilation, bool bf16,
-              Plan* plan) {
+// The best plans fill one wave with about 128 blocks.
+int make_plan(int B, int T, int C, int O, int k, int dilation, Plan* plan) {
   const int win = kRows + (k - 1) * dilation;
   const int nt = ceil_div(T, kRows) * B;
   const int kt = k % 3 == 0 ? 3 : 1;
@@ -883,12 +692,12 @@ int make_plan(int B, int T, int C, int O, int k, int dilation, bool bf16,
   if (win > 256) return (int)cudaErrorInvalidValue;
   for (int bn = 64; bn <= 256; bn *= 2) {
     if (bn > 64 && ceil_div(O, bn) * bn >= 2 * O) continue;
-    const int bk = stage_channels(bn, kt, bf16);
-    const size_t smem = smem_bytes(bn, bk, kt, win, bf16);
+    const int bk = stage_channels(bn, kt);
+    const size_t smem = smem_bytes(bn, bk, kt, win);
     if (smem > (size_t)kMaxSmem) continue;
     const int groups = k / kt;
     const int n_stages = ceil_div(C, bk) * groups;
-    const double mma = bf16 ? 1.0 * kt * bk / 16 * bn : 3.0 * kt * bk / 8 * bn;
+    const double mma = 3.0 * kt * bk / 8 * bn;
     const double stage = mma + 1.6 * win * bk + 600.0;
     const int most = n_stages / 2 > 1 ? n_stages / 2 : 1;
     for (int s = 1; s <= most; ++s) {
@@ -919,10 +728,10 @@ typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                                 CUtensorMapL2promotion,
                                 CUtensorMapFloatOOBfill);
 
-// (k * O, Cw) rows of a weight array of f32 or bf16 values, boxes of BK
-// channels x BN rows, swizzled by the box's row bytes (32, 64 or 128)
+// (k * O, Cw) rows of a weight array of f32 values, boxes of BK channels x
+// BN rows, swizzled by the box's row bytes (32, 64 or 128)
 int weight_map(CUtensorMap* map, const void* w, int rows, int Cw, int bk,
-               int bn, bool bf16 = false) {
+               int bn) {
   static EncodeTiled encode = nullptr;
   if (encode == nullptr) {
     void* fn = nullptr;
@@ -934,7 +743,7 @@ int weight_map(CUtensorMap* map, const void* w, int rows, int Cw, int bk,
       return (int)cudaErrorSymbolNotFound;
     encode = reinterpret_cast<EncodeTiled>(fn);
   }
-  const int elem = bf16 ? 2 : 4;
+  const int elem = 4;
   const cuuint64_t dims[2] = {(cuuint64_t)Cw, (cuuint64_t)rows};
   const cuuint64_t strides[1] = {(cuuint64_t)Cw * elem};
   const cuuint32_t box[2] = {(cuuint32_t)bk, (cuuint32_t)bn};
@@ -945,10 +754,8 @@ int weight_map(CUtensorMap* map, const void* w, int rows, int Cw, int bk,
                        : row_bytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
                                          : CU_TENSOR_MAP_SWIZZLE_32B;
   const CUresult res = encode(
-      map,
-      bf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
-      2, const_cast<void*>(w), dims, strides, box, estrides,
-      CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+      map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<void*>(w), dims,
+      strides, box, estrides, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
       CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return res == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
@@ -974,22 +781,20 @@ int launch(const float* w, const float* wlo, int Cw, const Params& p,
   return (int)cudaGetLastError();
 }
 
-template <int BN, int BK, int KT>
-int launch_bf16(const void* w, int Cw, const Params& p, const Plan& plan,
-                int B, cudaStream_t stream) {
+template <int M, int BN, int KT>
+int launch_bf16(const snake16::Plan& plan, const CUtensorMap& w,
+                const CUtensorMap& a, const snake16::Params& p,
+                cudaStream_t stream) {
   static bool configured = false;
   if (!configured) {
     const cudaError_t err = cudaFuncSetAttribute(
-        snake_conv_bf16<BN, BK, KT>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+        snake_conv_bf16<M, BN, KT>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, snake16::kMaxSmem);
     if (err != cudaSuccess) return (int)err;
     configured = true;
   }
-  CUtensorMap map;
-  const int err = weight_map(&map, w, p.k * p.O, Cw, BK, BN, true);
-  if (err) return err;
-  dim3 grid(ceil_div(p.T, kRows), ceil_div(p.O, BN), B * plan.splits);
-  snake_conv_bf16<BN, BK, KT><<<grid, kThreads, plan.smem, stream>>>(map, p);
+  snake_conv_bf16<M, BN, KT><<<plan.grid, snake16::block_threads(M, true),
+                               plan.smem, stream>>>(w, a, p);
   return (int)cudaGetLastError();
 }
 
@@ -1038,7 +843,7 @@ extern "C" {
 int fused_snake_conv_plan(int B, int T, int C, int O, int k, int dilation,
                           int* out) {
   Plan plan;
-  const int err = make_plan(B, T, C, O, k, dilation, false, &plan);
+  const int err = make_plan(B, T, C, O, k, dilation, &plan);
   if (err) return err;
   out[0] = plan.bn;
   out[1] = plan.bk;
@@ -1046,15 +851,32 @@ int fused_snake_conv_plan(int B, int T, int C, int O, int k, int dilation,
   return 0;
 }
 
-// The same for the bf16 instantiation.
+// The same for the bf16 kernel (64 channels a stage).
 int fused_snake_conv_plan_bf16(int B, int T, int C, int O, int k,
                                int dilation, int* out) {
-  Plan plan;
-  const int err = make_plan(B, T, C, O, k, dilation, true, &plan);
+  snake16::Plan plan;
+  const int err = snake16::make_plan(true, B, T, C, O, k, dilation, &plan);
   if (err) return err;
   out[0] = plan.bn;
-  out[1] = plan.bk;
+  out[1] = snake16::kStage;
   out[2] = plan.splits;
+  return 0;
+}
+
+// The bf16 kernel's whole plan: out[0..5] = frames a tile, output channels
+// a tile, channels a stage, slots of the ring, splits of the channel sum,
+// blocks (persistent, at most one an SM).
+int fused_snake_conv_plan_bf16_tiles(int B, int T, int C, int O, int k,
+                                     int dilation, int* out) {
+  snake16::Plan plan;
+  const int err = snake16::make_plan(true, B, T, C, O, k, dilation, &plan);
+  if (err) return err;
+  out[0] = plan.m;
+  out[1] = plan.bn;
+  out[2] = snake16::kStage;
+  out[3] = plan.ring;
+  out[4] = plan.splits;
+  out[5] = plan.grid;
   return 0;
 }
 
@@ -1073,7 +895,7 @@ int fused_snake_conv_f32(const float* x, const float* alpha, const float* beta,
       (uintptr_t)w % 16 != 0 || (uintptr_t)wlo % 16 != 0)
     return (int)cudaErrorInvalidValue;
   Plan plan;
-  const int err = make_plan(B, T, C, O, k, dilation, false, &plan);
+  const int err = make_plan(B, T, C, O, k, dilation, &plan);
   if (err) return err;
   if ((long long)B * plan.splits > 65535) return (int)cudaErrorInvalidValue;
   if (plan.splits > 1 && (ws == nullptr || (uintptr_t)ws % 8 != 0))
@@ -1096,10 +918,10 @@ int fused_snake_conv_f32(const float* x, const float* alpha, const float* beta,
                            counts == nullptr ? nullptr : counts + 1, s);
 }
 
-// The bf16 instantiation: x, alpha, beta, w, bias and y are bf16 (passed as
-// their addresses), w is (k, O, Cw), Cw >= C a multiple of 8, 16-byte
-// aligned, with no low half; ws and counts as for fused_snake_conv_f32
-// (ws f32, added by sum_splits_bf16 into the bf16 y).
+// The bf16 kernel: x, alpha, beta, w, bias and y are bf16 (passed as their
+// addresses), w is (k, O, Cw), Cw >= C a multiple of 8, 16-byte aligned,
+// with no low half; ws and counts as for fused_snake_conv_f32 (ws f32,
+// added by sum_splits_bf16 into the bf16 y).
 int fused_snake_conv_bf16(const void* x, const void* alpha, const void* beta,
                           const void* w, const void* bias, void* y, float* ws,
                           int B, int T, int C, int O, int k, int dilation,
@@ -1108,24 +930,42 @@ int fused_snake_conv_bf16(const void* x, const void* alpha, const void* beta,
   if (bad_args(B, T, C, O, k, dilation, left, Cw, 8) ||
       (uintptr_t)w % 16 != 0 || (uintptr_t)y % 4 != 0)
     return (int)cudaErrorInvalidValue;
-  Plan plan;
-  const int err = make_plan(B, T, C, O, k, dilation, true, &plan);
+  snake16::Plan plan;
+  int err = snake16::make_plan(true, B, T, C, O, k, dilation, &plan);
   if (err) return err;
-  if ((long long)B * plan.splits > 65535) return (int)cudaErrorInvalidValue;
   if (plan.splits > 1 && (ws == nullptr || (uintptr_t)ws % 8 != 0))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  const Params p = params(x, alpha, beta, bias, y, ws, T, C, O, k, dilation,
-                          left, plan, counts,
-                          C % 8 == 0 && (uintptr_t)x % 16 == 0);
+  snake16::Params p = {};
+  p.a = x;
+  p.alpha = alpha;
+  p.beta = beta;
+  p.bias = bias;
+  p.out = y;
+  p.ws = ws;
+  p.count = counts;
+  p.B = B;
+  p.T = T;
+  p.Ka = C;
+  p.N = O;
+  p.C = C;
+  p.O = O;
+  p.k = k;
+  p.dilation = dilation;
+  p.lead = left;
+  CUtensorMap wmap, amap;
+  err = snake16::prepare(plan, w, Cw, &p, &wmap, &amap);
+  if (err) return err;
   int e;
-  switch (plan.bn * 4 + plan.kt) {
-    case 64 * 4 + 3: e = launch_bf16<64, 32, 3>(w, Cw, p, plan, B, s); break;
-    case 128 * 4 + 3: e = launch_bf16<128, 16, 3>(w, Cw, p, plan, B, s); break;
-    case 256 * 4 + 3: e = launch_bf16<256, 16, 3>(w, Cw, p, plan, B, s); break;
-    case 64 * 4 + 1: e = launch_bf16<64, 64, 1>(w, Cw, p, plan, B, s); break;
-    case 128 * 4 + 1: e = launch_bf16<128, 32, 1>(w, Cw, p, plan, B, s); break;
-    default: e = launch_bf16<256, 32, 1>(w, Cw, p, plan, B, s);
+  switch ((plan.m / 64) * 1000 + plan.bn * 4 + plan.kt) {
+    case 2000 + 64 * 4 + 3: e = launch_bf16<128, 64, 3>(plan, wmap, amap, p, s); break;
+    case 2000 + 128 * 4 + 3: e = launch_bf16<128, 128, 3>(plan, wmap, amap, p, s); break;
+    case 2000 + 64 * 4 + 1: e = launch_bf16<128, 64, 1>(plan, wmap, amap, p, s); break;
+    case 2000 + 128 * 4 + 1: e = launch_bf16<128, 128, 1>(plan, wmap, amap, p, s); break;
+    case 1000 + 64 * 4 + 3: e = launch_bf16<64, 64, 3>(plan, wmap, amap, p, s); break;
+    case 1000 + 128 * 4 + 3: e = launch_bf16<64, 128, 3>(plan, wmap, amap, p, s); break;
+    case 1000 + 64 * 4 + 1: e = launch_bf16<64, 64, 1>(plan, wmap, amap, p, s); break;
+    default: e = launch_bf16<64, 128, 1>(plan, wmap, amap, p, s);
   }
   if (e != 0 || plan.splits == 1) return e;
   return launch_sum_splits(ws, static_cast<__nv_bfloat16*>(y),

@@ -74,22 +74,26 @@
 // replayed from a CUDA graph are counted as eager ones are.  A launch error
 // is returned to the caller, which raises.
 //
-// The bf16 instantiations (snake_conv_dgrad_bf16, snake_conv_wgrad_bf16: the
-// same template bodies, plans and partial sums), the backward of the
-// forward's bf16 instantiation (fused_snake_conv.cu: snake_conv_bf16): g, x,
-// alpha, beta and the weight are bf16, and so are the five gradients.  Each
-// 16-channel (dgrad) or 16-frame (wgrad) step is one wgmma m64nNk16
-// .f32.bf16.bf16 in place of the three tf32 products; bf16 products are
-// exact in f32, the sums stay f32 and are folded as in f32.  dgrad reads g
-// and the transposed weight (Ow a multiple of 8) as they are, its window's
-// columns stored so that a thread's four values of a k16 fragment row are
-// side by side; the epilogue widens x, computes in f32 and rounds gx to bf16
-// once.  wgrad activates 64-frame chunks (one 128-byte row of bf16), the
-// snake in f32 from the widened inputs rounded to bf16 once, as the forward
-// rounds it; g's fragments pair two frames of one output channel in a
-// register.  galpha, gbeta, gb and gw leave the kernels as f32 partials (an
-// unsplit gw in registers), summed in the fixed order (sum_partials_bf16)
-// and rounded once: the same bits at every launch, eager or replayed.
+// The bf16 kernels, the backward of the forward's bf16 kernel
+// (fused_snake_conv.cu: snake_conv_bf16): g, x, alpha, beta and the weight
+// are bf16, and so are the five gradients.  dgrad (snake_conv_dgrad_bf16)
+// is a design of its own for bf16: the forward's bf16 main loop
+// (snake_conv_bf16.cuh: a producer warp's TMA ring of 64-channel stages,
+// A from the g window by ldmatrix, one bf16 wgmma m64nNk16 a 16-channel
+// step, persistent blocks) on g with the taps reversed, then its epilogue
+// on each tile: x in and gx out through shared memory in 16-byte pieces,
+// the snake's derivative in f32, gx rounded to bf16 once; the producer sums
+// g's frames for gb from the slots the consumers have released.  Its
+// sums need no f32 totals: a stage adds 192 products, and each gradient is
+// rounded to 8 bits.  wgrad (snake_conv_wgrad_bf16) is the f32 template's
+// bf16 instantiation: each 16-frame step one wgmma m64nNk16 .f32.bf16.bf16
+// in place of the three tf32 products, 64-frame chunks (one 128-byte row
+// of bf16), the snake in f32 from the widened inputs rounded to bf16 once,
+// as the forward rounds it; g's fragments pair two frames of one output
+// channel in a register.  galpha, gbeta, gb and gw leave the kernels as
+// f32 partials (an unsplit gw in registers), summed in the fixed order
+// (sum_partials_bf16) and rounded once: the same bits at every launch,
+// eager or replayed.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -97,6 +101,8 @@
 #include <stdint.h>
 
 #include <type_traits>
+
+#include "snake_conv_bf16.cuh"
 
 namespace {
 
@@ -120,23 +126,9 @@ __host__ __device__ constexpr int act_stride(int bk) {
   return bk % 16 == 0 ? bk + 8 : bk;
 }
 
-// the same for the bf16 window, in bf16 values: 16 or 48 mod 64, so that
-// the 8-byte loads of a fragment's rows g = 0..3 start 32 bytes apart mod 128
-__host__ __device__ constexpr int act_stride_bf16(int bk) {
-  return bk % 32 == 0 ? bk + 16 : bk;
-}
-
 // column of channel cc inside its group of 8: (cc, cc + 4) side by side
 __device__ __forceinline__ int act_col(int cc) {
   return (cc & ~7) + ((cc & 3) << 1) + ((cc >> 2) & 1);
-}
-
-// column of channel cc inside its group of 16 in the bf16 window: the four
-// values of a bf16 k16 fragment row that one thread holds, (2t, 2t + 1,
-// 2t + 8, 2t + 9), side by side at 4t
-__device__ __forceinline__ int act_col_bf16(int cc) {
-  return (cc & ~15) + (((cc >> 1) & 3) << 2) + (((cc >> 3) & 1) << 1) +
-         (cc & 1);
 }
 
 __device__ __forceinline__ float widen(float v) { return v; }
@@ -481,37 +473,33 @@ __host__ __device__ constexpr int weight_bytes(int bn, int bk, int kt,
   return elem * kt * bk * bn;
 }
 
-// the main loop's buffers (f32: weight tiles hi and lo, windows split in
-// hi and lo; bf16: one of each), or the epilogue's x tile, coefficients and
-// warp sums in the same space, whichever is larger
-size_t dgrad_smem(int bn, int bk, int kt, int win, bool bf16 = false) {
-  const int elem = bf16 ? 2 : 4;
-  const size_t acts = bf16 ? (size_t)2 * 2 * win * act_stride_bf16(bk)
-                           : (size_t)4 * 4 * win * act_stride(bk);
-  const size_t main = (size_t)kRing * (bf16 ? 1 : 2) *
-                          weight_bytes(bn, bk, kt, elem) +
-                      (size_t)kRing * elem * win * bk + acts +
+// the main loop's buffers (weight tiles hi and lo, windows split in hi and
+// lo), or the epilogue's x tile, coefficients and warp sums in the same
+// space, whichever is larger
+size_t dgrad_smem(int bn, int bk, int kt, int win) {
+  const size_t acts = (size_t)4 * 4 * win * act_stride(bk);
+  const size_t main = (size_t)kRing * 2 * weight_bytes(bn, bk, kt) +
+                      (size_t)kRing * 4 * win * bk + acts +
                       2 * 4 * kThreads + kRing * sizeof(uint64_t);
   const size_t epilogue = (size_t)4 * (kRows * (bn + 8) + 2 * bn + 16 * bn);
   return 1024 + (main > epilogue ? main : epilogue);   // and alignment
 }
 
 // One block: 128 frames x BN input channels, its whole sum over output
-// channels and taps in stages of BK output channels x KT taps; then the
-// epilogue (gx, and the block's partials of galpha, gbeta and gb).  T is
-// float (3xTF32: the weight's low half made on chip, the window split) or
-// __nv_bfloat16 (one bf16 product a 16-channel step).
-template <typename T, int BN, int BK, int KT>
+// channels and taps in stages of BK output channels x KT taps in 3xTF32
+// (the weight's low half made on chip, the window split); then the
+// epilogue (gx, and the block's partials of galpha, gbeta and gb).
+template <int BN, int BK, int KT>
 __device__ __forceinline__ void dgrad_block(const CUtensorMap* w_map,
                                             const DgradParams& p) {
-  constexpr bool kBf = std::is_same<T, __nv_bfloat16>::value;
-  constexpr int per = 16 / (int)sizeof(T);   // elements of a 16-byte piece
+  using T = float;
+  constexpr int per = 4;                     // elements of a 16-byte piece
   constexpr int kq = BK / per;
-  constexpr int AS = kBf ? act_stride_bf16(BK) : act_stride(BK);
-  constexpr int WB = weight_bytes(BN, BK, KT, sizeof(T));
-  constexpr int WE = WB / (int)sizeof(T);    // elements of one ring slot
+  constexpr int AS = act_stride(BK);
+  constexpr int WB = weight_bytes(BN, BK, KT);
+  constexpr int WE = WB / 4;                 // elements of one ring slot
   constexpr int TAP = BN * BK;
-  constexpr int KS = BK / (kBf ? 16 : 8);
+  constexpr int KS = BK / 8;
   constexpr int STEPS = KT * KS;
   static_assert(kThreads % BK == 0, "a thread keeps its channel");
 
@@ -521,12 +509,10 @@ __device__ __forceinline__ void dgrad_block(const CUtensorMap* w_map,
   const int xsz = p.win * BK;
   const int asz = p.win * AS;
   T* const whi = reinterpret_cast<T*>(smem);                   // [ring][WE]
-  float* const wlo = reinterpret_cast<float*>(whi + kRing * WE);   // f32
-  T* const graw = whi + (kBf ? 1 : 2) * kRing * WE;            // [ring][xsz]
-  // f32: [2][hi, lo] windows of floats; bf16: [2] windows of bf16
-  T* const act = graw + kRing * xsz;
-  float* const gbtmp =
-      reinterpret_cast<float*>(act + (kBf ? 2 : 4) * asz);     // [2][threads]
+  float* const wlo = whi + kRing * WE;                         // [ring][WE]
+  T* const graw = whi + 2 * kRing * WE;                        // [ring][xsz]
+  T* const act = graw + kRing * xsz;   // [2][hi, lo] windows
+  float* const gbtmp = act + 4 * asz;                          // [2][threads]
   uint64_t* const full = reinterpret_cast<uint64_t*>(gbtmp + 2 * kThreads);
 
   const int tid = threadIdx.x;
@@ -550,10 +536,7 @@ __device__ __forceinline__ void dgrad_block(const CUtensorMap* w_map,
   __syncthreads();
 
   // stage i into ring slot i % kRing: the weight tiles by TMA (thread 0),
-  // the g window by every thread; one cp.async group per call.  A bf16
-  // window without 16-byte rows comes by plain loads and stores: the slot's
-  // last reader (activate) finished before the barrier that ended stage
-  // i - 2
+  // the g window by every thread; one cp.async group per call
   auto issue = [&](int i) {
     if (i < n) {
       const int o0 = (i / p.groups) * BK;
@@ -586,25 +569,21 @@ __device__ __forceinline__ void dgrad_block(const CUtensorMap* w_map,
           const int t = t0 - p.lead + r;
           const int o = o0 + oo;
           const bool ok = t >= 0 && t < p.T && o < p.O;
-          if constexpr (kBf)
-            dst[e] = ok ? gbat[(size_t)t * p.O + o] : __float2bfloat16_rn(0.f);
-          else
-            cp_async4(dst + e, ok ? gbat + (size_t)t * p.O + o : g, ok);
+          cp_async4(dst + e, ok ? gbat + (size_t)t * p.O + o : g, ok);
         }
       }
     }
     cp_async_commit();
   };
 
-  // stage i's g window into buffer i & 1 (f32: split into tf32 halves;
-  // bf16: as it is, its columns reordered for the k16 fragments); a thread
+  // stage i's g window into buffer i & 1, split into tf32 halves; a thread
   // keeps one channel, and the first tap group's stage also sums the
-  // block's own 128 frames of it (gb).  f32 also makes the low tf32 half of
+  // block's own 128 frames of it (gb).  It also makes the low tf32 half of
   // stage i's weight tiles, element by element in their swizzled layout:
   // the tensor cores read the top 19 bits of w as its high half, lo =
   // tf32(w - them).
   auto activate = [&](int i) {
-    if constexpr (!kBf) {
+    {
       const float* const wh = whi + (i % kRing) * WE;
       float* const wl = wlo + (i % kRing) * WE;
       for (int e = tid; e < WE; e += kThreads) {
@@ -616,21 +595,17 @@ __device__ __forceinline__ void dgrad_block(const CUtensorMap* w_map,
     }
     const int cc = tid % BK;
     const T* const xr = graw + (i % kRing) * xsz;
-    T* const ah = act + (i & 1) * (kBf ? 1 : 2) * asz;
-    const int col = kBf ? act_col_bf16(cc) : act_col(cc);
+    T* const ah = act + (i & 1) * 2 * asz;
+    const int col = act_col(cc);
     float gsum = 0.f;
 #pragma unroll 2
     for (int r = tid / BK; r < p.win; r += kThreads / BK) {
       const T v = xr[r * BK + cc];
-      if constexpr (kBf) {
-        ah[r * AS + col] = v;
-      } else {
-        float hi, lo;
-        split_tf32(v, hi, lo);
-        ah[r * AS + col] = hi;
-        ah[asz + r * AS + col] = lo;
-      }
-      if (r >= p.lead && r < p.lead + kRows) gsum += widen(v);
+      float hi, lo;
+      split_tf32(v, hi, lo);
+      ah[r * AS + col] = hi;
+      ah[asz + r * AS + col] = lo;
+      if (r >= p.lead && r < p.lead + kRows) gsum += v;
     }
     if (gb_block && i % p.groups == 0) gbtmp[(i & 1) * kThreads + tid] = gsum;
   };
@@ -658,33 +633,12 @@ __device__ __forceinline__ void dgrad_block(const CUtensorMap* w_map,
   for (int e = 0; e < BN / 2; ++e) acc[e] = tot[e] = 0.f;
   fence_acc(acc);
 
-  // all fragments of stage i in registers, then its MMAs in one group
-  // (f32: 3 x STEPS, small terms first; bf16: STEPS)
+  // all fragments of stage i in registers, then its 3 x STEPS MMAs in one
+  // group, small terms first
   auto mma = [&](int i) {
     const int j0 = (i % p.groups) * KT;
     const T* const bh = whi + (i % kRing) * WE;
-    if constexpr (kBf) {
-      const T* const ah = act + (i & 1) * asz;
-      uint32_t fa[STEPS][4];
-#pragma unroll
-      for (int u = 0; u < STEPS; ++u) {
-        const int off = (row0 + (j0 + u / KS) * p.dilation) * AS +
-                        16 * (u % KS) + 4 * tig;
-        const uint2 r0 = *reinterpret_cast<const uint2*>(ah + off);
-        const uint2 r1 = *reinterpret_cast<const uint2*>(ah + off + 8 * AS);
-        fa[u][0] = r0.x;
-        fa[u][1] = r1.x;
-        fa[u][2] = r0.y;
-        fa[u][3] = r1.y;
-      }
-      wgmma_fence();
-#pragma unroll
-      for (int u = 0; u < STEPS; ++u) {
-        // tap u / KS, channels 16 (u % KS) on: 32 bytes into the rows
-        const int off = (u / KS) * TAP + 16 * (u % KS);
-        wgmma_bf16<BN>(acc, fa[u], make_desc<BK * 2>(bh + off));
-      }
-    } else {
+    {
       const float* const ah = act + (i & 1) * 2 * asz;
       const float* const alo = ah + asz;
       uint32_t fh[STEPS][4], fl[STEPS][4];
@@ -745,10 +699,9 @@ __device__ __forceinline__ void dgrad_block(const CUtensorMap* w_map,
   if (!p.need_ga) return;
 
   // epilogue: tot[4q + 2h + e] is ga at frame t0 + row0 + 8h, channel c0 + 8q
-  // + 2 tig + e.  The block's x tile comes into shared memory (f32: by
-  // coalesced copies; bf16: widened by coalesced loads) while the ring is
-  // free, gx goes back in its place and out the same way (bf16: rounded
-  // once); galpha's and gbeta's terms are summed over the thread's 2 frames,
+  // + 2 tig + e.  The block's x tile comes into shared memory by coalesced
+  // copies while the ring is free, gx goes back in its place and out the
+  // same way; galpha's and gbeta's terms are summed over the thread's 2 frames,
   // its warp's 8 lanes of a column (shuffles) and the 8 warps (shared
   // memory), in fixed orders
   constexpr int XS = BN + 8;     // row stride: float2 reads of a half-warp
@@ -764,16 +717,7 @@ __device__ __forceinline__ void dgrad_block(const CUtensorMap* w_map,
                      : static_cast<T*>(p.gx) + (size_t)b * p.T * p.C;
   const T* const alpha = static_cast<const T*>(p.alpha);
   const T* const beta = static_cast<const T*>(p.beta);
-  if constexpr (kBf) {
-    for (int e = tid; e < kRows * BN; e += kThreads) {
-      const int cc = e % BN;
-      const int r = e / BN;
-      const int t = t0 + r;
-      const int c = c0 + cc;
-      xs[r * XS + cc] =
-          t < p.T && c < p.C ? widen(xb[(size_t)t * p.C + c]) : 0.f;
-    }
-  } else if (p.vec_x) {
+  if (p.vec_x) {
     for (int e = tid; e < kRows * BN / 4; e += kThreads) {
       const int q = e % (BN / 4);
       const int r = e / (BN / 4);
@@ -844,8 +788,8 @@ __device__ __forceinline__ void dgrad_block(const CUtensorMap* w_map,
   }
   __syncthreads();
   if (gxb != nullptr) {
-    if (!kBf && p.vec_x) {
-      float* const gxf = reinterpret_cast<float*>(gxb);
+    if (p.vec_x) {
+      float* const gxf = gxb;
       for (int e = tid; e < kRows * BN / 4; e += kThreads) {
         const int q = e % (BN / 4);
         const int r = e / (BN / 4);
@@ -882,14 +826,17 @@ template <int BN, int BK, int KT>
 __global__ void __launch_bounds__(kThreads, 1)
 snake_conv_dgrad_3xtf32(const __grid_constant__ CUtensorMap w_map,
                         const DgradParams p) {
-  dgrad_block<float, BN, BK, KT>(&w_map, p);
+  dgrad_block<BN, BK, KT>(&w_map, p);
 }
 
-template <int BN, int BK, int KT>
-__global__ void __launch_bounds__(kThreads, 1)
+// the bf16 dgrad: M frames (64 a consumer warpgroup) x BN input channels a
+// tile, KT taps a stage (snake_conv_bf16.cuh)
+template <int M, int BN, int KT>
+__global__ void __launch_bounds__(snake16::block_threads(M, false), 1)
 snake_conv_dgrad_bf16(const __grid_constant__ CUtensorMap w_map,
-                      const DgradParams p) {
-  dgrad_block<__nv_bfloat16, BN, BK, KT>(&w_map, p);
+                      const __grid_constant__ CUtensorMap g_map,
+                      const snake16::Params p) {
+  snake16::block<M, BN, KT, false>(&w_map, &g_map, p);
 }
 
 // ---------------------------------------------------------------------------
@@ -1286,12 +1233,10 @@ int launch_sum_partials(const float* ws, long long stride, int parts,
 // plans and launches
 // ---------------------------------------------------------------------------
 
-// channels per stage of each dgrad instance: the most that fits beside the
-// other buffers at the main path's windows (146 rows at k = 3, d = 9); a
-// bf16 stage takes twice the channels (rows of 32, 64 or 128 bytes)
-int stage_channels(int bn, int kt, bool bf16 = false) {
-  const int f32 = kt == 3 ? (bn == 64 ? 16 : 8) : (bn == 64 ? 32 : 16);
-  return bf16 ? 2 * f32 : f32;
+// channels per stage of each f32 dgrad instance: the most that fits beside
+// the other buffers at the main path's windows (146 rows at k = 3, d = 9)
+int stage_channels(int bn, int kt) {
+  return kt == 3 ? (bn == 64 ? 16 : 8) : (bn == 64 ? 32 : 16);
 }
 
 struct DgradPlan {
@@ -1302,10 +1247,9 @@ struct DgradPlan {
 // dgrad's tile width for one shape: the forward's cost model (a stage costs
 // its MMA cycles, its window's split and a fixed 600; a block its stages
 // plus three; the grid whole waves over the 132 SMs), without a split of
-// the channel sum, which the epilogue needs whole.  A bf16 k16 MMA counts
-// as one tf32 k8 MMA.
+// the channel sum, which the epilogue needs whole.
 int dgrad_plan(int B, int T, int C, int O, int k, int dilation,
-               DgradPlan* plan, bool bf16 = false) {
+               DgradPlan* plan) {
   const int win = kRows + (k - 1) * dilation;
   const int nt = ceil_div(T, kRows) * B;
   const int kt = k % 3 == 0 ? 3 : 1;
@@ -1313,12 +1257,12 @@ int dgrad_plan(int B, int T, int C, int O, int k, int dilation,
   if (win > 256) return (int)cudaErrorInvalidValue;
   for (int bn = 64; bn <= 128; bn *= 2) {
     if (bn > 64 && ceil_div(C, bn) * bn >= 2 * C) continue;
-    const int bk = stage_channels(bn, kt, bf16);
-    const size_t smem = dgrad_smem(bn, bk, kt, win, bf16);
+    const int bk = stage_channels(bn, kt);
+    const size_t smem = dgrad_smem(bn, bk, kt, win);
     if (smem > (size_t)kMaxSmem) continue;
     const int groups = k / kt;
     const int n_stages = ceil_div(O, bk) * groups;
-    const double mma = bf16 ? 1.0 * kt * bk / 16 * bn : 3.0 * kt * bk / 8 * bn;
+    const double mma = 3.0 * kt * bk / 8 * bn;
     const double stage = mma + 0.5 * win * bk + 600.0;
     const int blocks = nt * ceil_div(C, bn);
     const double cost = (double)ceil_div(blocks, kSMs) * (n_stages + 3) * stage;
@@ -1423,34 +1367,41 @@ int weight_map(CUtensorMap* map, const void* w, int rows, int cols, int bk,
   return res == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
-template <typename T, int BN, int BK, int KT>
+template <int BN, int BK, int KT>
 int launch_dgrad(const void* wt, int Ow, const DgradParams& p,
                  const DgradPlan& plan, int B, cudaStream_t stream) {
-  constexpr bool kBf = std::is_same<T, __nv_bfloat16>::value;
   static bool configured = false;
   if (!configured) {
-    cudaError_t err;
-    if constexpr (kBf)
-      err = cudaFuncSetAttribute(snake_conv_dgrad_bf16<BN, BK, KT>,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 kMaxSmem);
-    else
-      err = cudaFuncSetAttribute(snake_conv_dgrad_3xtf32<BN, BK, KT>,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 kMaxSmem);
+    const cudaError_t err = cudaFuncSetAttribute(
+        snake_conv_dgrad_3xtf32<BN, BK, KT>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
     if (err != cudaSuccess) return (int)err;
     configured = true;
   }
   CUtensorMap map;
-  const int err = weight_map(&map, wt, p.k * p.C, Ow, BK, BN, kBf);
+  const int err = weight_map(&map, wt, p.k * p.C, Ow, BK, BN);
   if (err) return err;
   dim3 grid(ceil_div(p.T, kRows), ceil_div(p.C, BN), B);
-  if constexpr (kBf)
-    snake_conv_dgrad_bf16<BN, BK, KT><<<grid, kThreads, plan.smem, stream>>>(
-        map, p);
-  else
-    snake_conv_dgrad_3xtf32<BN, BK, KT><<<grid, kThreads, plan.smem, stream>>>(
-        map, p);
+  snake_conv_dgrad_3xtf32<BN, BK, KT><<<grid, kThreads, plan.smem, stream>>>(
+      map, p);
+  return (int)cudaGetLastError();
+}
+
+template <int M, int BN, int KT>
+int launch_dgrad16(const snake16::Plan& plan, const CUtensorMap& w,
+                   const CUtensorMap& g, const snake16::Params& p,
+                   cudaStream_t stream) {
+  static bool configured = false;
+  if (!configured) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        snake_conv_dgrad_bf16<M, BN, KT>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, snake16::kMaxSmem);
+    if (err != cudaSuccess) return (int)err;
+    configured = true;
+  }
+  snake_conv_dgrad_bf16<M, BN, KT>
+      <<<plan.grid, snake16::block_threads(M, false), plan.smem, stream>>>(
+          w, g, p);
   return (int)cudaGetLastError();
 }
 
@@ -1487,27 +1438,97 @@ int backward_plan(int B, int T, int C, int O, int k, int dilation, int* out,
                   bool bf16) {
   if (B <= 0 || T <= 0 || C <= 0 || O <= 0 || k <= 0 || dilation <= 0)
     return (int)cudaErrorInvalidValue;
-  DgradPlan dp;
   WgradPlan wp;
-  int err = dgrad_plan(B, T, C, O, k, dilation, &dp, bf16);
-  if (err == 0) err = wgrad_plan(B, T, C, O, k, dilation, &wp, bf16);
+  int err = wgrad_plan(B, T, C, O, k, dilation, &wp, bf16);
   if (err) return err;
-  out[0] = dp.bn;
-  out[1] = dp.bk;
-  out[2] = B * ceil_div(T, kRows);
+  if (bf16) {
+    snake16::Plan dp;
+    err = snake16::make_plan(false, B, T, O, C, k, dilation, &dp);
+    if (err) return err;
+    out[0] = dp.bn;
+    out[1] = snake16::kStage;
+    out[2] = B * dp.mtiles;
+  } else {
+    DgradPlan dp;
+    err = dgrad_plan(B, T, C, O, k, dilation, &dp);
+    if (err) return err;
+    out[0] = dp.bn;
+    out[1] = dp.bk;
+    out[2] = B * ceil_div(T, kRows);
+  }
   out[3] = wp.bn;
   out[4] = wp.splits;
   return 0;
 }
 
-// dgrad and its sum of partials for element type T (see the extern entries)
+// the bf16 dgrad and its sum of partials (see the extern entry)
+int run_dgrad16(const void* g, const void* x, const void* alpha,
+                const void* beta, const void* wt, void* gx, float* ws,
+                void* galpha, void* gbeta, void* gb, int B, int T, int C,
+                int O, int k, int dilation, int left, int Ow,
+                unsigned long long* counts, void* stream) {
+  if (B <= 0 || T <= 0 || C <= 0 || O <= 0 || k <= 0 || dilation <= 0 ||
+      left < 0 || left > (k - 1) * dilation || Ow < O || Ow % 8 != 0 ||
+      !aligned16(wt))
+    return (int)cudaErrorInvalidValue;
+  const bool need_ab = galpha != nullptr || gbeta != nullptr;
+  const bool need_sums = need_ab || gb != nullptr;
+  if (gx == nullptr && !need_sums) return 0;
+  if (need_sums && ws == nullptr) return (int)cudaErrorInvalidValue;
+  snake16::Plan plan;
+  int err = snake16::make_plan(false, B, T, O, C, k, dilation, &plan);
+  if (err) return err;
+  cudaStream_t s = (cudaStream_t)stream;
+  snake16::Params p = {};
+  p.a = g;
+  p.alpha = alpha;
+  p.beta = beta;
+  p.x = x;
+  p.out = gx;
+  p.ws = ws;
+  p.count = counts;
+  p.B = B;
+  p.T = T;
+  p.Ka = O;
+  p.N = C;
+  p.C = C;
+  p.O = O;
+  p.k = k;
+  p.dilation = dilation;
+  p.lead = (k - 1) * dilation - left;
+  p.vec_x = C % 8 == 0 && aligned16(x) && (gx == nullptr || aligned16(gx));
+  p.need_ga = gx != nullptr || need_ab;
+  p.need_ab = need_ab;
+  p.need_gb = gb != nullptr;
+  CUtensorMap wmap, gmap;
+  err = snake16::prepare(plan, wt, Ow, &p, &wmap, &gmap);
+  if (err) return err;
+  int e;
+  switch ((plan.m / 64) * 1000 + plan.bn * 4 + plan.kt) {
+    case 2000 + 64 * 4 + 3: e = launch_dgrad16<128, 64, 3>(plan, wmap, gmap, p, s); break;
+    case 2000 + 128 * 4 + 3: e = launch_dgrad16<128, 128, 3>(plan, wmap, gmap, p, s); break;
+    case 2000 + 64 * 4 + 1: e = launch_dgrad16<128, 64, 1>(plan, wmap, gmap, p, s); break;
+    case 2000 + 128 * 4 + 1: e = launch_dgrad16<128, 128, 1>(plan, wmap, gmap, p, s); break;
+    case 1000 + 64 * 4 + 3: e = launch_dgrad16<64, 64, 3>(plan, wmap, gmap, p, s); break;
+    case 1000 + 128 * 4 + 3: e = launch_dgrad16<64, 128, 3>(plan, wmap, gmap, p, s); break;
+    case 1000 + 64 * 4 + 1: e = launch_dgrad16<64, 64, 1>(plan, wmap, gmap, p, s); break;
+    default: e = launch_dgrad16<64, 128, 1>(plan, wmap, gmap, p, s);
+  }
+  if (e != 0 || !need_sums) return e;
+  typedef __nv_bfloat16 bf;
+  return launch_sum_partials<bf>(
+      ws, 2 * (long long)C + O, B * plan.mtiles, static_cast<bf*>(galpha), C,
+      static_cast<bf*>(gbeta), C, static_cast<bf*>(gb), O,
+      counts == nullptr ? nullptr : counts + 2, s);
+}
+
+// the f32 dgrad and its sum of partials (see the extern entries)
 template <typename T>
 int run_dgrad(const void* g, const void* x, const void* alpha,
               const void* beta, const void* wt, void* gx, float* ws,
               void* galpha, void* gbeta, void* gb, int B, int T_, int C,
               int O, int k, int dilation, int left, int Ow,
               unsigned long long* counts, void* stream) {
-  constexpr bool kBf = std::is_same<T, __nv_bfloat16>::value;
   constexpr int per = 16 / (int)sizeof(T);
   if (B <= 0 || T_ <= 0 || C <= 0 || O <= 0 || k <= 0 || dilation <= 0 ||
       left < 0 || left > (k - 1) * dilation || Ow < O || Ow % per != 0 ||
@@ -1518,7 +1539,7 @@ int run_dgrad(const void* g, const void* x, const void* alpha,
   if (gx == nullptr && !need_sums) return 0;
   if (need_sums && ws == nullptr) return (int)cudaErrorInvalidValue;
   DgradPlan plan;
-  const int err = dgrad_plan(B, T_, C, O, k, dilation, &plan, kBf);
+  const int err = dgrad_plan(B, T_, C, O, k, dilation, &plan);
   if (err) return err;
   cudaStream_t s = (cudaStream_t)stream;
   DgradParams p;
@@ -1544,20 +1565,11 @@ int run_dgrad(const void* g, const void* x, const void* alpha,
   p.need_ab = need_ab;
   p.need_gb = gb != nullptr;
   int e;
-  if constexpr (kBf) {
-    switch (plan.bn * 4 + plan.kt) {
-      case 64 * 4 + 3: e = launch_dgrad<T, 64, 32, 3>(wt, Ow, p, plan, B, s); break;
-      case 128 * 4 + 3: e = launch_dgrad<T, 128, 16, 3>(wt, Ow, p, plan, B, s); break;
-      case 64 * 4 + 1: e = launch_dgrad<T, 64, 64, 1>(wt, Ow, p, plan, B, s); break;
-      default: e = launch_dgrad<T, 128, 32, 1>(wt, Ow, p, plan, B, s);
-    }
-  } else {
-    switch (plan.bn * 4 + plan.kt) {
-      case 64 * 4 + 3: e = launch_dgrad<T, 64, 16, 3>(wt, Ow, p, plan, B, s); break;
-      case 128 * 4 + 3: e = launch_dgrad<T, 128, 8, 3>(wt, Ow, p, plan, B, s); break;
-      case 64 * 4 + 1: e = launch_dgrad<T, 64, 32, 1>(wt, Ow, p, plan, B, s); break;
-      default: e = launch_dgrad<T, 128, 16, 1>(wt, Ow, p, plan, B, s);
-    }
+  switch (plan.bn * 4 + plan.kt) {
+    case 64 * 4 + 3: e = launch_dgrad<64, 16, 3>(wt, Ow, p, plan, B, s); break;
+    case 128 * 4 + 3: e = launch_dgrad<128, 8, 3>(wt, Ow, p, plan, B, s); break;
+    case 64 * 4 + 1: e = launch_dgrad<64, 32, 1>(wt, Ow, p, plan, B, s); break;
+    default: e = launch_dgrad<128, 16, 1>(wt, Ow, p, plan, B, s);
   }
   if (e != 0 || !need_sums) return e;
   return launch_sum_partials<T>(
@@ -1632,10 +1644,30 @@ int snake_conv_backward_plan(int B, int T, int C, int O, int k, int dilation,
   return backward_plan(B, T, C, O, k, dilation, out, false);
 }
 
-// The same for the bf16 instantiations.
+// The same for the bf16 kernels (dgrad: 64 output channels a stage, rows
+// of partial sums B * ceil(T / frames of its tile)).
 int snake_conv_backward_plan_bf16(int B, int T, int C, int O, int k,
                                   int dilation, int* out) {
   return backward_plan(B, T, C, O, k, dilation, out, true);
+}
+
+// The bf16 dgrad's whole plan: out[0..5] = frames a tile, input channels a
+// tile, output channels a stage, slots of the ring, rows of partial sums,
+// blocks (persistent, at most one an SM).
+int snake_conv_backward_plan_bf16_tiles(int B, int T, int C, int O, int k,
+                                        int dilation, int* out) {
+  if (B <= 0 || T <= 0 || C <= 0 || O <= 0 || k <= 0 || dilation <= 0)
+    return (int)cudaErrorInvalidValue;
+  snake16::Plan plan;
+  const int err = snake16::make_plan(false, B, T, O, C, k, dilation, &plan);
+  if (err) return err;
+  out[0] = plan.m;
+  out[1] = plan.bn;
+  out[2] = snake16::kStage;
+  out[3] = plan.ring;
+  out[4] = B * plan.mtiles;
+  out[5] = plan.grid;
+  return 0;
 }
 
 // dgrad, then the sum of its partials, on `stream`; returns a CUDA error
@@ -1667,9 +1699,8 @@ int snake_conv_backward_dgrad_bf16(const void* g, const void* x,
                                    int T, int C, int O, int k, int dilation,
                                    int left, int Ow,
                                    unsigned long long* counts, void* stream) {
-  return run_dgrad<__nv_bfloat16>(g, x, alpha, beta, wt, gx, ws, galpha,
-                                  gbeta, gb, B, T, C, O, k, dilation, left,
-                                  Ow, counts, stream);
+  return run_dgrad16(g, x, alpha, beta, wt, gx, ws, galpha, gbeta, gb, B, T,
+                     C, O, k, dilation, left, Ow, counts, stream);
 }
 
 // wgrad, then (when its plan splits the frame sum) the sum of its partials,

@@ -4,8 +4,9 @@ the native streaming host (``native_host``).
 Each source under ``after_tpu_torch/csrc`` has a plain C interface and is
 compiled on first use into its own shared library in
 ``build/after_tpu_torch_kernels/`` beside the package (``.gitignore`` lists
-``build/``).  The library's name carries a hash of the source and the flags,
-so an edited source is rebuilt and a stale library is never loaded.
+``build/``).  The library's name carries a hash of the source, the headers
+beside it (``*.cuh``) and the flags, so an edited source or header is
+rebuilt and a stale library is never loaded.
 
 Nothing here runs at import time: a CPU-only installation without ``nvcc``
 imports every module of the port.
@@ -45,9 +46,14 @@ def _nvcc() -> str:
                        "with the CUDA toolkit on the machine with the card")
 
 
+def _headers() -> bytes:
+    """The bytes of the headers the sources include (csrc/*.cuh)."""
+    return b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+
+
 def _target(source: str) -> Path:
     src = CSRC / source
-    digest = hashlib.sha1(src.read_bytes()
+    digest = hashlib.sha1(src.read_bytes() + _headers()
                           + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{src.stem}_{digest}.so"
 
@@ -176,6 +182,8 @@ def native_host() -> Path:
                                                   _cxx()]).encode())
     for src in NATIVE_SOURCES + ((SOURCE_CU,) if cuda else ()):
         h.update((CSRC / src).read_bytes())
+    if cuda:
+        h.update(_headers())
     digest = h.hexdigest()[:12]
     op_lib = BUILD_DIR / f"libsnake_conv_op_{digest}.so"
     host = BUILD_DIR / f"stream_host_{digest}"

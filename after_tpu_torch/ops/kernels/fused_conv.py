@@ -128,6 +128,8 @@ def _lib():
         lib.fused_snake_conv_bf16.restype = ctypes.c_int
         lib.fused_snake_conv_plan_bf16.argtypes = [i] * 6 + [p]
         lib.fused_snake_conv_plan_bf16.restype = ctypes.c_int
+        lib.fused_snake_conv_plan_bf16_tiles.argtypes = [i] * 6 + [p]
+        lib.fused_snake_conv_plan_bf16_tiles.restype = ctypes.c_int
         lib.fused_snake_conv_sum_splits_bf16.argtypes = [
             p, p, ctypes.c_longlong, i, p, p]
         lib.fused_snake_conv_sum_splits_bf16.restype = ctypes.c_int
@@ -155,6 +157,8 @@ def _bwd_lib():
         lib.snake_conv_backward_wgrad_f32.restype = ctypes.c_int
         lib.snake_conv_backward_plan_bf16.argtypes = [i] * 6 + [p]
         lib.snake_conv_backward_plan_bf16.restype = ctypes.c_int
+        lib.snake_conv_backward_plan_bf16_tiles.argtypes = [i] * 6 + [p]
+        lib.snake_conv_backward_plan_bf16_tiles.restype = ctypes.c_int
         lib.snake_conv_backward_dgrad_bf16.argtypes = [p] * 10 + [i] * 8 + [
             p, p]
         lib.snake_conv_backward_dgrad_bf16.restype = ctypes.c_int
@@ -208,6 +212,22 @@ def backward_plan(B: int, T: int, C: int, O: int, k: int, dilation: int = 1,
                              f"O={O} k={k} d={dilation} (CUDA error {err})")
         _BWD_PLANS[key] = tuple(out)
     return _BWD_PLANS[key]
+
+
+def bf16_tiles(B: int, T: int, C: int, O: int, k: int, dilation: int = 1,
+               backward: bool = False) -> Tuple[int, ...]:
+    """The whole plan of the bf16 forward kernel (or, with ``backward``,
+    of the bf16 dgrad) at this shape: (frames a tile, columns a tile,
+    channels a stage, slots of the ring, splits of the channel sum (dgrad:
+    rows of partial sums), blocks); builds the kernel if needed."""
+    out = (ctypes.c_int * 6)()
+    plan = (_bwd_lib().snake_conv_backward_plan_bf16_tiles if backward
+            else _lib().fused_snake_conv_plan_bf16_tiles)
+    err = plan(B, T, C, O, k, dilation, ctypes.addressof(out))
+    if err != 0:
+        raise ValueError(f"no bf16 tiling for B={B} T={T} C={C} O={O} k={k} "
+                         f"d={dilation} (CUDA error {err})")
+    return tuple(out)
 
 
 _COUNTS: Dict[torch.device, torch.Tensor] = {}

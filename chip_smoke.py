@@ -266,13 +266,16 @@ Phases, each printed before the last line:
    bound a codec artifact forward.
 
 16. bf16 serving (``compute_dtype="bfloat16"``) on phase 4's weights,
-   cast once: the kernel's bf16 instantiation (``snake_conv_bf16``) at
-   every shape of a bf16 transfer and of a bf16 buffer against its plain
-   bf16 version (within BF16_ULPS bf16 ulps of max |y|) and against float64
-   on the same bf16 inputs (within BF16_F64_RATIO x bf16 F.conv1d's error),
-   timed with CUDA graphs beside its plain version and bf16 F.conv1d,
-   against its bound (989 TFLOP/s of dense bf16 or 3.35 TB/s), and its
-   bf16 split sum alone as in phase 3; 3 bf16 transfers replayed from their
+   cast once: the bf16 kernel (``snake_conv_bf16``: a producer warp's TMA
+   ring of 64-channel stages, the snake by the consumer warpgroups, A by
+   ldmatrix, persistent blocks; ``csrc/snake_conv_bf16.cuh``) at every
+   shape of a bf16 transfer and of a bf16 buffer, each printed with its
+   plan (frames and channels a tile, channels a stage, ring slots, splits,
+   blocks), against its plain bf16 version (within BF16_ULPS bf16 ulps of
+   max |y|) and against float64 on the same bf16 inputs (within
+   BF16_F64_RATIO x bf16 F.conv1d's error), timed with CUDA graphs beside
+   its plain version and bf16 F.conv1d, against its bound (989 TFLOP/s of
+   dense bf16 or 3.35 TB/s), and its bf16 split sum alone as in phase 3; 3 bf16 transfers replayed from their
    graph (96 bf16 launches a replay and no f32 one counted on the device,
    the output f32 and finite, its cosine to phase 4's f32 output of the
    same request and noise at least BF16_COS) and op by op, per-phase ms,
@@ -298,8 +301,10 @@ Phases, each printed before the last line:
    trainer), each generator step 32 bf16 and 32 f32 dgrad and wgrad
    launches, a discriminator step none; each kind's median, peak memory,
    one profiled bf16 GAN generator step; (b) the bf16 backward kernels
-   (``snake_conv_dgrad_bf16``, ``snake_conv_wgrad_bf16``) at every shape
-   of the encoder at batch 8 against their plain bf16 version (within
+   (``snake_conv_dgrad_bf16``, the forward's bf16 main loop on g with the
+   taps reversed and its epilogue; ``snake_conv_wgrad_bf16``) at every
+   shape of the encoder at batch 8, each printed with dgrad's plan as in
+   phase 16, against their plain bf16 version (within
    BF16_ULPS bf16 ulps of each gradient's max), against float64 (within
    BF16_GRAD_F64_RATIO x bf16 F.conv1d autograd's error), the same bits
    twice and from a graph, timed from CUDA graphs per generator step
@@ -3757,7 +3762,7 @@ def check_fused_conv_bf16(path, unit):
     import torch
     import torch.nn.functional as F
     from after_tpu_torch.ops.conv import get_padding
-    from after_tpu_torch.ops.kernels.fused_conv import (kernel_plan,
+    from after_tpu_torch.ops.kernels.fused_conv import (bf16_tiles,
                                                         snake_conv,
                                                         snake_conv_reference,
                                                         sum_splits,
@@ -3772,7 +3777,8 @@ def check_fused_conv_bf16(path, unit):
     splits = Counter()
     worst, worst_ulps, f64_worst = 0.0, 0.0, (0.0, 0.0)
     log(f"bf16 kernels: {KERNEL16_NAME} per shape (k d C O T mode: n/{unit}, "
-        f"plan bn/bk/splits, max_abs_err in ulps of max|y|; kernel/plain/"
+        f"plan frames/channels a tile/channels a stage/ring slots/splits/"
+        f"blocks, max_abs_err in ulps of max|y|; kernel/plain/"
         f"F.conv1d bf16/bound ms; TFLOP/s, share of bound; float64 errors "
         f"kernel/F.conv1d bf16)")
     for shape, block in sorted(blocks_by_shape.items(),
@@ -3826,13 +3832,13 @@ def check_fused_conv_bf16(path, unit):
         total.update(ms=n * ms, plain_ms=n * plain_ms, library_ms=n * lib_ms,
                      bound_ms=n * bound_ms, flops=n * flops,
                      bytes=n * nbytes)
-        plan = kernel_plan(1, T, C, O, k, d, bf16)
+        plan = bf16_tiles(1, T, C, O, k, d)
         log(f"  {k} {d} {C} {O} {T} {mode}: {n}, {'/'.join(map(str, plan))}"
             f", {err:.3e} ({ulps:.2f}); {ms:.4f}/{plain_ms:.4f}/"
             f"{lib_ms:.4f}/{bound_ms:.4f}; {flops / ms / 1e9:.1f}, "
             f"{bound_ms / ms:.3f}; {e_kernel:.3e}/{e_lib:.3e}")
-        if plan[2] > 1:
-            splits[(plan[2], 1, T, O)] += n
+        if plan[4] > 1:
+            splits[(plan[4], 1, T, O)] += n
     total["launches"] = len(path)
     log(f"bf16 kernels: {SUM16_NAME} at each split shape of the {unit} "
         f"(splits B T O: n/{unit}, inputs rotated, max_abs_err; kernel/plain/"
@@ -4302,7 +4308,7 @@ def check_gradients_bf16(path, batch: int):
     import torch.nn.functional as F
     from after_tpu_torch.ops.conv import get_padding, weight_norm
     from after_tpu_torch.ops.kernels.fused_conv import (
-        backward_plan, kernel_weight, snake_conv_backward,
+        backward_plan, bf16_tiles, kernel_weight, snake_conv_backward,
         snake_conv_backward_reference)
     from after_tpu_torch.ops.snake import snake_beta
 
@@ -4315,7 +4321,9 @@ def check_gradients_bf16(path, batch: int):
             "wgrad": [False, False, False, True, False]}
     tot, worst = Counter(), Counter()
     log(f"bf16 gradients: the bf16 backward kernels at batch {batch} (k d C "
-        "O T mode: n, plan; worst |g - g_plain| in bf16 ulps of max|g_plain|"
+        "O T mode: n, plan; dgrad's frames/channels a tile/channels a stage/"
+        "ring slots/rows of partials/blocks; worst |g - g_plain| in bf16 ulps"
+        " of max|g_plain|"
         " dgrad/wgrad; float64 errors kernels/bf16 F.conv1d; ms from CUDA "
         "graphs: dgrad, wgrad, plain dgrad/wgrad, bf16 F.conv1d input/weight "
         "(cudnn.benchmark on), bound dgrad/wgrad)")
@@ -4427,7 +4435,9 @@ def check_gradients_bf16(path, batch: int):
             tot[f"{kind}_bytes"] += n * nbytes[kind]
         tot["launches"] += n
         plan = backward_plan(batch, T, C, O, k, d, bf)
-        log(f"  {k} {d} {C} {O} {T} {mode}: {n}, {'/'.join(map(str, plan))};"
+        tiles = bf16_tiles(batch, T, C, O, k, d, backward=True)
+        log(f"  {k} {d} {C} {O} {T} {mode}: {n}, {'/'.join(map(str, plan))}"
+            f"; {'/'.join(map(str, tiles))};"
             f" {ulps['dgrad']:.2f}/{ulps['wgrad']:.2f}; {e64[0]:.2e}/"
             f"{e64[1]:.2e}; {t['dgrad']:.4f}, {t['wgrad']:.4f}, "
             f"{t_plain['dgrad']:.4f}/{t_plain['wgrad']:.4f}, "

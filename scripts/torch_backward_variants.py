@@ -1,42 +1,63 @@
 """Where the snake+conv backward's kernels spend their time: each kernel
 timed as it is and with one piece switched off, on the card.
 
-    python3 scripts/torch_backward_variants.py
+    python3 scripts/torch_backward_variants.py [--bf16] [--csrc DIR]
+                                               [--label NAME]
 
-Copies ``after_tpu_torch/csrc/snake_conv_backward.cu`` into
-``build/backward_variants/`` with one text edit each (dgrad: no epilogue,
-the f32 totals folded only at the end, no low tf32 half of the weight, no
-MMAs; wgrad: no sine in the activation, no low half of g, the totals
-folded only at the end, no MMAs), builds every copy at once with nvcc and
-times dgrad and wgrad of each (CUDA events over a CUDA graph of 20 calls,
-as ``chip_smoke.py:cuda_ms``) at five shapes of a training codec forward at
-batch 8. A variant computes wrong gradients; only its time is read. Prints
-the card line and a line a shape: the plan, the 3xTF32 bound of each
-kernel and each variant's ms.
+Copies ``snake_conv_backward.cu`` (from ``after_tpu_torch/csrc`` or
+``--csrc``, say a parent checkout unpacked under ``build/``) into
+``build/backward_variants/<label>/`` with one text edit each (dgrad: no
+epilogue, the f32 totals folded only at the end, no low tf32 half of the
+weight, no pass over the staged g window, no MMAs; wgrad: no sine in the
+activation, no low half of g, the totals folded only at the end, no MMAs),
+builds every copy at once with nvcc and times dgrad and wgrad of each
+(CUDA events over a CUDA graph of 20 calls, as ``chip_smoke.py:cuda_ms``,
+their sum of partials included). f32: at five shapes of a training codec
+forward at batch 8. ``--bf16``: the bf16 kernels at every shape of the
+codec's encoder at batch 8 x 131072 samples (the 32 bf16 convs of a bf16
+generator step), summed over the step. A variant computes wrong
+gradients; only its time is read. Prints the card line and a line a
+shape: the plan, the bound of each kernel and each variant's ms.
 """
 
 from __future__ import annotations
 
+import argparse
 import ctypes
 import os
 import sys
+from collections import Counter
 
-# text edits of the source, each switching one piece off
+# text edits of the source, each switching one piece off (see
+# _variants_common: an edit applies where its text occurs)
 VARIANTS = {
     "base": [],
-    "dgrad_no_epilogue": [("  if (!p.need_ga) return;\n", "  return;\n")],
+    "dgrad_no_epilogue": [("  if (!p.need_ga) return;\n", "  return;\n"),
+                          ("      if (!p.need_ga) continue;\n",
+                           "      continue;\n")],
     "dgrad_fold_at_end": [
         ("if ((i + 1) % kFoldD == 0 || i + 1 == n) fold(tot, acc);",
          "if (i + 1 == n) fold(tot, acc);")],
     "dgrad_no_low_half": [
-        ("for (int e = tid; e < WB / 4; e += kThreads) {",
+        ("for (int e = tid; e < WE; e += kThreads) {",
          "for (int e = tid; e < 0; e += kThreads) {")],
-    "dgrad_no_mma": [("    flush_gb(i);\n    mma(i);", "    flush_gb(i);")],
+    # the pass over the staged g window (f32: its tf32 split; bf16 before
+    # the redesign: its columns reordered for the fragments)
+    "dgrad_no_window": [
+        ("  mbar_wait(full, 0);\n  activate(0);",
+         "  mbar_wait(full, 0);"),
+        ("      mbar_wait(full + (i + 1) % kRing, ((i + 1) / kRing) & 1);\n"
+         "      activate(i + 1);",
+         "      mbar_wait(full + (i + 1) % kRing, ((i + 1) / kRing) & 1);")],
+    "dgrad_no_mma": [("    flush_gb(i);\n    mma(i);", "    flush_gb(i);"),
+                     ("          mma<BN>(acc, frag[jj * 4 + s],\n"
+                      "                  desc128(wslot + jj * BN * 128 + s * 32));",
+                      "          ;")],
     "wgrad_no_sine": [("const float sn = sinf(xv * al_s[nc]);",
                        "const float sn = xv * al_s[nc];")],
     "wgrad_no_low_half": [("  lo = to_tf32(v - __uint_as_float(hi));",
                            "  lo = 0u;")],
-    "wgrad_fold_at_end": [("if ((i + 1) % kFoldW == 0 || i + 1 == n) {",
+    "wgrad_fold_at_end": [("if ((i + 1) % kFold == 0 || i + 1 == n) {",
                            "if (i + 1 == n) {")],
     "wgrad_no_mma": [
         ("    mma(i);\n    issue(i + 2);\n    if (i + 1 < n) {\n"
@@ -44,22 +65,33 @@ VARIANTS = {
          "    issue(i + 2);\n    if (i + 1 < n) {\n"
          "      cp_async_wait_prev();\n      __syncthreads();     // chunk")],
 }
+# the pieces of the f32 kernels only
+F32_ONLY = ("dgrad_no_low_half", "wgrad_no_low_half")
+# the pieces of the bf16 kernels only
+BF16_ONLY = ("dgrad_no_window",)
 # (B, T, C, O, k, dilation) of a training codec forward
 SHAPES = [(8, 2048, 384, 384, 3, 3), (8, 256, 768, 768, 3, 9),
           (8, 8192, 64, 64, 3, 1), (8, 2048, 384, 384, 1, 1),
           (8, 4096, 192, 192, 1, 1)]
+BATCH, TRAIN_SAMPLES = 8, 131072
 
 
 def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--bf16", action="store_true")
+    ap.add_argument("--csrc", default=None)
+    ap.add_argument("--label", default="tree")
+    args = ap.parse_args()
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     sys.path.insert(0, root)
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import torch
 
     import chip_smoke as cs
+    from _variants_common import build_variants, codec_shapes
     from after_tpu_torch.ops.conv import get_padding
     from after_tpu_torch.ops.kernels import build
-    from after_tpu_torch.ops.kernels.fused_conv import (backward_plan,
-                                                        backward_weight,
+    from after_tpu_torch.ops.kernels.fused_conv import (backward_weight,
                                                         kernel_weight)
     from after_tpu_torch.utils.device import strict_f32
 
@@ -67,53 +99,70 @@ def main() -> int:
         raise SystemExit("needs a CUDA card")
     strict_f32()
     print(f"card: {cs.card_line()}", flush=True)
-    src = (build.CSRC / "snake_conv_backward.cu").read_text()
-    out = os.path.join(root, "build", "backward_variants")
-    os.makedirs(out, exist_ok=True)
-    cmds = []
-    for name, edits in VARIANTS.items():
-        text = src
-        for old, new in edits:
-            if old not in text:
-                raise SystemExit(f"{name}: the source no longer holds "
-                                 f"{old!r}")
-            text = text.replace(old, new)
-        cu = os.path.join(out, f"{name}.cu")
-        with open(cu, "w") as f:
-            f.write(text)
-        cmds.append([build._nvcc(), *build.NVCC_FLAGS, "-o",
-                     os.path.join(out, f"lib{name}.so"), cu])
-    build._wait(build._start(*cmds))
+    skip = F32_ONLY if args.bf16 else BF16_ONLY
+    variants = {n: e for n, e in VARIANTS.items() if n not in skip}
+    csrc = args.csrc or str(build.CSRC)
+    libs = build_variants(
+        os.path.join(csrc, "snake_conv_backward.cu"), variants,
+        os.path.join(root, "build", "backward_variants",
+                     args.label + ("_bf16" if args.bf16 else "")))
     P, I = ctypes.c_void_p, ctypes.c_int
-    libs = {}
-    for name in VARIANTS:
-        lib = ctypes.CDLL(os.path.join(out, f"lib{name}.so"))
-        lib.snake_conv_backward_dgrad_f32.argtypes = [P] * 10 + [I] * 8 + [
-            P, P]
-        lib.snake_conv_backward_wgrad_f32.argtypes = [P] * 6 + [I] * 8 + [
-            P, P]
-        libs[name] = lib
-    for B, T, C, O, k, d in SHAPES:
+    sfx = "bf16" if args.bf16 else "f32"
+    for lib in libs.values():
+        getattr(lib, f"snake_conv_backward_dgrad_{sfx}").argtypes = (
+            [P] * 10 + [I] * 8 + [P, P])
+        getattr(lib, f"snake_conv_backward_wgrad_{sfx}").argtypes = (
+            [P] * 6 + [I] * 8 + [P, P])
+        plan_fn = (lib.snake_conv_backward_plan_bf16 if args.bf16
+                   else lib.snake_conv_backward_plan)
+        plan_fn.argtypes = [I] * 6 + [P]
+    if args.bf16:
+        shapes = Counter({(BATCH, T, C, O, k, d): n for (k, d, C, O, T), n
+                          in codec_shapes(TRAIN_SAMPLES, ("enc",)).items()})
+    else:
+        shapes = Counter({s: 1 for s in SHAPES})
+    dtype = torch.bfloat16 if args.bf16 else torch.float32
+    peak = cs.PEAK_BF16_FLOPS if args.bf16 else cs.PEAK_TF32_FLOPS / 3
+    elem = 2 if args.bf16 else 4
+    totals = Counter()
+    print(f"{args.label} {sfx}: per shape (B T C O k d: launches a step; "
+          f"the plan; bound dgrad/wgrad ms; each variant's ms)", flush=True)
+    for (B, T, C, O, k, d), n in sorted(shapes.items()):
         gen = torch.Generator("cuda").manual_seed(0)
-        x = torch.randn(B, T, C, device="cuda", generator=gen)
-        g = torch.randn(B, T, O, device="cuda", generator=gen)
-        alpha = torch.rand(C, device="cuda", generator=gen) + 0.5
-        beta = torch.rand(C, device="cuda", generator=gen) + 0.5
-        w_k = kernel_weight(torch.randn(O, C, k, device="cuda",
-                                        generator=gen) / (C * k) ** 0.5)[0]
+        x = torch.randn(B, T, C, device="cuda", generator=gen).to(dtype)
+        g = torch.randn(B, T, O, device="cuda", generator=gen).to(dtype)
+        alpha = (torch.rand(C, device="cuda", generator=gen) + 0.5).to(dtype)
+        beta = (torch.rand(C, device="cuda", generator=gen) + 0.5).to(dtype)
+        w_k = kernel_weight((torch.randn(O, C, k, device="cuda",
+                                         generator=gen)
+                             / (C * k) ** 0.5).to(dtype))[0]
         left = get_padding(k, 1, d, "centered")[0]
-        plan = backward_plan(B, T, C, O, k, d)
+        out = (ctypes.c_int * 5)()
+        plan_fn = (libs["base"].snake_conv_backward_plan_bf16 if args.bf16
+                   else libs["base"].snake_conv_backward_plan)
+        if plan_fn(B, T, C, O, k, d, ctypes.addressof(out)):
+            raise SystemExit(f"no plan for {(B, T, C, O, k, d)}")
+        plan = tuple(out)
         wt = backward_weight(w_k, C)
         gx = torch.empty_like(x)
-        sums = [torch.empty(n, device="cuda") for n in (C, C, O)]
+        sums = [torch.empty(m, device="cuda", dtype=dtype) for m in (C, C, O)]
         ws = torch.empty(plan[2], 2 * C + O, device="cuda")
         gw = torch.empty_like(w_k)
         ws_w = torch.empty(plan[4], w_k.numel(), device="cuda")
-        bound = 1e3 * 3 * 2.0 * k * C * O * T * B / cs.PEAK_TF32_FLOPS
+        flops = 2.0 * k * C * O * T * B
+        nbytes = {"dgrad": elem * (2 * B * T * C + B * T * O + k * O * C
+                                   + 4 * C + O),
+                  "wgrad": elem * (B * T * C + B * T * O + 2 * C
+                                   + k * O * w_k.shape[2])}
+        bound = {kind: 1e3 * max(flops / peak, nbytes[kind] / cs.PEAK_BYTES)
+                 for kind in nbytes}
         times = []
         for name, lib in libs.items():
+            dgrad_fn = getattr(lib, f"snake_conv_backward_dgrad_{sfx}")
+            wgrad_fn = getattr(lib, f"snake_conv_backward_wgrad_{sfx}")
+
             def dgrad():
-                err = lib.snake_conv_backward_dgrad_f32(
+                err = dgrad_fn(
                     g.data_ptr(), x.data_ptr(), alpha.data_ptr(),
                     beta.data_ptr(), wt.data_ptr(), gx.data_ptr(),
                     ws.data_ptr(), *(t.data_ptr() for t in sums), B, T, C, O,
@@ -123,19 +172,27 @@ def main() -> int:
                     raise RuntimeError(f"{name} dgrad: CUDA error {err}")
 
             def wgrad():
-                err = lib.snake_conv_backward_wgrad_f32(
+                err = wgrad_fn(
                     x.data_ptr(), alpha.data_ptr(), beta.data_ptr(),
                     g.data_ptr(), gw.data_ptr(), ws_w.data_ptr(), B, T, C, O,
                     k, d, left, w_k.shape[2], None,
                     torch.cuda.current_stream().cuda_stream)
                 if err:
                     raise RuntimeError(f"{name} wgrad: CUDA error {err}")
-            if not name.startswith("wgrad"):
-                times.append(f"{name} dgrad {cs.cuda_ms(dgrad):.4f}")
-            if not name.startswith("dgrad"):
-                times.append(f"{name} wgrad {cs.cuda_ms(wgrad):.4f}")
-        print(f"{(B, T, C, O, k, d)} plan {plan}, bound {bound:.4f} ms "
-              f"each; " + "; ".join(times), flush=True)
+            for kind, fn in (("dgrad", dgrad), ("wgrad", wgrad)):
+                if name == "base" or name.startswith(kind):
+                    ms = cs.cuda_ms(fn)
+                    totals[f"{name} {kind}"] += n * ms
+                    times.append(f"{name} {kind} {ms:.4f}")
+        totals["bound dgrad"] += n * bound["dgrad"]
+        totals["bound wgrad"] += n * bound["wgrad"]
+        print(f"  {(B, T, C, O, k, d)}: {n}; plan {plan}, bound "
+              f"{bound['dgrad']:.4f}/{bound['wgrad']:.4f} ms; "
+              + "; ".join(times), flush=True)
+    if args.bf16:
+        print(f"{args.label} {sfx}: per bf16 generator step "
+              f"({sum(shapes.values())} launches each): " + ", ".join(
+                  f"{key} {v:.4f}" for key, v in totals.items()), flush=True)
     return 0
 
 

@@ -11,10 +11,9 @@ another summation order than cuDNN's strict f32, TF32 off in cuDNN).  The
 registered op's gradients (the backward's dgrad and wgrad kernels, 3xTF32
 too) are within 1e-4 * max |g| of plain autograd's for each input.  Against
 a float64 plain version the kernel's error may be at most 4x that of
-strict-f32 F.conv1d.  The kernel's bf16 instantiation is within 2 bf16
-ulps of max |y| of its plain bf16 version, and so is each gradient of the
-backward's bf16 instantiations (dgrad, wgrad) of its plain bf16 version's
-max |g|.  The streamed waveform on the card is within 1e-4 * max |y| of
+strict-f32 F.conv1d.  The bf16 kernel is within 2 bf16 ulps of max |y| of
+its plain bf16 version, and so is each gradient of the backward's bf16
+kernels (dgrad, wgrad) of its plain bf16 version's max |g|.  The streamed waveform on the card is within 1e-4 * max |y| of
 the CPU's.
 """
 
@@ -75,11 +74,15 @@ def test_kernel_matches_plain_version(cuda, B, T, C, O, k, d, mode):
 @pytest.mark.parametrize("B,T,C,O,k,d", [
     (2, 512, 64, 64, 3, 1), (1, 100, 20, 40, 3, 3), (3, 37, 130, 70, 1, 1),
     (1, 1024, 768, 768, 3, 9), (1, 8192, 384, 384, 3, 1),
-    (2, 700, 96, 300, 3, 3)])
+    (2, 700, 96, 300, 3, 3),
+    # a streamed buffer's deepest conv, and a 64-frame tile's shape
+    (1, 8, 512, 512, 3, 9), (2, 40, 256, 256, 3, 3),
+    # C and O without 16-byte rows (the window staged without TMA), k = 5
+    (1, 300, 33, 17, 5, 2), (2, 64, 12, 20, 3, 1)])
 def test_bf16_kernel_matches_plain_version(cuda, B, T, C, O, k, d, mode):
-    """The bf16 instantiation against its plain bf16 version (both round an
-    f32 sum once): within 2 bf16 ulps of max |y|, the bf16 kernels counted
-    on the device and the f32 ones not."""
+    """The bf16 kernel against its plain bf16 version (both round an f32
+    sum once): within 2 bf16 ulps of max |y|, the bf16 kernels counted on
+    the device and the f32 ones not."""
     x, alpha, beta, w, b = (t.to(torch.bfloat16) for t in _inputs(
         0, B, T, C, O, k, cuda))
     reset_device_launches()
@@ -91,6 +94,30 @@ def test_bf16_kernel_matches_plain_version(cuda, B, T, C, O, k, d, mode):
     scale = ref.float().abs().max().item()
     ulp = 2.0 ** (np.floor(np.log2(scale)) - 7)
     assert (y.float() - ref.float()).abs().max().item() <= 2 * ulp
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,C,O,k,d", [
+    (1, 1024, 512, 512, 1, 1), (1, 1024, 768, 768, 3, 9),
+    (2, 40, 256, 256, 3, 3), (1, 32768, 64, 64, 3, 9)])
+def test_bf16_kernel_gives_the_same_bits_eager_and_in_a_graph(
+        cuda, B, T, C, O, k, d):
+    """Split channel sums (the first two shapes) are added in split order:
+    two launches and a CUDA graph replay give the same bits."""
+    from after_tpu_torch.ops.kernels.fused_conv import snake_conv
+
+    x, alpha, beta, w, b = (t.to(torch.bfloat16) for t in _inputs(
+        16, B, T, C, O, k, cuda))
+    args = (x, alpha, beta, *kernel_weight(w), b, d, "centered")
+    first = snake_conv(*args)
+    again = snake_conv(*args)
+    graph = torch.cuda.CUDAGraph()
+    torch.cuda.synchronize()
+    with torch.cuda.graph(graph):
+        captured = snake_conv(*args)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(first, again) and torch.equal(first, captured)
 
 
 @pytest.mark.cuda
@@ -500,7 +527,12 @@ def _bf16_ulp(v: float) -> float:
 BF16_BACKWARD_SHAPES = [
     (8, 8192, 16, 64, 3, 1, "centered"), (8, 8192, 64, 64, 3, 9, "centered"),
     (8, 1024, 256, 256, 1, 1, "centered"), (2, 1000, 20, 24, 3, 9, "causal"),
-    (1, 77, 40, 36, 1, 1, "centered")]
+    (1, 77, 40, 36, 1, 1, "centered"),
+    # the encoder's deepest convs at batch 8 x 131072 samples
+    (8, 256, 512, 512, 3, 9, "centered"), (8, 256, 512, 512, 1, 1, "centered"),
+    # C and O without 16-byte rows: g staged without TMA, x and gx by
+    # elements
+    (2, 300, 36, 20, 3, 3, "causal")]
 
 
 @pytest.mark.cuda
