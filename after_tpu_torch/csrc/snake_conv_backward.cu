@@ -76,31 +76,53 @@
 //
 // The bf16 kernels, the backward of the forward's bf16 kernel
 // (fused_snake_conv.cu: snake_conv_bf16): g, x, alpha, beta and the weight
-// are bf16, and so are the five gradients.  dgrad (snake_conv_dgrad_bf16)
-// is a design of its own for bf16: the forward's bf16 main loop
-// (snake_conv_bf16.cuh: a producer warp's TMA ring of 64-channel stages,
-// A from the g window by ldmatrix, one bf16 wgmma m64nNk16 a 16-channel
-// step, persistent blocks) on g with the taps reversed, then its epilogue
-// on each tile: x in and gx out through shared memory in 16-byte pieces,
-// the snake's derivative in f32, gx rounded to bf16 once; the producer sums
-// g's frames for gb from the slots the consumers have released.  Its
-// sums need no f32 totals: a stage adds 192 products, and each gradient is
-// rounded to 8 bits.  wgrad (snake_conv_wgrad_bf16) is the f32 template's
-// bf16 instantiation: each 16-frame step one wgmma m64nNk16 .f32.bf16.bf16
-// in place of the three tf32 products, 64-frame chunks (one 128-byte row
-// of bf16), the snake in f32 from the widened inputs rounded to bf16 once,
-// as the forward rounds it; g's fragments pair two frames of one output
-// channel in a register.  galpha, gbeta, gb and gw leave the kernels as
-// f32 partials (an unsplit gw in registers), summed in the fixed order
-// (sum_partials_bf16) and rounded once: the same bits at every launch,
-// eager or replayed.
+// are bf16, and so are the five gradients.  Each is a design of its own for
+// bf16 on Hopper, built from snake_conv_bf16.cuh's pieces: a producer warp
+// keeps TMA loads in flight in a ring of slots that full, empty and ready
+// mbarriers hand between the warps, blocks are persistent, the snake is
+// f32 sine squared (a 3-part reduction and Cephes' polynomial) rounded to
+// bf16 once, and g reaches the tensor cores from registers by ldmatrix at
+// per-lane row addresses, so a tap's shift j*d needs no 8-row alignment.
+//
+// dgrad (snake_conv_dgrad_bf16) is the forward's bf16 main loop on g with
+// the taps reversed, then its epilogue on each tile: x in and gx out
+// through shared memory in 16-byte pieces, the snake's derivative in f32,
+// gx rounded to bf16 once; the producer sums g's frames for gb from the
+// slots the consumers have released.
+//
+// wgrad (snake_conv_wgrad_bf16): M = output channels, N = input channels
+// (64 a tile), K = frames, in 64-frame chunks.  A chunk's slot holds its x
+// tile (64 frames x 64 channels) and the g window its taps read (64 +
+// (KT-1)d frames x 64-channel boxes), both as TMA lands them: frames as
+// rows, channels contiguous, 128-byte swizzled.  Seven warps activate the
+// x tile in place, and the tensor cores read it as B just so, MN-major
+// (wgmma reads 16-bit operands either way): no transposed copy.  g goes in
+// as A, ldmatrix .trans turning its frames x channels rows into fragments,
+// each tap's shift a row offset.  The two consumer warpgroups take
+// different output boxes (64 channels each) of one x tile, or, where the
+// output has one box, alternate chunks, the second's sums added into the
+// first's through shared memory.  Blocks walk work items (tile x split of
+// the frame sum); each split's f32 slab is summed by sum_partials4, 16-byte
+// loads in the fixed order.  What bounds it at the encoder's shapes (2-8
+// us of work a launch): the snake, which every x tile needs again for each
+// 128 output channels, the m64n64k16 MMAs, and the slabs of the split sums,
+// written at the end of each item and read back (scripts/
+// torch_backward_variants.py --bf16 splits them); a plan (wgrad16::
+// make_plan) picks the output boxes, the warpgroups' roles and the split
+// for each shape.
+//
+// Neither bf16 kernel folds f32 totals: each gradient is rounded to 8 bits
+// once, and the float64 check holds without (scripts/torch_backward_f64.py
+// --bf16).  galpha, gbeta, gb and a split gw leave the kernels as f32
+// partials, summed in a fixed order (sum_partials, sum_partials4) and
+// rounded once: the same bits at every launch, eager or replayed.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include <type_traits>
+#include <string.h>
 
 #include "snake_conv_bf16.cuh"
 
@@ -132,9 +154,6 @@ __device__ __forceinline__ int act_col(int cc) {
 }
 
 __device__ __forceinline__ float widen(float v) { return v; }
-__device__ __forceinline__ float widen(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
 
 // an f32 value stored as Out (f32, or bf16 rounded to nearest once)
 __device__ __forceinline__ void put(float* p, float v) { *p = v; }
@@ -354,32 +373,13 @@ __device__ __forceinline__ void wgmma_tf32(float (&d)[BN / 2],
   else wgmma_n128(d, a, desc_b);
 }
 
-// wgmma.mma_async m64nNk16 .f32.bf16.bf16, A from registers (4 registers of
-// two bf16 each, the lower k in the low half), B K-major from shared memory
-// (trans-b 0), d += A * B
+// wgmma.mma_async m64n64k16 .f32.bf16.bf16, A from registers (4 registers
+// of two bf16 each, the lower k in the low half), B MN-major from shared
+// memory (trans-b 1: each K index a row of N values), d += A * B
 
-__device__ __forceinline__ void wgmma_bf16_n32(float (&d)[16],
-                                               const uint32_t (&a)[4],
-                                               uint64_t desc_b) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
-      " %12, %13, %14, %15}, "
-      "{%16, %17, %18, %19}, %20, p, 1, 1, 0;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
-        "r"(1));
-}
-
-__device__ __forceinline__ void wgmma_bf16_n64(float (&d)[32],
-                                               const uint32_t (&a)[4],
-                                               uint64_t desc_b) {
+__device__ __forceinline__ void wgmma_bf16_mn(float (&d)[32],
+                                              const uint32_t (&a)[4],
+                                              uint64_t desc_b) {
   asm volatile(
       "{\n"
       ".reg .pred p;\n"
@@ -388,7 +388,7 @@ __device__ __forceinline__ void wgmma_bf16_n64(float (&d)[32],
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
       " %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23,"
       " %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n"
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
       "}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
         "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
@@ -400,44 +400,24 @@ __device__ __forceinline__ void wgmma_bf16_n64(float (&d)[32],
         "r"(1));
 }
 
-__device__ __forceinline__ void wgmma_bf16_n128(float (&d)[64],
-                                               const uint32_t (&a)[4],
-                                               uint64_t desc_b) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
-      " %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23,"
-      " %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35,"
-      " %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
-      " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59,"
-      " %60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
-        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
-        "r"(1));
+// MN-major operand of 64 MN values in TMA's 128-byte swizzle: each K index
+// a 128-byte row, 8-row groups 1024 bytes apart (the stride byte offset;
+// the leading byte offset, between groups of 64 MN values, is unused)
+__device__ __forceinline__ uint64_t desc128_mn(const void* p) {
+  return (uint64_t)((smem_addr(p) & 0x3FFFF) >> 4) | (1ull << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
 }
 
-template <int BN>
-__device__ __forceinline__ void wgmma_bf16(float (&d)[BN / 2],
-                                           const uint32_t (&a)[4],
-                                           uint64_t desc_b) {
-  if constexpr (BN == 32) wgmma_bf16_n32(d, a, desc_b);
-  else if constexpr (BN == 64) wgmma_bf16_n64(d, a, desc_b);
-  else wgmma_bf16_n128(d, a, desc_b);
+// four 8x8 b16 matrices, transposed: lane l gives the address of row l % 8
+// of matrix l / 8, and holds column l / 4, rows 2 (l % 4) and 2 (l % 4) + 1
+// (the lower in the low half) of each in r[0..3]
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr)
+      : "memory");
 }
 
 int ceil_div(int a, int b) { return (a + b - 1) / b; }
@@ -843,8 +823,8 @@ snake_conv_dgrad_bf16(const __grid_constant__ CUtensorMap w_map,
 // wgrad
 // ---------------------------------------------------------------------------
 
-// x, alpha, beta, g and an unsplit gw are of the instance's element type;
-// the split partial sums are f32 in both
+// f32 wgrad: x, alpha, beta, g and an unsplit gw are f32, and so are the
+// split partial sums
 struct WgradParams {
   const void* x;        // (B, T, C)
   const void* alpha;
@@ -861,43 +841,34 @@ struct WgradParams {
   int vec_x, vec_g;
 };
 
-// frames of one wgrad chunk: one 128-byte row of the activated tile (32
-// f32, 64 bf16)
-__host__ __device__ constexpr int chunk_frames(int elem) { return 128 / elem; }
-
-size_t wgrad_smem(int bn, int kt, int dilation, bool bf16 = false) {
-  const int elem = bf16 ? 2 : 4;
-  const int frames = chunk_frames(elem);
-  const int w = frames + (kt - 1) * dilation;
+size_t wgrad_smem(int bn, int kt, int dilation) {
+  const int w = kFrames + (kt - 1) * dilation;
   return 1024 +                                              // alignment
-         (size_t)2 * (bf16 ? 1 : 2) * elem * bn * frames +   // activated
-         (size_t)kRing * elem * w * kGStride +               // g windows
-         (size_t)kRing * elem * frames * (bn + 8) +          // raw x
+         (size_t)2 * 2 * 4 * bn * kFrames +                  // activated
+         (size_t)kRing * 4 * w * kGStride +                  // g windows
+         (size_t)kRing * 4 * kFrames * (bn + 8) +            // raw x
          (size_t)2 * 4 * bn;                                 // alpha, 1 / e
 }
 
 // One block: 128 output channels x BN input channels x KT taps, over its
-// split's chunks in order.  T is float (3xTF32, 32-frame chunks) or
-// __nv_bfloat16 (one bf16 product a 16-frame step, 64-frame chunks).
-template <typename T, int BN, int KT>
+// split's chunks of 32 frames in order, in 3xTF32.
+template <int BN, int KT>
 __device__ __forceinline__ void wgrad_block(const WgradParams& p) {
-  constexpr bool kBf = std::is_same<T, __nv_bfloat16>::value;
-  constexpr int kF = chunk_frames(sizeof(T));  // frames a chunk
-  constexpr int per = 16 / (int)sizeof(T);     // elements of a 16-byte piece
+  typedef float T;
+  constexpr int kF = kFrames;                  // frames a chunk
+  constexpr int per = 4;                       // elements of a 16-byte piece
   constexpr int XS = BN + 8;                   // row stride of the raw x tile
   constexpr int TILE = BN * kF;                // elements of an activated tile
-  constexpr int KS = kF / (kBf ? 16 : 8);      // MMA steps a chunk
-  // fold every 128 frames
-  constexpr int kFold = kFoldW * kFrames / kF;
+  constexpr int KS = kF / 8;                   // MMA steps a chunk
+  constexpr int kFold = kFoldW;                // fold every 128 frames
   static_assert(BN % 8 == 0 && (kF * BN) % kThreads == 0, "tiling");
 
   extern __shared__ uint8_t smem_raw[];
   uint8_t* const smem = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
   const int W = kF + (KT - 1) * p.dilation;      // g window rows
-  // f32: [2][hi, lo][TILE]; bf16: [2][TILE]
-  T* const act = reinterpret_cast<T*>(smem);
-  T* const gwin = act + (kBf ? 2 : 4) * TILE;          // [ring][W][kGStride]
+  T* const act = reinterpret_cast<T*>(smem);            // [2][hi, lo][TILE]
+  T* const gwin = act + 4 * TILE;                      // [ring][W][kGStride]
   T* const xraw = gwin + kRing * W * kGStride;         // [ring][kF][XS]
   float* const al_s =
       reinterpret_cast<float*>(xraw + kRing * kF * XS);  // [BN]
@@ -929,8 +900,7 @@ __device__ __forceinline__ void wgrad_block(const WgradParams& p) {
 
   // chunk i of the split into ring slot i % kRing: its kF frames of x (BN
   // channels) and the g window every tap of the group reads (128
-  // channels); zero past every edge; one cp.async group per call (a bf16
-  // tile without 16-byte rows by plain loads and stores, as in dgrad)
+  // channels); zero past every edge; one cp.async group per call
   auto issue = [&](int i) {
     if (i < n) {
       const int ch = first + i;
@@ -959,11 +929,7 @@ __device__ __forceinline__ void wgrad_block(const WgradParams& p) {
           const int t = f0 + f;
           const int c = c0 + cc;
           const bool ok = t < p.T && c < p.C;
-          if constexpr (kBf)
-            xd[f * XS + cc] =
-                ok ? xb[(size_t)t * p.C + c] : __float2bfloat16_rn(0.f);
-          else
-            cp_async4(xd + f * XS + cc, ok ? xb + (size_t)t * p.C + c : x, ok);
+          cp_async4(xd + f * XS + cc, ok ? xb + (size_t)t * p.C + c : x, ok);
         }
       }
       if (p.vec_g) {
@@ -983,26 +949,21 @@ __device__ __forceinline__ void wgrad_block(const WgradParams& p) {
           const int t = tg0 + r;
           const int o = o0 + oo;
           const bool ok = t >= 0 && t < p.T && o < p.O;
-          if constexpr (kBf)
-            gd[r * kGStride + oo] =
-                ok ? gb[(size_t)t * p.O + o] : __float2bfloat16_rn(0.f);
-          else
-            cp_async4(gd + r * kGStride + oo,
-                      ok ? gb + (size_t)t * p.O + o : g, ok);
+          cp_async4(gd + r * kGStride + oo,
+                    ok ? gb + (size_t)t * p.O + o : g, ok);
         }
       }
     }
     cp_async_commit();
   };
 
-  // snake of chunk i's x in f32, into activated buffer i & 1 (f32: split;
-  // bf16: rounded once, as the forward rounds it), transposed: channel n's
-  // kF frames are one 128-byte row, its 16-byte pieces swizzled (piece ^
-  // (n % 8)) as a 128-byte-swizzle descriptor reads them.  A warp takes 8
-  // channels x 4 frames.
+  // snake of chunk i's x in f32, into activated buffer i & 1, split into
+  // tf32 halves, transposed: channel n's kF frames are one 128-byte row, its
+  // 16-byte pieces swizzled (piece ^ (n % 8)) as a 128-byte-swizzle
+  // descriptor reads them.  A warp takes 8 channels x 4 frames.
   auto activate = [&](int i) {
     const T* const xr = xraw + (i % kRing) * kF * XS;
-    T* const ah = act + (i & 1) * (kBf ? 1 : 2) * TILE;
+    T* const ah = act + (i & 1) * 2 * TILE;
 #pragma unroll 4
     for (int e = tid; e < kF * BN; e += kThreads) {
       const int lane = e & 31;
@@ -1013,14 +974,10 @@ __device__ __forceinline__ void wgrad_block(const WgradParams& p) {
       const float sn = sinf(xv * al_s[nc]);
       const float v = xv + ib_s[nc] * (sn * sn);
       const int at = nc * kF + ((((f / per) ^ (nc & 7)) * per) | (f % per));
-      if constexpr (kBf) {
-        ah[at] = __float2bfloat16_rn(v);
-      } else {
-        float hi, lo;
-        split_tf32(v, hi, lo);
-        ah[at] = hi;
-        ah[TILE + at] = lo;
-      }
+      float hi, lo;
+      split_tf32(v, hi, lo);
+      ah[at] = hi;
+      ah[TILE + at] = lo;
     }
     fence_async_shared();
   };
@@ -1039,55 +996,34 @@ __device__ __forceinline__ void wgrad_block(const WgradParams& p) {
   }
 
   // chunk i: for each tap, A = g shifted by (KT - 1 - jj) * d rows of the
-  // window, in registers (f32: split there, small terms first; bf16: two
-  // frames of one output channel a register); B = the activated tile
+  // window, in registers, split there, small terms first; B = the activated
+  // tile
   auto mma = [&](int i) {
     const T* const gd = gwin + (i % kRing) * W * kGStride;
-    const T* const bh = act + (i & 1) * (kBf ? 1 : 2) * TILE;
+    const T* const bh = act + (i & 1) * 2 * TILE;
 #pragma unroll
     for (int jj = 0; jj < KT; ++jj) {
       const int sh = (KT - 1 - jj) * p.dilation;
-      if constexpr (kBf) {
-        const uint16_t* const gs = reinterpret_cast<const uint16_t*>(gd);
-        uint32_t fa[KS][4];
+      uint32_t fh[KS][4], fl[KS][4];
 #pragma unroll
-        for (int ks = 0; ks < KS; ++ks) {
-          // frames 2 tig, 2 tig + 1 (a0, a1) and 8 on (a2, a3) of this
-          // step; rows orow and orow + 8
-          const uint16_t* const r0 =
-              gs + (16 * ks + 2 * tig + sh) * kGStride + orow;
-          const uint16_t* const r8 = r0 + 8 * kGStride;
-          fa[ks][0] = r0[0] | ((uint32_t)r0[kGStride] << 16);
-          fa[ks][1] = r0[8] | ((uint32_t)r0[kGStride + 8] << 16);
-          fa[ks][2] = r8[0] | ((uint32_t)r8[kGStride] << 16);
-          fa[ks][3] = r8[8] | ((uint32_t)r8[kGStride + 8] << 16);
-        }
-        wgmma_fence();
+      for (int ks = 0; ks < KS; ++ks) {
+        const float* const r0 = gd + (8 * ks + tig + sh) * kGStride + orow;
+        const float* const r4 = r0 + 4 * kGStride;
+        split_tf32(r0[0], fh[ks][0], fl[ks][0]);
+        split_tf32(r0[8], fh[ks][1], fl[ks][1]);
+        split_tf32(r4[0], fh[ks][2], fl[ks][2]);
+        split_tf32(r4[8], fh[ks][3], fl[ks][3]);
+      }
+      // the fragments were written since the last fence
+      wgmma_fence();
+      const float* const bl = bh + TILE;
 #pragma unroll
-        for (int ks = 0; ks < KS; ++ks)
-          wgmma_bf16<BN>(acc[jj], fa[ks], make_desc<128>(bh + 16 * ks));
-      } else {
-        uint32_t fh[KS][4], fl[KS][4];
-#pragma unroll
-        for (int ks = 0; ks < KS; ++ks) {
-          const float* const r0 = gd + (8 * ks + tig + sh) * kGStride + orow;
-          const float* const r4 = r0 + 4 * kGStride;
-          split_tf32(r0[0], fh[ks][0], fl[ks][0]);
-          split_tf32(r0[8], fh[ks][1], fl[ks][1]);
-          split_tf32(r4[0], fh[ks][2], fl[ks][2]);
-          split_tf32(r4[8], fh[ks][3], fl[ks][3]);
-        }
-        // the fragments were written since the last fence
-        wgmma_fence();
-        const float* const bl = bh + TILE;
-#pragma unroll
-        for (int ks = 0; ks < KS; ++ks) {
-          const uint64_t dh = make_desc<128>(bh + 8 * ks);
-          const uint64_t dl = make_desc<128>(bl + 8 * ks);
-          wgmma_tf32<BN>(acc[jj], fl[ks], dh);
-          wgmma_tf32<BN>(acc[jj], fh[ks], dl);
-          wgmma_tf32<BN>(acc[jj], fh[ks], dh);
-        }
+      for (int ks = 0; ks < KS; ++ks) {
+        const uint64_t dh = make_desc<128>(bh + 8 * ks);
+        const uint64_t dl = make_desc<128>(bl + 8 * ks);
+        wgmma_tf32<BN>(acc[jj], fl[ks], dh);
+        wgmma_tf32<BN>(acc[jj], fh[ks], dl);
+        wgmma_tf32<BN>(acc[jj], fh[ks], dh);
       }
     }
     wgmma_commit();
@@ -1118,11 +1054,9 @@ __device__ __forceinline__ void wgrad_block(const WgradParams& p) {
   }
 
   // sums: tot[jj][4q + 2h + e] is output channel o0 + orow + 8h, input
-  // channel c0 + 8q + 2 tig + e of tap j0 + jj; a split block writes its f32
-  // partial sums to its own slab of ws, an unsplit one gw (bf16: rounded
-  // once).  Past C the activated tile is zero, so padded columns are
-  // written as 0.
-  T* const gw = static_cast<T*>(p.gw);
+  // channel c0 + 8q + 2 tig + e of tap j0 + jj; a split block writes its
+  // partial sums to its own slab of ws, an unsplit one gw.  Past C the
+  // activated tile is zero, so padded columns are written as 0.
 #pragma unroll
   for (int jj = 0; jj < KT; ++jj) {
 #pragma unroll
@@ -1136,15 +1070,10 @@ __device__ __forceinline__ void wgrad_block(const WgradParams& p) {
         const size_t at = ((size_t)(j0 + jj) * p.O + o) * p.Cw + c;
         const float v0 = tot[jj][4 * q + 2 * h];
         const float v1 = tot[jj][4 * q + 2 * h + 1];
-        if (p.splits > 1 || !kBf) {
-          float* const dst =
-              p.splits > 1 ? p.ws + (size_t)split * p.k * p.O * p.Cw
-                           : reinterpret_cast<float*>(gw);
-          *reinterpret_cast<float2*>(dst + at) = make_float2(v0, v1);
-        } else {
-          *reinterpret_cast<__nv_bfloat162*>(gw + at) =
-              __floats2bfloat162_rn(v0, v1);
-        }
+        float* const dst = p.splits > 1
+                               ? p.ws + (size_t)split * p.k * p.O * p.Cw
+                               : static_cast<float*>(p.gw);
+        *reinterpret_cast<float2*>(dst + at) = make_float2(v0, v1);
       }
     }
   }
@@ -1153,13 +1082,345 @@ __device__ __forceinline__ void wgrad_block(const WgradParams& p) {
 template <int BN, int KT>
 __global__ void __launch_bounds__(kThreads, 1)
 snake_conv_wgrad_3xtf32(const WgradParams p) {
-  wgrad_block<float, BN, KT>(p);
+  wgrad_block<BN, KT>(p);
 }
 
-template <int BN, int KT>
-__global__ void __launch_bounds__(kThreads, 1)
-snake_conv_wgrad_bf16(const WgradParams p) {
-  wgrad_block<__nv_bfloat16, BN, KT>(p);
+// ---------------------------------------------------------------------------
+// bf16 wgrad
+// ---------------------------------------------------------------------------
+
+namespace wgrad16 {
+
+using snake16::bf16;
+
+constexpr int kF = 64;                // frames a chunk: four k16 steps
+constexpr int kN = 64;                // input channels a tile: one x box
+constexpr int kXBox = kF * 128;       // a chunk's x tile
+constexpr int kConsumers = 256;       // two consumer warpgroups
+constexpr int kBlock = 512;           // + the producer and snake warpgroups
+// the warps that activate x: the producer warpgroup's last three and the
+// fourth warpgroup
+constexpr int kSnakes = kBlock - kConsumers - 32;
+
+struct Params {
+  const void* x;        // (B, T, C)
+  const void* alpha;
+  const void* beta;
+  const void* g;        // (B, T, O)
+  void* gw;             // (k, O, Cw), when the frame sum is one part
+  float* ws;            // (splits, k * O * Cw) partial sums, when it is more
+  unsigned long long* count;
+  int T, C, O, Cw, k, dilation, left;
+  int cpb;              // chunks of one signal
+  int n_chunks, per_split, splits;
+  int wsplit;           // 1: the consumer warpgroups take different output
+                        // boxes; 2: the same ones, alternate chunks, their
+                        // sums added in the block
+  int gboxes;           // 64-channel boxes of g a slot holds
+  int ctiles, otiles, tiles, n_items;
+  int win;              // g window rows: kF + (KT - 1) * dilation
+  int ring, slot_bytes, gbox_bytes;
+  int tma_x, tma_g;     // x, g by TMA (else by the producer warp's loads)
+  int coef_n;           // entries of each coefficient table: ctiles * kN
+};
+
+// one work item: input channels c0.., output channels o0.., taps j0..,
+// chunks first.. first + n - 1 of the frame sum (split `split`)
+struct Item {
+  int c0, o0, j0, split, first, n;
+};
+
+template <int KT>
+__device__ __forceinline__ Item item_of(const Params& p, int item) {
+  Item it;
+  const int tile = item % p.tiles;
+  const int split = item / p.tiles;
+  it.c0 = (tile % p.ctiles) * kN;
+  const int rest = tile / p.ctiles;
+  it.o0 = (rest % p.otiles) * p.gboxes * 64;
+  it.j0 = (rest / p.otiles) * KT;
+  it.split = split;
+  it.first = split * p.per_split;
+  it.n = min(p.n_chunks, it.first + p.per_split) - it.first;
+  return it;
+}
+
+// A block walks work items (input channel tile x output channel tile x tap
+// group x split of the frame sum) in turn.  A slot of the ring holds one
+// 64-frame chunk: its x tile (64 frames x 64 channels), then `gboxes`
+// boxes of the g window its taps read (win frames x 64 output channels),
+// each 128-byte swizzled as TMA writes them.  Each consumer warpgroup
+// multiplies U = OBW x KT units (an output box and a tap): A = the unit's
+// 64 output channels x 16 frames of g, at the tap's row shift, by ldmatrix
+// .trans; B = the activated x tile, MN-major.
+template <int KT, int OBW>
+__device__ __forceinline__ void block(const CUtensorMap* xmap,
+                                      const CUtensorMap* gmap,
+                                      const Params& p) {
+  using namespace snake16;
+  constexpr int U = OBW * KT;          // units a consumer warpgroup
+
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* const smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint64_t* const full = reinterpret_cast<uint64_t*>(smem);
+  uint64_t* const empty = full + kMaxRing;
+  uint64_t* const ready = empty + kMaxRing;   // x activated
+  uint8_t* const ring = smem + kBarBytes;
+  float* const coef = reinterpret_cast<float*>(ring + p.ring * p.slot_bytes);
+  // where the warpgroups alternate chunks, the second one's sums
+  float* const red = coef + align1k(8 * p.coef_n) / 4;
+  const int tid = threadIdx.x;
+  const int lane = tid % 32;
+
+  if (p.count != nullptr && tid == 0 && blockIdx.x == 0)
+    atomicAdd(p.count, 1ull);
+  if (tid == 0) {
+    for (int s = 0; s < p.ring; ++s) {
+      bar_init(full + s, 1);
+      bar_init(empty + s, kConsumers / 32);
+      bar_init(ready + s, kSnakes / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid >= kConsumers) {
+    // the block holds 128 registers a thread: a consumer takes 184 and the
+    // others 72 (2 x 184 + 2 x 72 = 4 x 128)
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 72;\n" ::: "memory");
+    if (tid >= kConsumers + 32) {
+      // ---------------------------------------------------------------- snake
+      // each slot's x tile, in place, once its loads are in: 8 channels (a
+      // 16-byte piece) a thread, every 28th row; alpha and 1 / (beta +
+      // 1e-9) of every channel once a block, in f32, 0 past C
+      const int at = tid - kConsumers - 32;
+      const int q = at % 8;
+      const bf16* const alpha = static_cast<const bf16*>(p.alpha);
+      const bf16* const beta = static_cast<const bf16*>(p.beta);
+      for (int c = at; c < p.coef_n; c += kSnakes) {
+        const bool live = c < p.C;
+        coef[c] = live ? __bfloat162float(alpha[c]) : 0.f;
+        coef[p.coef_n + c] =
+            live ? 1.0f / (__bfloat162float(beta[c]) + 1e-9f) : 0.f;
+      }
+      named_sync(1, kSnakes);
+      int seq = 0;
+      for (int item = blockIdx.x; item < p.n_items; item += gridDim.x) {
+        const Item it = item_of<KT>(p, item);
+        for (int i = 0; i < it.n; ++i, ++seq) {
+          const int slot = seq % p.ring;
+          bar_wait(full + slot, (seq / p.ring) & 1);
+          uint8_t* const xs = ring + slot * p.slot_bytes;
+          const int c = it.c0 + 8 * q;
+          if (c < p.C) {   // else zero, and stays zero
+            float al[8], ib[8];
+#pragma unroll
+            for (int e = 0; e < 8; ++e) {
+              al[e] = coef[c + e];
+              ib[e] = coef[p.coef_n + c + e];
+            }
+#pragma unroll 2
+            for (int r = at / 8; r < kF; r += kSnakes / 8)
+              snake_piece(xs + r * 128 + ((q ^ (r & 7)) << 4), al, ib);
+          }
+          fence_async_shared();   // wgmma reads the tile (the async proxy)
+          __syncwarp();
+          if (lane == 0) bar_arrive(ready + slot);
+        }
+      }
+      return;
+    }
+    // ------------------------------------------------------------- producer
+    if (lane == 0) {
+      if (p.tma_x)
+        asm volatile("prefetch.tensormap [%0];\n" ::"l"(
+                         reinterpret_cast<uint64_t>(xmap))
+                     : "memory");
+      if (p.tma_g)
+        asm volatile("prefetch.tensormap [%0];\n" ::"l"(
+                         reinterpret_cast<uint64_t>(gmap))
+                     : "memory");
+    }
+    const bf16* const x = static_cast<const bf16*>(p.x);
+    const bf16* const g = static_cast<const bf16*>(p.g);
+    int seq = 0;
+    for (int item = blockIdx.x; item < p.n_items; item += gridDim.x) {
+      const Item it = item_of<KT>(p, item);
+      for (int i = 0; i < it.n; ++i, ++seq) {
+        const int slot = seq % p.ring;
+        if (seq >= p.ring) bar_wait(empty + slot, ((seq / p.ring) + 1) & 1);
+        const int ch = it.first + i;
+        const int b = ch / p.cpb;
+        const int u0 = (ch % p.cpb) * kF;
+        // the window's first frame: tap j0 + KT - 1 of the chunk's first
+        const int tg0 = u0 + p.left - (it.j0 + KT - 1) * p.dilation;
+        uint8_t* const sl = ring + slot * p.slot_bytes;
+        // rows without 16-byte pieces (or unaligned): plain loads, zero past
+        // every edge, in the swizzled layout TMA would write
+        if (!p.tma_x) {
+          for (int e = lane; e < kF * 64; e += 32) {
+            const int c = e % 64;
+            const int r = e / 64;
+            const int t = u0 + r;
+            const int cc = it.c0 + c;
+            const bf16 v = t < p.T && cc < p.C
+                               ? x[((size_t)b * p.T + t) * p.C + cc]
+                               : __float2bfloat16_rn(0.f);
+            *reinterpret_cast<bf16*>(sl + r * 128 + (((c / 8) ^ (r & 7)) << 4) +
+                                     (c % 8) * 2) = v;
+          }
+        }
+        if (!p.tma_g) {
+          for (int e = lane; e < p.gboxes * p.win * 64; e += 32) {
+            const int c = e % 64;
+            const int r = (e / 64) % p.win;
+            const int gb = e / (64 * p.win);
+            const int t = tg0 + r;
+            const int o = it.o0 + 64 * gb + c;
+            const bf16 v = t >= 0 && t < p.T && o < p.O
+                               ? g[((size_t)b * p.T + t) * p.O + o]
+                               : __float2bfloat16_rn(0.f);
+            *reinterpret_cast<bf16*>(sl + kXBox + gb * p.gbox_bytes +
+                                     r * 128 + (((c / 8) ^ (r & 7)) << 4) +
+                                     (c % 8) * 2) = v;
+          }
+        }
+        __syncwarp();   // the lanes' stores before lane 0's arrival
+        if (lane == 0) {
+          bar_expect(full + slot, (p.tma_x ? kXBox : 0) +
+                                      (p.tma_g ? p.gboxes * p.win * 128 : 0));
+          if (p.tma_x) tma_3d(sl, xmap, full + slot, it.c0, u0, b);
+          if (p.tma_g) {
+            for (int gb = 0; gb < p.gboxes; ++gb)
+              tma_3d(sl + kXBox + gb * p.gbox_bytes, gmap, full + slot,
+                     it.o0 + 64 * gb, tg0, b);
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  // ------------------------------------------------------------------ consumers
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 184;\n" ::: "memory");
+  const int wg = tid / 128;
+  const int warp = (tid / 32) % 4;
+  // ldmatrix .trans: this lane's frame row of a 16-frame step and its
+  // 16-byte chunk (8 output channels) of the warp's 16
+  const int lrow = (lane / 16) * 8 + lane % 8;
+  const int lchunk = 2 * warp + (lane / 8) % 2;
+  const int tig = lane % 4;
+  const int ob0 = p.wsplit == 1 ? wg * OBW : 0;   // this warpgroup's boxes
+  float acc[U][kN / 2];
+
+  int seq = 0;
+  for (int item = blockIdx.x; item < p.n_items; item += gridDim.x) {
+    const Item it = item_of<KT>(p, item);
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+#pragma unroll
+      for (int e = 0; e < kN / 2; ++e) acc[u][e] = 0.f;
+      keep_f(acc[u]);
+    }
+    for (int i = 0; i < it.n; ++i, ++seq) {
+      const int slot = seq % p.ring;
+      bar_wait(ready + slot, (seq / p.ring) & 1);
+      if (p.wsplit == 1 || (i & 1) == wg) {
+        // the chunk's fragments, its MMAs as one group, waited for (the
+        // other warpgroup's keep the tensor cores busy meanwhile)
+        const uint8_t* const xs = ring + slot * p.slot_bytes;
+        const uint8_t* const gs = xs + kXBox;
+        uint32_t frag[U * 4][4];
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          const int r = (KT - 1 - u % KT) * p.dilation + lrow;
+          const uint32_t base =
+              smem_addr(gs + (ob0 + u / KT) * p.gbox_bytes + r * 128 +
+                        ((lchunk ^ (r & 7)) << 4));
+#pragma unroll
+          for (int s = 0; s < 4; ++s)
+            ldsm_x4_t(frag[u * 4 + s], base + s * 2048);
+        }
+        wgmma_fence();
+#pragma unroll
+        for (int u = 0; u < U; ++u)
+#pragma unroll
+          for (int s = 0; s < 4; ++s)
+            wgmma_bf16_mn(acc[u], frag[u * 4 + s], desc128_mn(xs + s * 2048));
+        wgmma_commit();
+        wg_wait<0>();
+#pragma unroll
+        for (int u = 0; u < U; ++u) keep_f(acc[u]);
+        keep_a(frag);
+      }
+      if (lane == 0) bar_arrive(empty + slot);
+    }
+
+    if (p.wsplit == 2) {
+      // the second warpgroup's sums into the first's, through shared
+      // memory, in that order (the first has read the last item's)
+      named_sync(2, kConsumers);
+      if (wg == 1) {
+#pragma unroll
+        for (int u = 0; u < U; ++u)
+#pragma unroll
+          for (int e = 0; e < kN / 2; ++e)
+            red[(u * (kN / 2) + e) * 128 + tid % 128] = acc[u][e];
+      }
+      named_sync(3, kConsumers);
+      if (wg == 1) continue;
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+#pragma unroll
+        for (int e = 0; e < kN / 2; ++e)
+          acc[u][e] += red[(u * (kN / 2) + e) * 128 + tid];
+    }
+
+    // acc[u][4q + 2h + e] is output channel o0 + 64 box + 16 warp + lane / 4
+    // + 8h, input channel c0 + 8q + 2 tig + e, tap j0 + u % KT: the split's
+    // sum goes to its own slab of ws (f32), or, as the only one, to gw
+    // rounded once.  Past C the activated tile is zero, so padded columns
+    // are written as 0.
+    const bool direct = p.splits == 1;
+    bf16* const gw = static_cast<bf16*>(p.gw);
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int j = it.j0 + u % KT;
+      const int orow = it.o0 + 64 * (ob0 + u / KT) + 16 * warp + lane / 4;
+#pragma unroll
+      for (int q = 0; q < kN / 8; ++q) {
+        const int c = it.c0 + 8 * q + 2 * tig;
+        if (c >= p.Cw) continue;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int o = orow + 8 * h;
+          if (o >= p.O) continue;
+          const size_t at = ((size_t)j * p.O + o) * p.Cw + c;
+          const float v0 = acc[u][4 * q + 2 * h];
+          const float v1 = acc[u][4 * q + 2 * h + 1];
+          if (direct)
+            *reinterpret_cast<__nv_bfloat162*>(gw + at) =
+                __floats2bfloat162_rn(v0, v1);
+          else
+            *reinterpret_cast<float2*>(
+                p.ws + (size_t)it.split * p.k * p.O * p.Cw + at) =
+                make_float2(v0, v1);
+        }
+      }
+    }
+  }
+}
+
+}  // namespace wgrad16
+
+// the bf16 wgrad: KT taps and OBW output boxes a consumer warpgroup
+template <int KT, int OBW>
+__global__ void __launch_bounds__(wgrad16::kBlock, 1)
+snake_conv_wgrad_bf16(const __grid_constant__ CUtensorMap x_map,
+                      const __grid_constant__ CUtensorMap g_map,
+                      const wgrad16::Params p) {
+  wgrad16::block<KT, OBW>(&x_map, &g_map, p);
 }
 
 // ---------------------------------------------------------------------------
@@ -1229,6 +1490,66 @@ int launch_sum_partials(const float* ws, long long stride, int parts,
   return (int)cudaGetLastError();
 }
 
+// The same fixed-order sum, four outputs a thread by 16-byte loads (n and
+// stride multiples of 4, ws 16-byte aligned): a block takes 4 * 256 / G
+// outputs and G groups of slabs, group r adds slabs r, r + G, ... in
+// order, then the G group sums are added in order.  G grows with the parts
+// and shrinks with the outputs, so that some 64k threads keep loads in
+// flight (the scalar kernel's grid-stride loop waits on one load a thread
+// at a time).  The same bits at every launch of a shape.
+template <typename Out>
+__global__ void __launch_bounds__(kThreads)
+sum_partials4(const float* __restrict__ ws, long long stride, int parts,
+              int G, Out* y, long long n, unsigned long long* count) {
+  __shared__ float4 red[kThreads];
+  if (count != nullptr && blockIdx.x == 0 && threadIdx.x == 0)
+    atomicAdd(count, 1ull);
+  const int per = kThreads / G;
+  const int lo = threadIdx.x % per;
+  const int grp = threadIdx.x / per;
+  const long long i = ((long long)blockIdx.x * per + lo) * 4;
+  float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (i < n) {
+#pragma unroll 4
+    for (int s = grp; s < parts; s += G) {
+      const float4 w = *reinterpret_cast<const float4*>(ws + s * stride + i);
+      v.x += w.x;
+      v.y += w.y;
+      v.z += w.z;
+      v.w += w.w;
+    }
+  }
+  red[threadIdx.x] = v;
+  __syncthreads();
+  if (grp == 0 && i < n) {
+    float4 t = red[lo];
+    for (int r = 1; r < G; ++r) {
+      const float4 u = red[r * per + lo];
+      t.x += u.x;
+      t.y += u.y;
+      t.z += u.z;
+      t.w += u.w;
+    }
+    put(y + i, t.x);
+    put(y + i + 1, t.y);
+    put(y + i + 2, t.z);
+    put(y + i + 3, t.w);
+  }
+}
+
+template <typename Out>
+int launch_sum_partials4(const float* ws, long long stride, int parts,
+                         Out* y, long long n, unsigned long long* count,
+                         cudaStream_t s) {
+  const long long quads = n / 4;
+  int G = 1;
+  while (G < 32 && G < parts && quads * G < 65536) G *= 2;
+  const int per = kThreads / G;
+  sum_partials4<Out><<<(int)((quads + per - 1) / per), kThreads, 0, s>>>(
+      ws, stride, parts, G, y, n, count);
+  return (int)cudaGetLastError();
+}
+
 // ---------------------------------------------------------------------------
 // plans and launches
 // ---------------------------------------------------------------------------
@@ -1284,25 +1605,24 @@ struct WgradPlan {
   size_t smem;
 };
 
-// wgrad's tile width and split of the frame sum: each chunk (32 f32 or 64
-// bf16 frames) costs its MMA cycles, its activation and a fixed 600, a
-// block its chunks plus two, the grid whole waves; the split's partial sums
-// cost their bytes, written and read back, at the card's memory rate (1914
-// bytes a cycle).
+// f32 wgrad's tile width and split of the frame sum: each 32-frame chunk
+// costs its MMA cycles, its activation and a fixed 600, a block its chunks
+// plus two, the grid whole waves; the split's partial sums cost their
+// bytes, written and read back, at the card's memory rate (1914 bytes a
+// cycle).
 int wgrad_plan(int B, int T, int C, int O, int k, int dilation,
-               WgradPlan* plan, bool bf16 = false) {
+               WgradPlan* plan) {
   const int kt = k % 3 == 0 ? 3 : 1;
-  const int frames = chunk_frames(bf16 ? 2 : 4);
+  const int frames = kFrames;
   const int n_chunks = B * ceil_div(T, frames);
   double best = -1.0;
   for (int bn = kt == 3 ? 32 : 64; bn <= (kt == 3 ? 32 : 128); bn *= 2) {
     if (bn > 64 && ceil_div(C, bn) * bn >= 2 * C) continue;
-    const size_t smem = wgrad_smem(bn, kt, dilation, bf16);
+    const size_t smem = wgrad_smem(bn, kt, dilation);
     if (smem > (size_t)kMaxSmem) continue;
     const int groups = k / kt;
     const int tiles = ceil_div(O, kOuts) * ceil_div(C, bn) * groups;
-    const double chunk = (bf16 ? 4.0 : 12.0) * kt * bn + 0.4 * frames * bn +
-                         600.0;
+    const double chunk = 12.0 * kt * bn + 0.4 * frames * bn + 600.0;
     const double out_bytes = 8.0 * k * O * (double)ceil_div(C, 4) * 4;
     for (int s = 1; s <= n_chunks && s <= 4 * kSMs; ++s) {
       const int per = ceil_div(n_chunks, s);
@@ -1405,32 +1725,129 @@ int launch_dgrad16(const snake16::Plan& plan, const CUtensorMap& w,
   return (int)cudaGetLastError();
 }
 
-template <typename T, int BN, int KT>
+template <int BN, int KT>
 int launch_wgrad(const WgradParams& p, const WgradPlan& plan,
                  cudaStream_t stream) {
-  constexpr bool kBf = std::is_same<T, __nv_bfloat16>::value;
   static bool configured = false;
   if (!configured) {
-    cudaError_t err;
-    if constexpr (kBf)
-      err = cudaFuncSetAttribute(snake_conv_wgrad_bf16<BN, KT>,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 kMaxSmem);
-    else
-      err = cudaFuncSetAttribute(snake_conv_wgrad_3xtf32<BN, KT>,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 kMaxSmem);
+    const cudaError_t err = cudaFuncSetAttribute(
+        snake_conv_wgrad_3xtf32<BN, KT>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
     if (err != cudaSuccess) return (int)err;
     configured = true;
   }
   dim3 grid(ceil_div(p.O, kOuts), ceil_div(p.C, BN) * plan.groups,
             plan.splits);
-  if constexpr (kBf)
-    snake_conv_wgrad_bf16<BN, KT><<<grid, kThreads, plan.smem, stream>>>(p);
-  else
-    snake_conv_wgrad_3xtf32<BN, KT><<<grid, kThreads, plan.smem, stream>>>(p);
+  snake_conv_wgrad_3xtf32<BN, KT><<<grid, kThreads, plan.smem, stream>>>(p);
   return (int)cudaGetLastError();
 }
+
+namespace wgrad16 {
+
+struct Plan {
+  int kt, obw, wsplit, gboxes, ctiles, otiles, tiles;
+  int per_split, splits, n_items, grid, ring, slot_bytes, gbox_bytes, win;
+  size_t smem;
+};
+
+// The bf16 wgrad's tile (KT taps and OBW output boxes a consumer
+// warpgroup; the warpgroups on other output boxes or alternate chunks) and
+// split of the frame sum for one shape, from a model of its time on an
+// H100: a chunk costs the larger of its tensor-core cycles (a warpgroup's
+// m64n64k16 counted as 132; both warpgroups share the tensor cores) and its
+// snake (31 cycles a row), plus a fixed 300; a block its chunks and two
+// more for each of its items, the grid whole rounds of items over the 132
+// SMs; a split sum adds its f32 slabs, written and read back, at 3600
+// bytes a cycle (they stay in L2).  Fitted to the kernel's times with each
+// tile forced at the encoder's shapes (scripts/torch_bf16_tiles.py): the
+// plan's choices come within 0.4% of the best forced tile a bf16 generator
+// step.  (Tiles of 128 input channels were slower at every k = 1 shape.)
+constexpr double kChunkCycles = 300.0;   // a chunk's fixed cycles
+constexpr double kMmaCycles = 132.0;     // an m64n64k16's cycles
+constexpr double kSnakeCycles = 31.0;    // the snake of a row
+constexpr double kPartBytes = 3600.0;    // partials' bytes a cycle
+
+int make_plan(int B, int T, int C, int O, int k, int dilation, Plan* plan) {
+  using snake16::align1k;
+  const int kt = k % 3 == 0 ? 3 : 1;
+  const int win = kF + (kt - 1) * dilation;
+  if (win > 256) return (int)cudaErrorInvalidValue;   // a TMA box's rows
+  const int groups = k / kt;
+  const int n_chunks = B * ceil_div(T, kF);
+  const int oboxes = ceil_div(O, 64);
+  const double out_bytes = 8.0 * k * O * (double)ceil_div(C, 8) * 8;
+  const int gbox_bytes = align1k(win * 128);
+  const int ctiles = ceil_div(C, kN);
+  double best = -1.0;
+  for (int obw = 1; obw <= (kt == 3 ? 1 : 2); ++obw) {
+    for (int wsplit = 1; wsplit <= 2; ++wsplit) {
+      // the second warpgroup would find no output box of its own
+      if (wsplit == 1 && oboxes <= obw) continue;
+      const int gboxes = obw * (3 - wsplit);
+      const int slot = kXBox + gboxes * gbox_bytes;
+      // the coefficients; where the warpgroups alternate chunks, the
+      // second one's sums
+      const int extra = align1k(8 * ctiles * kN) +
+                        (wsplit == 2 ? 128 * obw * kt * kN / 2 * 4 : 0);
+      const int room = snake16::kMaxSmem - 1024 - snake16::kBarBytes - extra;
+      int ring = room / slot;
+      if (ring > snake16::kMaxRing) ring = snake16::kMaxRing;
+      if (ring < 2) continue;
+      const int otiles = ceil_div(oboxes, gboxes);
+      const int tiles = otiles * ctiles * groups;
+      const double mma = (3 - wsplit) * obw * kt * 4.0 * kMmaCycles;
+      const double snake = kSnakeCycles * kF;
+      const double chunk = (mma > snake ? mma : snake) + kChunkCycles;
+      for (int s = 1; s <= n_chunks && s <= 4 * kSMs; ++s) {
+        const int per = ceil_div(n_chunks, s);
+        const int splits = ceil_div(n_chunks, per);
+        if (splits != s) continue;
+        const int items = tiles * splits;
+        const double cost =
+            (double)ceil_div(items, kSMs) * (per + 2) * chunk +
+            (splits > 1 ? splits * out_bytes / kPartBytes : 0.0);
+        if (best < 0 || cost < best) {
+          best = cost;
+          plan->kt = kt;
+          plan->obw = obw;
+          plan->wsplit = wsplit;
+          plan->gboxes = gboxes;
+          plan->ctiles = ctiles;
+          plan->otiles = otiles;
+          plan->tiles = tiles;
+          plan->per_split = per;
+          plan->splits = splits;
+          plan->n_items = items;
+          plan->grid = items < kSMs ? items : kSMs;
+          plan->ring = ring;
+          plan->slot_bytes = slot;
+          plan->gbox_bytes = gbox_bytes;
+          plan->win = win;
+          plan->smem = (size_t)1024 + snake16::kBarBytes +
+                       (size_t)ring * slot + extra;
+        }
+      }
+    }
+  }
+  return best < 0 ? (int)cudaErrorInvalidValue : 0;
+}
+
+template <int KT, int OBW>
+int launch(const Plan& plan, const CUtensorMap& xmap, const CUtensorMap& gmap,
+           const Params& p, cudaStream_t stream) {
+  static bool configured = false;
+  if (!configured) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        snake_conv_wgrad_bf16<KT, OBW>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, snake16::kMaxSmem);
+    if (err != cudaSuccess) return (int)err;
+    configured = true;
+  }
+  snake_conv_wgrad_bf16<KT, OBW>
+      <<<plan.grid, kBlock, plan.smem, stream>>>(xmap, gmap, p);
+  return (int)cudaGetLastError();
+}
+}  // namespace wgrad16
 
 bool aligned16(const void* p) { return (uintptr_t)p % 16 == 0; }
 
@@ -1438,26 +1855,31 @@ int backward_plan(int B, int T, int C, int O, int k, int dilation, int* out,
                   bool bf16) {
   if (B <= 0 || T <= 0 || C <= 0 || O <= 0 || k <= 0 || dilation <= 0)
     return (int)cudaErrorInvalidValue;
-  WgradPlan wp;
-  int err = wgrad_plan(B, T, C, O, k, dilation, &wp, bf16);
-  if (err) return err;
   if (bf16) {
     snake16::Plan dp;
-    err = snake16::make_plan(false, B, T, O, C, k, dilation, &dp);
+    int err = snake16::make_plan(false, B, T, O, C, k, dilation, &dp);
+    if (err) return err;
+    wgrad16::Plan wp;
+    err = wgrad16::make_plan(B, T, C, O, k, dilation, &wp);
     if (err) return err;
     out[0] = dp.bn;
     out[1] = snake16::kStage;
     out[2] = B * dp.mtiles;
+    out[3] = wgrad16::kN;
+    out[4] = wp.splits;
   } else {
     DgradPlan dp;
-    err = dgrad_plan(B, T, C, O, k, dilation, &dp);
+    int err = dgrad_plan(B, T, C, O, k, dilation, &dp);
+    if (err) return err;
+    WgradPlan wp;
+    err = wgrad_plan(B, T, C, O, k, dilation, &wp);
     if (err) return err;
     out[0] = dp.bn;
     out[1] = dp.bk;
     out[2] = B * ceil_div(T, kRows);
+    out[3] = wp.bn;
+    out[4] = wp.splits;
   }
-  out[3] = wp.bn;
-  out[4] = wp.splits;
   return 0;
 }
 
@@ -1578,20 +2000,19 @@ int run_dgrad(const void* g, const void* x, const void* alpha,
       static_cast<T*>(gb), O, counts == nullptr ? nullptr : counts + 2, s);
 }
 
-// wgrad and (when its plan splits the frame sum) its sum of partials
-template <typename T>
+// the f32 wgrad and (when its plan splits the frame sum) its sum of
+// partials
 int run_wgrad(const void* x, const void* alpha, const void* beta,
               const void* g, void* gw, float* ws, int B, int T_, int C, int O,
               int k, int dilation, int left, int Cw,
               unsigned long long* counts, void* stream) {
-  constexpr bool kBf = std::is_same<T, __nv_bfloat16>::value;
-  constexpr int per = 16 / (int)sizeof(T);
+  constexpr int per = 4;
   if (B <= 0 || T_ <= 0 || C <= 0 || O <= 0 || k <= 0 || dilation <= 0 ||
       left < 0 || left > (k - 1) * dilation || Cw < C || Cw % per != 0 ||
       !aligned16(gw))
     return (int)cudaErrorInvalidValue;
   WgradPlan plan;
-  const int err = wgrad_plan(B, T_, C, O, k, dilation, &plan, kBf);
+  const int err = wgrad_plan(B, T_, C, O, k, dilation, &plan);
   if (err) return err;
   if (plan.splits > 1 && (ws == nullptr || !aligned16(ws)))
     return (int)cudaErrorInvalidValue;
@@ -1612,7 +2033,7 @@ int run_wgrad(const void* x, const void* alpha, const void* beta,
   p.dilation = dilation;
   p.left = left;
   p.groups = plan.groups;
-  p.chunks_per_b = ceil_div(T_, chunk_frames(sizeof(T)));
+  p.chunks_per_b = ceil_div(T_, kFrames);
   p.n_chunks = B * p.chunks_per_b;
   p.per_split = plan.per_split;
   p.splits = plan.splits;
@@ -1620,15 +2041,92 @@ int run_wgrad(const void* x, const void* alpha, const void* beta,
   p.vec_g = O % per == 0 && aligned16(g);
   int e;
   switch (plan.bn * 4 + plan.kt) {
-    case 32 * 4 + 3: e = launch_wgrad<T, 32, 3>(p, plan, s); break;
-    case 64 * 4 + 1: e = launch_wgrad<T, 64, 1>(p, plan, s); break;
-    default: e = launch_wgrad<T, 128, 1>(p, plan, s);
+    case 32 * 4 + 3: e = launch_wgrad<32, 3>(p, plan, s); break;
+    case 64 * 4 + 1: e = launch_wgrad<64, 1>(p, plan, s); break;
+    default: e = launch_wgrad<128, 1>(p, plan, s);
   }
   if (e != 0 || plan.splits == 1) return e;
   const long long n = (long long)k * O * Cw;
-  return launch_sum_partials<T>(ws, n, plan.splits, static_cast<T*>(gw), n,
-                                nullptr, 0, nullptr, 0,
-                                counts == nullptr ? nullptr : counts + 2, s);
+  return launch_sum_partials<float>(ws, n, plan.splits, static_cast<float*>(gw),
+                                    n, nullptr, 0, nullptr, 0,
+                                    counts == nullptr ? nullptr : counts + 2,
+                                    s);
+}
+
+// the bf16 wgrad and (when its plan sums in more than one part) its sum of
+// partials
+int run_wgrad16(const void* x, const void* alpha, const void* beta,
+                const void* g, void* gw, float* ws, int B, int T, int C,
+                int O, int k, int dilation, int left, int Cw,
+                unsigned long long* counts, void* stream) {
+  if (B <= 0 || T <= 0 || C <= 0 || O <= 0 || k <= 0 || dilation <= 0 ||
+      left < 0 || left > (k - 1) * dilation || Cw < C || Cw % 8 != 0 ||
+      !aligned16(gw))
+    return (int)cudaErrorInvalidValue;
+  wgrad16::Plan plan;
+  int err = wgrad16::make_plan(B, T, C, O, k, dilation, &plan);
+  if (err) return err;
+  const int parts = plan.splits;
+  if (parts > 1 && (ws == nullptr || !aligned16(ws)))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  wgrad16::Params p = {};
+  p.x = x;
+  p.alpha = alpha;
+  p.beta = beta;
+  p.g = g;
+  p.gw = gw;
+  p.ws = ws;
+  p.count = counts == nullptr ? nullptr : counts + 1;
+  p.T = T;
+  p.C = C;
+  p.O = O;
+  p.Cw = Cw;
+  p.k = k;
+  p.dilation = dilation;
+  p.left = left;
+  p.cpb = ceil_div(T, wgrad16::kF);
+  p.n_chunks = B * p.cpb;
+  p.per_split = plan.per_split;
+  p.splits = plan.splits;
+  p.wsplit = plan.wsplit;
+  p.gboxes = plan.gboxes;
+  p.ctiles = plan.ctiles;
+  p.otiles = plan.otiles;
+  p.tiles = plan.tiles;
+  p.n_items = plan.n_items;
+  p.win = plan.win;
+  p.ring = plan.ring;
+  p.slot_bytes = plan.slot_bytes;
+  p.gbox_bytes = plan.gbox_bytes;
+  p.tma_x = C % 8 == 0 && aligned16(x);
+  p.tma_g = O % 8 == 0 && aligned16(g);
+  p.coef_n = plan.ctiles * wgrad16::kN;
+  // boxes of 64 channels x 64 frames of x, 64 channels x win frames of g
+  CUtensorMap xmap, gmap;
+  memset(&xmap, 0, sizeof(xmap));
+  memset(&gmap, 0, sizeof(gmap));
+  if (p.tma_x) {
+    const cuuint64_t dims[3] = {(cuuint64_t)C, (cuuint64_t)T, (cuuint64_t)B};
+    err = snake16::bf16_map(&xmap, x, 3, dims, wgrad16::kF, 1);
+    if (err) return err;
+  }
+  if (p.tma_g) {
+    const cuuint64_t dims[3] = {(cuuint64_t)O, (cuuint64_t)T, (cuuint64_t)B};
+    err = snake16::bf16_map(&gmap, g, 3, dims, plan.win, 1);
+    if (err) return err;
+  }
+  int e;
+  switch (plan.kt * 10 + plan.obw) {
+    case 31: e = wgrad16::launch<3, 1>(plan, xmap, gmap, p, s); break;
+    case 11: e = wgrad16::launch<1, 1>(plan, xmap, gmap, p, s); break;
+    default: e = wgrad16::launch<1, 2>(plan, xmap, gmap, p, s);
+  }
+  if (e != 0 || parts == 1) return e;
+  typedef __nv_bfloat16 bf;
+  const long long n = (long long)k * O * Cw;
+  return launch_sum_partials4<bf>(ws, n, parts, static_cast<bf*>(gw), n,
+                                  counts == nullptr ? nullptr : counts + 2, s);
 }
 
 }  // namespace
@@ -1667,6 +2165,28 @@ int snake_conv_backward_plan_bf16_tiles(int B, int T, int C, int O, int k,
   out[3] = plan.ring;
   out[4] = B * plan.mtiles;
   out[5] = plan.grid;
+  return 0;
+}
+
+// The bf16 wgrad's whole plan: out[0..7] = input channels a tile, taps a
+// stage, output channels a block, 2 where the consumer warpgroups alternate
+// chunks (else 1), slots of the ring, splits of the frame sum (slabs of
+// partial sums), work items, blocks (persistent, at most one an SM).
+int snake_conv_backward_plan_bf16_wgrad(int B, int T, int C, int O, int k,
+                                        int dilation, int* out) {
+  if (B <= 0 || T <= 0 || C <= 0 || O <= 0 || k <= 0 || dilation <= 0)
+    return (int)cudaErrorInvalidValue;
+  wgrad16::Plan plan;
+  const int err = wgrad16::make_plan(B, T, C, O, k, dilation, &plan);
+  if (err) return err;
+  out[0] = wgrad16::kN;
+  out[1] = plan.kt;
+  out[2] = 64 * plan.gboxes;
+  out[3] = plan.wsplit;
+  out[4] = plan.ring;
+  out[5] = plan.splits;
+  out[6] = plan.n_items;
+  out[7] = plan.grid;
   return 0;
 }
 
@@ -1715,20 +2235,21 @@ int snake_conv_backward_wgrad_f32(const float* x, const float* alpha,
                                   int O, int k, int dilation, int left,
                                   int Cw, unsigned long long* counts,
                                   void* stream) {
-  return run_wgrad<float>(x, alpha, beta, g, gw, ws, B, T, C, O, k, dilation,
-                          left, Cw, counts, stream);
+  return run_wgrad(x, alpha, beta, g, gw, ws, B, T, C, O, k, dilation, left,
+                   Cw, counts, stream);
 }
 
-// The bf16 instantiation: x, alpha, beta, g and gw bf16, Cw a multiple of
-// 8; ws f32, summed and rounded to bf16 once (an unsplit gw is rounded once
-// in the kernel).
+// The bf16 wgrad: x, alpha, beta, g and gw bf16, Cw a multiple of 8; ws
+// holds splits * k * O * Cw floats when the plan splits the frame sum
+// (out[4] of snake_conv_backward_plan_bf16), summed and rounded to bf16
+// once (an unsplit gw is rounded once in the kernel).
 int snake_conv_backward_wgrad_bf16(const void* x, const void* alpha,
                                    const void* beta, const void* g, void* gw,
                                    float* ws, int B, int T, int C, int O,
                                    int k, int dilation, int left, int Cw,
                                    unsigned long long* counts, void* stream) {
-  return run_wgrad<__nv_bfloat16>(x, alpha, beta, g, gw, ws, B, T, C, O, k,
-                                  dilation, left, Cw, counts, stream);
+  return run_wgrad16(x, alpha, beta, g, gw, ws, B, T, C, O, k, dilation, left,
+                     Cw, counts, stream);
 }
 
 }  // extern "C"

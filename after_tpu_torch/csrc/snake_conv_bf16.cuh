@@ -54,7 +54,10 @@
 // rounded to bf16 once, so no f32 total is folded beside them (the float64
 // check holds without: scripts/torch_backward_f64.py --bf16).  Replaces,
 // at bf16, the TPU kernel after_tpu/ops/pallas/fused_conv.py (_kernel) and
-// its VJP's input half (_fused_with_vjp.bwd).
+// its VJP's input half (_fused_with_vjp.bwd).  The VJP's weight half at
+// bf16 (snake_conv_backward.cu: snake_conv_wgrad_bf16) has a loop of its
+// own, built from this file's barriers, TMA and ldmatrix wrappers, tensor
+// maps and snake_piece.
 
 #pragma once
 

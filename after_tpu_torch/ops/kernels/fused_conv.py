@@ -57,10 +57,11 @@ their launches on the device beside the forward's
 (``backward_device_launches``).
 
 The backward takes bf16 tensors too, the gradient of the bf16 forward: on
-the card it launches the kernels' bf16 instantiations
-(``snake_conv_dgrad_bf16``, ``snake_conv_wgrad_bf16``: one bf16 wgmma a
-16-channel or 16-frame step, f32 sums, each gradient rounded to bf16 once),
-counted apart (``backward_device_launches(dtype=torch.bfloat16)``); its
+the card it launches two kernels designed for bf16
+(``snake_conv_dgrad_bf16``, ``snake_conv_wgrad_bf16``: TMA rings, bf16
+wgmma, f32 sums, each gradient rounded to bf16 once; their plans:
+``bf16_tiles(..., backward=True)`` and ``bf16_wgrad_tiles``), counted
+apart (``backward_device_launches(dtype=torch.bfloat16)``); its
 plain version is ``snake_conv_backward_reference`` on bf16 inputs, with
 the same roundings.  Every tensor of a call is f32 or every one bf16;
 anything else raises.
@@ -159,6 +160,8 @@ def _bwd_lib():
         lib.snake_conv_backward_plan_bf16.restype = ctypes.c_int
         lib.snake_conv_backward_plan_bf16_tiles.argtypes = [i] * 6 + [p]
         lib.snake_conv_backward_plan_bf16_tiles.restype = ctypes.c_int
+        lib.snake_conv_backward_plan_bf16_wgrad.argtypes = [i] * 6 + [p]
+        lib.snake_conv_backward_plan_bf16_wgrad.restype = ctypes.c_int
         lib.snake_conv_backward_dgrad_bf16.argtypes = [p] * 10 + [i] * 8 + [
             p, p]
         lib.snake_conv_backward_dgrad_bf16.restype = ctypes.c_int
@@ -227,6 +230,22 @@ def bf16_tiles(B: int, T: int, C: int, O: int, k: int, dilation: int = 1,
     if err != 0:
         raise ValueError(f"no bf16 tiling for B={B} T={T} C={C} O={O} k={k} "
                          f"d={dilation} (CUDA error {err})")
+    return tuple(out)
+
+
+def bf16_wgrad_tiles(B: int, T: int, C: int, O: int, k: int,
+                     dilation: int = 1) -> Tuple[int, ...]:
+    """The whole plan of the bf16 wgrad kernel at this shape: (input
+    channels a tile, taps a stage, output channels a block, 2 where its
+    consumer warpgroups alternate chunks (else 1), slots of the ring, splits
+    of the frame sum (slabs of partial sums), work items, blocks); builds
+    the kernel if needed."""
+    out = (ctypes.c_int * 8)()
+    err = _bwd_lib().snake_conv_backward_plan_bf16_wgrad(
+        B, T, C, O, k, dilation, ctypes.addressof(out))
+    if err != 0:
+        raise ValueError(f"no bf16 wgrad tiling for B={B} T={T} C={C} O={O} "
+                         f"k={k} d={dilation} (CUDA error {err})")
     return tuple(out)
 
 

@@ -302,10 +302,11 @@ Phases, each printed before the last line:
    launches, a discriminator step none; each kind's median, peak memory,
    one profiled bf16 GAN generator step; (b) the bf16 backward kernels
    (``snake_conv_dgrad_bf16``, the forward's bf16 main loop on g with the
-   taps reversed and its epilogue; ``snake_conv_wgrad_bf16``) at every
-   shape of the encoder at batch 8, each printed with dgrad's plan as in
-   phase 16, against their plain bf16 version (within
-   BF16_ULPS bf16 ulps of each gradient's max), against float64 (within
+   taps reversed and its epilogue; ``snake_conv_wgrad_bf16``, x's tiles
+   activated in place and read MN-major, g's fragments by ldmatrix
+   .trans) at every shape of the encoder at batch 8, each printed with
+   both plans, against their plain bf16 version (within BF16_ULPS bf16
+   ulps of each gradient's max; gw zero past C), against float64 (within
    BF16_GRAD_F64_RATIO x bf16 F.conv1d autograd's error), the same bits
    twice and from a graph, timed from CUDA graphs per generator step
    beside the plain version and bf16 F.conv1d's autograd backward
@@ -4308,8 +4309,8 @@ def check_gradients_bf16(path, batch: int):
     import torch.nn.functional as F
     from after_tpu_torch.ops.conv import get_padding, weight_norm
     from after_tpu_torch.ops.kernels.fused_conv import (
-        backward_plan, bf16_tiles, kernel_weight, snake_conv_backward,
-        snake_conv_backward_reference)
+        backward_plan, bf16_tiles, bf16_wgrad_tiles, kernel_weight,
+        snake_conv_backward, snake_conv_backward_reference)
     from after_tpu_torch.ops.snake import snake_beta
 
     bf = torch.bfloat16
@@ -4322,7 +4323,9 @@ def check_gradients_bf16(path, batch: int):
     tot, worst = Counter(), Counter()
     log(f"bf16 gradients: the bf16 backward kernels at batch {batch} (k d C "
         "O T mode: n, plan; dgrad's frames/channels a tile/channels a stage/"
-        "ring slots/rows of partials/blocks; worst |g - g_plain| in bf16 ulps"
+        "ring slots/rows of partials/blocks; wgrad's input channels a tile/"
+        "taps a stage/output channels a block/1 or 2 (alternate chunks)/ring "
+        "slots/splits/work items/blocks; worst |g - g_plain| in bf16 ulps"
         " of max|g_plain|"
         " dgrad/wgrad; float64 errors kernels/bf16 F.conv1d; ms from CUDA "
         "graphs: dgrad, wgrad, plain dgrad/wgrad, bf16 F.conv1d input/weight "
@@ -4436,8 +4439,9 @@ def check_gradients_bf16(path, batch: int):
         tot["launches"] += n
         plan = backward_plan(batch, T, C, O, k, d, bf)
         tiles = bf16_tiles(batch, T, C, O, k, d, backward=True)
+        wtiles = bf16_wgrad_tiles(batch, T, C, O, k, d)
         log(f"  {k} {d} {C} {O} {T} {mode}: {n}, {'/'.join(map(str, plan))}"
-            f"; {'/'.join(map(str, tiles))};"
+            f"; {'/'.join(map(str, tiles))}; {'/'.join(map(str, wtiles))};"
             f" {ulps['dgrad']:.2f}/{ulps['wgrad']:.2f}; {e64[0]:.2e}/"
             f"{e64[1]:.2e}; {t['dgrad']:.4f}, {t['wgrad']:.4f}, "
             f"{t_plain['dgrad']:.4f}/{t_plain['wgrad']:.4f}, "

@@ -3,14 +3,17 @@ timed as it is and with one piece switched off, on the card.
 
     python3 scripts/torch_backward_variants.py [--bf16] [--csrc DIR]
                                                [--label NAME]
+                                               [--only dgrad|wgrad]
 
 Copies ``snake_conv_backward.cu`` (from ``after_tpu_torch/csrc`` or
 ``--csrc``, say a parent checkout unpacked under ``build/``) into
 ``build/backward_variants/<label>/`` with one text edit each (dgrad: no
 epilogue, the f32 totals folded only at the end, no low tf32 half of the
 weight, no pass over the staged g window, no MMAs; wgrad: no sine in the
-activation, no low half of g, the totals folded only at the end, no MMAs),
-builds every copy at once with nvcc and times dgrad and wgrad of each
+activation, no low half of g, the totals folded only at the end, no MMAs;
+the bf16 wgrad: no snake, no g fragments, no partial sums written, no
+work at all, no split sum, no loads), builds every copy at once with nvcc
+and times dgrad and wgrad of each (``--only``: one of the two)
 (CUDA events over a CUDA graph of 20 calls, as ``chip_smoke.py:cuda_ms``,
 their sum of partials included). f32: at five shapes of a training codec
 forward at batch 8. ``--bf16``: the bf16 kernels at every shape of the
@@ -54,7 +57,12 @@ VARIANTS = {
                       "                  desc128(wslot + jj * BN * 128 + s * 32));",
                       "          ;")],
     "wgrad_no_sine": [("const float sn = sinf(xv * al_s[nc]);",
-                       "const float sn = xv * al_s[nc];")],
+                       "const float sn = xv * al_s[nc];"),
+                      # since the redesign: snake_conv_bf16.cuh's snake
+                      ("fmaf(ib[2 * e], sin_sq(v0 * al[2 * e]), v0)",
+                       "fmaf(ib[2 * e], v0 * al[2 * e], v0)"),
+                      ("fmaf(ib[2 * e + 1], sin_sq(v1 * al[2 * e + 1]), v1)",
+                       "fmaf(ib[2 * e + 1], v1 * al[2 * e + 1], v1)")],
     "wgrad_no_low_half": [("  lo = to_tf32(v - __uint_as_float(hi));",
                            "  lo = 0u;")],
     "wgrad_fold_at_end": [("if ((i + 1) % kFold == 0 || i + 1 == n) {",
@@ -63,12 +71,60 @@ VARIANTS = {
         ("    mma(i);\n    issue(i + 2);\n    if (i + 1 < n) {\n"
          "      cp_async_wait_prev();\n      __syncthreads();     // chunk",
          "    issue(i + 2);\n    if (i + 1 < n) {\n"
-         "      cp_async_wait_prev();\n      __syncthreads();     // chunk")],
+         "      cp_async_wait_prev();\n      __syncthreads();     // chunk"),
+        ("            wgmma_bf16_mn(acc[u], frag[u * 4 + s], "
+         "desc128_mn(xs + s * 2048));", "            ;")],
+    # the bf16 wgrad since its redesign: no snake at all, no fragments of
+    # g (ldmatrix), no partial sums written (the split sum still runs)
+    "wgrad_no_snake": [("          if (c < p.C) {   // else zero, and stays "
+                        "zero", "          if (false) {")],
+    "wgrad_no_ldmatrix": [
+        ("            ldsm_x4_t(frag[u * 4 + s], base + s * 2048);",
+         "            frag[u * 4 + s][0] = frag[u * 4 + s][1] =\n"
+         "                frag[u * 4 + s][2] = frag[u * 4 + s][3] = base + s;")],
+    "wgrad_no_epilogue": [
+        ("    if (p.wsplit == 2) {\n      // the second warpgroup's sums",
+         "    continue;\n    if (p.wsplit == 2) {\n      // the second "
+         "warpgroup's sums")],
+    # its fixed costs: the kernel's launch with no work (its split sum
+    # still runs), no split sum, no loads (the ring's slots hold stale
+    # data)
+    "wgrad_no_work": [
+        ("    atomicAdd(p.count, 1ull);\n  if (tid == 0) {\n"
+         "    for (int s = 0; s < p.ring; ++s) {\n"
+         "      bar_init(full + s, 1);\n"
+         "      bar_init(empty + s, kConsumers / 32);",
+         "    atomicAdd(p.count, 1ull);\n  return;\n  if (tid == 0) {\n"
+         "    for (int s = 0; s < p.ring; ++s) {\n"
+         "      bar_init(full + s, 1);\n"
+         "      bar_init(empty + s, kConsumers / 32);")],
+    "wgrad_no_sum": [("  if (e != 0 || parts == 1) return e;\n",
+                      "  return e;\n")],
+    "wgrad_no_loads": [
+        ("          bar_expect(full + slot, (p.tma_x ? kXBox : 0) +\n"
+         "                                      (p.tma_g ? p.gboxes * p.win * "
+         "128 : 0));\n          if (p.tma_x) tma_3d(",
+         "          bar_expect(full + slot, 0);\n          if (false) tma_3d("),
+        ("          if (p.tma_g) {\n            for (int gb = 0;",
+         "          if (false) {\n            for (int gb = 0;")],
+    # the bf16 wgrad before its redesign: g's fragments gathered by 2-byte
+    # loads, the activated tile written transposed
+    "wgrad_no_gathers": [
+        ("          fa[ks][0] = r0[0] | ((uint32_t)r0[kGStride] << 16);\n"
+         "          fa[ks][1] = r0[8] | ((uint32_t)r0[kGStride + 8] << 16);\n"
+         "          fa[ks][2] = r8[0] | ((uint32_t)r8[kGStride] << 16);\n"
+         "          fa[ks][3] = r8[8] | ((uint32_t)r8[kGStride + 8] << 16);",
+         "          fa[ks][0] = fa[ks][1] = fa[ks][2] = fa[ks][3] =\n"
+         "              0x3f803f80u + sh + ks;")],
+    "wgrad_no_transpose": [("        ah[at] = __float2bfloat16_rn(v);",
+                            "        ah[e] = __float2bfloat16_rn(v);")],
 }
 # the pieces of the f32 kernels only
 F32_ONLY = ("dgrad_no_low_half", "wgrad_no_low_half")
 # the pieces of the bf16 kernels only
-BF16_ONLY = ("dgrad_no_window",)
+BF16_ONLY = ("dgrad_no_window", "wgrad_no_gathers", "wgrad_no_transpose",
+             "wgrad_no_snake", "wgrad_no_ldmatrix", "wgrad_no_epilogue",
+             "wgrad_no_work", "wgrad_no_sum", "wgrad_no_loads")
 # (B, T, C, O, k, dilation) of a training codec forward
 SHAPES = [(8, 2048, 384, 384, 3, 3), (8, 256, 768, 768, 3, 9),
           (8, 8192, 64, 64, 3, 1), (8, 2048, 384, 384, 1, 1),
@@ -81,6 +137,7 @@ def main() -> int:
     ap.add_argument("--bf16", action="store_true")
     ap.add_argument("--csrc", default=None)
     ap.add_argument("--label", default="tree")
+    ap.add_argument("--only", choices=("dgrad", "wgrad"), default=None)
     args = ap.parse_args()
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     sys.path.insert(0, root)
@@ -100,7 +157,8 @@ def main() -> int:
     strict_f32()
     print(f"card: {cs.card_line()}", flush=True)
     skip = F32_ONLY if args.bf16 else BF16_ONLY
-    variants = {n: e for n, e in VARIANTS.items() if n not in skip}
+    variants = {n: e for n, e in VARIANTS.items() if n not in skip and (
+        args.only is None or n == "base" or n.startswith(args.only))}
     csrc = args.csrc or str(build.CSRC)
     libs = build_variants(
         os.path.join(csrc, "snake_conv_backward.cu"), variants,
@@ -180,6 +238,8 @@ def main() -> int:
                 if err:
                     raise RuntimeError(f"{name} wgrad: CUDA error {err}")
             for kind, fn in (("dgrad", dgrad), ("wgrad", wgrad)):
+                if args.only not in (None, kind):
+                    continue
                 if name == "base" or name.startswith(kind):
                     ms = cs.cuda_ms(fn)
                     totals[f"{name} {kind}"] += n * ms

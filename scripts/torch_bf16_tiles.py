@@ -1,7 +1,7 @@
-"""The bf16 forward and bf16 dgrad kernels' plans against their times with
-each tile forced, on the card.
+"""The bf16 kernels' plans against their times with each tile forced, on
+the card.
 
-    python3 scripts/torch_bf16_tiles.py
+    python3 scripts/torch_bf16_tiles.py [--wgrad-only]
 
 Copies ``fused_snake_conv.cu`` and ``snake_conv_backward.cu`` (with
 ``snake_conv_bf16.cuh`` inlined) into ``build/bf16_tiles/`` once for each
@@ -13,7 +13,13 @@ and of one streamed buffer's crossfade window (the forward, batch 1) and of
 the encoder at batch 8 x 131072 samples (dgrad). Prints the card line, a
 line a shape with each copy's plan (frames, columns, channels a stage,
 ring slots, splits or rows of partials, blocks) and ms, and each copy's
-ms summed over the transfer, the buffer and the bf16 generator step.
+ms summed over the transfer, the buffer and the bf16 generator step.  The
+bf16 wgrad likewise, at the encoder's shapes at batch 8, with its tile
+forced (1 or 2 output boxes a consumer warpgroup where k is not a multiple
+of 3; the warpgroups on other output boxes or on alternate chunks), each
+copy's split of the frame sum its plan's own, and with the plan's cost
+model moved (a chunk's fixed cycles, the partial sums' cost, which set the
+splits); ``--wgrad-only`` times the wgrad copies alone.
 """
 
 from __future__ import annotations
@@ -40,6 +46,34 @@ def variants():
     return out
 
 
+def wgrad_variants():
+    """The bf16 wgrad with its tile forced, obw{1,2}_ws{1,2}, and with its
+    plan's cost model moved."""
+    out = {}
+    for obw in (1, 2):
+        for wsplit in (1, 2):
+            out[f"obw{obw}_ws{wsplit}"] = [
+                ("  for (int obw = 1; obw <= (kt == 3 ? 1 : 2); ++obw) {",
+                 f"  for (int obw = (kt == 3 ? 1 : {obw}); "
+                 f"obw <= (kt == 3 ? 1 : {obw}); ++obw) {{"),
+                ("    for (int wsplit = 1; wsplit <= 2; ++wsplit) {\n"
+                 "      // the second warpgroup would find no output box "
+                 "of its own\n"
+                 "      if (wsplit == 1 && oboxes <= obw) continue;",
+                 f"    for (int wsplit = {wsplit}; wsplit <= {wsplit}; "
+                 "++wsplit) {")]
+    # the plan's own tiles with its cost model moved: a chunk's fixed
+    # cycles, the partial sums' bytes a cycle (which set the splits)
+    for name, old, new in (
+            ("fix0", "kChunkCycles = 300.0", "kChunkCycles = 0.0"),
+            ("fix900", "kChunkCycles = 300.0", "kChunkCycles = 900.0"),
+            ("part1200", "kPartBytes = 3600.0", "kPartBytes = 1200.0"),
+            ("part10000", "kPartBytes = 3600.0", "kPartBytes = 10000.0")):
+        out[name] = [(old, new)]
+    out["auto"] = []
+    return out
+
+
 def main() -> int:
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     sys.path.insert(0, root)
@@ -57,12 +91,20 @@ def main() -> int:
         raise SystemExit("needs a CUDA card")
     print(f"card: {cs.card_line()}", flush=True)
     out = os.path.join(root, "build", "bf16_tiles")
-    v = variants()
+    wgrad_only = "--wgrad-only" in sys.argv[1:]
+    v = {} if wgrad_only else variants()
     flibs = build_variants(str(build.CSRC / "fused_snake_conv.cu"), v,
-                           os.path.join(out, "forward"))
+                           os.path.join(out, "forward")) if v else {}
     blibs = build_variants(str(build.CSRC / "snake_conv_backward.cu"), v,
-                           os.path.join(out, "backward"))
+                           os.path.join(out, "backward")) if v else {}
+    wv = wgrad_variants()
+    wlibs = build_variants(str(build.CSRC / "snake_conv_backward.cu"), wv,
+                           os.path.join(out, "wgrad"))
     P, I = ctypes.c_void_p, ctypes.c_int
+    for lib in wlibs.values():
+        lib.snake_conv_backward_wgrad_bf16.argtypes = [P] * 6 + [I] * 8 + [
+            P, P]
+        lib.snake_conv_backward_plan_bf16_wgrad.argtypes = [I] * 6 + [P]
     for lib in flibs.values():
         lib.fused_snake_conv_bf16.argtypes = [P] * 7 + [I] * 8 + [P, P]
         lib.fused_snake_conv_plan_bf16_tiles.argtypes = [I] * 6 + [P]
@@ -79,10 +121,10 @@ def main() -> int:
     def coef(C):
         return (torch.rand(C, device="cuda", generator=gen) + 0.5).to(bf)
 
-    def timed(libs, plan_name, call_name, B, T, C, O, k, d, args):
+    def timed(libs, plan_name, call_name, B, T, C, O, k, d, args, n_out=6):
         res, times = [], {}
         for name, lib in libs.items():
-            tiles = (ctypes.c_int * 6)()
+            tiles = (ctypes.c_int * n_out)()
             if getattr(lib, plan_name)(B, T, C, O, k, d,
                                        ctypes.addressof(tiles)):
                 res.append(f"{name} -")
@@ -99,6 +141,8 @@ def main() -> int:
 
     for label, n_samples in (("transfer", cs.N_SAMPLES),
                              ("buffer", (cs.N_FADE + cs.CHUNK) * 2048)):
+        if wgrad_only:
+            break
         total = dict.fromkeys(v, 0.0)
         for (k, d, C, O, T), n in sorted(codec_shapes(n_samples).items()):
             left = get_padding(k, 1, d, "centered")[0]
@@ -119,8 +163,28 @@ def main() -> int:
                   + "; ".join(res), flush=True)
         print(f"{label} forward total: " + ", ".join(
             f"{name} {ms:.4f}" for name, ms in total.items()), flush=True)
-    total = dict.fromkeys(v, 0.0)
     B = 8
+    wtotal = dict.fromkeys(wv, 0.0)
+    for (k, d, C, O, T), n in sorted(codec_shapes(131072, ("enc",)).items()):
+        left = get_padding(k, 1, d, "centered")[0]
+        x, g, al, be = rand(B, T, C), rand(B, T, O), coef(C), coef(C)
+        w_k = kernel_weight(rand(O, C, k) / (C * k) ** 0.5)[0]
+        gw = torch.empty_like(w_k)
+        ws = torch.empty(1056, w_k.numel(), device="cuda")
+        res, times = timed(
+            wlibs, "snake_conv_backward_plan_bf16_wgrad",
+            "snake_conv_backward_wgrad_bf16", B, T, C, O, k, d,
+            (x.data_ptr(), al.data_ptr(), be.data_ptr(), g.data_ptr(),
+             gw.data_ptr(), ws.data_ptr(), B, T, C, O, k, d, left,
+             w_k.shape[2], None), n_out=8)
+        for name in wtotal:
+            wtotal[name] += n * times.get(name, float("inf"))
+        print(f"wgrad {(k, d, C, O, T)} x{n}: " + "; ".join(res), flush=True)
+    print("wgrad total: " + ", ".join(
+        f"{name} {ms:.4f}" for name, ms in wtotal.items()), flush=True)
+    if wgrad_only:
+        return 0
+    total = dict.fromkeys(v, 0.0)
     for (k, d, C, O, T), n in sorted(codec_shapes(131072, ("enc",)).items()):
         left = get_padding(k, 1, d, "centered")[0]
         x, g, al, be = rand(B, T, C), rand(B, T, O), coef(C), coef(C)

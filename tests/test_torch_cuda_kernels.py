@@ -532,7 +532,13 @@ BF16_BACKWARD_SHAPES = [
     (8, 256, 512, 512, 3, 9, "centered"), (8, 256, 512, 512, 1, 1, "centered"),
     # C and O without 16-byte rows: g staged without TMA, x and gx by
     # elements
-    (2, 300, 36, 20, 3, 3, "causal")]
+    (2, 300, 36, 20, 3, 3, "causal"),
+    # wgrad: one signal, its frame sum split over blocks; T not a multiple
+    # of the 64-frame chunk at d = 9, centered; more work items than blocks
+    # (9 taps in three groups of 768 x 768), so that a persistent block
+    # takes several
+    (1, 8192, 64, 64, 3, 1, "centered"), (2, 1000, 128, 64, 3, 9, "centered"),
+    (1, 200, 768, 768, 9, 1, "centered")]
 
 
 @pytest.mark.cuda
@@ -541,7 +547,8 @@ def test_bf16_backward_kernels_match_plain_version(cuda, B, T, C, O, k, d,
                                                    mode):
     """The bf16 dgrad and wgrad against the plain bf16 backward (f32 math
     on the widened inputs, each gradient rounded once) at training shapes
-    of the encoder (k = 1 and 3, d up to 9) and ragged ones (T, C and O not
+    of the encoder (k = 1 and 3, d up to 9, its first conv's 16 input
+    channels, its widest 512 at k = 3) and ragged ones (T, C and O not
     multiples of the tiles, C and O without 16-byte rows): each of the five
     gradients within 2 bf16 ulps of its max |g|; the launches counted on
     the device apart from the f32 kernels'."""
@@ -567,7 +574,7 @@ def test_bf16_backward_kernels_match_plain_version(cuda, B, T, C, O, k, d,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,T,C,O,k,d,mode", BF16_BACKWARD_SHAPES[1::2])
+@pytest.mark.parametrize("B,T,C,O,k,d,mode", BF16_BACKWARD_SHAPES)
 def test_bf16_backward_kernels_give_the_same_bits_eager_and_in_a_graph(
         cuda, B, T, C, O, k, d, mode):
     from after_tpu_torch.ops.kernels.fused_conv import snake_conv_backward
@@ -586,6 +593,52 @@ def test_bf16_backward_kernels_give_the_same_bits_eager_and_in_a_graph(
     torch.cuda.synchronize()
     for a, b2, c in zip(first, again, captured):
         assert torch.equal(a, b2) and torch.equal(a, c)
+
+
+@pytest.mark.cuda
+def test_bf16_wgrad_plan_gives_a_block_several_work_items(cuda):
+    """The persistent wgrad blocks walk more than one work item at the
+    shape that BF16_BACKWARD_SHAPES holds for it, so the ring's phases run
+    on across items there."""
+    from after_tpu_torch.ops.kernels.fused_conv import bf16_wgrad_tiles
+
+    B, T, C, O, k, d, _ = BF16_BACKWARD_SHAPES[-1]
+    bn, kt, outs, wsplit, ring, splits, items, grid = bf16_wgrad_tiles(
+        B, T, C, O, k, d)
+    assert items == -(-O // outs) * -(-C // bn) * (k // kt) * splits
+    assert items > grid
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C,O,k,mode", [(20, 24, 3, "causal"),
+                                        (36, 64, 1, "centered"),
+                                        (100, 72, 3, "centered")])
+def test_bf16_wgrad_writes_zeros_past_C(cuda, C, O, k, mode):
+    """gw (k, O, Cw) comes back with zeros in its columns past C (Cw is C
+    rounded up to 8), also where the memory it takes held garbage: the
+    caching allocator hands the op a block just filled with NaN."""
+    from after_tpu_torch.ops.kernels.fused_conv import (
+        snake_conv_backward, snake_conv_backward_reference)
+
+    B, T, d = 2, 500, 3
+    x, alpha, beta, w, b = (t.to(torch.bfloat16) for t in _inputs(
+        16, B, T, C, O, k, cuda))
+    g = torch.randn((B, T, O), device=cuda, generator=torch.Generator(
+        cuda).manual_seed(3)).to(torch.bfloat16)
+    w_k = kernel_weight(w)[0]
+    assert w_k.shape[2] > C
+    wanted = [False, False, False, True, False]
+    args = (g, x, alpha, beta, w_k, b, d, mode, wanted)
+    for _ in range(3):
+        torch.full(w_k.shape, float("nan"), device=cuda,
+                   dtype=torch.bfloat16)
+        gw = snake_conv_backward(*args)[3]
+        torch.cuda.synchronize()
+        assert not gw[:, :, C:].any()
+        ref = snake_conv_backward_reference(*args)[3]
+        scale = ref.float().abs().max().item()
+        err = (gw.float() - ref.float()).abs().max().item()
+        assert err <= 2 * _bf16_ulp(scale), (err, scale)
 
 
 @pytest.mark.cuda
