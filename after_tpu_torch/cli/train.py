@@ -53,8 +53,9 @@ def _encode_conditions(trainer, batch):
 def validate(trainer, val_batches: Sequence[Dict[str, Any]],
              draws: Optional[Sequence[Tuple[Any, Any]]] = None) -> float:
     """Mean diffusion loss of ``trainer.rf`` (not the EMA, no dropout) over
-    the fixed validation batches.  ``draws[i]`` is batch i's (x0, t); by
-    default both come from a generator seeded i."""
+    the fixed validation batches.  ``draws[i]`` is batch i's (x0, noise
+    level: the flow's t or EDM's normal draw of ln sigma); by default both
+    come from a generator seeded i."""
     losses = []
     for i, b in enumerate(val_batches):
         batch = trainer.upload(b)
@@ -63,8 +64,7 @@ def validate(trainer, val_batches: Sequence[Dict[str, Any]],
         if draws is None:
             gen = torch.Generator(trainer.device).manual_seed(i)
             x0 = torch.randn(x.shape, generator=gen, device=trainer.device)
-            t = torch.rand((x.shape[0],), generator=gen,
-                           device=trainer.device)
+            t = trainer.rf.draw_level(x.shape[0], gen, trainer.device)
         else:
             x0, t = (torch.as_tensor(np.array(v, np.float32),
                                      device=trainer.device) for v in draws[i])
@@ -192,7 +192,7 @@ def build_argparser():
     p.add_argument("--out_path", default="./after_runs")
     p.add_argument("--model", default=None, choices=["rectified", "edm"],
                    help="diffusion formulation (default: the config's "
-                        "diffusion_type; edm is not ported)")
+                        "diffusion_type)")
     p.add_argument("--batch_size", type=int, default=None)
     p.add_argument("--max_steps", type=int, default=None)
     p.add_argument("--restart", type=int, default=None)

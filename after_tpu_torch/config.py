@@ -14,9 +14,10 @@ drive ``after_tpu_torch.autoencoder.AutoencoderTrainer``, and
 ``DiffusionTrainConfig`` drives ``after_tpu_torch.diffusion.trainer.
 DiffusionTrainer``.  Fields that only the JAX package reads
 (``fused_kernels``, ``rng_impl``) and those the port refuses for now
-(``compute_dtype`` of both trainers and ``stft_bf16_dft``, bf16 training,
-ROADMAP 9c and 10d; ``DiscriminatorConfig(kind="descript")``,
-``diffusion_type="edm"``) are kept so that the JSON form stays identical.
+(``DiscriminatorConfig(kind="descript")``, the structure and timbre
+encoders' vae modes, ``AutoEncoderConfig.use_noise``) are kept so that the
+JSON form stays identical; ``diffusion_type="edm"`` and the ``v1`` and
+``unet1d`` denoisers run.
 bf16 serving is not a config field: ``TransferPipeline``, ``Streamer`` and
 the export commands take ``compute_dtype``.
 """

@@ -183,6 +183,27 @@ std::vector<std::string> JsonStringList(const std::string& j,
   return out;
 }
 
+// `"key": "<text>"` as its text, or dflt, the same colon rule as JsonInt.
+std::string JsonString(const std::string& j, const std::string& key,
+                       const std::string& dflt) {
+  const std::string quoted = "\"" + key + "\"";
+  size_t pos = 0;
+  while ((pos = j.find(quoted, pos)) != std::string::npos) {
+    size_t p = pos + quoted.size();
+    while (p < j.size() && (j[p] == ' ' || j[p] == '\n')) ++p;
+    if (p < j.size() && j[p] == ':') {
+      ++p;
+      while (p < j.size() && (j[p] == ' ' || j[p] == '\n')) ++p;
+      if (p < j.size() && j[p] == '"') {
+        const size_t end = j.find('"', p + 1);
+        if (end != std::string::npos) return j.substr(p + 1, end - p - 1);
+      }
+    }
+    pos += quoted.size();
+  }
+  return dflt;
+}
+
 // `"key": <number>` as a double, the same colon rule as JsonInt.
 double JsonDouble(const std::string& j, const std::string& key, double dflt) {
   const std::string quoted = "\"" + key + "\"";
@@ -404,6 +425,19 @@ int main(int argc, char** argv) {
 
   std::string art = argv[1];
   std::string manifest = ReadFile(art + "/manifest.json");
+  // StreamScalars computes the rectified flow's step scalars only: an EDM
+  // artifact's steps read its Karras ladder, which this host does not make
+  // (the manifest's config names the model's diffusion_type)
+  const std::string diffusion_type =
+      JsonString(manifest, "diffusion_type", "rectified");
+  if (diffusion_type != "rectified") {
+    std::cerr << "diffusion_type \"" << diffusion_type
+              << "\": this host computes the rectified flow's step scalars "
+                 "only (EDM's Karras ladder is not ported to the native "
+                 "host); serve the artifact with the Python host "
+                 "(after_tpu_torch.streaming.export.ExportedStreamer)\n";
+    return 1;
+  }
   // codec-only artifacts (after-tpu-torch export_autoencoder): one audio
   // input streamed through the fused decode(encode(x)) `forward`
   bool codec_mode = JsonInt(manifest, "codec_only", 0) != 0;

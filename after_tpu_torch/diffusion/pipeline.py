@@ -44,7 +44,8 @@ from ..utils.device import (copy_from_host, resolve_device, strict_f32,
 from ..utils.graphs import GraphPool, capture_key
 from ..utils.precision import compute_dtype as resolve_compute_dtype
 from ..utils.precision import to_compute, to_f32
-from .rectified_flow import RectifiedFlow, guidance_mix
+from .factory import make_model
+from .rectified_flow import guidance_mix
 
 ArrayLike = Union[torch.Tensor, np.ndarray]
 
@@ -68,7 +69,7 @@ class TransferPipeline:
         # card), bf16 ones summed in f32
         strict_f32()
         self.codec = AudioCodec(cfg.autoencoder).eval().to(self.device)
-        self.rf = RectifiedFlow(cfg).eval().to(self.device)
+        self.rf = make_model(cfg).eval().to(self.device)
         if self.compute_dtype is not None:
             self.codec.to(self.compute_dtype)
             self.rf.to(self.compute_dtype)

@@ -13,7 +13,8 @@ import torch
 from torch import nn
 
 from ..config import AfterConfig
-from ..models.denoiser import Denoiser, KVSlot
+from ..models import make_denoiser
+from ..models.denoiser import KVSlot
 from ..models.ecapa import ECAPAEncoder
 from ..models.encoder import Encoder1D
 from ..ops.train_mode import TrainMode
@@ -66,15 +67,18 @@ class RectifiedFlow(nn.Module):
     sampler is ``sample_stream``; its parameters have the same names as the
     offline model's, so one state dict serves both."""
 
+    # the name of the noise-level draw of a training step (trainer.DRAWS):
+    # the flow's times t, uniform in [0, 1)
+    LEVEL_DRAW = "t"
+
     def __init__(self, cfg: AfterConfig, streaming: bool = False):
         super().__init__()
-        if cfg.diffusion_type != "rectified":
-            raise NotImplementedError(
-                f"the port has only the rectified flow, not "
-                f"{cfg.diffusion_type!r}")
         self.cfg = cfg
-        self.net = Denoiser(cfg.denoiser, cond_in=cfg.zt_channels,
-                            tcond_in=cfg.zs_channels, streaming=streaming)
+        # the configured backbone (v2, v1 or the UNet); a streaming UNet is
+        # None: it has no streaming form
+        self.net = make_denoiser(cfg.denoiser, streaming,
+                                 cond_in=cfg.zt_channels,
+                                 tcond_in=cfg.zs_channels)
         self.encoder = ECAPAEncoder(cfg.encoder)
         self.encoder_time = (Encoder1D(cfg.encoder_time, streaming)
                              if cfg.encoder_time is not None else None)
@@ -110,6 +114,13 @@ class RectifiedFlow(nn.Module):
             shape = (d.shape[0],) + (1,) * (d.dim() - 1)
             out.append(torch.where(drop.reshape(shape), self.drop_value, d))
         return out
+
+    @staticmethod
+    def draw_level(batch: int, generator: Optional[torch.Generator],
+                   device: torch.device) -> torch.Tensor:
+        """A training step's noise-level draw (``LEVEL_DRAW``): the times
+        t (B,), uniform in [0, 1)."""
+        return torch.rand((batch,), generator=generator, device=device)
 
     def diffusion_loss(self, x1, time_cond, cond, x0: torch.Tensor,
                        t: torch.Tensor, train: Optional[TrainMode] = None,

@@ -96,10 +96,12 @@ ArrayLike = Union[torch.Tensor, np.ndarray]
 # time_cond_noise  (B, T, zs): normal, the structure codes' augmentation
 # cfg_uniform (B,): uniform, the condition dropout's draw
 # x0, t       x's shape normal and (B,) uniform: the flow's noise and times
+# sigma_normal  (B,) normal: EDM's draw of ln sigma (in place of t; its x0
+#             is the unit noise)
 # cycle_perm  (B,) int: the cycle step's permutation of the batch
 # fsq         the structure encoder's FSQ noise dropout (FSQ.draw)
 DRAWS = ("shuffle", "cond_noise", "time_cond_noise", "cfg_uniform", "x0",
-         "t", "cycle_perm", "fsq")
+         "t", "sigma_normal", "cycle_perm", "fsq")
 # the float metrics of a diffusion step (with "skipped_nonfinite", the
 # optimizer's running count of skipped updates)
 DIFFUSION_METRICS = ("diffusion_loss", "adversarial_loss", "cond_reg",
@@ -357,9 +359,9 @@ class DiffusionTrainer:
 
         x0 = take("x0", lambda: torch.randn(x1.shape, generator=gen,
                                             device=dev))
-        t = take("t", lambda: torch.rand((B,), generator=gen, device=dev))
+        level = take(rf.LEVEL_DRAW, lambda: rf.draw_level(B, gen, dev))
         diffusion_loss, (interpolant, tb) = rf.diffusion_loss(
-            x1, time_cond_drop, cond_drop, x0, t, train=kept,
+            x1, time_cond_drop, cond_drop, x0, level, train=kept,
             compute_dtype=cd)
 
         if use_cycle:

@@ -107,17 +107,22 @@ class KVSlot:
                           value.unsqueeze(axis).to(t.dtype))
 
 
-class ChunkCausalAttention(nn.Module, Streaming):
-    """Multi-head self-attention with the chunk-wise causal sliding-window
-    mask and rotary positions on the first ``rotary_dim`` head features;
-    streaming, with the per-step KV caches described above."""
+class MaskedAttention(nn.Module, Streaming):
+    """Multi-head attention over given (B, T, E) projections q, k and v,
+    with the chunk-wise causal sliding-window mask where ``_masked`` says
+    so and rotary positions on the first ``rotary_dim`` head features;
+    streaming, with the per-step KV caches described above (the keys and
+    values of this call rolled into the slot)."""
 
     def __init__(self, cfg: DenoiserConfig, streaming: bool = False):
         super().__init__()
         self.cfg = cfg
         self.streaming = streaming
-        self.qkv = nn.Linear(cfg.embed_dim, 3 * cfg.embed_dim, bias=False)
         self._consts: Dict[Tuple[int, int, torch.device], tuple] = {}
+
+    def _masked(self) -> bool:
+        """Whether the chunk-wise causal window masks the keys."""
+        return self.streaming or self.cfg.causal
 
     def _constants(self, q_len: int, k_len: int, device: torch.device):
         """(mask bias (q_len, k_len) or None, query angles, key angles, key
@@ -125,14 +130,15 @@ class ChunkCausalAttention(nn.Module, Streaming):
         key = (q_len, k_len, device)
         if key not in self._consts:
             cfg = self.cfg
-            if self.streaming:
+            if not self._masked():
+                mask = None
+            elif self.streaming:
                 mask = streaming_mask(q_len, k_len, cfg.attention_chunk_size,
                                       cfg.local_attention_size)
-            elif cfg.causal:
-                mask = sliding_chunkwise_mask(k_len, cfg.attention_chunk_size,
-                                              cfg.local_attention_size)
             else:
-                mask = None
+                mask = sliding_chunkwise_mask(
+                    k_len, cfg.attention_chunk_size,
+                    cfg.local_attention_size)[k_len - q_len:]
             bias = (torch.from_numpy(mask_bias(mask)).to(device)
                     if mask is not None else None)
             q_ang = k_ang = None
@@ -145,35 +151,37 @@ class ChunkCausalAttention(nn.Module, Streaming):
                                  torch.arange(k_len, device=device))
         return self._consts[key]
 
-    def forward(self, x: torch.Tensor, cache: Optional[Cache] = None,
-                cache_index: Union[int, torch.Tensor] = 0,
-                train: Optional[TrainMode] = None) -> torch.Tensor:
+    def attend(self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               cache: Optional[Cache] = None,
+               cache_index: Union[int, torch.Tensor] = 0,
+               train: Optional[TrainMode] = None) -> torch.Tensor:
         cfg = self.cfg
-        B, T, E = x.shape
+        B, Tq, E = q.shape
+        T = k.shape[1]
         H, D = E // cfg.head_dim, cfg.head_dim
-        q, k, v = self.qkv(x).chunk(3, dim=-1)
-        q, k, v = (y.reshape(B, T, H, D).transpose(1, 2) for y in (q, k, v))
+        q, k, v = (y.reshape(B, -1, H, D).transpose(1, 2) for y in (q, k, v))
         if self.streaming:
             C, S = cfg.local_attention_size, cfg.max_diffusion_steps
-            kc = self.slot(cache, "k", lambda: x.new_zeros((B, S, H, C, D)))
-            vc = self.slot(cache, "v", lambda: x.new_zeros((B, S, H, C, D)))
+            kc = self.slot(cache, "k", lambda: k.new_zeros((B, S, H, C, D)))
+            vc = self.slot(cache, "v", lambda: v.new_zeros((B, S, H, C, D)))
             filled = self.slot(cache, "filled", lambda: torch.zeros(
-                (S,), dtype=torch.int32, device=x.device))
+                (S,), dtype=torch.int32, device=k.device))
             slot = KVSlot(cache_index)
             kc_i, vc_i = slot.read(kc, 1), slot.read(vc, 1)    # B H C D
             full_k = torch.cat([kc_i, k], dim=2)
             full_v = torch.cat([vc_i, v], dim=2)
-            bias, q_ang, k_ang, key_pos = self._constants(T, C + T, x.device)
+            bias, q_ang, k_ang, key_pos = self._constants(Tq, C + T, k.device)
             # mask the slots of this step not written yet
             n_filled = slot.read(filled, 0)
-            bias = torch.where(key_pos >= C - n_filled, bias, NEG_INF)
+            bias = torch.where(key_pos >= C - n_filled,
+                               0.0 if bias is None else bias, NEG_INF)
             # roll-write: shift this step's slot left by T, append the keys
             slot.write(kc, 1, full_k[:, :, T:] if T < C else k[:, :, T - C:])
             slot.write(vc, 1, full_v[:, :, T:] if T < C else v[:, :, T - C:])
             slot.write(filled, 0, torch.clamp(n_filled + T, max=C))
         else:
             full_k, full_v = k, v
-            bias, q_ang, k_ang, _ = self._constants(T, T, x.device)
+            bias, q_ang, k_ang, _ = self._constants(Tq, T, k.device)
         if k_ang is not None:
             q = apply_rotary(q, q_ang)
             full_k = apply_rotary(full_k, k_ang)
@@ -186,7 +194,22 @@ class ChunkCausalAttention(nn.Module, Streaming):
             logits = logits + bias
         probs = dropout(torch.softmax(logits, dim=-1), cfg.dropout, train)
         out = torch.matmul(probs.to(full_v.dtype), full_v)
-        return out.transpose(1, 2).reshape(B, T, E)
+        return out.transpose(1, 2).reshape(B, Tq, E)
+
+
+class ChunkCausalAttention(MaskedAttention):
+    """DenoiserV2's self-attention: the qkv projection, then
+    ``MaskedAttention`` (always masked when streaming)."""
+
+    def __init__(self, cfg: DenoiserConfig, streaming: bool = False):
+        super().__init__(cfg, streaming)
+        self.qkv = nn.Linear(cfg.embed_dim, 3 * cfg.embed_dim, bias=False)
+
+    def forward(self, x: torch.Tensor, cache: Optional[Cache] = None,
+                cache_index: Union[int, torch.Tensor] = 0,
+                train: Optional[TrainMode] = None) -> torch.Tensor:
+        q, k, v = self.qkv(x).chunk(3, dim=-1)
+        return self.attend(q, k, v, cache, cache_index, train)
 
 
 class DecoderBlock(nn.Module):
@@ -234,9 +257,6 @@ class Denoiser(nn.Module):
     def __init__(self, cfg: DenoiserConfig, cond_in: Optional[int] = None,
                  tcond_in: Optional[int] = None, streaming: bool = False):
         super().__init__()
-        if cfg.arch != "v2":
-            raise NotImplementedError(
-                f"the port has only the v2 denoiser, not {cfg.arch!r}")
         if streaming and cfg.pos_emb_type == "learnable":
             # a chunk would restart at position 0 against keys cached at
             # earlier positions; rotary positions re-phase the cached keys

@@ -62,8 +62,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..config import AutoEncoderConfig, to_json
-from ..diffusion.rectified_flow import stream_scalars
+from ..config import AutoEncoderConfig, EDMConfig, to_json
+from ..diffusion import edm, rectified_flow
 from ..models.autoencoder import AudioCodec, decoder_band_delay
 from ..ops.conv import fold_weights
 from ..ops.kernels import fused_conv  # noqa: F401  registers the op
@@ -284,7 +284,7 @@ def export_streamer(streamer: Streamer, out_dir: str, nb_steps: int = 1,
     x = zeros(B, T, cfg.denoiser.n_channels)
     zt = zeros(B, cfg.zt_channels)
     tcond = zeros(B, T, cfg.zs_channels)
-    scalars = torch.from_numpy(stream_scalars(S)[1]).to(device)
+    scalars = torch.from_numpy(streamer.rf.stream_scalars()[1]).to(device)
     slot = torch.zeros((), dtype=torch.int64, device=device)
     args = {"structure": (audio,), "timbre": (audio,),
             "step": (x, zt, tcond, scalars, slot), "decode": (x,)}
@@ -406,6 +406,18 @@ def export_codec(cfg: AutoEncoderConfig, codec_state: Dict[str, Any],
     return out_dir
 
 
+def stream_scalars_of(manifest: Dict[str, Any]):
+    """The ``stream_scalars`` function (nb_steps, guidance_timbre,
+    guidance_structure) -> (nb, scalars) of an artifact's model, from its
+    manifest: the rectified flow's or, where the config's
+    ``diffusion_type`` is "edm", EDM's over the config's ladder."""
+    S = int(manifest["attributes"]["nb_steps"]["max"])
+    if manifest["config"].get("diffusion_type") == "edm":
+        e = EDMConfig(**manifest["config"]["edm"])
+        return lambda *a: edm.stream_scalars(e, S, *a)
+    return lambda *a: rectified_flow.stream_scalars(S, *a)
+
+
 def load_program(path: str, device: torch.device) -> nn.Module:
     """The program saved at ``path`` as a module on ``device``: moved there
     (``move_to_device_pass``) when it was traced on another device."""
@@ -439,7 +451,9 @@ def load_state(path: str, device: torch.device,
 class _Host:
     """What both hosts share: the device, the manifest, the programs, and
     on the card the CUDA graph of each stage, captured once at load after
-    a warm-up whose writes to the state are undone."""
+    a warm-up whose writes to the state are undone.  Setting ``eager``
+    runs the same stage calls op by op instead (for comparisons: a graph
+    keeps the math switches, such as TF32, of its capture)."""
 
     def __init__(self, path: str, device=None):
         self.path = path
@@ -448,6 +462,7 @@ class _Host:
             self.manifest = json.load(f)
         self.graphs: Optional[GraphPool] = None
         self._graphs: Dict[Any, Any] = {}
+        self.eager = False
 
     def _programs(self, names) -> Dict[str, nn.Module]:
         return {n: load_program(os.path.join(self.path, f"{n}.pt2"),
@@ -468,7 +483,7 @@ class _Host:
                 self._graphs[key] = self.graphs.capture(fn)
 
     def _run(self, stages: Dict[Any, Any], key):
-        if self._graphs:
+        if self._graphs and not self.eager:
             return self._graphs[key].replay()
         with torch.no_grad():
             return stages[key]()
@@ -506,6 +521,7 @@ class ExportedStreamer(_Host):
         m = self.manifest
         cfg = m["config"]
         self.S = int(m["attributes"]["nb_steps"]["max"])
+        self.stream_scalars = stream_scalars_of(m)
         self.attributes = {k: v["default"]
                            for k, v in m["attributes"].items()}
         self.programs = self._programs(
@@ -527,7 +543,7 @@ class ExportedStreamer(_Host):
                 else zeros(B, T, struct_out)),
             tcond=tcond, zt=zeros(B, cfg["zt_channels"]),
             x=zeros(B, T, cfg["denoiser"]["n_channels"]),
-            scalars=to_device(stream_scalars(self.S)[1], self.device),
+            scalars=to_device(self.stream_scalars(1)[1], self.device),
             notes=(zeros(B, T, m["n_poly"], 2) if m["n_poly"] else None))
         self.slots = [torch.tensor(i, dtype=torch.int64, device=self.device)
                       for i in range(self.S)]
@@ -595,8 +611,8 @@ class ExportedStreamer(_Host):
                 b.x.normal_(generator=self.generator)
             else:
                 copy_from_host(b.x, x0)
-            nb, values = stream_scalars(
-                self.S, self.attributes["nb_steps"],
+            nb, values = self.stream_scalars(
+                self.attributes["nb_steps"],
                 self.attributes["guidance_timbre"],
                 self.attributes["guidance_structure"])
             copy_from_host(b.scalars, values)

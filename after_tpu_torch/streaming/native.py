@@ -217,8 +217,10 @@ def _package_one(path: str, device: torch.device, stage: str) -> dict:
     if device.type == "cuda":
         strict_f32()
         # and one Triton config a pointwise kernel (no benchmarking of
-        # several)
+        # several), the kernels tuned while the C++ wrapper is generated
+        # (one code generation pass, not a Python wrapper's first)
         config.triton.autotune_pointwise = False
+        config.triton.autotune_at_compile_time = True
     t0 = time.perf_counter()
     writes = package_stage(os.path.join(path, f"{stage}.pt2"),
                            os.path.join(path, "native", device.type,
@@ -230,11 +232,13 @@ def _package_one(path: str, device: torch.device, stage: str) -> dict:
 def _in_processes(path: str, device: torch.device, stages: Sequence[str]
                   ) -> Dict[str, dict]:
     """Each stage packaged by a process of its own, all at once, each dying
-    with this process (``die_with_parent``)."""
+    with this process (``die_with_parent``).  A stage compiles its kernels
+    in its own process (no pool of compile workers, which cost a stage
+    more CPU time than they save it wall time when stages run at once)."""
     import subprocess
     import sys
     env = dict(os.environ, TORCHINDUCTOR_COMPILE_THREADS=os.environ.get(
-        "TORCHINDUCTOR_COMPILE_THREADS", "2"))
+        "TORCHINDUCTOR_COMPILE_THREADS", "1"))
     env[PARENT_ENV] = str(os.getpid())
     procs = {stage: subprocess.Popen(
         [sys.executable, "-m", "after_tpu_torch.streaming.native",

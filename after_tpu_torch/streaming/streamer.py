@@ -32,7 +32,7 @@ one state's tensors, so they belong to that state: they are captured when
 the state is made (``init_state``) or first used, after a warm-up whose
 writes to the state are undone (``warm_up``), and never again for a new
 ``nb_steps`` or new guidances, which reach the step graphs as device
-scalars (``RectifiedFlow.stream_scalars``).  Each other state gets graphs
+scalars (the model's ``stream_scalars``).  Each other state gets graphs
 of its own.  Each entry point is one sequence of stages over its state's
 buffers: inputs are copied into them, ``x0`` (when not given) is drawn
 into its buffer outside the graphs, and outputs are copies.  A stage is
@@ -60,7 +60,7 @@ from torch import nn
 
 from ..config import AfterConfig
 from ..diffusion.pipeline import TransferPipeline
-from ..diffusion.rectified_flow import RectifiedFlow
+from ..diffusion.factory import make_model
 from ..models.autoencoder import AudioCodec, decoder_band_delay
 from ..utils.device import copy_from_host, resolve_device, to_device
 from ..utils.graphs import Graph, GraphPool, capture_key, restored
@@ -84,7 +84,7 @@ class _Buffers:
     cond: torch.Tensor        # (B, zt) timbre vector x latent_range
     zt: torch.Tensor          # (B, zt) timbre vector
     x: torch.Tensor           # (B, chunk, latents) noise in, latents out
-    scalars: torch.Tensor     # (max_diffusion_steps + 3,) stream_scalars
+    scalars: torch.Tensor     # the model's stream_scalars
 
 
 @dataclasses.dataclass
@@ -172,7 +172,7 @@ class StreamStages:
                    cond: torch.Tensor, tcond: torch.Tensor,
                    scalars: torch.Tensor) -> torch.Tensor:
         """The Euler step on KV slot ``slot`` (an int, or an int64 0-d
-        tensor): x + v * dt (``RectifiedFlow.stream_step``)."""
+        tensor): the model's ``stream_step``."""
         return self.rf.stream_step(state.denoiser, slot, x, cond, tcond,
                                    scalars, self.compute_dtype)
 
@@ -196,6 +196,10 @@ class Streamer(StreamStages):
         for the pipeline built here, and the given pipeline's by default
         (another one given raises); eager: run op by op on the card instead
         of replaying CUDA graphs."""
+        if cfg.denoiser.arch == "unet1d":
+            raise ValueError(
+                "denoiser arch 'unet1d' is offline-only (no streaming "
+                "caches): use TransferPipeline, or arch 'v2'/'v1'")
         if pipeline is None:
             cd = resolve_compute_dtype(compute_dtype)
             pipeline = TransferPipeline(cfg, device, compute_dtype=cd)
@@ -238,7 +242,7 @@ class Streamer(StreamStages):
         dtype = cd or torch.float32
         _share(self.codec.to(self.device, dtype), pipeline.codec)
         self.rf = _share(
-            RectifiedFlow(cfg, streaming=True).to(self.device, dtype),
+            make_model(cfg, streaming=True).to(self.device, dtype),
             pipeline.rf)
         self.generator = torch.Generator(self.device).manual_seed(0)
         self.eager = eager

@@ -25,7 +25,11 @@ mappings:
   (the port's ``BatchNorm`` and torch's).
 
 A denoiser stored with ``scan_layers`` (``blocks/block`` with a leading
-layer axis) is unstacked into ``block_i`` first.  Every flax leaf must land
+layer axis) is unstacked into ``block_i`` first.  The v1 denoiser and the
+conv UNet load by the same walk: their position tables (``pos_embed``,
+``pos_embed_ca``) are parameters of their own, flax's auto-named layers
+(``Dense_0``, ``Conv_0``) carry those names in the port, and a strided conv
+or a depthwise one is an ``nn.Conv1d`` like any other.  Every flax leaf must land
 on a tensor of the same shape and every tensor of the port must be set, or
 loading raises.
 

@@ -63,7 +63,8 @@ Phases, each printed before the last line:
    capture after ``init_state``, graph and eager within GRAPH_TOL; one more
    buffer of each kind under torch.profiler as in phase 4, one op by op
    with host syncs refused; the graph pool's memory and capture time;
-7. streaming card vs CPU: 8 buffers of two voices with fixed x0, the card
+7. streaming card vs CPU: STREAM_VS_CPU_BUFFERS buffers of two voices
+   with fixed x0, the card
    through its graphs against the CPU within phase 5's limit (the TF32
    reading beside it), for the base config and for the causal, norm-free
    ``get_config("base", "streaming")`` with port-native weights, which
@@ -198,13 +199,15 @@ Phases, each printed before the last line:
    launch the device counted (up to PROFILE_TRIES profiles); the host ms
    of the live streamer's ``capture_key``; the
    two-voice artifact on the card against the same artifact moved to the
-   CPU (``move_to_device_pass``, the op's plain version there), 8 buffers
-   of fixed noise within CARD_VS_CPU_TOL, the TF32 reading beside it; the
-   codec artifact's ``forward`` against the live crossfade codec within
-   GRAPH_TOL; then ``after-tpu-torch serve --artifact`` in its own
-   process on 127.0.0.1 and a free port answers ``GET /api/info``, ``POST
-   /api/timbre`` and ``POST /api/transfer`` with a 3 s WAV (200 each, a
-   finite WAV of whole buffers back), each request timed, and is stopped.
+   CPU (``move_to_device_pass``, the op's plain version there),
+   STREAM_VS_CPU_BUFFERS buffers of fixed noise within CARD_VS_CPU_TOL,
+   the reading op by op with TF32 allowed beside it; the codec artifact's
+   ``forward`` against the live crossfade codec within GRAPH_TOL; then
+   ``after-tpu-torch serve --artifact``, started in its own process on
+   127.0.0.1 and a free port before those two checks, answers ``GET
+   /api/info``, ``POST /api/timbre`` and ``POST /api/transfer`` with a 3 s
+   WAV (200 each, a finite WAV of whole buffers back), each request
+   timed, and is stopped.
 
 14. dataset preparation, with phase 12's codec run: a synthetic corpus of
    WAV files from the seed (files of 3 and 3.5 chunks of PREP_SAMPLES,
@@ -247,10 +250,11 @@ Phases, each printed before the last line:
    one and the codec artifact for the card and the two-voice one for the
    CPU, each timed, in parallel processes started as phase 13 exports
    each artifact, at the lowest CPU priority, beside the rest of phase 13
-   and phase 16 (which runs before this phase's host checks; phase 14
+   and phases 16-18 (which run before this phase's host checks; phase 14
    runs last), stopped while those phases time a section and killed with
-   the script; the program links no libpython.  Then the host as a
-   subprocess, with ``--x0`` set to the
+   the script; the program links no libpython.  The Python hosts phase 13
+   loaded give their outputs while the packages compile; then the host as
+   a subprocess, with ``--x0`` set to the
    noise the Python host is given: phase 6's request as 64 buffers at
    nb_steps 1 and 4 (readback depth 1) against ``ExportedStreamer`` on
    the same inputs within CARD_VS_CPU_TOL, their median / p90 / max ms a
@@ -258,7 +262,8 @@ Phases, each printed before the last line:
    changing through AFTER_NATIVE_CTRL; ``--pcm`` through pipes against
    file mode within GRAPH_TOL; the two-voice artifact on the card against
    the Python host and against the same host with ``--device cpu`` (the
-   op's plain version) within CARD_VS_CPU_TOL; the codec artifact against
+   op's plain version) within CARD_VS_CPU_TOL (these last three runs, which
+   are not timed, at once); the codec artifact against
    ``ExportedCodec``.  The host counts the kernel's launches on the
    device: 96 a buffer (64 a codec forward), its split sum's as phase 6.
    Printed with the card's name and power limit: build and packaging
@@ -285,8 +290,9 @@ Phases, each printed before the last line:
    distance from the CPU's f32 output at most twice the CPU bf16 output's
    plus 1e-6 x max |y| (the rule of tests/test_torch_precision.py);
    the bf16 streamer on phase 4's first request as 64 buffers at nb_steps 1
-   and 4, as graphs and op by op (96 bf16 launches a buffer, its state's
-   floating leaves bf16, graph and op by op within GRAPH_TOL); a bf16
+   and 4 as graphs and its first EAGER_STREAM_BUFFERS op by op (96 bf16
+   launches a buffer, its state's floating leaves bf16, graph and op by
+   op within GRAPH_TOL); a bf16
    artifact of phase 12's runs (``export --compute_dtype bfloat16``), its
    manifest's state_dtypes holding bfloat16, its size beside phase 13's
    f32 artifact's, loaded and played as 64 buffers at nb_steps 4 against
@@ -324,8 +330,25 @@ Phases, each printed before the last line:
    run's validation through the codec run at step 3) held to its plain
    version of its type.
 
+18. the alternative diffusion models, each at the base preset's widths
+   with port-native weights from the seed: ``diffusion_type="edm"``
+   (Heun's sampler), ``denoiser.arch="v1"`` (``v1_cross_attn_causal``) and
+   ``"unet1d"``.  For each, phase 4's second request as a transfer at 20
+   steps through its CUDA graph (first call, then ALT_TRANSFERS replays
+   with the device's counts set to 0 just before and read just after: 96
+   snake+conv launches a transfer) and op by op (each of its 96 launches
+   held to the op's plain version, graph and op by op within GRAPH_TOL),
+   their median ms; the card against the CPU on phase 5's clip within
+   CARD_VS_CPU_TOL; EDM and v1 streamed as ALT_STREAM_BUFFERS buffers at
+   nb_steps 4 as CUDA graphs (96 launches a buffer counted on the device,
+   no capture after ``init_state``), their median / p90 / max ms; the
+   streamer refusing the UNet.  Then EDM training at phase 10's config,
+   batch and bank: ALT_TRAIN_KINDS as graphed steps of ``fit`` (phase 2,
+   then cycle; 2 captures), finite losses, each step's ms.  Printed with
+   the card's name and power limit.
+
 Any failure exits non-zero.  The phases run in the order 1-13, 16, 17,
-15, 14.  The card's name and power limit are printed again at the end.
+18, 15, 14.  The card's name and power limit are printed again at the end.
 The line before the last is the kernel table as JSON (the snake+conv
 kernel, its split sum, the backward's dgrad and wgrad kernels, the bf16
 instantiation and its split sum, the bf16 dgrad and wgrad); each phase's
@@ -357,7 +380,8 @@ CHUNK = 4                    # latent frames per streamed buffer
 N_FADE = 4                   # crossfade overlap, latent frames
 STREAM_STEPS = (1, 4)        # nb_steps of the two timed streams
 STREAM_WARMUP = 2
-STREAM_VS_CPU_BUFFERS = 8
+STREAM_VS_CPU_BUFFERS = 4
+EAGER_STREAM_BUFFERS = 16    # buffers of phase 16's op-by-op streams
 PEAK_TF32_FLOPS = 495e12     # H100 SXM, dense TF32 on the tensor cores
 PEAK_F32_FLOPS = 67e12       # H100 SXM, f32 outside the tensor cores
 PEAK_BYTES = 3.35e12         # H100 SXM HBM3
@@ -477,6 +501,18 @@ PREP_SAMPLES = N_SAMPLES      # phase 14's chunks (--num_signal)
 PREP_BATCH = 8               # and encode batch (--batch_size)
 PREP_SHORT_SAMPLES = 300000  # a file shorter than a chunk, tiled
 PREP_TRAIN_STEPS = 3         # train's steps on the prepared store
+# phase 18: the alternative diffusion models at the base preset's widths
+ALT_MODELS = (("edm", {"diffusion_type": "edm"}),
+              ("v1", {"denoiser.arch": "v1",
+                      "denoiser.v1_cross_attn_causal": True}),
+              ("unet1d", {"denoiser.arch": "unet1d"}))
+ALT_TRANSFERS = 2            # timed transfers a model, graph and op by op
+ALT_STREAM_BUFFERS = 16      # streamed buffers of EDM and v1
+ALT_STREAM_STEPS = 4
+ALT_TRAIN_SCHEDULE = {"train.timbre_warmup": 0,
+                      "train.update_classifier_every": 1,
+                      "train.cycle_start_step": 2}
+ALT_TRAIN_KINDS = ["diffusion"] * 3 + ["cycle"] * 2
 PROFILE_TRIES = 3            # profiles of an artifact buffer, for one that
                              # kept every kernel record
 
@@ -2629,14 +2665,56 @@ def _request(base: str, path: str, body=None):
                 (time.perf_counter() - t0) * 1e3)
 
 
-def serve_phase(art: str, sr: int, audio_chunk: int) -> dict:
-    """``after-tpu-torch serve --artifact`` in its own process on
-    127.0.0.1 and a free port: /api/info, then /api/timbre and
+def start_server(art: str) -> dict:
+    """Starts ``after-tpu-torch serve --artifact`` in its own process on
+    127.0.0.1 and a free port, so that its start (the process, the
+    artifact's load and capture) runs beside the untimed checks that
+    precede ``serve_phase``; a thread reads its output, and notes when the
+    address comes.  The server is stopped with the script in any case."""
+    import atexit
+    import threading
+
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "after_tpu_torch.cli.main", "serve",
+         "--artifact", art, "--host", "127.0.0.1", "--port", "0",
+         "--device", DEVICE],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    server = {"proc": proc, "art": art, "t0": time.perf_counter(),
+              "out": [], "base": None, "ready": threading.Event()}
+
+    def read():
+        for line in proc.stdout:
+            server["out"].append(line)
+            if server["base"] is None and "frontend at http://" in line:
+                server["base"] = line.strip().split(" at ")[1]
+                server["start_ms"] = (time.perf_counter()
+                                      - server["t0"]) * 1e3
+                server["ready"].set()
+        server["ready"].set()       # the process ended
+
+    server["thread"] = threading.Thread(target=read, daemon=True)
+    server["thread"].start()
+    atexit.register(_stop_server, proc)
+    return server
+
+
+def _stop_server(proc) -> None:
+    if proc.poll() is not None:
+        return
+    proc.terminate()
+    try:
+        proc.wait(timeout=30)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+
+
+def serve_phase(server: dict, sr: int, audio_chunk: int) -> dict:
+    """The server ``start_server`` started: /api/info, then /api/timbre and
     /api/transfer with a SERVE_SECONDS WAV; each must answer 200, the
     transfer a finite WAV of whole buffers.  The server is stopped in any
     case.  Returns each request's ms."""
     import io
-    import select
 
     import numpy as np
     import scipy.io.wavfile
@@ -2645,29 +2723,18 @@ def serve_phase(art: str, sr: int, audio_chunk: int) -> dict:
     rng = np.random.RandomState(SEED + 13)
     wav = _wav_bytes(0.4 * np.sin(2 * np.pi * 220.0 * t)
                      + 0.05 * rng.randn(len(t)), sr)
-    proc = subprocess.Popen(
-        [sys.executable, "-m", "after_tpu_torch.cli.main", "serve",
-         "--artifact", art, "--host", "127.0.0.1", "--port", "0",
-         "--device", DEVICE],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    out, ms = [], {}
+    proc, art = server["proc"], server["art"]
+    ms = {}
     try:
-        t0 = time.perf_counter()
-        base = None
-        while base is None:
-            left = SERVE_START_TIMEOUT - (time.perf_counter() - t0)
-            if left <= 0 or not select.select([proc.stdout], [], [],
-                                              left)[0]:
-                fail(f"serve: no address within {SERVE_START_TIMEOUT} s: "
-                     + "".join(out)[-2000:])
-            line = proc.stdout.readline()
-            if not line:
-                fail(f"serve exited with {proc.wait()}: "
-                     + "".join(out)[-2000:])
-            out.append(line)
-            if "frontend at http://" in line:
-                base = line.strip().split(" at ")[1]
-        ms["start"] = (time.perf_counter() - t0) * 1e3
+        left = SERVE_START_TIMEOUT - (time.perf_counter() - server["t0"])
+        server["ready"].wait(max(left, 0.0))
+        base = server["base"]
+        if base is None:
+            state = ("exited with " + str(proc.poll())
+                     if proc.poll() is not None else
+                     f"no address within {SERVE_START_TIMEOUT} s")
+            fail(f"serve: {state}: " + "".join(server["out"])[-2000:])
+        ms["start"] = server["start_ms"]
         pause_background()  # the timed requests, the compiles stopped
         status, ctype, body, ms["info"] = _request(base, "/api/info")
         info = json.loads(body)
@@ -2688,7 +2755,8 @@ def serve_phase(art: str, sr: int, audio_chunk: int) -> dict:
                  f"{len(y)} samples at {got_sr} Hz (expected {want})")
         log(f"serve: after-tpu-torch serve --artifact on {base}: address "
             f"after {ms['start']:.0f} ms (its process starting, the "
-            f"artifact loading and capturing), GET /api/info "
+            f"artifact loading and capturing, beside the card-vs-CPU and "
+            f"codec checks), GET /api/info "
             f"{ms['info']:.1f} ms, POST /api/timbre of {SERVE_SECONDS:g} s "
             f"{ms['timbre']:.1f} ms, POST /api/transfer of {SERVE_SECONDS:g}"
             f" s at nb_steps {EXPORT_STEPS} {ms['transfer']:.1f} ms "
@@ -2696,21 +2764,17 @@ def serve_phase(art: str, sr: int, audio_chunk: int) -> dict:
             f"rms {float(np.sqrt(np.mean((y / 32767.0) ** 2))):.4f}); each "
             f"answered 200")
     finally:
-        proc.terminate()
-        try:
-            proc.wait(timeout=30)
-        except subprocess.TimeoutExpired:
-            proc.kill()
-            proc.wait()
+        _stop_server(proc)
     return ms
 
 
-def export_phase(row, a, b, attrs, on_export=None) -> None:
+def export_phase(row, a, b, attrs, on_export=None) -> dict:
     """Phase 13: export and serving (see the module docstring), from the
     runs phase 12 left; ``a`` and ``b`` are phase 6's request and
     ``attrs`` its changing attributes; ``on_export(path)`` is called as
     each artifact is written.  Its timed sections run with the background
-    stopped (``background_paused``)."""
+    stopped (``background_paused``).  Returns the Python hosts it loaded,
+    by artifact path, for phase 15 to play again."""
     import os
 
     import numpy as np
@@ -2895,11 +2959,12 @@ def export_phase(row, a, b, attrs, on_export=None) -> None:
         f"{key_ms:.3f} ms a call (host, mean of 100)")
     row["live_capture_key_ms"] = key_ms
     resume_background()
+    # the server starts beside the untimed checks to come
+    server = start_server(art)
 
     # the kernel against its plain version on this path: the two-voice
     # artifact on the card and moved to the CPU, where the op is the plain
     # version
-    del host
     gc.collect()
     rng = np.random.RandomState(SEED + 14)
     m = STREAM_VS_CPU_BUFFERS * A
@@ -2922,16 +2987,20 @@ def export_phase(row, a, b, attrs, on_export=None) -> None:
     y_cpu = voices(ExportedStreamer(art2, device="cpu"))
     err = (y_card - y_cpu).abs().max().item()
     scale = y_cpu.abs().max().item()
-    del card
+    # the same host op by op with TF32 allowed (its graphs keep the
+    # switches of their capture), from the initial state again
+    card.reset()
+    card.eager = True
     torch.backends.cuda.matmul.allow_tf32 = True
     torch.backends.cudnn.allow_tf32 = True
-    err_tf32 = (voices(ExportedStreamer(art2, DEVICE)) - y_cpu
-                ).abs().max().item()
+    err_tf32 = (voices(card) - y_cpu).abs().max().item()
     strict_f32()
+    card.eager = False
     log(f"artifact card vs CPU: {STREAM_VS_CPU_BUFFERS} buffers of 2 voices "
         f"(the artifact of --batch_size 2, moved to the CPU with "
-        f"move_to_device_pass), max abs err {err:.3e} (with TF32 allowed: "
-        f"{err_tf32:.3e}), max |y| {scale:.4f}, tolerance {CARD_VS_CPU_TOL} "
+        f"move_to_device_pass), max abs err {err:.3e} (op by op with TF32 "
+        f"allowed: {err_tf32:.3e}), max |y| {scale:.4f}, tolerance "
+        f"{CARD_VS_CPU_TOL} "
         f"* max |y| = {CARD_VS_CPU_TOL * scale:.3e}; {KERNEL_NAME} launches "
         f"on the card, counted on the device: {voice_launches}")
     if not (torch.isfinite(y_card).all() and err <= CARD_VS_CPU_TOL * scale):
@@ -2961,11 +3030,11 @@ def export_phase(row, a, b, attrs, on_export=None) -> None:
         f"a forward, counted on the device")
     agree(f"codec artifact forward vs the live crossfade codec, {n_buffers} "
           f"buffers", ys, live_ys)
-    del codec, streamer, pipe
+    del streamer, pipe
     gc.collect()
     torch.cuda.empty_cache()
 
-    serve_ms = serve_phase(art, cfg.sr, A)
+    serve_ms = serve_phase(server, cfg.sr, A)
     no_forbidden_modules("export and serving")
     row["launches_artifact"] = launches_artifact
     row["launches_per_artifact_buffer"] = launches_artifact // (
@@ -2979,6 +3048,7 @@ def export_phase(row, a, b, attrs, on_export=None) -> None:
     row["artifact_load_seconds"] = load_s
     row["artifact_card_vs_cpu"] = err / scale
     row["serve_ms"] = serve_ms
+    return {art: host, art2: card, codec_art: codec}
 
 
 NATIVE_DIR = "build/native_phase"   # phase 15's WAVs, noise and outputs
@@ -3005,13 +3075,32 @@ def _read_f32_wav(path: str):
 def _host_run(label, host, args, env=None, stdin=None, device=DEVICE):
     """One run of the native host: its stdout, and its stderr's numbers
     (ms a buffer, the launches the device counted)."""
+    return _host_result(label, *_host_proc(host, args, env, stdin, device))
+
+
+def _host_runs_at_once(runs: dict) -> dict:
+    """Several untimed runs of the native host at once, each a process:
+    ``runs`` maps a label to ``_host_run``'s (host, args, env, stdin,
+    device); returns ``_host_run``'s result by label."""
+    from concurrent.futures import ThreadPoolExecutor
+    with ThreadPoolExecutor(len(runs)) as pool:
+        done = {label: pool.submit(_host_proc, *run)
+                for label, run in runs.items()}
+    return {label: _host_result(label, *f.result())
+            for label, f in done.items()}
+
+
+def _host_proc(host, args, env=None, stdin=None, device=DEVICE):
     import os
     cmd = [str(host), *map(str, args), "--device", device]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, input=stdin, capture_output=True,
                           env=dict(os.environ, **(env or {})),
                           timeout=NATIVE_TIMEOUT)
-    seconds = time.perf_counter() - t0
+    return proc, time.perf_counter() - t0
+
+
+def _host_result(label, proc, seconds):
     err = proc.stderr.decode(errors="replace")
     if proc.returncode != 0:
         fail(f"native host, {label}: exit {proc.returncode}:\n{err[-3000:]}")
@@ -3141,11 +3230,15 @@ def package_in_background(started: dict, path: str, *devices: str) -> None:
         f"{time.perf_counter() - started['t0']:.1f} s into phase 13")
 
 
-def native_phase(row, a, b, attrs, started) -> None:
+def native_phase(row, a, b, attrs, started, hosts=None) -> None:
     """Phase 15: the native streaming host on phase 13's artifacts (see the
-    module docstring), once the build and the packages that
-    ``start_packaging`` started (``started``) are done; ``a`` and ``b`` are
-    phase 6's request and ``attrs`` its changing attributes."""
+    module docstring).  The Python hosts' references are computed first,
+    while the packages that ``start_packaging`` started (``started``)
+    still compile, on the hosts phase 13 loaded (``hosts``, by artifact
+    path, each reset to its initial state; loaded here where absent);
+    then the host runs, once the build and the packages are done.  ``a``
+    and ``b`` are phase 6's request and ``attrs`` its changing
+    attributes."""
     import os
 
     import numpy as np
@@ -3161,36 +3254,6 @@ def native_phase(row, a, b, attrs, started) -> None:
     per_sums = row["sum_splits_launches_per_buffer"]
     os.makedirs(NATIVE_DIR, exist_ok=True)
 
-    built, t0 = started["built"], started["t0"]
-    t_wait = time.perf_counter()
-    packaging, job_s = {}, {}
-    for (path, dev), proc in zip(started["jobs"], started["procs"]):
-        out, err = proc.communicate()
-        if proc.returncode != 0:
-            fail(f"packaging {path} for {dev} failed:\n{err[-3000:]}")
-        name = f"{os.path.basename(path)} ({dev})"
-        packaging[name] = json.loads(out.strip().splitlines()[-1])
-        job_s[name] = time.perf_counter() - t0
-    started["thread"].join()
-    if "host" not in built:
-        fail("the native host did not build (see the error above)")
-    host = built["host"]
-    wall = time.perf_counter() - t0
-    log(f"native: card {card_line()}; host built in {built['seconds']:.2f} "
-        f"s ({host.name}, with nvcc's kernel); packages (AOTInductor, "
-        f"a job's stages at once, {len(packaging)} jobs, each started as "
-        f"its artifact was exported, niced, beside phases 13 and 16 and "
-        f"stopped for {_PAUSED[0]:.2f} s of their timed sections; "
-        f"{wall:.2f} s wall from phase 13's start, of it "
-        f"{time.perf_counter() - t_wait:.2f} s waited for after phase 16): "
-        + "; ".join(
-            f"{k}: " + ", ".join(f"{s} {v:.1f} s" for s, v in d.items())
-            + f" (done at {job_s[k]:.1f} s)" for k, d in packaging.items()))
-    ldd = subprocess.run(["ldd", str(host)], capture_output=True,
-                         text=True).stdout
-    if "libpython" in ldd or "libtorch_cuda" not in ldd:
-        fail(f"the native host links {ldd}")
-
     with open(os.path.join(art, "manifest.json")) as f:
         manifest = json.load(f)
     A, T = manifest["audio_chunk"], manifest["chunk_size"]
@@ -3205,10 +3268,21 @@ def native_phase(row, a, b, attrs, started) -> None:
     _write_f32_wav(f"{d}/t.wav", b[0, :, 0], sr)
     x0s.tofile(f"{d}/x0.f32")
 
-    # the Python host on the same artifact, inputs and noise
-    gc.collect()
-    torch.cuda.empty_cache()
-    py = ExportedStreamer(art, DEVICE)
+    hosts = dict(hosts or {})
+
+    def loaded(path, cls):
+        """The Python host of ``path`` from its initial state, with the
+        manifest's default attributes."""
+        h = hosts.pop(path, None) or cls(path, DEVICE)
+        h.reset()
+        if cls is ExportedStreamer:
+            h.attributes = {k: v["default"]
+                            for k, v in h.manifest["attributes"].items()}
+        return h
+
+    # the Python host on the same artifact, inputs and noise, while the
+    # packages compile (stopped while it is timed)
+    py = loaded(art, ExportedStreamer)
 
     def py_stream(nb_steps, attributes=None, n=n_buffers):
         times, ys = [], []
@@ -3225,6 +3299,81 @@ def native_phase(row, a, b, attrs, started) -> None:
             times.append(time.perf_counter() - t)
             ys.append(y.numpy().ravel())
         return times, np.concatenate(ys)
+
+    pause_background()      # the timed section, the compiles stopped
+    py_stream(STREAM_STEPS[-1], n=STREAM_WARMUP)                # warm-up
+    py_refs = {}
+    for nb in STREAM_STEPS:
+        py.reset()
+        py_refs[nb] = py_stream(nb)
+    n = len(attrs)
+    py.reset()
+    py_refs["changing"] = py_stream(None, attrs, n)
+    resume_background()
+    del py
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the two voices' inputs and the Python host's output on them
+    rng = np.random.RandomState(SEED + 14)
+    m = STREAM_VS_CPU_BUFFERS * A
+    a2 = 0.1 * rng.randn(2, m, 1).astype(np.float32)
+    b2 = 0.1 * rng.randn(2, m, 1).astype(np.float32)
+    x2 = rng.randn(STREAM_VS_CPU_BUFFERS, 2, T, C).astype(np.float32)
+    x2.tofile(f"{d}/x2.f32")
+    files = {}
+    for name, x in (("s", a2), ("t", b2)):
+        files[name] = ",".join(f"{d}/{name}2_{v}.wav" for v in range(2))
+        for v in range(2):
+            _write_f32_wav(f"{d}/{name}2_{v}.wav", x[v, :, 0], sr)
+    voices = loaded(art2, ExportedStreamer)
+    voices.set_attribute("nb_steps", 2)
+    voices.set_attribute("guidance_timbre", GUIDANCE_TIMBRE)
+    voices_ref = np.concatenate([voices.call(
+        "forward", a2[:, i * A:(i + 1) * A], b2[:, i * A:(i + 1) * A],
+        x0=x2[i]).cpu().numpy()[..., 0]
+        for i in range(STREAM_VS_CPU_BUFFERS)], axis=1)
+    del voices
+
+    # the codec artifact's forward through ExportedCodec
+    codec = loaded(codec_art, ExportedCodec)
+    codec_ref = np.concatenate([codec.forward(a[:, i * A:(i + 1) * A]).cpu()
+                                .numpy().ravel() for i in range(n_buffers)])
+    del codec
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    built, t0 = started["built"], started["t0"]
+    t_wait = time.perf_counter()
+    packaging, job_s = {}, {}
+    for (path, dev), proc in zip(started["jobs"], started["procs"]):
+        out, err = proc.communicate()
+        if proc.returncode != 0:
+            fail(f"packaging {path} for {dev} failed (exit "
+                 f"{proc.returncode}):\n{err[-3000:]}\n{out[-1000:]}")
+        name = f"{os.path.basename(path)} ({dev})"
+        packaging[name] = json.loads(out.strip().splitlines()[-1])
+        job_s[name] = time.perf_counter() - t0
+    started["thread"].join()
+    if "host" not in built:
+        fail("the native host did not build (see the error above)")
+    host = built["host"]
+    wall = time.perf_counter() - t0
+    log(f"native: card {card_line()}; host built in {built['seconds']:.2f} "
+        f"s ({host.name}, with nvcc's kernel); packages (AOTInductor, "
+        f"a job's stages at once, {len(packaging)} jobs, each started as "
+        f"its artifact was exported, niced, beside phases 13 and 16-18 and "
+        f"stopped for {_PAUSED[0]:.2f} s of their timed sections; "
+        f"{wall:.2f} s wall from phase 13's start, of it "
+        f"{time.perf_counter() - t_wait:.2f} s waited for after the "
+        f"phases before and the Python hosts' references): "
+        + "; ".join(
+            f"{k}: " + ", ".join(f"{s} {v:.1f} s" for s, v in d.items())
+            + f" (done at {job_s[k]:.1f} s)" for k, d in packaging.items()))
+    ldd = subprocess.run(["ldd", str(host)], capture_output=True,
+                         text=True).stdout
+    if "libpython" in ldd or "libtorch_cuda" not in ldd:
+        fail(f"the native host links {ldd}")
 
     def check(label, y, ref, limit=CARD_VS_CPU_TOL):
         if y.shape != ref.shape or not np.isfinite(y).all():
@@ -3245,12 +3394,10 @@ def native_phase(row, a, b, attrs, started) -> None:
                  f"expected {per_buffer} and {per_sums} a buffer")
         return got[0]
 
-    py_stream(STREAM_STEPS[-1], n=STREAM_WARMUP)                # warm-up
     total = 0
     medians, readings = {}, {}
     for nb in STREAM_STEPS:
-        py.reset()
-        py_times, ref = py_stream(nb)
+        py_times, ref = py_refs[nb]
         _, info = _host_run(f"nb_steps {nb}", host, [
             art, f"{d}/s.wav", f"{d}/t.wav", f"{d}/o{nb}.wav", n_buffers,
             nb, GUIDANCE_TIMBRE, 1.0, "--x0", f"{d}/x0.f32"],
@@ -3274,13 +3421,11 @@ def native_phase(row, a, b, attrs, started) -> None:
             y_file = y
 
     # nb_steps and both guidances changing every buffer, by AFTER_NATIVE_CTRL
-    n = len(attrs)
     with open(f"{d}/ctrl.txt", "w") as f:
         for i, (nb, gt, gs) in enumerate(attrs):
             f.write(f"@{i} nb_steps {nb}\n@{i} guidance_timbre {gt!r}\n"
                     f"@{i} guidance_structure {gs!r}\n")
-    py.reset()
-    py_times, ref = py_stream(None, attrs, n)
+    py_times, ref = py_refs["changing"]
     _, info = _host_run("changing attributes", host, [
         art, f"{d}/s.wav", f"{d}/t.wav", f"{d}/oc.wav", n, 1,
         "--x0", f"{d}/x0.f32"], env={"AFTER_NATIVE_CTRL": f"{d}/ctrl.txt",
@@ -3294,53 +3439,36 @@ def native_phase(row, a, b, attrs, started) -> None:
         f"changing attributes, host vs Python host, {n} buffers",
         _read_f32_wav(f"{d}/oc.wav"), ref)
 
-    # live: interleaved 2-channel f32 in through a pipe, mono f32 out
+    # the untimed runs at once: live, interleaved 2-channel f32 in through
+    # a pipe, mono f32 out; the two voices on the card and on the CPU
     frames = np.stack([a[0, :, 0], b[0, :, 0]], axis=1).astype("<f4")
-    out, info = _host_run("--pcm", host, [
+    untimed = {"--pcm": (host, [
         art, "--pcm", STREAM_STEPS[-1], GUIDANCE_TIMBRE, 1.0,
-        "--x0", f"{d}/x0.f32"], stdin=frames.tobytes())
+        "--x0", f"{d}/x0.f32"], None, frames.tobytes())}
+    for dev in ("cuda", "cpu"):
+        outs = ",".join(f"{d}/o2_{dev}_{v}.wav" for v in range(2))
+        untimed[f"two voices on {dev}"] = (host, [
+            art2, files["s"], files["t"], outs, STREAM_VS_CPU_BUFFERS, 2,
+            GUIDANCE_TIMBRE, 1.0, "--x0", f"{d}/x2.f32"], None, None, dev)
+    results = _host_runs_at_once(untimed)
+    out, info = results["--pcm"]
     total += launches("--pcm", info, n_buffers)
     y = np.frombuffer(out, "<f4")
     readings["pcm"] = check(f"--pcm through pipes vs file mode, nb_steps "
                             f"{STREAM_STEPS[-1]}", y, y_file, GRAPH_TOL)
-    del py
-    gc.collect()
-    torch.cuda.empty_cache()
 
     # the two voices: the host on the card against the Python host and
     # against the same host on the CPU (the op's plain version there)
-    rng = np.random.RandomState(SEED + 14)
-    m = STREAM_VS_CPU_BUFFERS * A
-    a2 = 0.1 * rng.randn(2, m, 1).astype(np.float32)
-    b2 = 0.1 * rng.randn(2, m, 1).astype(np.float32)
-    x2 = rng.randn(STREAM_VS_CPU_BUFFERS, 2, T, C).astype(np.float32)
-    x2.tofile(f"{d}/x2.f32")
-    files = {}
-    for name, x in (("s", a2), ("t", b2)):
-        files[name] = ",".join(f"{d}/{name}2_{v}.wav" for v in range(2))
-        for v in range(2):
-            _write_f32_wav(f"{d}/{name}2_{v}.wav", x[v, :, 0], sr)
     ys = {}
     for dev in ("cuda", "cpu"):
-        outs = ",".join(f"{d}/o2_{dev}_{v}.wav" for v in range(2))
-        _, info = _host_run(f"two voices on {dev}", host, [
-            art2, files["s"], files["t"], outs, STREAM_VS_CPU_BUFFERS, 2,
-            GUIDANCE_TIMBRE, 1.0, "--x0", f"{d}/x2.f32"], device=dev)
+        _, info = results[f"two voices on {dev}"]
         ys[dev] = np.stack([_read_f32_wav(f"{d}/o2_{dev}_{v}.wav")
                             for v in range(2)])
         if dev == "cuda":
             total += launches("two voices", info, STREAM_VS_CPU_BUFFERS)
-    voices = ExportedStreamer(art2, DEVICE)
-    voices.set_attribute("nb_steps", 2)
-    voices.set_attribute("guidance_timbre", GUIDANCE_TIMBRE)
-    ref = np.concatenate([voices.call(
-        "forward", a2[:, i * A:(i + 1) * A], b2[:, i * A:(i + 1) * A],
-        x0=x2[i]).cpu().numpy()[..., 0]
-        for i in range(STREAM_VS_CPU_BUFFERS)], axis=1)
-    del voices
     readings["voices"] = check(
         f"two voices, host vs Python host, {STREAM_VS_CPU_BUFFERS} buffers",
-        ys["cuda"], ref)
+        ys["cuda"], voices_ref)
     readings["card_vs_cpu"] = check(
         f"two voices, host on the card vs the host on the CPU, "
         f"{STREAM_VS_CPU_BUFFERS} buffers", ys["cuda"], ys["cpu"])
@@ -3354,13 +3482,9 @@ def native_phase(row, a, b, attrs, started) -> None:
              f"{codec_launches} {KERNEL_NAME} launches in {n_buffers} "
              "forwards")
     total += codec_launches
-    codec = ExportedCodec(codec_art, DEVICE)
-    ref = np.concatenate([codec.forward(a[:, i * A:(i + 1) * A]).cpu()
-                          .numpy().ravel() for i in range(n_buffers)])
-    del codec
     readings["codec"] = check(
         f"codec artifact forward, host vs ExportedCodec, {n_buffers} buffers",
-        _read_f32_wav(f"{d}/oa.wav"), ref)
+        _read_f32_wav(f"{d}/oa.wav"), codec_ref)
     log(f"native: codec artifact, {n_buffers} forwards, median / p90 / max "
         f"ms {spread(info['ms'])}, {codec_launches // n_buffers} "
         f"{KERNEL_NAME} launches a forward, counted on the device")
@@ -4164,19 +4288,22 @@ def bf16_phase(cfg, pipe, requests, ref_outs, short, size32=None) -> list:
                  f"{len(stream_path)} a buffer, and {device_launches()} f32")
         if streamer.graphs.captures != captures:
             fail("a bf16 stream state was captured again")
+        n_eager = EAGER_STREAM_BUFFERS
         eager_times, eager_ys = stream_audio(
-            eager_streamer, eager_streamer.init_state(1), a, b, nb, x0s=x0s)
+            eager_streamer, eager_streamer.init_state(1), a[:, :n_eager * A],
+            b[:, :n_eager * A], nb, x0s=x0s[:n_eager])
         medians[nb] = sorted(times)[n_buffers // 2] * 1e3
         log(f"bf16 streaming: nb_steps {nb}, {n_buffers} buffers, median / "
             f"p90 / max ms per buffer as CUDA graphs {spread(times)}, op by "
-            f"op {spread(eager_times)}; {KERNEL16_NAME} and {SUM16_NAME} "
+            f"op (the first {n_eager}) {spread(eager_times)}; "
+            f"{KERNEL16_NAME} and {SUM16_NAME} "
             f"launches counted on the device {launches / n_buffers:g} and "
             f"{sums / n_buffers:g} a buffer, none f32; the state's floating "
             f"leaves bf16")
         if any(y.dtype != torch.float32 for y in ys):
             fail("a bf16 stream's output is not f32")
-        agree(f"bf16 streaming nb_steps {nb}: graph vs eager, {n_buffers} "
-              f"buffers", ys, eager_ys)
+        agree(f"bf16 streaming nb_steps {nb}: graph vs eager, the first "
+              f"{n_eager} buffers", ys[:n_eager], eager_ys)
     resume_background()
     del eager_streamer
 
@@ -4936,6 +5063,204 @@ def bf16_train_phase(row) -> list:
             for kind, n in zip(("dgrad", "wgrad"), launches16)]
 
 
+def alternatives_phase(row, requests, short) -> None:
+    """Phase 18: EDM, Denoiser v1 and the conv UNet at the base preset's
+    widths (see the module docstring); ``requests`` are phase 4's and
+    ``short`` phase 5's clip (a, b, x0, the base model's CPU output)."""
+    import numpy as np
+    import torch
+    from after_tpu_torch import TransferPipeline, get_config
+    from after_tpu_torch.config import with_overrides
+    from after_tpu_torch.dataset import DeviceLatentBank
+    from after_tpu_torch.diffusion.edm import EDM
+    from after_tpu_torch.diffusion.trainer import DiffusionTrainer
+    from after_tpu_torch.ops.kernels.fused_conv import (device_launches,
+                                                        fused_snake_conv,
+                                                        reset_device_launches)
+    from after_tpu_torch.streaming import Streamer
+    from torch.nn.modules.module import register_module_forward_hook
+
+    a, b = requests[1]
+    kw = dict(nb_steps=NB_STEPS, guidance_timbre=GUIDANCE_TIMBRE)
+    launches_by_model = {}
+    for name, overrides in ALT_MODELS:
+        cfg = with_overrides(get_config("base"), overrides)
+        cfg = cfg.resolved(in_size=cfg.autoencoder.z_channels,
+                           n_signal=N_SAMPLES // cfg.autoencoder.ratio)
+        pipe = TransferPipeline(cfg, device="cuda").init(SEED)
+        if (name == "edm") != isinstance(pipe.rf, EDM):
+            fail(f"{name}: make_model built {type(pipe.rf).__name__}")
+        n_net = sum(p.numel() for p in pipe.rf.net.parameters())
+
+        def noise():
+            return torch.Generator("cuda").manual_seed(SEED)
+
+        # the transfer as a CUDA graph: warm-up and capture, then replays
+        # with the device's counts set to 0 just before and read just after
+        t0 = time.perf_counter()
+        pipe.transfer(a, b, **kw, generator=noise())
+        torch.cuda.synchronize()
+        first_ms = (time.perf_counter() - t0) * 1e3
+        pause_background()
+        reset_device_launches()
+        times, outs = [], []
+        for _ in range(ALT_TRANSFERS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            outs.append(pipe.transfer(a, b, **kw, generator=noise()))
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        launches = device_launches()[0]
+        resume_background()
+        if launches != 96 * ALT_TRANSFERS:
+            fail(f"{name}: the device counted {launches} {KERNEL_NAME} "
+                 f"launches in {ALT_TRANSFERS} replayed transfers, expected "
+                 f"96 a transfer")
+        launches_by_model[name] = launches // ALT_TRANSFERS
+        y = outs[-1]
+        if not torch.isfinite(y).all() or y.shape[1] < N_SAMPLES:
+            fail(f"{name}: transfer output {tuple(y.shape)}, finite "
+                 f"{bool(torch.isfinite(y).all())}")
+        # op by op, every launch held to the op's plain version
+        pipe.eager = True
+        worst, checked = [0.0], [0]
+        hook = register_module_forward_hook(
+            snake_conv_check(f"{name} transfer", worst, checked))
+        fused_snake_conv.launches = 0
+        reset_device_launches()
+        eager_out = pipe.transfer(a, b, **kw, generator=noise())
+        eager_launches = device_launches()[0]
+        hook.remove()
+        if (checked[0], fused_snake_conv.launches, eager_launches) != (
+                96, 96, 96):
+            fail(f"{name}: op by op, {checked[0]} launches checked, "
+                 f"{fused_snake_conv.launches} wrapper calls, "
+                 f"{eager_launches} counted on the device; expected 96")
+        pause_background()
+        eager_times = []
+        for _ in range(ALT_TRANSFERS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pipe.transfer(a, b, **kw, generator=noise())
+            torch.cuda.synchronize()
+            eager_times.append(time.perf_counter() - t0)
+        resume_background()
+        pipe.eager = False
+        agree(f"alternatives {name}: transfer graph vs op by op", y,
+              eager_out)
+        med, eager_med = (sorted(t)[len(t) // 2] * 1e3
+                          for t in (times, eager_times))
+        log(f"alternatives {name}: denoiser {type(pipe.rf.net).__name__} "
+            f"({n_net} parameters), {type(pipe.rf).__name__}; a "
+            f"{N_SAMPLES}-sample transfer at {NB_STEPS} steps: first call "
+            f"{first_ms:.1f} ms (warm-up and capture), median {med:.2f} ms "
+            f"as a CUDA graph, {eager_med:.2f} ms op by op; {KERNEL_NAME} "
+            f"launches counted on the device {launches // ALT_TRANSFERS} a "
+            f"transfer; op by op {checked[0]} launches held to the plain "
+            f"version, worst {worst[0]:.3e} x max|y|; card {card_line()}")
+
+        # card vs CPU on phase 5's clip
+        cpu = TransferPipeline(cfg, device="cpu")
+        cpu.codec.load_state_dict(pipe.codec.state_dict())
+        cpu.rf.load_state_dict(pipe.rf.state_dict())
+        sa, sb, x0, _ = short
+        skw = dict(nb_steps=SHORT_STEPS, guidance_timbre=GUIDANCE_TIMBRE,
+                   x0=x0)
+        y_card = pipe.transfer(sa, sb, **skw).cpu()
+        y_cpu = cpu.transfer(sa, sb, **skw)
+        err = (y_card - y_cpu).abs().max().item()
+        scale = y_cpu.abs().max().item()
+        log(f"alternatives {name}: card vs CPU, {SHORT_SAMPLES} samples, "
+            f"{SHORT_STEPS} steps, max abs err {err:.3e}, max |y| "
+            f"{scale:.4f}, tolerance {CARD_VS_CPU_TOL} * max |y| = "
+            f"{CARD_VS_CPU_TOL * scale:.3e}")
+        if not (torch.isfinite(y_card).all() and err <= CARD_VS_CPU_TOL
+                * scale):
+            fail(f"{name}: card and CPU disagree")
+        del cpu
+
+        if name in ("edm", "v1"):
+            streamer = Streamer(cfg, CHUNK, N_FADE, pipeline=pipe)
+            state = streamer.init_state(1)
+            A = streamer.audio_chunk
+            n = ALT_STREAM_BUFFERS * A
+            x0s = np.random.RandomState(SEED + 18).randn(
+                ALT_STREAM_BUFFERS, 1, CHUNK,
+                cfg.denoiser.n_channels).astype(np.float32)
+            captures = streamer.graphs.captures
+            pause_background()
+            reset_device_launches()
+            stimes, _ = stream_audio(streamer, state, a[:, :n], b[:, :n],
+                                     ALT_STREAM_STEPS, x0s=x0s)
+            slaunches = device_launches()[0]
+            resume_background()
+            if streamer.graphs.captures != captures:
+                fail(f"{name}: the stream was captured again")
+            if slaunches != 96 * ALT_STREAM_BUFFERS:
+                fail(f"{name}: the device counted {slaunches} launches in "
+                     f"{ALT_STREAM_BUFFERS} buffers, expected 96 a buffer")
+            log(f"alternatives {name}: streaming, {ALT_STREAM_BUFFERS} "
+                f"buffers of {A} samples at nb_steps {ALT_STREAM_STEPS}, "
+                f"median / p90 / max ms a buffer as CUDA graphs "
+                f"{spread(stimes)}; {slaunches // ALT_STREAM_BUFFERS} "
+                f"launches a buffer counted on the device; card "
+                f"{card_line()}")
+            del streamer, state
+        else:
+            try:
+                Streamer(cfg, CHUNK, N_FADE, pipeline=pipe)
+                fail("unet1d: the streamer took an offline-only backbone")
+            except ValueError as e:
+                log(f"alternatives {name}: the streamer refuses it ({e})")
+        del pipe
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # EDM training: a few graphed steps of fit, phase-2 then cycle
+    cfg = diffusion_config(**ALT_TRAIN_SCHEDULE, diffusion_type="edm")
+    tr = DiffusionTrainer(cfg, device="cuda", seed=SEED).init(SEED)
+    kinds = [tr.step_kind(i) for i in range(len(ALT_TRAIN_KINDS))]
+    if kinds != ALT_TRAIN_KINDS or not isinstance(tr.rf, EDM):
+        fail(f"EDM training: schedule {kinds}, model {type(tr.rf).__name__}")
+    items = [{"z": z} for z in synthetic_latents(
+        DIFF_RECORDS, cfg.denoiser.n_channels, DIFF_RECORD_FRAMES, SEED)]
+    bank = DeviceLatentBank(items, DIFF_FRAMES, device="cuda")
+    steps = []
+
+    def callback(t, metrics):
+        torch.cuda.synchronize()
+        steps.append((t.step - 1, time.perf_counter() - clock[0],
+                      {k: float(v) for k, v in metrics.items()}))
+        clock[0] = time.perf_counter()
+
+    pause_background()
+    torch.cuda.synchronize()
+    clock = [time.perf_counter()]
+    tr.fit(bank.batches(DIFF_BATCH, seed=SEED),
+           max_steps=len(ALT_TRAIN_KINDS), callback=callback)
+    resume_background()
+    if len(steps) != len(ALT_TRAIN_KINDS) or not all(
+            math.isfinite(v) for _, _, m in steps for v in m.values()):
+        fail(f"EDM training: {len(steps)} steps, metrics "
+             f"{[m for _, _, m in steps]}")
+    if tr.graphs is None or tr.graphs.captures != 2 or any(
+            m.get("skipped_nonfinite", 0) for _, _, m in steps):
+        fail(f"EDM training: {tr.graphs.captures if tr.graphs else 0} "
+             f"captures (expected 2: phase 2 and cycle), skipped updates "
+             f"{[m.get('skipped_nonfinite') for _, _, m in steps]}")
+    log("alternatives edm: training, base + cycle at batch "
+        f"{DIFF_BATCH} x {DIFF_FRAMES} frames, steps as CUDA graphs "
+        + ", ".join(f"{i} {k} {dt * 1e3:.1f} ms loss {m['loss']:.4f}"
+                    f" diffusion {m['diffusion_loss']:.4f} cycle "
+                    f"{m['cycle_cond']:.4f}"
+                    for (i, dt, m), k in zip(steps, ALT_TRAIN_KINDS))
+        + f"; card {card_line()}")
+    row["launches_alternatives"] = launches_by_model
+    del tr, bank
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -5428,7 +5753,7 @@ def main() -> None:
     devices = {"after.audio.diff": ("cuda",),
                "after.audio.diff.voices2": ("cuda", "cpu"),
                "codec_export": ("cuda",)}
-    export_phase(row, a, b, attrs, on_export=lambda path: (
+    hosts = export_phase(row, a, b, attrs, on_export=lambda path: (
         package_in_background(started, path,
                               *devices[path.rstrip("/").split("/")[-1]])))
 
@@ -5447,9 +5772,15 @@ def main() -> None:
 
     phase_time("phase 17 (bf16 training)")
 
+    # 18. the alternative diffusion models: EDM, Denoiser v1, the UNet
+    alternatives_phase(row, requests, short)
+
+    phase_time("phase 18 (alternative diffusion models)")
+
     # 15. the native streaming host on phase 13's artifacts, their
     # packages done
-    native_phase(row, a, b, attrs, started)
+    native_phase(row, a, b, attrs, started, hosts)
+    del hosts
 
     phase_time("phase 15 (native host)")
 

@@ -383,3 +383,30 @@ def test_diffusion_steps_make_no_host_sync(cuda):
     finally:
         torch.cuda.set_sync_debug_mode(0)
     assert graphed.graphs.captures == 2 and graphed.graphs.replays == 2
+
+
+@pytest.mark.cuda
+def test_artifact_host_eager_matches_its_graphs(streamers, tmp_path):
+    """An artifact's host with ``eager`` set runs its stage calls op by op
+    (no replay) and gives its graphs' outputs from the same state."""
+    from after_tpu_torch.streaming.export import (ExportedStreamer,
+                                                  export_streamer)
+    export_streamer(streamers[0], str(tmp_path / "art"), nb_steps=4)
+    host = ExportedStreamer(str(tmp_path / "art"), "cuda")
+    rng = np.random.RandomState(7)
+    A, C = host.manifest["audio_chunk"], streamers[0].cfg.denoiser.n_channels
+    bufs = [((0.3 * rng.randn(1, A, 1)).astype(np.float32),
+             (0.3 * rng.randn(1, A, 1)).astype(np.float32),
+             rng.randn(1, 4, C).astype(np.float32)) for _ in range(3)]
+
+    def run():
+        host.reset()
+        return torch.cat([host.call("forward", a, b, x0=x0)
+                          for a, b, x0 in bufs], dim=1)
+
+    y = run()
+    replays = host.graphs.replays
+    host.eager = True
+    y_eager = run()
+    assert host.graphs.replays == replays
+    _close(y_eager, y)

@@ -315,7 +315,6 @@ def test_filter_partial_load_matches_jax():
 
 
 @pytest.mark.parametrize("override", [
-    {"diffusion_type": "edm"},
     {"encoder_time.vae_regularisation": True},
     {"encoder.regularisation": "vae"}])
 def test_what_is_not_ported_raises(override):
@@ -323,6 +322,16 @@ def test_what_is_not_ported_raises(override):
                                      override)
     with pytest.raises(NotImplementedError):
         DiffusionTrainer(cfg, device="cpu")
+
+
+def test_the_trainer_builds_edm():
+    """diffusion_type="edm", which the trainer refused until EDM was
+    ported, builds an EDM model whose training step draws ln sigma."""
+    from after_tpu_torch.diffusion.edm import EDM
+    cfg = port_config.with_overrides(common.port_cfg(common.no_dropout()),
+                                     {"diffusion_type": "edm"})
+    tr = DiffusionTrainer(cfg, device="cpu")
+    assert isinstance(tr.rf, EDM) and tr.rf.LEVEL_DRAW == "sigma_normal"
 
 
 def test_fit_refuses_a_mesh_and_no_card_raises(monkeypatch):

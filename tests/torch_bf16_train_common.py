@@ -49,6 +49,7 @@ import pytest
 from after_tpu import config as jax_config
 from after_tpu_torch.ops.norms import BatchNorm
 from tests import torch_diffusion_common as common
+from tests import torch_threads_common  # noqa: F401  (xdist workers' threads)
 
 CFG = common.no_dropout(**{
     "train.cycle_consistency": True, "train.cycle_start_step": 0,

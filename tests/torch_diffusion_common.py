@@ -39,6 +39,7 @@ from after_tpu_torch import config as port_config
 from after_tpu_torch.diffusion.trainer import DiffusionTrainer
 from after_tpu_torch.ops.norms import BatchNorm
 from after_tpu_torch.utils.from_jax import load_denoiser, load_module
+from tests import torch_threads_common  # noqa: F401  (xdist workers' threads)
 from tests.test_diffusion import micro_config
 
 B, T, C = 4, 32, 8
@@ -140,8 +141,8 @@ def _shuffle_map(sizes, key):
     return shuffle_time_chunks(key, frames, sizes)[..., 0].astype(jnp.int32)
 
 
-@partial(jax.jit, static_argnums=(0, 1, 2, 3))
-def _draws(sizes, zt, zs, fsq, rng):
+@partial(jax.jit, static_argnums=(0, 1, 2, 3, 4))
+def _draws(sizes, zt, zs, fsq, edm, rng):
     ks = jax.random.split(rng, 9)
     k_noise, k_t, _ = jax.random.split(ks[6], 3)
     k_perm, _ = jax.random.split(ks[7])
@@ -150,8 +151,12 @@ def _draws(sizes, zt, zs, fsq, rng):
          "time_cond_noise": jax.random.normal(ks[4], (B, T, zs)),
          "cfg_uniform": jax.random.uniform(ks[5], (B,)),
          "x0": jax.random.normal(k_noise, (B, T, C)),
-         "t": jax.random.uniform(k_t, (B,)),
          "cycle_perm": jax.random.permutation(k_perm, B)}
+    # EDM draws the normal of ln sigma where the flow draws its times
+    if edm:
+        d["sigma_normal"] = jax.random.normal(k_t, (B,))
+    else:
+        d["t"] = jax.random.uniform(k_t, (B,))
     if fsq:
         k1, k2, k3 = jax.random.split(jax.random.fold_in(ks[3], 1), 3)
         d["fsq"] = tuple(jax.random.uniform(k, s) for k, s in (
@@ -163,7 +168,7 @@ def jax_draws(cfg, rng, fsq: bool = False):
     """The values the JAX diffusion step draws from ``rng``, by the port's
     names (trainer.DRAWS), drawn in one jitted call."""
     d = _draws(tuple(cfg.train.shuffle_zsem), cfg.zt_channels,
-               cfg.zs_channels, fsq, rng)
+               cfg.zs_channels, fsq, cfg.diffusion_type == "edm", rng)
     return jax.tree_util.tree_map(np.asarray, d)
 
 

@@ -12,6 +12,7 @@ import numpy as np
 
 from after_tpu_torch.ops.kernels.build import native_host
 from after_tpu_torch.streaming.native import package_artifact
+from tests import torch_threads_common  # noqa: F401  (xdist workers' threads)
 
 # the native host against the port's Python host on the same packages'
 # programs: the same ops, fused and ordered otherwise by Inductor, so the
