@@ -14,8 +14,12 @@
 
 Each step differentiates only what it trains (``torch.autograd.grad`` over
 that model's parameters), so no ``.grad`` is kept between steps.  The
-bottleneck noise is an argument of every step; without it the trainer
-draws it from its own seeded ``torch.Generator``.  Everything runs on the
+bottleneck noise and, with ``use_noise``, the decoder NoiseGenerator's
+uniform draw (``decoder_noise``) are arguments of every step; without them
+the trainer draws them from its own seeded ``torch.Generator``, fresh at
+each step, as the JAX trainer draws them from each step's key.  The
+discriminator is the one ``DiscriminatorConfig.kind`` names
+(``make_discriminator``).  Everything runs on the
 trainer's device, the CUDA card unless the caller passes ``device="cpu"``,
 in strict f32.
 
@@ -28,8 +32,9 @@ generated one as the codec returns it, and every loss is computed in f32
 on the widened outputs.  Each module computes at the promotion of its
 input's type and its parameters' (as jnp promotes them): the encoder runs
 in bf16 (the snake+conv op's bf16 kernels, forward and backward), while
-the bottleneck's f32 noise makes the decoder and, from there, the
-discriminator compute in f32 with their bf16 weights widened.
+the bottleneck's f32 noise makes the decoder (its NoiseGenerator too)
+and, from there, the discriminator's generated chain compute in f32 with
+their bf16 weights widened.
 ``stft_bf16_dft`` takes the MR-STFT's DFTs with bf16 operands.  The
 validation stays f32.
 """
@@ -44,6 +49,7 @@ import torch
 
 from ..config import AETrainConfig, AutoEncoderConfig, DiscriminatorConfig
 from ..models.autoencoder import AudioCodec
+from ..models.descript_discriminator import DescriptDiscriminator
 from ..models.discriminator import EncodecDiscriminator
 from ..utils.device import resolve_device, strict_f32
 from ..utils.optim import AdamW
@@ -51,6 +57,18 @@ from ..utils.precision import cast_call, compute_dtype, to_compute
 from .losses import multi_resolution_stft_loss, spectral_distance
 
 ArrayLike = Union[torch.Tensor, np.ndarray]
+
+
+def make_discriminator(dcfg: DiscriminatorConfig) -> torch.nn.Module:
+    """The discriminator ``dcfg.kind`` names: the descript one at its
+    periods, FFT sizes and weights, else the Encodec one."""
+    if dcfg.kind == "descript":
+        return DescriptDiscriminator(
+            periods=tuple(dcfg.descript_periods),
+            fft_sizes=tuple(dcfg.descript_fft_sizes),
+            weight_feature_matching=dcfg.descript_weight_feature_matching,
+            weight_adversarial=dcfg.descript_weight_adversarial)
+    return EncodecDiscriminator(dcfg)
 
 
 class AutoencoderTrainer:
@@ -72,7 +90,7 @@ class AutoencoderTrainer:
         self.device = resolve_device(device)
         strict_f32()
         self.codec = AudioCodec(ae_cfg).to(self.device)
-        self.disc = EncodecDiscriminator(self.dcfg).to(self.device)
+        self.disc = make_discriminator(self.dcfg).to(self.device)
         self.generator = torch.Generator(self.device).manual_seed(seed)
         self.step = 0
         self._new_optimizers()
@@ -156,6 +174,22 @@ class AutoencoderTrainer:
                              f"expected {shape}")
         return noise
 
+    def _decoder_noise(self, x: torch.Tensor, noise: Optional[ArrayLike],
+                       generator: Optional[torch.Generator] = None
+                       ) -> Optional[torch.Tensor]:
+        """The decoder NoiseGenerator's uniform draw in [-1, 1) for
+        waveforms x (``AudioCodec.decoder_noise_shape``): ``noise`` when
+        given (the decoder checks it), else drawn from ``generator`` (the
+        trainer's own by default); None for a codec without ``use_noise``."""
+        if noise is not None:
+            return self._tensor(noise)
+        shape = self.codec.decoder_noise_shape(
+            x.shape[0], x.shape[1] // self.cfg.ratio)
+        if shape is None:
+            return None
+        return torch.rand(shape, generator=generator or self.generator,
+                          device=self.device) * 2 - 1
+
     def _recon_weights(self, step: int) -> Tuple[float, float]:
         tc = self.tc
         w_wave = (1.0 if step < tc.warmup_steps
@@ -177,14 +211,16 @@ class AutoencoderTrainer:
         return out
 
     def gen_grads(self, x: ArrayLike, use_gan: bool, w_wave: float,
-                  w_reg: float, noise: Optional[ArrayLike] = None
+                  w_reg: float, noise: Optional[ArrayLike] = None,
+                  decoder_noise: Optional[ArrayLike] = None
                   ) -> Tuple[Dict[str, torch.Tensor], List[torch.Tensor]]:
         """The generator step's metrics and the gradients of its loss for
         each codec parameter (in ``codec.parameters()`` order)."""
         x = self._tensor(x)
         cd = self.compute_dtype
         y, _, _, regloss, _ = cast_call(self.codec, cd, to_compute(x, cd),
-                                        self._noise(x, noise))
+                                        self._noise(x, noise),
+                                        self._decoder_noise(x, decoder_noise))
         regloss = regloss.float()
         # the loss math in f32, on the widened output
         metrics = self._reconstruction(x, y.float())
@@ -205,26 +241,30 @@ class AutoencoderTrainer:
         return {k: v.detach() for k, v in metrics.items()}, list(grads)
 
     def gen_step(self, x: ArrayLike, use_gan: bool, w_wave: float,
-                 w_reg: float, noise: Optional[ArrayLike] = None
+                 w_reg: float, noise: Optional[ArrayLike] = None,
+                 decoder_noise: Optional[ArrayLike] = None
                  ) -> Dict[str, Any]:
         """One generator update of the codec; its metrics, with the count
         of skipped non-finite updates (``skipped_nonfinite``)."""
-        metrics, grads = self.gen_grads(x, use_gan, w_wave, w_reg, noise)
+        metrics, grads = self.gen_grads(x, use_gan, w_wave, w_reg, noise,
+                                        decoder_noise)
         self.optimizer.step(grads)
         # a copy: the optimizer's counter changes in place at its next step
         metrics["skipped_nonfinite"] = self.optimizer.total_notfinite.clone()
         return metrics
 
-    def disc_grads(self, x: ArrayLike, noise: Optional[ArrayLike] = None
+    def disc_grads(self, x: ArrayLike, noise: Optional[ArrayLike] = None,
+                   decoder_noise: Optional[ArrayLike] = None
                    ) -> Tuple[Dict[str, torch.Tensor], List[torch.Tensor]]:
         """The discriminator step's metrics and the gradients of its hinge
         loss for each discriminator parameter; the codec runs without
-        gradients but draws its bottleneck noise."""
+        gradients but draws its bottleneck and decoder noise."""
         x = self._tensor(x)
         cd = self.compute_dtype
         with torch.no_grad():
             y = cast_call(self.codec, cd, to_compute(x, cd),
-                          self._noise(x, noise))[0]
+                          self._noise(x, noise),
+                          self._decoder_noise(x, decoder_noise))[0]
         n = min(x.shape[1], y.shape[1])
         _, loss_dis, metrics = cast_call(
             self.disc, cd, to_compute(x[:, :n], cd), y[:, :n],
@@ -233,20 +273,23 @@ class AutoencoderTrainer:
                                     list(self.disc.parameters()))
         return {k: v.detach() for k, v in metrics.items()}, list(grads)
 
-    def disc_step(self, x: ArrayLike, noise: Optional[ArrayLike] = None
+    def disc_step(self, x: ArrayLike, noise: Optional[ArrayLike] = None,
+                  decoder_noise: Optional[ArrayLike] = None
                   ) -> Dict[str, torch.Tensor]:
         """One update of the discriminator; its metrics."""
-        metrics, grads = self.disc_grads(x, noise)
+        metrics, grads = self.disc_grads(x, noise, decoder_noise)
         self.disc_optimizer.step(grads)
         return metrics
 
     @torch.no_grad()
-    def val_step(self, x: ArrayLike, noise: Optional[ArrayLike] = None
+    def val_step(self, x: ArrayLike, noise: Optional[ArrayLike] = None,
+                 decoder_noise: Optional[ArrayLike] = None
                  ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
         """Reconstruction losses and audio on a validation batch, no GAN
         terms: (metrics, reconstruction cut to the input's length)."""
         x = self._tensor(x)
-        y, _, _, regloss, _ = self.codec(x, self._noise(x, noise))
+        y, _, _, regloss, _ = self.codec(x, self._noise(x, noise),
+                                         self._decoder_noise(x, decoder_noise))
         metrics = self._reconstruction(x, y, "val_")
         metrics["val_regularisation_loss"] = regloss
         metrics["val_total_loss"] = metrics["val_mrstft"] + regloss
@@ -254,15 +297,16 @@ class AutoencoderTrainer:
 
     def validate(self, val_batches: Iterable[ArrayLike]):
         """Average ``val_step`` losses over fixed batches, batch i with the
-        noise of a generator seeded i; returns (losses, (x, y) of the last
-        batch as numpy arrays)."""
+        noise (bottleneck, then decoder) of a generator seeded i; returns
+        (losses, (x, y) of the last batch as numpy arrays)."""
         sums: Dict[str, float] = {}
         count = 0
         x = y = None
         for i, batch in enumerate(val_batches):
             x = self._tensor(batch)
             gen = torch.Generator(self.device).manual_seed(i)
-            metrics, y = self.val_step(x, self._noise(x, None, gen))
+            metrics, y = self.val_step(x, self._noise(x, None, gen),
+                                       self._decoder_noise(x, None, gen))
             for k, v in metrics.items():
                 sums[k] = sums.get(k, 0.0) + float(v)
             count += 1

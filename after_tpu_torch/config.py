@@ -13,11 +13,11 @@ The codec's training configs (``DiscriminatorConfig``, ``AETrainConfig``)
 drive ``after_tpu_torch.autoencoder.AutoencoderTrainer``, and
 ``DiffusionTrainConfig`` drives ``after_tpu_torch.diffusion.trainer.
 DiffusionTrainer``.  Fields that only the JAX package reads
-(``fused_kernels``, ``rng_impl``) and those the port refuses for now
-(``DiscriminatorConfig(kind="descript")``, the structure and timbre
-encoders' vae modes, ``AutoEncoderConfig.use_noise``) are kept so that the
-JSON form stays identical; ``diffusion_type="edm"`` and the ``v1`` and
-``unet1d`` denoisers run.
+(``fused_kernels``, ``rng_impl``) are kept so that the JSON form stays
+identical; every alternative the JAX package runs runs in the port
+(``diffusion_type="edm"``, the ``v1`` and ``unet1d`` denoisers,
+``DiscriminatorConfig(kind="descript")``, ``AutoEncoderConfig.use_noise``
+and the encoders' vae modes).
 bf16 serving is not a config field: ``TransferPipeline``, ``Streamer`` and
 the export commands take ``compute_dtype``.
 """
@@ -161,7 +161,7 @@ class DiscriminatorConfig:
     """Encodec multi-scale STFT discriminator (reference: encodec_discriminator.py:217 + baseAE.gin:56-66).
 
     kind="descript" selects the DAC-style MPD/MSD/MRD discriminator instead
-    (not ported yet: the trainer raises NotImplementedError)."""
+    (models/descript_discriminator.py)."""
 
     kind: str = "encodec"           # "encodec" | "descript"
     filters: int = 64

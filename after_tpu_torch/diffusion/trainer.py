@@ -27,7 +27,13 @@ Randomness: each step takes ``draws``, a dict of the values the JAX step
 draws from its keys (``DRAWS``); a value left out is drawn from the
 trainer's seeded ``torch.Generator`` on its device, and so are dropout
 masks.  ``train.rng_impl`` names the JAX trainer's random generator and is
-kept for the shared JSON form only.  Everything runs on the trainer's
+kept for the shared JSON form only.  A VAE encoder's sample noise is one
+of those draws (``cond_vae``, ``time_cond_vae``, ``cycle_cond_vae``),
+taken wherever the JAX step gives that encoder a key: the timbre encoder
+in every step, the structure encoder in a diffusion step only.  The JAX
+classifier and cycle steps run the structure encoder with no key, which a
+VAE there cannot run (flax's ``InvalidRngError``): the port refuses those
+steps with a VAE structure encoder (C11).  Everything runs on the trainer's
 device, the CUDA card unless the caller passes ``device="cpu"``, in strict
 f32.
 
@@ -100,8 +106,15 @@ ArrayLike = Union[torch.Tensor, np.ndarray]
 #             is the unit noise)
 # cycle_perm  (B,) int: the cycle step's permutation of the batch
 # fsq         the structure encoder's FSQ noise dropout (FSQ.draw)
+# cond_vae    (B, zt) normal: the timbre encoder's VAE sample noise
+#             (regularisation="vae"), in a diffusion or a classifier step
+# time_cond_vae  normal of Encoder1D.vae_noise_shape: the structure
+#             encoder's VAE sample noise (vae_regularisation)
+# cycle_cond_vae  (B, zt) normal: the timbre encoder's VAE sample noise in
+#             the cycle step's re-encode
 DRAWS = ("shuffle", "cond_noise", "time_cond_noise", "cfg_uniform", "x0",
-         "t", "sigma_normal", "cycle_perm", "fsq")
+         "t", "sigma_normal", "cycle_perm", "fsq", "cond_vae",
+         "time_cond_vae", "cycle_cond_vae")
 # the float metrics of a diffusion step (with "skipped_nonfinite", the
 # optimizer's running count of skipped updates)
 DIFFUSION_METRICS = ("diffusion_loss", "adversarial_loss", "cond_reg",
@@ -280,6 +293,38 @@ class DiffusionTrainer:
             return make()
         return take
 
+    def _timbre_vae(self, batch: int, take, name: str = "cond_vae"):
+        """The timbre encoder's VAE sample noise (draw ``name``), or None
+        where it has no VAE."""
+        if self.cfg.encoder.regularisation != "vae":
+            return None
+        return take(name, lambda: torch.randn(
+            (batch, self.cfg.encoder.out_dim), generator=self.generator,
+            device=self.device))
+
+    def _structure_vae(self, x: torch.Tensor, take):
+        """The structure encoder's VAE sample noise for its input x, or
+        None where it has no VAE."""
+        et = self.rf.encoder_time
+        if et is None or not et.cfg.vae_regularisation:
+            return None
+        return take("time_cond_vae", lambda: torch.randn(
+            et.vae_noise_shape(x.shape[0], x.shape[1]),
+            generator=self.generator, device=self.device))
+
+    def _refuse_structure_vae(self, where: str) -> None:
+        et = self.rf.encoder_time
+        if et is not None and et.cfg.vae_regularisation:
+            # C11: the JAX step runs the structure encoder there without a
+            # "sample" rng, and its VAE raises flax's InvalidRngError
+            # (after_tpu/diffusion/trainer.py:313-316, :416-417,
+            # after_tpu/models/encoder.py:124-125)
+            raise ValueError(
+                f"the {where} with a vae structure encoder "
+                "(encoder_time.vae_regularisation): the reference trainer "
+                "cannot run this (it gives that encoder no sample noise and "
+                "raises flax's InvalidRngError), so the port refuses it")
+
     def _shuffled(self, x: torch.Tensor, take) -> torch.Tensor:
         sizes = tuple(self.tc.shuffle_zsem)
         if not sizes:
@@ -314,7 +359,8 @@ class DiffusionTrainer:
         x1_cond = self._shuffled(to_compute(batch["x_cond"], cd), take)
         with torch.set_grad_enabled(train_encoder):
             cond, _, cond_reg = cast_call(rf.encoder, cd, x1_cond,
-                                          train=kept)
+                                          train=kept,
+                                          noise=self._timbre_vae(B, take))
         cond, cond_reg = to_f32(cond, cd), to_f32(cond_reg, cd)
         cond = cond + tc.zsem_noise_aug * take("cond_noise", lambda: (
             torch.randn(cond.shape, generator=gen, device=dev)))
@@ -322,10 +368,11 @@ class DiffusionTrainer:
         # structure stream
         if rf.encoder_time is not None and not phase1:
             fsq_draws = take("fsq", lambda: None)
+            vae = self._structure_vae(x1_time_cond, take)
             with torch.set_grad_enabled(train_encoder_time):
                 time_cond, _, time_cond_reg = cast_call(
                     rf.encoder_time, cd, x1_time_cond, train=kept,
-                    fsq_draws=fsq_draws)
+                    fsq_draws=fsq_draws, noise=vae)
             time_cond = to_f32(time_cond, cd)
             time_cond_reg = to_f32(time_cond_reg, cd)
         elif rf.encoder_time is None:
@@ -407,12 +454,14 @@ class DiffusionTrainer:
         cond_t, tcond_t = cond_t.detach(), tcond_t.detach()
 
         cd = self.compute_dtype
+        self._refuse_structure_vae("cycle step")
         x_transfer = rf.transfer_estimate(interpolant, t, cond_t, tcond_t,
                                           compute_dtype=cd)
         scratch = TrainMode(self.generator)
         x_in = to_compute(x_transfer, cd)
-        cond_rec = to_f32(cast_call(rf.encoder, cd, x_in, train=scratch)[0],
-                          cd)
+        cond_rec = to_f32(cast_call(
+            rf.encoder, cd, x_in, train=scratch,
+            noise=self._timbre_vae(B, take, "cycle_cond_vae"))[0], cd)
         tcond_rec = to_f32(cast_call(rf.encoder_time, cd, x_in,
                                      train=scratch)[0], cd)
 
@@ -521,8 +570,11 @@ class DiffusionTrainer:
 
     def _classifier_grads(self, batch, take):
         rf = self.rf
+        self._refuse_structure_vae("classifier step")
         with torch.no_grad():
-            cond = rf.encoder(self._shuffled(batch["x_cond"], take))[0]
+            x_cond = self._shuffled(batch["x_cond"], take)
+            cond = rf.encoder(x_cond, noise=self._timbre_vae(
+                x_cond.shape[0], take))[0]
             time_cond = rf.encoder_time(batch["x_time_cond"])[0]
         kept = TrainMode(self.generator)
         pred = rf.classifier(time_cond, train=kept)[0]

@@ -1,4 +1,6 @@
-"""Models of the port: codec, structure and timbre encoders, denoisers."""
+"""Models of the port: codec, structure and timbre encoders, denoisers,
+discriminators (exported as the JAX package's ``models`` exports them,
+with ``GRU`` and the descript discriminator beside)."""
 
 from __future__ import annotations
 
@@ -6,8 +8,13 @@ from typing import Optional
 
 from torch import nn
 
-from .denoiser import Denoiser
+from .autoencoder import GRU, AudioCodec, CodecDecoder, CodecEncoder
+from .denoiser import Denoiser, fourier_features
 from .denoiser_v1 import DenoiserV1, DenoiserV1Config
+from .descript_discriminator import DescriptDiscriminator
+from .discriminator import EncodecDiscriminator
+from .ecapa import ECAPAEncoder
+from .encoder import Encoder1D, LinearEncoder
 from .unet1d import UNet1D, UNet1DConfig
 
 

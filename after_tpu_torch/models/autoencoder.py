@@ -21,13 +21,21 @@ of ``encode`` and ``decode``.
 
 ``AudioCodec.forward`` is the training forward (counterpart of the JAX
 ``AudioCodec.__call__``): it returns (y, y_bands, z, reg, x_bands) with the
-regularising bottleneck, whose noise is an argument.
+regularising bottleneck, whose noise is an argument, and so is the
+decoder's ``NoiseGenerator`` draw (``use_noise``).  Where no decoder noise
+is given (inference: transfer, decode, streaming, export) the generator
+takes one fixed draw per shape, as the JAX package takes ``PRNGKey(0)``.
+
+``GRU`` is the JAX package's optional recurrent layer over latent frames,
+which no config reaches.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple, Union
+from functools import lru_cache
+from typing import Dict, Optional, Sequence, Tuple, Union
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -38,6 +46,7 @@ from ..ops.kernels.fused_conv import snake_conv
 from ..ops.norms import GroupNorm
 from ..ops.pqmf import PQMFAnalysis, PQMFSynthesis
 from ..ops.snake import SnakeBeta
+from ..ops.stft import on_device
 from ..streaming.state import Cache, Streaming, name_slots
 from ..utils.precision import at, promote
 
@@ -63,6 +72,60 @@ class StreamGroupNorm(nn.Module, Streaming):
         full = torch.cat([pad, x], dim=1)
         pad.copy_(x)
         return self.gn(full)[:, full.shape[1] - x.shape[1]:]
+
+
+class GRUCell(nn.Module):
+    """Flax's ``nn.GRUCell``: the input Linears ``ir``, ``iz``, ``in`` carry
+    biases, of the recurrent ones only ``hn`` (torch's ``nn.GRU`` would add
+    recurrent biases to the reset and update gates that the JAX cell lacks).
+    ``forward(h, x)`` -> the new h."""
+
+    def __init__(self, in_features: int, features: int):
+        super().__init__()
+        for gate in ("r", "z", "n"):
+            self.add_module(f"i{gate}", nn.Linear(in_features, features))
+        self.hr = nn.Linear(features, features, bias=False)
+        self.hz = nn.Linear(features, features, bias=False)
+        self.hn = nn.Linear(features, features)
+
+    def forward(self, h: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+        r = torch.sigmoid(self.ir(x) + self.hr(h))
+        z = torch.sigmoid(self.iz(x) + self.hz(h))
+        n = torch.tanh(getattr(self, "in")(x) + r * self.hn(h))
+        return (1.0 - z) * n + z * h
+
+
+class GRU(nn.Module):
+    """Optional recurrent layer (SimpleNetsStream.py:788-816): a stack of
+    GRU cells over the frames of (B, T, in_features), then a weight-normed
+    centered conv to ``out_size``.  ``forward(x, carry)`` -> (y, carry),
+    the carry one (B, hidden_size) state a layer, zeros where not given."""
+
+    def __init__(self, in_features: int, out_size: int,
+                 hidden_size: int = 256, num_layers: int = 3):
+        super().__init__()
+        self.hidden_size = hidden_size
+        self.num_layers = num_layers
+        for i in range(num_layers):
+            self.add_module(f"gru_{i}", GRUCell(
+                in_features if i == 0 else hidden_size, hidden_size))
+        self.to_out = StreamConv1d(hidden_size, out_size, 3, mode="centered")
+
+    def forward(self, x: torch.Tensor,
+                carry: Optional[Sequence[torch.Tensor]] = None):
+        B, T, _ = x.shape
+        if carry is None:
+            carry = [x.new_zeros((B, self.hidden_size))
+                     for _ in range(self.num_layers)]
+        carry = list(carry)
+        cells = [getattr(self, f"gru_{i}") for i in range(self.num_layers)]
+        outs = []
+        for t in range(T):
+            h = x[:, t]
+            for i, cell in enumerate(cells):
+                h = carry[i] = cell(carry[i], h)
+            outs.append(h)
+        return self.to_out(torch.stack(outs, dim=1)), carry
 
 
 class ConvBlock1d(nn.Module):
@@ -212,13 +275,15 @@ class CodecEncoder(nn.Module):
 
 
 class CodecDecoder(nn.Module):
-    """Latents (B, Tl, z) -> band signals (B, Tl * prod(factors), M)."""
+    """Latents (B, Tl, z) -> band signals (B, Tl * prod(factors), M).
+
+    With ``use_noise`` the ``NoiseGenerator``'s filtered noise, computed
+    from the last stage's output, is added after the loudness gate; its
+    uniform draw is the ``noise`` argument, or the generator's fixed draw
+    for the shape where none is given (``NoiseGenerator.fixed_noise``)."""
 
     def __init__(self, cfg: AutoEncoderConfig, streaming: StreamMode = False):
         super().__init__()
-        if cfg.use_noise:
-            raise NotImplementedError(
-                "the port has no NoiseGenerator yet (use_noise=False)")
         mode = _mode(cfg)
         ch = cfg.base_channels
         widths = [ch * int(m * cfg.decoder_ratio)
@@ -238,16 +303,25 @@ class CodecDecoder(nn.Module):
             widths[-1], out_c * 2 if cfg.use_loudness else out_c,
             cfg.kernel_size, 1, cfg.resnet_groups, cfg.use_norm, False, mode,
             streaming)
+        self.noise = (NoiseGenerator(widths[-1], out_c, mode=mode,
+                                     streaming=streaming is True)
+                      if cfg.use_noise else None)
 
-    def forward(self, z: torch.Tensor,
-                cache: Optional[Cache] = None) -> torch.Tensor:
+    def forward(self, z: torch.Tensor, cache: Optional[Cache] = None,
+                noise: Optional[torch.Tensor] = None) -> torch.Tensor:
         h = self.to_in(z, cache)
         for i in range(self.n_up):
             h = getattr(self, f"up_{i}")(h, cache)
+        feats = h
         h = self.to_out(h, cache)
         if self.use_loudness:
             y, amp = h.chunk(2, dim=-1)
             h = y * torch.sigmoid(amp)
+        if self.noise is not None:
+            h = h + self.noise(feats, noise, cache)
+        elif noise is not None:
+            raise ValueError("decoder noise given to a codec without "
+                             "use_noise")
         return h
 
 
@@ -259,6 +333,122 @@ def decoder_band_delay(cfg: AutoEncoderConfig) -> int:
     for f in cfg.factors[::-1]:
         d = d * f + f // 2
     return d
+
+
+def mod_sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """2 sigmoid(x)^2.3 + 1e-7 (core.py:7)."""
+    return 2 * torch.pow(torch.sigmoid(x), 2.3) + 1e-7
+
+
+@lru_cache(maxsize=8)
+def _hanning(n: int) -> np.ndarray:
+    # numpy's symmetric window, as jnp.hanning makes it (not the periodic
+    # torch.hann_window)
+    return np.hanning(n).astype(np.float32)
+
+
+def amp_to_impulse_response(amp: torch.Tensor, target_size: int
+                            ) -> torch.Tensor:
+    """Frequency amplitudes -> windowed impulse response on the last axis
+    (SimpleNetsStream.py:462-483): the irfft of the amplitudes (n bins give
+    2 (n - 1) taps), centred, Hann-windowed, zero-padded to
+    ``target_size`` and rolled back by half the filter, in f32."""
+    ir = torch.fft.irfft(amp.float().to(torch.complex64), dim=-1)
+    filter_size = ir.shape[-1]
+    ir = torch.roll(ir, filter_size // 2, dims=-1)
+    ir = ir * on_device(ir.device, _hanning, filter_size)
+    ir = F.pad(ir, (0, target_size - filter_size))
+    return torch.roll(ir, (-filter_size) // 2, dims=-1)
+
+
+def fft_convolve(signal: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
+    """Linear convolution by FFT on the last axis (SimpleNetsStream.py:486):
+    the signal padded on the right and the kernel on the left by the
+    signal's length, the second half of their circular product kept."""
+    n = signal.shape[-1]
+    signal = F.pad(signal, (0, n))
+    kernel = F.pad(kernel, (n, 0))
+    out = torch.fft.irfft(torch.fft.rfft(signal) * torch.fft.rfft(kernel))
+    return out[..., out.shape[-1] // 2:]
+
+
+class NoiseGenerator(nn.Module):
+    """Filtered-noise synthesis branch of the decoder
+    (SimpleNetsStream.py:499-549): strided convs predict each block's
+    noise-band amplitudes, which shape uniform noise through the impulse
+    responses they make.  (B, T, in_c) -> (B, T, data_size), T a multiple
+    of prod(ratios).
+
+    The noise is uniform in [-1, 1) of shape ``noise_shape(B, T)``, (B, T /
+    prod(ratios), data_size, prod(ratios)): the ``noise`` argument, else
+    ``fixed_noise``: one draw per shape and device from a generator seeded
+    0, made at the first call with that shape and kept, as the JAX package
+    takes ``PRNGKey(0)`` wherever no noise rng is given (transfer, decode,
+    the streamer, export).  That first call is a warm-up on the card, never
+    a CUDA-graph capture, and an export keeps the draw as a constant.  The
+    impulse responses and the convolution run in f32 whatever the convs'
+    type, as the JAX module's complex64 FFTs do.  With ``streaming`` the
+    strided convs are cached (one chunk's frames a multiple of
+    prod(ratios))."""
+
+    def __init__(self, in_c: int, data_size: int,
+                 ratios: Sequence[int] = (2, 2, 2), noise_bands: int = 5,
+                 hidden_size: int = 128, mode: str = "centered",
+                 streaming: bool = False):
+        super().__init__()
+        self.data_size = data_size
+        self.noise_bands = noise_bands
+        self.target = int(np.prod(ratios))
+        channels = [hidden_size] * (len(ratios) - 1) + [
+            data_size * noise_bands]
+        widths = [in_c] + channels
+        for i, r in enumerate(ratios):
+            self.add_module(f"conv_{i}", StreamConv1d(
+                widths[i], widths[i + 1], 3, stride=r, mode=mode,
+                streaming=streaming))
+        self.n_convs = len(ratios)
+        self.fixed: Dict[Tuple[Tuple[int, ...], str], torch.Tensor] = {}
+
+    def noise_shape(self, batch: int, frames: int) -> Tuple[int, ...]:
+        """The noise's shape for ``frames`` band frames."""
+        return (batch, frames // self.target, self.data_size, self.target)
+
+    def fixed_noise(self, shape: Sequence[int],
+                    device: torch.device) -> torch.Tensor:
+        """The kept uniform draw of ``shape`` on ``device`` (f32)."""
+        key = (tuple(shape), str(device))
+        t = self.fixed.get(key)
+        if t is None:
+            with torch.inference_mode(False), torch.no_grad():
+                gen = torch.Generator(device).manual_seed(0)
+                t = torch.rand(shape, generator=gen, device=device) * 2 - 1
+            self.fixed[key] = t
+        return t
+
+    def keep_noise(self, noise: torch.Tensor) -> None:
+        """Keep ``noise`` as the fixed draw of its shape and device (the
+        parity tests keep the JAX package's ``PRNGKey(0)`` draw)."""
+        self.fixed[(tuple(noise.shape), str(noise.device))] = noise
+
+    def forward(self, x: torch.Tensor, noise: Optional[torch.Tensor] = None,
+                cache: Optional[Cache] = None) -> torch.Tensor:
+        h = x
+        for i in range(self.n_convs):
+            h = getattr(self, f"conv_{i}")(h, cache)
+            if i != self.n_convs - 1:
+                h = F.leaky_relu(h, 0.2)
+        amp = mod_sigmoid(h - 5.0)
+        B, Tq, _ = amp.shape
+        amp = amp.reshape(B, Tq, self.data_size, self.noise_bands)
+        ir = amp_to_impulse_response(amp, self.target)
+        if noise is None:
+            noise = self.fixed_noise(ir.shape, ir.device)
+        elif tuple(noise.shape) != tuple(ir.shape):
+            raise ValueError(f"decoder noise has shape {tuple(noise.shape)}, "
+                             f"expected {tuple(ir.shape)}")
+        out = fft_convolve(noise.float(), ir)       # (B, Tq, data, target)
+        return out.transpose(2, 3).reshape(B, Tq * self.target,
+                                           self.data_size)
 
 
 def relu_bottleneck_reg(z: torch.Tensor, scale: float = 3.0) -> torch.Tensor:
@@ -327,14 +517,26 @@ class AudioCodec(nn.Module):
             return z, kl
         return z, z.new_zeros(())
 
-    def forward(self, x: torch.Tensor, noise: Optional[torch.Tensor] = None):
+    def decoder_noise_shape(self, batch: int, frames: int
+                            ) -> Optional[Tuple[int, ...]]:
+        """The shape of the decoder's noise for ``frames`` latent frames,
+        or None for a codec without ``use_noise``."""
+        gen = self.decoder.noise
+        if gen is None:
+            return None
+        return gen.noise_shape(batch, frames * int(np.prod(self.cfg.factors)))
+
+    def forward(self, x: torch.Tensor, noise: Optional[torch.Tensor] = None,
+                decoder_noise: Optional[torch.Tensor] = None):
         """Training forward of an offline codec: (B, T, 1) waveform ->
-        (y, y_bands, z, reg, x_bands), the JAX ``AudioCodec.__call__``."""
+        (y, y_bands, z, reg, x_bands), the JAX ``AudioCodec.__call__``;
+        ``decoder_noise`` is the NoiseGenerator's uniform draw
+        (``decoder_noise_shape``), its fixed draw where not given."""
         if self.streaming:
             raise ValueError("the training forward runs on an offline codec")
         xb = self.pqmf(x) if self.pqmf is not None else x
         z, reg = self.regularise(self.encoder(xb), noise)
-        yb = self.decoder(z)
+        yb = self.decoder(z, noise=decoder_noise)
         y = self.pqmf_inv(yb) if self.pqmf_inv is not None else yb
         return y, yb, z, reg, xb
 
@@ -343,7 +545,9 @@ class AudioCodec(nn.Module):
         xb = self.pqmf(x, cache) if self.pqmf is not None else x
         return self.bottleneck(self.encoder(xb, cache))
 
-    def decode(self, z: torch.Tensor,
-               cache: Optional[Cache] = None) -> torch.Tensor:
-        yb = self.decoder(z, cache)
+    def decode(self, z: torch.Tensor, cache: Optional[Cache] = None,
+               noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Latents -> waveform; a ``use_noise`` decoder takes ``noise`` as
+        its uniform draw, its fixed draw for the shape where not given."""
+        yb = self.decoder(z, cache, noise)
         return self.pqmf_inv(yb, cache) if self.pqmf_inv is not None else yb

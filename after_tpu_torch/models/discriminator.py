@@ -111,9 +111,6 @@ class EncodecDiscriminator(nn.Module):
 
     def __init__(self, cfg: DiscriminatorConfig):
         super().__init__()
-        if cfg.kind != "encodec":
-            raise NotImplementedError(
-                f"the port has no {cfg.kind!r} discriminator yet (encodec)")
         self.cfg = cfg
         for i in range(len(cfg.n_ffts)):
             self.add_module(f"disc_{i}", DiscriminatorSTFT(

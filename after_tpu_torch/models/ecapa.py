@@ -1,7 +1,9 @@
 """ECAPA-TDNN timbre encoder (counterpart of after_tpu/models/ecapa.py).
 
 Codec latents (B, T, in_size) -> timbre vector (B, out_dim).  Convs use
-'same' reflect padding.  BatchNorm runs on its running statistics at
+'same' reflect padding.  ``regularisation="vae"`` doubles the last layer
+into [mean, scale] and samples the vector from the ``noise`` argument
+(``models.encoder.reparametrise``).  BatchNorm runs on its running statistics at
 inference and on the batch's in a training forward (``train``,
 ops/train_mode.py).
 
@@ -9,7 +11,7 @@ Types follow the JAX module's: each conv and dense layer computes at the
 promotion of its input's type and its parameters' (``utils.precision``),
 and the pooling's global context is taken with f32 weights, so that under
 bf16 parameters the attention, the pooled statistics and everything after
-them are f32, as jnp promotes them.
+them are f32 (where the JAX module's are bf16: ROADMAP C12, open).
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ from ..ops.conv import conv1d
 from ..ops.norms import BatchNorm
 from ..ops.train_mode import TrainMode
 from ..utils.precision import at, linear, promote
+from .encoder import reparametrise
 
 
 class ReflectConv(nn.Module):
@@ -147,7 +150,9 @@ class AttentiveStatisticsPooling(nn.Module):
                 train: Optional[TrainMode] = None) -> torch.Tensor:
         B, T, C = x.shape
         if self.global_context:
-            # f32 weights, as jnp.full makes them: the context is f32
+            # f32 weights: the context is f32.  The JAX package's jnp.full
+            # of a Python number is weakly typed, so its context takes x's
+            # type (bf16 under bf16 parameters): ROADMAP C12, open
             mean, std = _stats(torch.full((B, T, 1), 1.0 / T,
                                           device=x.device), x)
             attn_in = torch.cat([x, mean[:, None].expand(B, T, C),
@@ -165,9 +170,6 @@ class ECAPAEncoder(nn.Module):
 
     def __init__(self, cfg: ECAPAConfig):
         super().__init__()
-        if cfg.regularisation == "vae":
-            raise NotImplementedError(
-                "the port's ECAPAEncoder has no vae regularisation yet")
         self.cfg = cfg
         ch = cfg.channels
         self.block_0 = TDNNBlock(cfg.in_size, ch[0], cfg.kernel_sizes[0],
@@ -187,9 +189,13 @@ class ECAPAEncoder(nn.Module):
         else:
             self.asp = self.asp_bn = None
             fc_in = ch[-1]
-        self.fc = nn.Linear(fc_in, cfg.out_dim)
+        self.fc = nn.Linear(fc_in, cfg.out_dim * (
+            2 if cfg.regularisation == "vae" else 1))
 
-    def forward(self, x: torch.Tensor, train: Optional[TrainMode] = None):
+    def forward(self, x: torch.Tensor, train: Optional[TrainMode] = None,
+                noise: Optional[torch.Tensor] = None):
+        """``noise`` is the VAE's sample noise, a (B, out_dim) standard
+        normal draw (``regularisation="vae"``; required there)."""
         cfg = self.cfg
         h = self.block_0(x, train)
         feats = []
@@ -204,8 +210,10 @@ class ECAPAEncoder(nn.Module):
             z = torch.tanh(z)
         if cfg.spherical_normalisation:
             z = z / torch.linalg.vector_norm(z, dim=-1, keepdim=True)
+        if cfg.regularisation == "vae":
+            return reparametrise(z, noise, "the timbre encoder")
         if cfg.regularisation == "ac":
             reg = torch.relu(z.abs() - 1).mean()
         else:
-            reg = z.new_zeros(())
+            reg = torch.zeros((), device=z.device)   # jnp.asarray(0.0): f32
         return z, z, reg

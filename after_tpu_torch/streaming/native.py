@@ -141,6 +141,12 @@ def package_artifact(path: str, device=None) -> Dict[str, float]:
     mpath = os.path.join(path, "manifest.json")
     with open(mpath) as f:
         manifest = json.load(f)
+    cfg = manifest.get("config", {})
+    if cfg.get("autoencoder", cfg).get("use_noise"):
+        raise ValueError(
+            "the native host does not play a noise codec's artifact yet "
+            "(autoencoder.use_noise): play it with the Python host "
+            "(streaming.export.ExportedStreamer / ExportedCodec)")
     stages = list(HOST_STAGES[artifact_kind(manifest)])
     files = [f"native/{device.type}/{stage}.pt2" for stage in stages]
     done = _in_processes(path, device, stages)
@@ -237,25 +243,55 @@ def _in_processes(path: str, device: torch.device, stages: Sequence[str]
     more CPU time than they save it wall time when stages run at once)."""
     import subprocess
     import sys
+    import tempfile
     env = dict(os.environ, TORCHINDUCTOR_COMPILE_THREADS=os.environ.get(
         "TORCHINDUCTOR_COMPILE_THREADS", "1"))
     env[PARENT_ENV] = str(os.getpid())
+    # each stage's output goes to files of its own, never to a pipe: a
+    # pipe that this process does not read while it waits on another stage
+    # would fill and stop the stage writing to it
+    logs = {stage: (tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+"))
+            for stage in stages}
     procs = {stage: subprocess.Popen(
         [sys.executable, "-m", "after_tpu_torch.streaming.native",
          os.path.abspath(path), "--device", str(device), "--stage", stage],
-        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=_ROOT,
+        stdout=logs[stage][0], stderr=logs[stage][1], text=True, cwd=_ROOT,
         env=env) for stage in stages}
+
+    def read(f):
+        f.seek(0)
+        return f.read()
     done = {}
-    for stage, proc in procs.items():
-        out, err = proc.communicate()
-        if proc.returncode != 0:
-            for other in procs.values():
-                other.kill()
-                other.communicate()
-            raise RuntimeError(f"packaging {path} stage {stage} failed "
-                               f"(exit {proc.returncode}):\n{err[-4000:]}")
-        done[stage] = json.loads(out.strip().splitlines()[-1])
+    try:
+        for stage, proc in procs.items():
+            proc.wait()
+            out, err = (read(f) for f in logs[stage])
+            if proc.returncode != 0:
+                for other in procs.values():
+                    other.kill()
+                    other.wait()
+                raise RuntimeError(
+                    f"packaging {path} stage {stage} failed "
+                    f"({exit_reason(proc.returncode)}):\n{err[-4000:]}"
+                    f"\n{out[-1000:]}")
+            done[stage] = json.loads(out.strip().splitlines()[-1])
+    finally:
+        for f in (f for pair in logs.values() for f in pair):
+            f.close()
     return done
+
+
+def exit_reason(returncode: int) -> str:
+    """A process's exit code in words: "exit N", or the signal that killed
+    it (a negative ``Popen.returncode``)."""
+    import signal
+    if returncode >= 0:
+        return f"exit {returncode}"
+    try:
+        name = signal.Signals(-returncode).name
+    except ValueError:
+        name = f"signal {-returncode}"
+    return f"killed by {name}"
 
 
 def die_with_parent() -> None:
@@ -271,6 +307,11 @@ def die_with_parent() -> None:
         return
     ctypes.CDLL(None, use_errno=True).prctl(1, 9)    # PDEATHSIG, SIGKILL
     if os.getppid() != int(parent):
+        # said on stderr: a bare exit code would not tell this from a crash
+        sys.stderr.write(f"after_tpu_torch.streaming.native: the process "
+                         f"that started this one ({parent}) is gone (parent "
+                         f"now {os.getppid()}); exiting\n")
+        sys.stderr.flush()
         os._exit(1)
 
 

@@ -33,11 +33,12 @@ or a depthwise one is an ``nn.Conv1d`` like any other.  Every flax leaf must lan
 on a tensor of the same shape and every tensor of the port must be set, or
 loading raises.
 
-``load_discriminator`` loads the JAX ``EncodecDiscriminator``, whose tree
-puts each weight-normed conv's kernel and bias under flax's auto-names
-(``disc_i/Conv_j``) and its scale under the wrapper's name
+``load_discriminator`` loads the JAX ``EncodecDiscriminator`` and
+``DescriptDiscriminator``, whose trees put each weight-normed conv's kernel
+and bias under flax's auto-names (``disc_i/Conv_j``, ``mrd_512/Conv_25``)
+and its scale under the wrapper's name
 (``disc_i/conv_in/"Conv_0/kernel/scale"``); the HWIO kernel becomes an OIHW
-weight.
+weight, a 1-D WIO kernel an OIW one.
 
 ``load_stream_state`` carries a JAX ``StreamState`` across in the same way:
 both states flatten to flax cache paths (streaming/state.py), and every leaf
@@ -215,9 +216,13 @@ def load_beat_this(net: nn.Module, variables: Mapping[str, Any]) -> None:
 
 
 def load_discriminator(disc: nn.Module, variables: Mapping[str, Any]) -> None:
-    """Load an ``EncodecDiscriminator``'s variables ({"params": ...}); every
-    JAX leaf must land on a tensor of the same shape and every tensor of the
-    port must be set, or loading raises."""
+    """Load an ``EncodecDiscriminator``'s or a ``DescriptDiscriminator``'s
+    variables ({"params": ...}): the j-th conv of each sub-discriminator
+    (``disc_i``, ``mpd_p``, ``msd_r``, ``mrd_n``) is flax's ``Conv_j`` of
+    its scope, numbered across all its bands, its scale under the wrapper's
+    name (``mrd_512/band0_conv_0/"Conv_0/kernel/scale"``).  Every JAX leaf
+    must land on a tensor of the same shape and every tensor of the port
+    must be set, or loading raises."""
     params = {k: dict(v) for k, v in variables["params"].items()}
     for name, scale in disc.named_children():
         if name not in params:
@@ -229,8 +234,11 @@ def load_discriminator(disc: nn.Module, variables: Mapping[str, Any]) -> None:
                 raise KeyError(f"{path} or {name}/{wrapper} missing from the "
                                f"JAX variables")
             leaf = p.pop(f"Conv_{j}")
-            _set(conv.weight, np.asarray(leaf.pop("kernel")).transpose(
-                3, 2, 0, 1), path + "/kernel")
+            kernel = np.asarray(leaf.pop("kernel"))
+            # HWIO -> OIHW, or WIO -> OIW (the descript MSD's grouped convs)
+            _set(conv.weight, kernel.transpose(
+                (3, 2, 0, 1) if kernel.ndim == 4 else (2, 1, 0)),
+                path + "/kernel")
             _set(conv.bias, leaf.pop("bias"), path + "/bias")
             wn = p.pop(wrapper)
             _set(conv.scale, wn.pop(f"Conv_{j}/kernel/scale"),

@@ -4,8 +4,9 @@
   +-1/sqrt(fan_in) with fan_in = k * C_in, weight-norm ``g`` = the kernel's
   norm (so the effective weight starts equal to the kernel);
 - Dense (nn.Linear) and flax nn.Conv (ECAPA's nn.Conv1d, the
-  discriminator's weight-normed WNConv2d): lecun-normal kernel (truncated
-  normal, std sqrt(1/fan_in) / .8796), zero bias, weight-norm scale 1;
+  discriminators' weight-normed WNConv1d and WNConv2d): lecun-normal kernel
+  (truncated normal, std sqrt(1/fan_in) / .8796, fan_in of one group),
+  zero bias, weight-norm scale 1;
 - snake alpha and beta 1, norm scales 1 and biases 0, BatchNorm running
   mean 0 and var 1, learnable positions N(0, 1).
 
@@ -23,6 +24,7 @@ import math
 import torch
 from torch import nn
 
+from ..models.descript_discriminator import WNConv1d
 from ..models.discriminator import WNConv2d
 from ..ops.conv import StreamConv1d, StreamConvTranspose1d
 from ..ops.norms import BatchNorm, GroupNorm
@@ -62,13 +64,13 @@ def init_weights(module: nn.Module, seed: int) -> None:
             b = torch.empty(m.bias.shape)
             _uniform(b, bound, gen)
             m.bias.copy_(b)
-        elif isinstance(m, (nn.Linear, nn.Conv1d, WNConv2d)):
+        elif isinstance(m, (nn.Linear, nn.Conv1d, WNConv1d, WNConv2d)):
             w = torch.empty(m.weight.shape)
             _lecun_normal(w, m.weight[0].numel(), gen)
             m.weight.copy_(w)
             if m.bias is not None:
                 m.bias.zero_()
-            if isinstance(m, WNConv2d):
+            if isinstance(m, (WNConv1d, WNConv2d)):
                 m.scale.fill_(1.0)
         elif isinstance(m, SnakeBeta):
             m.alpha.fill_(1.0)

@@ -347,8 +347,39 @@ Phases, each printed before the last line:
    then cycle; 2 captures), finite losses, each step's ms.  Printed with
    the card's name and power limit.
 
+19. the codec's and the encoders' alternatives at base widths with
+   port-native weights from the seed: (a) ``AutoencoderTrainer`` with the
+   base codec at ``use_noise=True`` and ``DiscriminatorConfig(kind=
+   "descript")`` (periods 2-11, FFT sizes 2048/1024/512) at phase 8's
+   batch: CODEC_ALT_WARMUP warm-up generator steps, then CODEC_ALT_STEPS
+   GAN generator and discriminator steps by turns, each timed (medians),
+   finite metrics, 64 forward, 64 dgrad and 64 wgrad launches a generator
+   step and 64 forward launches a discriminator step, counted on the
+   device; at the weights those steps leave, one GAN generator step at
+   batch 1 and TRAIN_VS_CPU_SAMPLES with fixed bottleneck and decoder
+   noise on the card and the CPU in f32, each held to a float64 run on
+   the card (``codec_step_witness``: with the MR-STFT's log-magnitude
+   term, which f32 does not resolve, printed, the losses within
+   CARD_VS_CPU_TOL; without it the card within phase 9's limits of
+   float64); the same step card vs
+   CPU at the seed's weights, as phase 9 (losses within CARD_VS_CPU_TOL,
+   codec gradients within phase 9's limits);
+   (b) that codec in the base pipeline: phase 4's second request as a
+   transfer through its CUDA graph (CODEC_ALT_TRANSFERS replays, 96
+   launches each counted on the device, the two equal: the decoder's
+   fixed noise) and op by op (each launch held to the plain version,
+   graph and op by op within GRAPH_TOL), the card against the CPU on
+   phase 5's clip (the CPU keeping the card's decoder draw) within
+   CARD_VS_CPU_TOL; (c) the crossfade streamer of that pipeline,
+   CODEC_ALT_BUFFERS buffers at nb_steps 4 (96 launches a buffer, no
+   capture after ``init_state``); (d) diffusion training at phase 10's
+   config with ECAPA ``regularisation="vae"`` and Encoder1D
+   ``vae_regularisation`` and ``upscale_out`` (VAE_OVERRIDES): one
+   phase-2 step op by op and captured, then VAE_TRAIN_STEPS replays,
+   finite losses (both KLs in cond_reg and time_cond_reg), each step's ms.
+
 Any failure exits non-zero.  The phases run in the order 1-13, 16, 17,
-18, 15, 14.  The card's name and power limit are printed again at the end.
+18, 19, 15, 14.  The card's name and power limit are printed again at the end.
 The line before the last is the kernel table as JSON (the snake+conv
 kernel, its split sum, the backward's dgrad and wgrad kernels, the bf16
 instantiation and its split sum, the bf16 dgrad and wgrad); each phase's
@@ -515,6 +546,17 @@ ALT_TRAIN_SCHEDULE = {"train.timbre_warmup": 0,
 ALT_TRAIN_KINDS = ["diffusion"] * 3 + ["cycle"] * 2
 PROFILE_TRIES = 3            # profiles of an artifact buffer, for one that
                              # kept every kernel record
+NATIVE_JOB_LOGS = "build/native_jobs"   # phase 15's package jobs' output
+# phase 19: the codec's and the encoders' alternatives at base widths
+CODEC_ALT_WARMUP = 2         # warm-up generator steps (no GAN terms)
+CODEC_ALT_STEPS = 3          # timed GAN generator and discriminator steps
+CODEC_ALT_TRANSFERS = 2      # timed transfers, graph and op by op
+CODEC_ALT_BUFFERS = 16       # streamed buffers at ALT_STREAM_STEPS
+VAE_TRAIN_STEPS = 3          # replayed phase-2 steps with VAE encoders
+VAE_OVERRIDES = {"encoder.regularisation": "vae",
+                 "encoder_time.vae_regularisation": True,
+                 "encoder_time.ac_regularisation": False,
+                 "encoder_time.upscale_out": True}
 
 
 def log(msg: str) -> None:
@@ -3155,7 +3197,7 @@ def _stop_background() -> None:
     live = [proc for proc in _BACKGROUND if proc.poll() is None]
     _signal_background(live, signal.SIGKILL)
     for proc in live:
-        proc.communicate()
+        proc.wait()
 
 
 def pause_background() -> None:
@@ -3215,16 +3257,24 @@ def package_in_background(started: dict, path: str, *devices: str) -> None:
     # its stage processes die with it), at the lowest CPU priority, which
     # the processes it starts inherit
     env = dict(os.environ, **{PARENT_ENV: str(os.getpid())})
+    # a job's output goes to files (NATIVE_JOB_LOGS), which no one must
+    # read while it runs: a pipe left unread until phase 15 would fill and
+    # stop the job writing to it
+    os.makedirs(NATIVE_JOB_LOGS, exist_ok=True)
     for dev in devices:
-        proc = subprocess.Popen(
-            [sys.executable, "-m", "after_tpu_torch.streaming.native", path,
-             "--device", dev],
-            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
-            start_new_session=True, env=env)
+        log_path = os.path.join(NATIVE_JOB_LOGS, f"{os.path.basename(
+            path.rstrip('/'))}.{dev}")
+        with open(log_path + ".out", "w") as out, \
+                open(log_path + ".err", "w") as err:
+            proc = subprocess.Popen(
+                [sys.executable, "-m", "after_tpu_torch.streaming.native",
+                 path, "--device", dev],
+                stdout=out, stderr=err, text=True, start_new_session=True,
+                env=env)
         os.setpriority(os.PRIO_PROCESS, proc.pid, 19)
         _BACKGROUND.append(proc)
         started["jobs"].append((path, dev))
-        started["procs"].append(proc)
+        started["procs"].append((proc, log_path))
     log(f"native: packaging {path} for {', '.join(devices)} started "
         f"(niced) beside the phases to come, "
         f"{time.perf_counter() - started['t0']:.1f} s into phase 13")
@@ -3245,6 +3295,7 @@ def native_phase(row, a, b, attrs, started, hosts=None) -> None:
     import torch
     from after_tpu_torch.streaming.export import (ExportedCodec,
                                                   ExportedStreamer)
+    from after_tpu_torch.streaming.native import exit_reason
 
     runs = os.path.join(CLI_DIR, "runs")
     art = os.path.join(runs, "diff", "after.audio.diff")
@@ -3346,11 +3397,17 @@ def native_phase(row, a, b, attrs, started, hosts=None) -> None:
     built, t0 = started["built"], started["t0"]
     t_wait = time.perf_counter()
     packaging, job_s = {}, {}
-    for (path, dev), proc in zip(started["jobs"], started["procs"]):
-        out, err = proc.communicate()
+    for (path, dev), (proc, log_path) in zip(started["jobs"],
+                                             started["procs"]):
+        proc.wait()
+        with open(log_path + ".out") as f:
+            out = f.read()
+        with open(log_path + ".err") as f:
+            err = f.read()
         if proc.returncode != 0:
-            fail(f"packaging {path} for {dev} failed (exit "
-                 f"{proc.returncode}):\n{err[-3000:]}\n{out[-1000:]}")
+            fail(f"packaging {path} for {dev} failed "
+                 f"({exit_reason(proc.returncode)}; its output in "
+                 f"{log_path}.out and .err):\n{err[-3000:]}\n{out[-1000:]}")
         name = f"{os.path.basename(path)} ({dev})"
         packaging[name] = json.loads(out.strip().splitlines()[-1])
         job_s[name] = time.perf_counter() - t0
@@ -5261,6 +5318,405 @@ def alternatives_phase(row, requests, short) -> None:
     torch.cuda.empty_cache()
 
 
+@contextlib.contextmanager
+def plain_snake_conv():
+    """While in the block, every offline ``ConvBlock1d`` runs the
+    snake+conv's plain version (``snake_conv_reference``) in place of the
+    op, so that a float64 codec runs on the card (the kernels take f32 and
+    bf16 only) as the witness of the f32 runs; no kernel launches."""
+    from after_tpu_torch.models.autoencoder import ConvBlock1d
+    from after_tpu_torch.ops.kernels.fused_conv import snake_conv_reference
+    forward = ConvBlock1d.forward
+
+    def plain(self, x, cache=None):
+        if self.cached:
+            return forward(self, x, cache)
+        h = self.gn(x, cache) if self.gn is not None else x
+        return snake_conv_reference(
+            h.contiguous(), self.act.alpha, self.act.beta,
+            self.conv.effective_weight(), self.conv.bias, self.conv.dilation,
+            self.conv.mode)
+    ConvBlock1d.forward = plain
+    try:
+        yield
+    finally:
+        ConvBlock1d.forward = forward
+
+
+def codec_step_grads(ae, dcfg, tc, state, device: str, x, use_gan: bool,
+                     weights, noise, decoder_noise, double: bool = False):
+    """One generator step's metrics and codec gradients (float64, on the
+    CPU) of an ``AutoencoderTrainer`` of (ae, tc, dcfg) on ``device`` whose
+    codec and discriminator load ``state`` (their two state dicts), with
+    fixed batch ``x``, bottleneck ``noise`` and ``decoder_noise`` (numpy);
+    with ``double`` both models and every input in float64, the snake+conv
+    by its plain version (``plain_snake_conv``)."""
+    import torch
+    from after_tpu_torch.autoencoder import AutoencoderTrainer
+    tr = AutoencoderTrainer(ae, tc, dcfg, device=device)
+    tr.codec.load_state_dict(state[0])
+    tr.disc.load_state_dict(state[1])
+    run = contextlib.nullcontext()
+    if double:
+        tr.codec.double()
+        tr.disc.double()
+        tr._tensor = lambda a: torch.as_tensor(a, dtype=torch.float64,
+                                               device=tr.device)
+        run = plain_snake_conv()
+    with run:
+        metrics, grads = tr.gen_grads(x, use_gan, *weights, noise,
+                                      decoder_noise)
+    names = [n for n, _ in tr.codec.named_parameters()]
+    return ({k: float(v) for k, v in metrics.items()},
+            [g.detach().double().cpu() for g in grads], names)
+
+
+def grad_distance(names, grads, ref):
+    """(worst, its tensor's name, median) over tensors of |grads - ref|'s
+    max over the larger of the tensor's max |ref| and 1e-3 x the largest
+    |ref| of the model (phase 9's measure)."""
+    floor = 1e-3 * max(g.abs().max().item() for g in ref)
+    ratios = sorted(((a - b).abs().max().item()
+                     / max(b.abs().max().item(), floor), n)
+                    for n, a, b in zip(names, grads, ref))
+    return ratios[-1][0], ratios[-1][1], ratios[len(ratios) // 2][0]
+
+
+def codec_step_witness(ae, dcfg, tc, state, step) -> dict:
+    """Phase 19(a)'s check at the weights its training steps leave
+    (``state``): one generator step (``step``: codec_step_grads's batch,
+    use_gan, weights, bottleneck and decoder noise) on the card and on the
+    CPU in f32, each against the same step in float64 on the card
+    (``codec_step_grads``).  The MR-STFT's log-magnitude term divides by
+    |Y| on the reconstruction's near-silent bins, where the f32 spectrum is
+    rounding, so with it the f32 gradients of either device stand 1e-3-1e-1
+    x max|g| from float64, the card as often nearer as farther than the
+    CPU (ROADMAP C13, scripts/torch_codec_step_conditioning.py): that
+    reading is printed, its losses held within CARD_VS_CPU_TOL.  Without
+    that term (``stft_w_log_mag`` 0), where f32 resolves the gradients,
+    the card is held to float64 within phase 9's limits: the check of the
+    kernels' path at these weights.  Returns the readings."""
+    import dataclasses
+    n = tc.num_signal
+    out = {}
+    for label, log_mag in (("with", True), ("without", False)):
+        ctc = tc if log_mag else dataclasses.replace(tc, stft_w_log_mag=0.0)
+        card = codec_step_grads(ae, dcfg, ctc, state, "cuda", *step)
+        exact = codec_step_grads(ae, dcfg, ctc, state, "cuda", *step,
+                                 double=True)
+        names = card[2]
+        reading = {"card_vs_f64": grad_distance(names, card[1], exact[1])}
+        if log_mag:
+            cpu = codec_step_grads(ae, dcfg, ctc, state, "cpu", *step)
+            reading["cpu_vs_f64"] = grad_distance(names, cpu[1], exact[1])
+            reading["card_vs_cpu"] = grad_distance(names, card[1], cpu[1])
+        reading["loss_vs_f64"] = max(
+            abs(card[0][k] - v) / max(abs(v), 1e-2)
+            for k, v in exact[0].items())
+        out[label] = reading
+        log(f"codec alternatives at the trained weights, {label} the "
+            f"MR-STFT's log-magnitude term: one GAN generator step at {n} "
+            f"samples, fixed bottleneck and decoder noise, codec gradients "
+            "(x max(max|g|, 1e-3 x the model's largest)) worst (tensor), "
+            "median: " + "; ".join(
+                f"{k.replace('_', ' ')} {v[0]:.3e} ({v[1]}), {v[2]:.3e}"
+                for k, v in reading.items() if k != "loss_vs_f64")
+            + f"; card losses within {reading['loss_vs_f64']:.3e} x "
+            f"max(|loss|, 0.01) of float64")
+    if out["with"]["loss_vs_f64"] > CARD_VS_CPU_TOL:
+        fail(f"codec alternatives: at the trained weights the card's losses "
+             f"stand {out['with']['loss_vs_f64']:.3e} from float64")
+    worst, name, median = out["without"]["card_vs_f64"]
+    if (worst > TRAIN_GRAD_TOL["codec"] or median > TRAIN_GRAD_MEDIAN_TOL
+            or out["without"]["loss_vs_f64"] > CARD_VS_CPU_TOL):
+        fail(f"codec alternatives: at the trained weights without the "
+             f"log-magnitude term the card stands {worst:.3e} ({name}; "
+             f"limit {TRAIN_GRAD_TOL['codec']}), median {median:.3e} (limit "
+             f"{TRAIN_GRAD_MEDIAN_TOL}) from float64")
+    return out
+
+
+def codec_alternatives_phase(row, requests, short) -> None:
+    """Phase 19: the descript discriminator, the decoder's NoiseGenerator
+    and the VAE encoders at base widths (see the module docstring);
+    ``requests`` are phase 4's and ``short`` phase 5's clip."""
+    import numpy as np
+    import torch
+    from after_tpu_torch import TransferPipeline, get_config
+    from after_tpu_torch.autoencoder import AutoencoderTrainer
+    from after_tpu_torch.config import (AETrainConfig, DiscriminatorConfig,
+                                        get_ae_config, with_overrides)
+    from after_tpu_torch.dataset import DeviceLatentBank
+    from after_tpu_torch.diffusion.trainer import DiffusionTrainer
+    from after_tpu_torch.models.descript_discriminator import \
+        DescriptDiscriminator
+    from after_tpu_torch.ops.kernels.fused_conv import (
+        backward_device_launches, device_launches, fused_snake_conv,
+        reset_device_launches)
+    from after_tpu_torch.streaming import Streamer
+    from torch.nn.modules.module import register_module_forward_hook
+
+    counts = {}
+
+    # (a) codec training: the base codec with use_noise, the descript
+    # discriminator at its default periods and FFT sizes, phase 8's batch
+    ae = get_ae_config(use_noise=True)
+    dcfg = DiscriminatorConfig(kind="descript")
+    tc = AETrainConfig(warmup_steps=TRAIN_WARMUP)
+    tr = AutoencoderTrainer(ae, tc, dcfg, device="cuda",
+                            seed=SEED).init(SEED)
+    if not isinstance(tr.disc, DescriptDiscriminator):
+        fail(f"codec alternatives: the trainer built "
+             f"{type(tr.disc).__name__}")
+    gen = torch.Generator("cuda").manual_seed(SEED + 19)
+    x = synthetic_audio(gen, tc.batch_size, tc.num_signal, ae.sr)
+    w_gan = tr._recon_weights(TRAIN_WARMUP + 1)
+    steps = ([("warmup", lambda: tr.gen_step(x, False, *tr._recon_weights(
+        0)))] * CODEC_ALT_WARMUP + [
+        ("gan", lambda: tr.gen_step(x, True, *w_gan)),
+        ("disc", lambda: tr.disc_step(x))] * CODEC_ALT_STEPS)
+    records = []
+    pause_background()
+    for kind, step in steps:
+        reset_device_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics = step()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = (device_launches()[0], *backward_device_launches()[:2])
+        values = {k: float(v) for k, v in metrics.items()}
+        records.append((kind, dt, launches, values))
+        want = (64, 64, 64) if kind != "disc" else (64, 0, 0)
+        if launches != want:
+            fail(f"codec alternatives: a {kind} step launched (forward, "
+                 f"dgrad, wgrad) {launches} on the device, expected {want}")
+        if not all(math.isfinite(v) for v in values.values()) or values.get(
+                "skipped_nonfinite", 0):
+            fail(f"codec alternatives: {kind} step metrics {values}")
+    resume_background()
+    med = {k: sorted(dt for kk, dt, *_ in records if kk == k)[
+        len([1 for kk, *_ in records if kk == k]) // 2] * 1e3
+        for k in ("gan", "disc")}
+    gan = [r for r in records if r[0] == "gan"][-1][3]
+    disc = [r for r in records if r[0] == "disc"][-1][3]
+    n_disc = sum(p.numel() for p in tr.disc.parameters())
+    log(f"codec alternatives: base codec with use_noise, descript "
+        f"discriminator ({n_disc} parameters: periods "
+        f"{dcfg.descript_periods}, FFT sizes {dcfg.descript_fft_sizes}), "
+        f"batch {tc.batch_size} x {tc.num_signal}: warm-up generator steps "
+        + ", ".join(f"{dt * 1e3:.1f}" for k, dt, *_ in records
+                    if k == "warmup")
+        + f" ms; median of {CODEC_ALT_STEPS} GAN generator steps "
+        f"{med['gan']:.2f} ms, of {CODEC_ALT_STEPS} discriminator steps "
+        f"{med['disc']:.2f} ms; (forward, dgrad, wgrad) launches counted on "
+        f"the device (64, 64, 64) a generator step, (64, 0, 0) a "
+        f"discriminator step; last GAN step total_loss "
+        f"{gan['total_loss']:.4f} feature_matching "
+        f"{gan['feature_matching']:.4f} adversarial {gan['adversarial']:.4f}"
+        f", discriminator {disc['discriminator']:.4f}; card {card_line()}")
+    counts["codec_gen_step"] = records[-2][2]
+    counts["codec_disc_step"] = records[-1][2]
+    row["codec_alternatives_step_ms"] = med
+    trained = tuple({k: v.detach().cpu().clone() for k, v in
+                     m.state_dict().items()} for m in (tr.codec, tr.disc))
+    shape = tr.codec.decoder_noise_shape(1, TRAIN_VS_CPU_SAMPLES // ae.ratio)
+    del tr, x
+    # one GAN generator step at batch 1 with fixed batch, bottleneck and
+    # decoder noise: at the weights the steps above leave, held to float64
+    # (codec_step_witness); at the seed's weights, card against CPU as
+    # phase 9 holds them
+    ctc = AETrainConfig(warmup_steps=TRAIN_WARMUP, batch_size=1,
+                        num_signal=TRAIN_VS_CPU_SAMPLES)
+    xs = synthetic_audio(gen, 1, TRAIN_VS_CPU_SAMPLES, ae.sr).cpu().numpy()
+    rng = np.random.RandomState(SEED + 19)
+    bn = rng.randn(1, TRAIN_VS_CPU_SAMPLES // ae.ratio,
+                   ae.z_channels).astype(np.float32)
+    dn = rng.uniform(-1, 1, shape).astype(np.float32)
+    step = (xs, True, w_gan, bn, dn)
+    row["codec_alternatives_trained_vs_f64"] = codec_step_witness(
+        ae, dcfg, ctc, trained, step)
+    seeded = AutoencoderTrainer(ae, ctc, dcfg, device="cuda").init(SEED)
+    seeded = tuple(m.state_dict() for m in (seeded.codec, seeded.disc))
+    (cm, cg, names), (pm, pg, _) = (
+        codec_step_grads(ae, dcfg, ctc, seeded, dev, *step)
+        for dev in ("cuda", "cpu"))
+    loss = max(abs(cm[k] - v) / max(abs(v), 1e-2) for k, v in pm.items())
+    worst, name, median = grad_distance(names, cg, pg)
+    log(f"codec alternatives card vs CPU: one GAN generator step at "
+        f"{TRAIN_VS_CPU_SAMPLES} samples, the seed's weights, fixed "
+        f"bottleneck and decoder noise: losses within {loss:.3e} x "
+        f"max(|loss|, 0.01) (limit {CARD_VS_CPU_TOL}); codec gradients "
+        f"worst {worst:.3e} ({name}; limit {TRAIN_GRAD_TOL['codec']}), "
+        f"median {median:.3e} (limit {TRAIN_GRAD_MEDIAN_TOL})")
+    if not (loss <= CARD_VS_CPU_TOL and worst <= TRAIN_GRAD_TOL["codec"]
+            and median <= TRAIN_GRAD_MEDIAN_TOL):
+        fail("codec alternatives: card and CPU disagree")
+    del seeded
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) transfer with that codec in the base pipeline
+    a, b = requests[1]
+    kw = dict(nb_steps=NB_STEPS, guidance_timbre=GUIDANCE_TIMBRE)
+    cfg = with_overrides(get_config("base"), {"autoencoder.use_noise": True})
+    cfg = cfg.resolved(in_size=cfg.autoencoder.z_channels,
+                       n_signal=N_SAMPLES // cfg.autoencoder.ratio)
+    pipe = TransferPipeline(cfg, device="cuda").init(SEED)
+
+    def noise():
+        return torch.Generator("cuda").manual_seed(SEED)
+
+    t0 = time.perf_counter()
+    pipe.transfer(a, b, **kw, generator=noise())
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    pause_background()
+    reset_device_launches()
+    times, outs = [], []
+    for _ in range(CODEC_ALT_TRANSFERS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs.append(pipe.transfer(a, b, **kw, generator=noise()))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    launches = device_launches()[0]
+    resume_background()
+    if launches != 96 * CODEC_ALT_TRANSFERS:
+        fail(f"noise codec transfer: the device counted {launches} "
+             f"launches in {CODEC_ALT_TRANSFERS} replays, expected 96 each")
+    y = outs[-1]
+    if not torch.isfinite(y).all() or y.shape[1] < N_SAMPLES:
+        fail(f"noise codec transfer: output {tuple(y.shape)}")
+    agree("codec alternatives: two transfers of the same request and x0 "
+          "(the decoder's fixed noise)", outs[0], outs[1])
+    pipe.eager = True
+    worst, checked = [0.0], [0]
+    hook = register_module_forward_hook(
+        snake_conv_check("noise codec transfer", worst, checked))
+    fused_snake_conv.launches = 0
+    reset_device_launches()
+    eager_out = pipe.transfer(a, b, **kw, generator=noise())
+    eager_launches = device_launches()[0]
+    hook.remove()
+    if (checked[0], fused_snake_conv.launches, eager_launches) != (96, 96,
+                                                                   96):
+        fail(f"noise codec transfer op by op: {checked[0]} launches "
+             f"checked, {fused_snake_conv.launches} wrapper calls, "
+             f"{eager_launches} on the device; expected 96")
+    pause_background()
+    eager_times = []
+    for _ in range(CODEC_ALT_TRANSFERS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pipe.transfer(a, b, **kw, generator=noise())
+        torch.cuda.synchronize()
+        eager_times.append(time.perf_counter() - t0)
+    resume_background()
+    pipe.eager = False
+    agree("codec alternatives: noise codec transfer graph vs op by op", y,
+          eager_out)
+    tmed, emed = (sorted(t)[len(t) // 2] * 1e3 for t in (times,
+                                                          eager_times))
+    log(f"codec alternatives: a {N_SAMPLES}-sample transfer with the noise "
+        f"codec at {NB_STEPS} steps: first call {first_ms:.1f} ms (warm-up "
+        f"and capture), median {tmed:.2f} ms as a CUDA graph, {emed:.2f} ms "
+        f"op by op; {launches // CODEC_ALT_TRANSFERS} launches a transfer "
+        f"counted on the device; op by op {checked[0]} launches held to the "
+        f"plain version, worst {worst[0]:.3e} x max|y|; card {card_line()}")
+    counts["noise_transfer"] = launches // CODEC_ALT_TRANSFERS
+    row["noise_transfer_ms"] = (tmed, emed)
+    # card vs CPU on phase 5's clip, the CPU keeping the card's fixed draw
+    cpu = TransferPipeline(cfg, device="cpu")
+    cpu.codec.load_state_dict(pipe.codec.state_dict())
+    cpu.rf.load_state_dict(pipe.rf.state_dict())
+    sa, sb, x0, _ = short
+    skw = dict(nb_steps=SHORT_STEPS, guidance_timbre=GUIDANCE_TIMBRE, x0=x0)
+    y_card = pipe.transfer(sa, sb, **skw).cpu()
+    shape = pipe.codec.decoder_noise_shape(1, x0.shape[1])
+    kept = pipe.codec.decoder.noise.fixed[(shape, str(pipe.device))]
+    cpu.codec.decoder.noise.keep_noise(kept.cpu())
+    y_cpu = cpu.transfer(sa, sb, **skw)
+    err = (y_card - y_cpu).abs().max().item()
+    scale = y_cpu.abs().max().item()
+    log(f"codec alternatives: noise codec card vs CPU, {SHORT_SAMPLES} "
+        f"samples, {SHORT_STEPS} steps, the card's decoder noise kept on the"
+        f" CPU: max abs err {err:.3e}, max |y| {scale:.4f}, tolerance "
+        f"{CARD_VS_CPU_TOL} * max |y| = {CARD_VS_CPU_TOL * scale:.3e}")
+    if not (torch.isfinite(y_card).all() and err <= CARD_VS_CPU_TOL * scale):
+        fail("codec alternatives: the noise codec's card and CPU disagree")
+    del cpu
+
+    # (c) the crossfade streamer of that codec
+    streamer = Streamer(cfg, CHUNK, N_FADE, pipeline=pipe)
+    state = streamer.init_state(1)
+    A = streamer.audio_chunk
+    n = CODEC_ALT_BUFFERS * A
+    x0s = np.random.RandomState(SEED + 19).randn(
+        CODEC_ALT_BUFFERS, 1, CHUNK, cfg.denoiser.n_channels).astype(
+            np.float32)
+    captures = streamer.graphs.captures
+    pause_background()
+    reset_device_launches()
+    stimes, _ = stream_audio(streamer, state, a[:, :n], b[:, :n],
+                             ALT_STREAM_STEPS, x0s=x0s)
+    slaunches = device_launches()[0]
+    resume_background()
+    if streamer.graphs.captures != captures:
+        fail("noise codec stream: captured again")
+    if slaunches != 96 * CODEC_ALT_BUFFERS:
+        fail(f"noise codec stream: the device counted {slaunches} launches "
+             f"in {CODEC_ALT_BUFFERS} buffers, expected 96 a buffer")
+    log(f"codec alternatives: streaming the noise codec, "
+        f"{CODEC_ALT_BUFFERS} buffers of {A} samples at nb_steps "
+        f"{ALT_STREAM_STEPS}, median / p90 / max ms a buffer as CUDA graphs "
+        f"{spread(stimes)}; {slaunches // CODEC_ALT_BUFFERS} launches a "
+        f"buffer counted on the device; card {card_line()}")
+    counts["noise_buffer"] = slaunches // CODEC_ALT_BUFFERS
+    del streamer, state, pipe
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (d) diffusion training with both VAE encoders: graphed phase-2 steps
+    dcfg2 = diffusion_config(**VAE_OVERRIDES)
+    dtr = DiffusionTrainer(dcfg2, device="cuda", seed=SEED).init(SEED)
+    items = [{"z": z} for z in synthetic_latents(
+        DIFF_RECORDS, dcfg2.denoiser.n_channels, DIFF_RECORD_FRAMES, SEED)]
+    bank = DeviceLatentBank(items, DIFF_FRAMES, device="cuda")
+    batches = bank.batches(DIFF_BATCH, seed=SEED)
+    flags, weights = (False, True, True, False), (0.1, 0.1)
+    dtimes, dmetrics = [], []
+    pause_background()
+    for i in range(1 + VAE_TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = dtr.train_step(next(batches), *flags, *weights)
+        torch.cuda.synchronize()
+        dtimes.append(time.perf_counter() - t0)
+        dmetrics.append({k: float(v) for k, v in m.items()})
+    resume_background()
+    if dtr.graphs is None or dtr.graphs.captures != 1 or not all(
+            math.isfinite(v) for m in dmetrics for v in m.values()) or any(
+            m["skipped_nonfinite"] for m in dmetrics):
+        fail(f"VAE diffusion training: captures "
+             f"{dtr.graphs.captures if dtr.graphs else 0}, metrics "
+             f"{dmetrics}")
+    log(f"codec alternatives: diffusion training with ECAPA "
+        f"regularisation vae and Encoder1D vae + upscale_out, batch "
+        f"{DIFF_BATCH} x {DIFF_FRAMES} frames: first phase-2 step (op by "
+        f"op and capture) {dtimes[0] * 1e3:.1f} ms, {VAE_TRAIN_STEPS} "
+        f"replayed steps " + ", ".join(f"{t * 1e3:.2f}" for t in dtimes[1:])
+        + " ms; last step " + ", ".join(
+            f"{k} {dmetrics[-1][k]:.4f}" for k in (
+                "loss", "diffusion_loss", "cond_reg", "time_cond_reg"))
+        + f"; card {card_line()}")
+    row["vae_step_ms"] = [t * 1e3 for t in dtimes[1:]]
+    row["launches_codec_alternatives"] = counts
+    del dtr, bank, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -5776,6 +6232,12 @@ def main() -> None:
     alternatives_phase(row, requests, short)
 
     phase_time("phase 18 (alternative diffusion models)")
+
+    # 19. the codec's and the encoders' alternatives: the descript
+    # discriminator, the decoder's NoiseGenerator, the VAE encoders
+    codec_alternatives_phase(row, requests, short)
+
+    phase_time("phase 19 (codec and encoder alternatives)")
 
     # 15. the native streaming host on phase 13's artifacts, their
     # packages done

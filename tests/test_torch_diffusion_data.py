@@ -318,10 +318,16 @@ def test_filter_partial_load_matches_jax():
     {"encoder_time.vae_regularisation": True},
     {"encoder.regularisation": "vae"}])
 def test_what_is_not_ported_raises(override):
+    """The encoders' vae modes, which the trainer refused until they were
+    ported, build; a VAE encoder run without its sample noise raises (C11:
+    the JAX package's raises InvalidRngError there)."""
     cfg = port_config.with_overrides(common.port_cfg(common.no_dropout()),
                                      override)
-    with pytest.raises(NotImplementedError):
-        DiffusionTrainer(cfg, device="cpu")
+    tr = DiffusionTrainer(cfg, device="cpu")
+    encoder = (tr.rf.encoder_time if "encoder_time.vae_regularisation"
+               in override else tr.rf.encoder)
+    with pytest.raises(ValueError, match="vae regularisation"):
+        encoder(torch.zeros(common.B, common.T, common.C))
 
 
 def test_the_trainer_builds_edm():

@@ -164,18 +164,42 @@ def _draws(sizes, zt, zs, fsq, edm, rng):
     return d
 
 
+def _structure_vae_shape(cfg):
+    et = cfg.encoder_time
+    width = et.channels[-1] * (4 if et.upscale_out else 1)
+    return (B, T // int(np.prod(et.ratios)), width)
+
+
 def jax_draws(cfg, rng, fsq: bool = False):
     """The values the JAX diffusion step draws from ``rng``, by the port's
-    names (trainer.DRAWS), drawn in one jitted call."""
+    names (trainer.DRAWS), drawn in one jitted call; with a VAE encoder its
+    sample noise from the key the JAX step gives it (the timbre encoder
+    ``ks[1]``, the structure encoder ``ks[3]``, the cycle's re-encode the
+    second half of ``ks[7]``)."""
     d = _draws(tuple(cfg.train.shuffle_zsem), cfg.zt_channels,
                cfg.zs_channels, fsq, cfg.diffusion_type == "edm", rng)
+    ks = jax.random.split(rng, 9)
+    if cfg.encoder.regularisation == "vae":
+        zt = (B, cfg.encoder.out_dim)
+        d["cond_vae"] = jax.random.normal(ks[1], zt)
+        d["cycle_cond_vae"] = jax.random.normal(jax.random.split(ks[7])[1],
+                                                zt)
+    if cfg.encoder_time is not None and cfg.encoder_time.vae_regularisation:
+        d["time_cond_vae"] = jax.random.normal(ks[3],
+                                               _structure_vae_shape(cfg))
     return jax.tree_util.tree_map(np.asarray, d)
 
 
 def jax_classifier_draws(cfg, rng):
-    key = jax.random.split(rng, 3)[0]
-    return {"shuffle": np.asarray(jax.jit(_shuffle_map, static_argnums=0)(
-        tuple(cfg.train.shuffle_zsem), key))}
+    """The JAX classifier step's draws: the shuffle from its first key, a
+    VAE timbre encoder's sample noise from its second."""
+    keys = jax.random.split(rng, 3)
+    d = {"shuffle": np.asarray(jax.jit(_shuffle_map, static_argnums=0)(
+        tuple(cfg.train.shuffle_zsem), keys[0]))}
+    if cfg.encoder.regularisation == "vae":
+        d["cond_vae"] = np.asarray(jax.random.normal(
+            keys[1], (B, cfg.encoder.out_dim)))
+    return d
 
 
 def port_trainer(cfg, variables):

@@ -24,10 +24,12 @@ from tests.torch_diffusion_common import random_variables
 TRANSFER_TOL = dict(atol=1e-3)
 
 
-def check_transfer(overrides, nb_steps=3, guidances=(2.0, 1.5)):
+def check_transfer(overrides, nb_steps=3, guidances=(2.0, 1.5),
+                   prepare=None):
     """The port's ``transfer`` against JAX's encode -> structure -> timbre
     -> diffuse(x0) -> decode, the same weights and x0; returns the port's
-    pipeline and output."""
+    pipeline and output.  ``prepare(pipe)`` runs on the port's pipeline
+    before its transfer (a noise codec keeps the JAX decode's draw)."""
     cfg = jax_config.get_config("base", **OVERRIDES, **overrides).resolved(
         in_size=8, n_signal=N_SIGNAL)
     jpipe = JaxPipeline(cfg)
@@ -51,6 +53,8 @@ def check_transfer(overrides, nb_steps=3, guidances=(2.0, 1.5)):
 
     pcfg = port_config.from_json(jax_config.to_json(cfg))
     pipe = TransferPipeline(pcfg, device="cpu").load_jax(variables)
+    if prepare is not None:
+        prepare(pipe)
     py = pipe.transfer(a, b, nb_steps=nb_steps, guidance_timbre=guidances[0],
                        guidance_structure=guidances[1], x0=x0)
     assert py.shape == y.shape and np.isfinite(py.numpy()).all()
