@@ -73,16 +73,18 @@ def build_argparser(cmd: str):
     p.add_argument("--native", action="store_true",
                    help="also package the stages the native host "
                         "(csrc/stream_host.cc) plays, for --device, with "
-                        "AOTInductor (minutes a stage at full width, the "
-                        "stages at once)")
+                        "AOTInductor (minutes a stage at full width, one "
+                        "after the other in a process of their own)")
     return p
 
 
 def _package(cmd: str, out: str, device: str) -> None:
     from ..streaming.native import package_artifact
-    seconds = package_artifact(out, device)
+    done = package_artifact(out, device)
+    total = done.pop("total")["cpu_seconds"]
     print(f"[{cmd}] packaged for the native host on {device}: " + ", ".join(
-        f"{k} {v:.1f} s" for k, v in seconds.items()))
+        f"{k} {v['seconds']:.1f} s" for k, v in done.items())
+        + f" ({total:.1f} CPU-s in all)")
 
 
 def load_run(model_path: str, emb_model_path: str, step=None, device=None,

@@ -50,6 +50,7 @@
 #include <unistd.h>
 
 #include <algorithm>
+#include <cmath>
 #include <chrono>
 #include <cstdint>
 #include <cstdio>
@@ -326,22 +327,69 @@ at::ScalarType DtypeOf(const std::string& name) {
 }
 
 // ---------------------------------------------------------------------------
-// the runtime scalars (diffusion/rectified_flow.py:stream_scalars,
-// guidance_mix), in f32 as written there
+// the runtime scalars of a buffer's Euler steps, in f32 as the Python
+// functions compute them: the rectified flow's
+// (diffusion/rectified_flow.py:stream_scalars) or EDM's
+// (diffusion/edm.py:stream_scalars), then the guidance mix (guidance_mix)
 // ---------------------------------------------------------------------------
 
-int StreamScalars(int max_steps, int nb_steps, double guidance_timbre,
-                  double guidance_structure, float* out) {
-  const int nb = std::min(std::max(nb_steps, 1), max_steps);
-  const float nb_f = static_cast<float>(nb);
-  for (int i = 0; i < max_steps; ++i) out[i] = static_cast<float>(i) / nb_f;
-  out[max_steps] = 1.0f / nb_f;
+// [total, factor] of the 3-way CFG mix
+void GuidanceMix(double guidance_timbre, double guidance_structure,
+                 float* out) {
   const float gt = static_cast<float>(guidance_timbre);
   const float gs = static_cast<float>(guidance_structure);
-  out[max_steps + 1] = 0.5f * (gs + gt);
-  out[max_steps + 2] = gt / std::max(gs, 0.01f);
-  return nb;
+  out[0] = 0.5f * (gs + gt);
+  out[1] = gt / std::max(gs, 0.01f);
 }
+
+// the diffusion model's scalars: [t_0 .. t_{S-1}, dt, total, factor] for
+// the rectified flow (S + 3 values), [a_0 .. a_{S-1}, sigma_0 .. sigma_S,
+// total, factor] for EDM (2S + 3), S = max_steps
+struct StreamScalars {
+  std::string type;                 // "rectified" or "edm"
+  int max_steps = 1;
+  double sigma_min = 0, sigma_max = 0, rho = 0;    // EDM's ladder
+
+  int64_t size() const {
+    return type == "edm" ? 2 * max_steps + 3 : max_steps + 3;
+  }
+
+  // fills out[size()]; returns nb_steps clipped to [1, max_steps]
+  int operator()(int nb_steps, double guidance_timbre,
+                 double guidance_structure, float* out) const {
+    const int nb = std::min(std::max(nb_steps, 1), max_steps);
+    const float nb_f = static_cast<float>(nb);
+    if (type == "edm") {
+      // edm.py:sigma_ladder: sigma_max^(1/rho) and the span to
+      // sigma_min^(1/rho) rounded from double, the ladder in f32
+      // (frac = 0 at one step), sigma_i = 0 for i > nb - 0.5
+      const double r = 1.0 / rho;
+      const float top = static_cast<float>(std::pow(sigma_max, r));
+      const float span =
+          static_cast<float>(std::pow(sigma_min, r) - std::pow(sigma_max, r));
+      const float rho_f = static_cast<float>(rho);
+      float* sig = out + max_steps;
+      for (int i = 0; i <= max_steps; ++i) {
+        const float fi = static_cast<float>(i);
+        const float frac =
+            nb_f > 1.0f ? fi / std::max(nb_f - 1.0f, 1.0f) : 0.0f;
+        const float base = top + frac * span;
+        sig[i] = fi > nb_f - 0.5f ? 0.0f : std::pow(base, rho_f);
+      }
+      // step 0 scales the unit noise by sigma_0, the others by 1
+      for (int i = 0; i < max_steps; ++i) out[i] = 1.0f;
+      out[0] = sig[0];
+      GuidanceMix(guidance_timbre, guidance_structure,
+                  out + 2 * max_steps + 1);
+    } else {
+      for (int i = 0; i < max_steps; ++i)
+        out[i] = static_cast<float>(i) / nb_f;
+      out[max_steps] = 1.0f / nb_f;
+      GuidanceMix(guidance_timbre, guidance_structure, out + max_steps + 1);
+    }
+    return nb;
+  }
+};
 
 // ---------------------------------------------------------------------------
 // the stages
@@ -425,17 +473,22 @@ int main(int argc, char** argv) {
 
   std::string art = argv[1];
   std::string manifest = ReadFile(art + "/manifest.json");
-  // StreamScalars computes the rectified flow's step scalars only: an EDM
-  // artifact's steps read its Karras ladder, which this host does not make
-  // (the manifest's config names the model's diffusion_type)
-  const std::string diffusion_type =
-      JsonString(manifest, "diffusion_type", "rectified");
-  if (diffusion_type != "rectified") {
-    std::cerr << "diffusion_type \"" << diffusion_type
-              << "\": this host computes the rectified flow's step scalars "
-                 "only (EDM's Karras ladder is not ported to the native "
-                 "host); serve the artifact with the Python host "
-                 "(after_tpu_torch.streaming.export.ExportedStreamer)\n";
+  // the step scalars of the model the manifest's config names
+  StreamScalars stream_scalars;
+  stream_scalars.type = JsonString(manifest, "diffusion_type", "rectified");
+  if (stream_scalars.type == "edm") {
+    const std::string e = JsonObject(manifest, "edm");
+    stream_scalars.sigma_min = JsonDouble(e, "sigma_min", -1);
+    stream_scalars.sigma_max = JsonDouble(e, "sigma_max", -1);
+    stream_scalars.rho = JsonDouble(e, "rho", -1);
+    if (stream_scalars.sigma_min <= 0 || stream_scalars.sigma_max <= 0 ||
+        stream_scalars.rho <= 0)
+      Die("diffusion_type \"edm\": the manifest's config has no edm "
+          "sigma_min, sigma_max and rho");
+  } else if (stream_scalars.type != "rectified") {
+    std::cerr << "diffusion_type \"" << stream_scalars.type
+              << "\": this host makes the step scalars of \"rectified\" "
+                 "and \"edm\" only\n";
     return 1;
   }
   // codec-only artifacts (after-tpu-torch export_autoencoder): one audio
@@ -561,6 +614,7 @@ int main(int argc, char** argv) {
       JsonDouble(JsonObject(attrs, "guidance_structure"), "default", 1.0);
   const int max_steps = static_cast<int>(
       JsonInt(JsonObject(attrs, "nb_steps"), "max", 1));
+  stream_scalars.max_steps = max_steps;
   if (!codec_mode) {
     int attr0 = pcm_mode ? 2 : 6;
     if (argc > attr0) attr_nb_steps = std::atoi(argv[attr0]);
@@ -650,7 +704,7 @@ int main(int argc, char** argv) {
     tcond = at::zeros({B, chunk, JsonInt(cfg, "zs_channels", 0)}, f32);
     zt = at::zeros({B, JsonInt(cfg, "zt_channels", 0)}, f32);
     x = at::zeros({B, chunk, latent}, f32);
-    scalars = at::zeros({max_steps + 3}, f32);
+    scalars = at::zeros({stream_scalars.size()}, f32);
     for (int i = 0; i < max_steps; ++i)
       slots.push_back(at::scalar_tensor(
           i, at::TensorOptions().dtype(at::kLong).device(device)));
@@ -789,7 +843,7 @@ int main(int argc, char** argv) {
     ht = h_t.data_ptr<float>();
     if (!codec_mode) {
       h_x0 = at::empty({B, chunk, latent}, host_f32);
-      h_scalars = at::empty({max_steps + 3}, host_f32);
+      h_scalars = at::empty({stream_scalars.size()}, host_f32);
     }
     if (midi_mode) h_notes = at::empty({B, chunk, n_poly, 2}, host_f32);
   };
@@ -981,10 +1035,11 @@ int main(int argc, char** argv) {
         std::memcpy(h_x0.data_ptr<float>(), x0_all.data() + c * n, n * 4);
         x.copy_(h_x0, on_card);
       } else {
-            x.normal_(0, 1, gen);
+        x.normal_(0, 1, gen);
       }
-      nb = StreamScalars(max_steps, attr_nb_steps, attr_g_timbre,
-                         attr_g_structure, h_scalars.data_ptr<float>());
+      // made again each buffer: EDM's ladder depends on nb_steps
+      nb = stream_scalars(attr_nb_steps, attr_g_timbre, attr_g_structure,
+                          h_scalars.data_ptr<float>());
       scalars.copy_(h_scalars, on_card);
       for (int i = 0; i < nb; ++i) play("step" + std::to_string(i));
       play("decode");

@@ -6,6 +6,8 @@ Layout is (B, T, C) throughout.  Attention is a plain masked softmax over
 output projection.  LayerNorms use flax's eps of 1e-6 and GELU is exact.
 A training forward (``train``, ops/train_mode.py) applies dropout to the
 attention probabilities and to the MLP's output; without it there is none.
+Below f32 a dense layer rounds its product before adding its bias, as
+flax's ``Dense`` does (``Dense``).
 
 Streaming (``streaming=True``): each attention layer keeps one KV slot per
 Euler step, ``k`` and ``v`` of shape (B, max_diffusion_steps, heads,
@@ -68,14 +70,24 @@ def fourier_features(t: torch.Tensor, num_channels: int,
     return out if dtype == torch.float32 else out.to(dtype)
 
 
+class Dense(nn.Linear):
+    """``nn.Linear`` as flax's ``Dense``: below f32 the product is rounded,
+    then the bias added (F.linear adds it before its one rounding)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if x.dtype == torch.float32 or self.bias is None:
+            return F.linear(x, self.weight, self.bias)
+        return F.linear(x, self.weight) + self.bias
+
+
 class MLP(nn.Module):
 
     def __init__(self, embed_dim: int, mlp_multiplier: int,
                  dropout: float = 0.0):
         super().__init__()
         self.dropout = dropout
-        self.Dense_0 = nn.Linear(embed_dim, mlp_multiplier * embed_dim)
-        self.Dense_1 = nn.Linear(mlp_multiplier * embed_dim, embed_dim)
+        self.Dense_0 = Dense(embed_dim, mlp_multiplier * embed_dim)
+        self.Dense_1 = Dense(mlp_multiplier * embed_dim, embed_dim)
 
     def forward(self, x: torch.Tensor,
                 train: Optional[TrainMode] = None) -> torch.Tensor:
@@ -203,7 +215,7 @@ class ChunkCausalAttention(MaskedAttention):
 
     def __init__(self, cfg: DenoiserConfig, streaming: bool = False):
         super().__init__(cfg, streaming)
-        self.qkv = nn.Linear(cfg.embed_dim, 3 * cfg.embed_dim, bias=False)
+        self.qkv = Dense(cfg.embed_dim, 3 * cfg.embed_dim, bias=False)
 
     def forward(self, x: torch.Tensor, cache: Optional[Cache] = None,
                 cache_index: Union[int, torch.Tensor] = 0,
@@ -220,11 +232,11 @@ class DecoderBlock(nn.Module):
                  streaming: bool = False):
         super().__init__()
         E = cfg.embed_dim
-        self.tcond_linear = (nn.Linear(cfg.tcond_dim, 2 * E)
+        self.tcond_linear = (Dense(cfg.tcond_dim, 2 * E)
                              if cfg.tcond_dim > 0 else None)
         self.norm1 = nn.LayerNorm(E, eps=LN_EPS)
         self.attn = ChunkCausalAttention(cfg, streaming)
-        self.cond_linear = nn.Linear(E, 2 * E) if with_cond else None
+        self.cond_linear = Dense(E, 2 * E) if with_cond else None
         self.norm3 = nn.LayerNorm(E, eps=LN_EPS)
         self.mlp = MLP(E, cfg.mlp_multiplier, cfg.dropout)
 
@@ -268,17 +280,17 @@ class Denoiser(nn.Module):
         tcond_in = cfg.tcond_dim if tcond_in is None else tcond_in
         self.use_cond = cfg.cond_dim > 0
         if self.use_cond:
-            self.emb_dense1 = nn.Linear(cfg.noise_embed_dims + cond_in, E)
-            self.emb_dense2 = nn.Linear(E, E)
-        self.patchify = nn.Linear(cfg.n_channels, E)
+            self.emb_dense1 = Dense(cfg.noise_embed_dims + cond_in, E)
+            self.emb_dense2 = Dense(E, E)
+        self.patchify = Dense(cfg.n_channels, E)
         if cfg.pos_emb_type == "learnable":
             self.pos_embed = nn.Parameter(torch.zeros(cfg.seq_len, E))
-        self.tcond_patchify = (nn.Linear(tcond_in, cfg.tcond_dim)
+        self.tcond_patchify = (Dense(tcond_in, cfg.tcond_dim)
                                if cfg.tcond_dim > 0 else None)
         for i in range(cfg.n_layers):
             self.add_module(f"block_{i}",
                             DecoderBlock(cfg, self.use_cond, streaming))
-        self.out_proj = nn.Linear(E, cfg.n_channels)
+        self.out_proj = Dense(E, cfg.n_channels)
         name_slots(self)
 
     def forward(self, x: torch.Tensor, time: torch.Tensor,

@@ -7,11 +7,15 @@ into [mean, scale] and samples the vector from the ``noise`` argument
 inference and on the batch's in a training forward (``train``,
 ops/train_mode.py).
 
-Types follow the JAX module's: each conv and dense layer computes at the
-promotion of its input's type and its parameters' (``utils.precision``),
-and the pooling's global context is taken with f32 weights, so that under
-bf16 parameters the attention, the pooled statistics and everything after
-them are f32 (where the JAX module's are bf16: ROADMAP C12, open).
+Types and roundings follow the JAX module's: each conv and dense layer
+computes at the promotion of its input's type and its parameters'
+(``utils.precision``).  Below f32 a layer rounds its product and then adds
+its bias, as flax's ``Conv`` and ``Dense`` do; the pooling's global
+context takes x's type (the JAX package's ``jnp.full`` of a Python number
+is weakly typed), and its softmax over time runs the exp, the sum and the
+divide as ops of their own, as ``jax.nn.softmax`` does.  Under bf16
+parameters the attention, the pooled statistics and the timbre vector are
+then bf16, and a bf16 pooling fed the JAX module's inputs gives its bits.
 """
 
 from __future__ import annotations
@@ -48,8 +52,22 @@ class ReflectConv(nn.Module):
             h = F.pad(h, (pad, self.span - pad), mode="reflect")
         c = self.Conv_0
         dtype = promote(h, c.weight)
-        return conv1d(h.to(dtype), at(c.weight, dtype), at(c.bias, dtype),
-                      dilation=c.dilation, groups=c.groups).transpose(1, 2)
+        # below f32 flax's Conv rounds the conv before adding the bias
+        split = dtype != torch.float32
+        y = conv1d(h.to(dtype), at(c.weight, dtype),
+                   None if split else at(c.bias, dtype), dilation=c.dilation,
+                   groups=c.groups).transpose(1, 2)
+        return y + at(c.bias, dtype) if split else y
+
+
+def _dense(layer: nn.Linear, x: torch.Tensor) -> torch.Tensor:
+    """flax's ``Dense``: ``linear`` in f32; below it the product is rounded
+    before the bias is added."""
+    dtype = promote(x, layer.weight)
+    if dtype == torch.float32:
+        return linear(layer, x)
+    return F.linear(x.to(dtype), at(layer.weight, dtype)) + at(layer.bias,
+                                                               dtype)
 
 
 class TDNNBlock(nn.Module):
@@ -101,9 +119,11 @@ class SEBlock(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         s = x.mean(dim=1, keepdim=True)
-        s = torch.sigmoid(linear(self.conv2, torch.relu(linear(self.conv1,
-                                                               s))))
-        return s * x
+        s = _dense(self.conv2, torch.relu(_dense(self.conv1, s)))
+        if s.dtype == torch.float32:
+            return torch.sigmoid(s) * x
+        # XLA's logistic below f32: 1 / (1 + exp(-s)), each step rounded
+        return 1 / (1 + torch.exp(-s)) * x
 
 
 class SERes2NetBlock(nn.Module):
@@ -122,7 +142,7 @@ class SERes2NetBlock(nn.Module):
 
     def forward(self, x: torch.Tensor,
                 train: Optional[TrainMode] = None) -> torch.Tensor:
-        residual = (linear(self.shortcut, x) if self.shortcut is not None
+        residual = (_dense(self.shortcut, x) if self.shortcut is not None
                     else x)
         h = self.tdnn2(self.res2net(self.tdnn1(x, train), train), train)
         return self.se(h) + residual
@@ -132,6 +152,13 @@ def _stats(m: torch.Tensor, y: torch.Tensor, eps: float = 1e-12):
     mean = (m * y).sum(dim=1)
     var = (m * torch.square(y - mean[:, None])).sum(dim=1)
     return mean, torch.sqrt(var.clamp_min(eps))
+
+
+def _softmax(a: torch.Tensor, dim: int) -> torch.Tensor:
+    """``jax.nn.softmax``: the exp, the sum and the divide each rounded to
+    a's type (``torch.softmax`` rounds a bf16 result once)."""
+    e = torch.exp(a - a.amax(dim=dim, keepdim=True))
+    return e / e.sum(dim=dim, keepdim=True)
 
 
 class AttentiveStatisticsPooling(nn.Module):
@@ -150,17 +177,16 @@ class AttentiveStatisticsPooling(nn.Module):
                 train: Optional[TrainMode] = None) -> torch.Tensor:
         B, T, C = x.shape
         if self.global_context:
-            # f32 weights: the context is f32.  The JAX package's jnp.full
-            # of a Python number is weakly typed, so its context takes x's
-            # type (bf16 under bf16 parameters): ROADMAP C12, open
-            mean, std = _stats(torch.full((B, T, 1), 1.0 / T,
+            # at x's type: the JAX package's jnp.full of a Python number is
+            # weakly typed
+            mean, std = _stats(torch.full((B, T, 1), 1.0 / T, dtype=x.dtype,
                                           device=x.device), x)
             attn_in = torch.cat([x, mean[:, None].expand(B, T, C),
                                  std[:, None].expand(B, T, C)], dim=-1)
         else:
             attn_in = x
-        a = linear(self.conv, torch.tanh(self.tdnn(attn_in, train)))
-        a = torch.softmax(a, dim=1)
+        a = _dense(self.conv, torch.tanh(self.tdnn(attn_in, train)))
+        a = _softmax(a, dim=1)
         mean, std = _stats(a, x)
         return torch.cat([mean, std], dim=-1)
 
@@ -205,7 +231,7 @@ class ECAPAEncoder(nn.Module):
         h = self.mfa(torch.cat(feats, dim=-1), train)
         if self.asp is not None:
             h = self.asp_bn(self.asp(h, train), train)
-        z = linear(self.fc, h)
+        z = _dense(self.fc, h)
         if cfg.use_tanh:
             z = torch.tanh(z)
         if cfg.spherical_normalisation:

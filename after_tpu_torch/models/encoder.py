@@ -72,6 +72,14 @@ class V2EncoderBlock1D(nn.Module):
         return self.pool(self.conv(x, cache, train), cache)
 
 
+def _softplus(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus``; below f32 as XLA expands it, max(x, 0) +
+    log1p(exp(-|x|)) with each step rounded (``F.softplus`` rounds once)."""
+    if x.dtype == torch.float32:
+        return F.softplus(x)
+    return torch.clamp_min(x, 0) + torch.log1p(torch.exp(-x.abs()))
+
+
 def reparametrise(h: torch.Tensor, noise: Optional[torch.Tensor],
                   name: str) -> Tuple[torch.Tensor, torch.Tensor,
                                       torch.Tensor]:
@@ -95,7 +103,7 @@ def reparametrise(h: torch.Tensor, noise: Optional[torch.Tensor],
     if tuple(noise.shape) != tuple(mean.shape):
         raise ValueError(f"{name}'s sample noise has shape "
                          f"{tuple(noise.shape)}, expected {tuple(mean.shape)}")
-    std = F.softplus(scale) + 1e-4
+    std = _softplus(scale) + 1e-4
     var = std * std
     z = mean + std * noise
     kl = torch.mean(torch.sum(mean * mean + var - torch.log(var) - 1,

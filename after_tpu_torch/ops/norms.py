@@ -44,7 +44,8 @@ class BatchNorm(nn.Module):
     last (the biased variance, E[x^2] - E[x]^2 clamped at 0, as flax computes
     it), and records them in ``train``; the running statistics move only
     when the caller commits them (``update_running``: 0.9 * old + 0.1 *
-    batch)."""
+    batch).  Scale and bias are widened from their own type: a bf16 copy
+    (``cast_call``) is used rounded, as flax uses the cast parameters."""
 
     momentum = 0.9
 
@@ -68,8 +69,8 @@ class BatchNorm(nn.Module):
             var = torch.clamp_min((x * x).mean(axes) - mean * mean, 0.0)
             train.batch_stats[self] = (mean.detach(), var.detach())
         f32 = torch.float32
-        mul = torch.rsqrt(var + self.eps) * at(self.weight, f32)
-        return ((x - mean) * mul + at(self.bias, f32)).to(dtype)
+        mul = torch.rsqrt(var + self.eps) * self.weight.to(f32)
+        return ((x - mean) * mul + self.bias.to(f32)).to(dtype)
 
     @torch.no_grad()
     def update_running(self, mean: torch.Tensor, var: torch.Tensor,

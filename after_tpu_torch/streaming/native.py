@@ -22,11 +22,17 @@ the package's output stood 0.41 from the program's on its first call (on
 the CPU, torch 2.13).  In the pure form no input is written, and the
 package matches the program within rounding.
 
+A noise codec's decode program keeps the decoder's fixed NoiseGenerator
+draw as a constant, which its package carries (tests/
+test_torch_stream_host_noise*.py).  An artifact that shares a stage's
+program with another (the same codec and encoders under another
+denoiser) can take that stage's package from it (``share_from``).
+
 Packaging needs the example inputs the program was traced with, which a
 saved program does not keep: they are rebuilt as zeros of its placeholders'
 shapes and dtypes, on the device packaged for.  Packaging takes minutes a
 stage at full width (Inductor compiles the stage's kernels and a C++
-wrapper; PERF.md gives the times), so the stages are packaged at once.
+wrapper; PERF.md gives the times).
 """
 
 from __future__ import annotations
@@ -54,6 +60,9 @@ _ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
 # the pid of the process that started this one, where it asks this one to
 # die with it (``die_with_parent``)
 PARENT_ENV = "AFTER_NATIVE_PARENT"
+# seconds a packaging waits for the artifact it shares stages with
+# (``package_artifact(share_from=)``) to name its packages
+SHARE_TIMEOUT = 3600.0
 
 
 def artifact_kind(manifest: dict) -> str:
@@ -130,26 +139,94 @@ def package_stage(program_path: str, package_path: str,
     return writes
 
 
-def package_artifact(path: str, device=None) -> Dict[str, float]:
+def same_program(a: str, b: str) -> bool:
+    """Whether the stage programs saved at ``a`` and ``b`` are one program:
+    the same graph over the same weights and constants (two exports of
+    the same modules write the same graph; their files need not be
+    byte-equal)."""
+    with open(a, "rb") as fa, open(b, "rb") as fb:
+        if fa.read() == fb.read():
+            return True
+    pa, pb = torch.export.load(a), torch.export.load(b)
+    if (str(pa.graph) != str(pb.graph)
+            or pa.graph_signature != pb.graph_signature):
+        return False
+    for da, db in ((pa.state_dict, pb.state_dict),
+                   (pa.constants, pb.constants)):
+        if set(da) != set(db) or not all(
+                isinstance(da[k], torch.Tensor) == isinstance(db[k],
+                                                              torch.Tensor)
+                and (not isinstance(da[k], torch.Tensor)
+                     or (da[k].dtype == db[k].dtype
+                         and da[k].shape == db[k].shape
+                         and torch.equal(da[k], db[k])))
+                for k in da):
+            return False
+    return True
+
+
+def _manifest(path: str) -> dict:
+    with open(os.path.join(path, "manifest.json")) as f:
+        return json.load(f)
+
+
+def _shared(path: str, other: str, stages: Sequence[str]) -> List[str]:
+    """The stages of ``stages`` whose programs are ``other``'s: those the
+    artifact at ``path`` can take from ``other``'s packages."""
+    return [s_ for s_ in stages if os.path.exists(
+        os.path.join(other, f"{s_}.pt2")) and same_program(
+            os.path.join(path, f"{s_}.pt2"), os.path.join(other, f"{s_}.pt2"))]
+
+
+def _wait_for_packages(other: str, device: torch.device) -> dict:
+    """``other``'s manifest once it names its packages for ``device``."""
+    key = f"native_{device.type}"
+    t0 = time.perf_counter()
+    while True:
+        manifest = _manifest(other)
+        if key in manifest:
+            return manifest
+        if time.perf_counter() - t0 > SHARE_TIMEOUT:
+            raise RuntimeError(f"{other} has no packages for {device.type} "
+                               f"after {SHARE_TIMEOUT:.0f} s")
+        time.sleep(1.0)
+
+
+def package_artifact(path: str, device=None, share_from: str = None
+                     ) -> Dict[str, dict]:
     """Packages the stages the native host runs (``HOST_STAGES``) of the
     artifact at ``path`` for ``device`` (the card unless "cpu") and names
-    them in its manifest; returns the seconds each stage took.  Every stage
-    is packaged at once, each by a process of its own
-    (``python -m after_tpu_torch.streaming.native --stage``), which keeps
-    Inductor's settings out of the caller's process."""
+    them in its manifest; returns, by stage, the seconds it took and the
+    CPU-seconds it spent, and under "total" the CPU-seconds of the whole
+    packaging, start-up included.  The stages are packaged one after the
+    other by a process of their own (``python -m
+    after_tpu_torch.streaming.native --stages``, ``_in_process``), which
+    keeps Inductor's settings out of the caller's process.
+
+    With ``share_from``, another artifact, a stage whose program is that
+    artifact's (``same_program``: the same codec or encoders, say) is not
+    compiled again: its package is copied once that artifact names its
+    packages for ``device`` (waited for up to SHARE_TIMEOUT s)."""
+    import shutil
+
     device = resolve_device(device)
     mpath = os.path.join(path, "manifest.json")
-    with open(mpath) as f:
-        manifest = json.load(f)
-    cfg = manifest.get("config", {})
-    if cfg.get("autoencoder", cfg).get("use_noise"):
-        raise ValueError(
-            "the native host does not play a noise codec's artifact yet "
-            "(autoencoder.use_noise): play it with the Python host "
-            "(streaming.export.ExportedStreamer / ExportedCodec)")
-    stages = list(HOST_STAGES[artifact_kind(manifest)])
+    stages = list(HOST_STAGES[artifact_kind(_manifest(path))])
     files = [f"native/{device.type}/{stage}.pt2" for stage in stages]
-    done = _in_processes(path, device, stages)
+    shared = _shared(path, share_from, stages) if share_from else []
+    done = _in_process(path, device, [s_ for s_ in stages
+                                      if s_ not in shared])
+    if shared:
+        other = _wait_for_packages(share_from, device)
+        for stage in shared:
+            k = other["native_stages"].index(stage)
+            dest = os.path.join(path, files[stages.index(stage)])
+            os.makedirs(os.path.dirname(dest), exist_ok=True)
+            shutil.copyfile(os.path.join(
+                share_from, other[f"native_{device.type}"][k]), dest)
+            done[stage] = {"writes": other["native_writes"][k],
+                           "seconds": 0.0, "cpu_seconds": 0.0,
+                           "shared_from": share_from}
     # read again and written under a lock: the packages of another device
     # may be named in it meanwhile
     with open(mpath, "r+") as f:
@@ -161,7 +238,8 @@ def package_artifact(path: str, device=None) -> Dict[str, float]:
         f.seek(0)
         json.dump(manifest, f, indent=2)
         f.truncate()
-    return {stage: done[stage]["seconds"] for stage in stages}
+    return {stage: {k: v for k, v in done[stage].items() if k != "writes"}
+            for stage in [*stages, "total"]}
 
 
 def _links_openmp(cxx: str) -> bool:
@@ -214,7 +292,14 @@ def _inductor_cxx() -> None:
     config.cpp.cxx = (None, wrapper)
 
 
-def _package_one(path: str, device: torch.device, stage: str) -> dict:
+def _package_stages(path: str, device: torch.device, stages: Sequence[str]
+                    ) -> None:
+    """Packages ``stages`` of the artifact at ``path`` one after the other
+    in this process, printing a JSON record a stage: the leaves it writes,
+    its seconds and its CPU-seconds (this process's and the compilers'
+    it waited for)."""
+    import resource
+
     from torch._inductor import config
     _inductor_cxx()
     # compile time: the large C++ wrapper (it only calls the kernels)
@@ -227,57 +312,65 @@ def _package_one(path: str, device: torch.device, stage: str) -> dict:
         # (one code generation pass, not a Python wrapper's first)
         config.triton.autotune_pointwise = False
         config.triton.autotune_at_compile_time = True
-    t0 = time.perf_counter()
-    writes = package_stage(os.path.join(path, f"{stage}.pt2"),
-                           os.path.join(path, "native", device.type,
-                                        f"{stage}.pt2"),
-                           device, stateful=stage not in STATELESS)
-    return {"writes": writes, "seconds": time.perf_counter() - t0}
+
+    def cpu():
+        return sum(r.ru_utime + r.ru_stime for r in (
+            resource.getrusage(resource.RUSAGE_SELF),
+            resource.getrusage(resource.RUSAGE_CHILDREN)))
+    for stage in stages:
+        t0, c0 = time.perf_counter(), cpu()
+        writes = package_stage(os.path.join(path, f"{stage}.pt2"),
+                               os.path.join(path, "native", device.type,
+                                            f"{stage}.pt2"),
+                               device, stateful=stage not in STATELESS)
+        print(json.dumps({"stage": stage, "writes": writes,
+                          "seconds": time.perf_counter() - t0,
+                          "cpu_seconds": cpu() - c0}), flush=True)
 
 
-def _in_processes(path: str, device: torch.device, stages: Sequence[str]
-                  ) -> Dict[str, dict]:
-    """Each stage packaged by a process of its own, all at once, each dying
-    with this process (``die_with_parent``).  A stage compiles its kernels
-    in its own process (no pool of compile workers, which cost a stage
-    more CPU time than they save it wall time when stages run at once)."""
+def _in_process(path: str, device: torch.device, stages: Sequence[str]
+                ) -> Dict[str, dict]:
+    """The stages packaged one after the other by one process of their own,
+    which dies with this one (``die_with_parent``) and compiles its kernels
+    itself (no pool of compile workers).  One process an artifact, not one
+    a stage: the stages share its start-up and what Inductor compiled for
+    the stages before (the codec's kernels of the structure, timbre and
+    decode stages), and the artifacts packaged at once keep the cores busy.
+    Returns each stage's record, and under "total" the process's
+    CPU-seconds from start-up to exit."""
     import subprocess
     import sys
     import tempfile
+    if not stages:
+        return {"total": {"cpu_seconds": 0.0}}
     env = dict(os.environ, TORCHINDUCTOR_COMPILE_THREADS=os.environ.get(
         "TORCHINDUCTOR_COMPILE_THREADS", "1"))
     env[PARENT_ENV] = str(os.getpid())
-    # each stage's output goes to files of its own, never to a pipe: a
-    # pipe that this process does not read while it waits on another stage
-    # would fill and stop the stage writing to it
-    logs = {stage: (tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+"))
-            for stage in stages}
-    procs = {stage: subprocess.Popen(
-        [sys.executable, "-m", "after_tpu_torch.streaming.native",
-         os.path.abspath(path), "--device", str(device), "--stage", stage],
-        stdout=logs[stage][0], stderr=logs[stage][1], text=True, cwd=_ROOT,
-        env=env) for stage in stages}
-
-    def read(f):
-        f.seek(0)
-        return f.read()
-    done = {}
-    try:
-        for stage, proc in procs.items():
-            proc.wait()
-            out, err = (read(f) for f in logs[stage])
-            if proc.returncode != 0:
-                for other in procs.values():
-                    other.kill()
-                    other.wait()
-                raise RuntimeError(
-                    f"packaging {path} stage {stage} failed "
-                    f"({exit_reason(proc.returncode)}):\n{err[-4000:]}"
-                    f"\n{out[-1000:]}")
-            done[stage] = json.loads(out.strip().splitlines()[-1])
-    finally:
-        for f in (f for pair in logs.values() for f in pair):
-            f.close()
+    # the output goes to files, never to a pipe: a pipe that this process
+    # does not read while it waits would fill and stop the writer
+    with tempfile.TemporaryFile("w+") as out, \
+            tempfile.TemporaryFile("w+") as err:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "after_tpu_torch.streaming.native",
+             os.path.abspath(path), "--device", str(device), "--stages",
+             ",".join(stages)],
+            stdout=out, stderr=err, text=True, cwd=_ROOT, env=env)
+        # its CPU time with that of every process it waited for (the
+        # compilers it started), as the kernel counts them at its exit
+        _, status, usage = os.wait4(proc.pid, 0)
+        proc.returncode = os.waitstatus_to_exitcode(status)
+        out.seek(0)
+        err.seek(0)
+        text, errors = out.read(), err.read()
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"packaging {path} stages {', '.join(stages)} failed "
+            f"({exit_reason(proc.returncode)}):\n{errors[-4000:]}"
+            f"\n{text[-1000:]}")
+    records = [json.loads(line) for line in text.splitlines()
+               if line.startswith('{"stage"')]
+    done = {r.pop("stage"): r for r in records}
+    done["total"] = {"cpu_seconds": usage.ru_utime + usage.ru_stime}
     return done
 
 
@@ -323,17 +416,20 @@ def main(argv=None) -> int:
     p.add_argument("path", help="the artifact's directory")
     p.add_argument("--device", default=None,
                    help="'cuda' (default, the card) or 'cpu'")
-    p.add_argument("--stage", default=None,
-                   help="package this one stage and print its JSON record "
-                        "(the manifest is left to the caller)")
+    p.add_argument("--stages", default=None,
+                   help="package these stages (comma-separated) in this "
+                        "process and print a JSON record a stage (the "
+                        "manifest is left to the caller)")
+    p.add_argument("--share_from", default=None,
+                   help="another artifact: take its packages of the stages "
+                        "whose programs are its own, once it has them")
     args = p.parse_args(argv)
     die_with_parent()
     device = resolve_device(args.device)
-    if args.stage is not None:
-        print(json.dumps(_package_one(args.path, device, args.stage)))
+    if args.stages is not None:
+        _package_stages(args.path, device, args.stages.split(","))
         return 0
-    seconds = package_artifact(args.path, device)
-    print(json.dumps(seconds))
+    print(json.dumps(package_artifact(args.path, device, args.share_from)))
     return 0
 
 

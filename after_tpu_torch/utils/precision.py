@@ -15,9 +15,11 @@ A module then computes at the promotion of its input's type and its
 parameters' (``promote``), as flax and jnp promote them.  Where a module
 computes in f32 on a parameter's compute-dtype copy (the decoder behind the
 bottleneck's f32 noise, the discriminator's convs over an f32 spectrogram,
-the f32 statistics of a norm), the cast and the widening cancel, as XLA
+GroupNorm's f32 statistics), the cast and the widening cancel, as XLA
 cancels them (``xla_allow_excess_precision``, on by default): ``at`` hands
-the f32 parameter itself.
+the f32 parameter itself.  BatchNorm (``ops.norms``) widens the bf16 copy
+instead: the JAX encoders' BatchNorm uses its cast scale and bias rounded
+(XLA's CPU keeps that pair of converts; tests/test_torch_ecapa_bf16.py).
 """
 
 from __future__ import annotations

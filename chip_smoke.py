@@ -198,7 +198,10 @@ Phases, each printed before the last line:
    kernel ms and busy time kept only from a profile that recorded every
    launch the device counted (up to PROFILE_TRIES profiles); the host ms
    of the live streamer's ``capture_key``; the
-   two-voice artifact on the card against the same artifact moved to the
+   two-voice artifact (exported from a run of the base model at
+   NATIVE_CUT's depth, random weights from the seed, whose codec launches
+   the kernel on its own ConvBlock1d count) on the card against the same
+   artifact moved to the
    CPU (``move_to_device_pass``, the op's plain version there),
    STREAM_VS_CPU_BUFFERS buffers of fixed noise within CARD_VS_CPU_TOL,
    the reading op by op with TF32 allowed beside it; the codec artifact's
@@ -248,9 +251,16 @@ Phases, each printed before the last line:
    compiler against libtorch (the kernel with nvcc), and the stages the
    host plays packaged with AOTInductor, the main artifact, the two-voice
    one and the codec artifact for the card and the two-voice one for the
-   CPU, each timed, in parallel processes started as phase 13 exports
-   each artifact, at the lowest CPU priority, beside the rest of phase 13
-   and phases 16-18 (which run before this phase's host checks; phase 14
+   CPU, and three artifacts of phase 18's and 19's models that phase 13
+   exports beside them (``export_artifacts``): EDM at full depth with
+   phase 12's codec and encoders, whose structure, timbre and decode
+   packages are the main artifact's (``share_from``), and at base widths
+   and a cut depth (NATIVE_CUT: one resnet block a codec stage, two
+   denoiser layers, which the two-voice artifact also takes) Denoiser v1
+   and the noise codec's codec artifact; each stage timed with its
+   CPU-seconds, in parallel processes started as phase 13 exports each
+   artifact, at the lowest CPU priority, beside the rest of phase 13
+   and phases 16-19 (which run before this phase's host checks; phase 14
    runs last), stopped while those phases time a section and killed with
    the script; the program links no libpython.  The Python hosts phase 13
    loaded give their outputs while the packages compile; then the host as
@@ -264,8 +274,16 @@ Phases, each printed before the last line:
    the Python host and against the same host with ``--device cpu`` (the
    op's plain version) within CARD_VS_CPU_TOL (these last three runs, which
    are not timed, at once); the codec artifact against
-   ``ExportedCodec``.  The host counts the kernel's launches on the
-   device: 96 a buffer (64 a codec forward), its split sum's as phase 6.
+   ``ExportedCodec``; then NATIVE_ALT_BUFFERS buffers of the EDM artifact
+   at nb_steps 1 and 4 and with changing attributes (the Karras ladder
+   made by the host) within EDM_HOST_TOL of ``ExportedStreamer``, the v1
+   artifact at nb_steps 4 and the noise codec's forward (its fixed draw a
+   constant of the package) within CARD_VS_CPU_TOL, as the other
+   artifacts, each buffer's median / p90 / max ms beside the Python
+   host's.  The host counts the kernel's
+   launches on the device: 96 a buffer (64 a codec forward; an
+   artifact's own ConvBlock1d count at the cut depth), its split sum's
+   as phase 6.
    Printed with the card's name and power limit: build and packaging
    seconds, the host's ms a buffer beside the Python host's, the kernel's
    bound a codec artifact forward.
@@ -547,6 +565,21 @@ ALT_TRAIN_KINDS = ["diffusion"] * 3 + ["cycle"] * 2
 PROFILE_TRIES = 3            # profiles of an artifact buffer, for one that
                              # kept every kernel record
 NATIVE_JOB_LOGS = "build/native_jobs"   # phase 15's package jobs' output
+# phase 15's artifacts besides phase 12's runs' (exported in phase 13): the
+# two-voice one, the v1 one and the noise codec's at base widths and a cut
+# depth (one resnet block a codec stage, two denoiser layers), so that
+# their AOTInductor packages take fewer CPU-seconds; the EDM one at full
+# depth with phase 12's codec and encoders, whose stages it shares
+NATIVE_CUT = {"autoencoder.num_blocks_per_stage": 1,
+              "autoencoder.dilations": (1,), "denoiser.n_layers": 2}
+NATIVE_ALT_BUFFERS = 16      # buffers of the EDM, v1 and noise artifacts
+# the native host against the Python host on an EDM artifact: its first
+# streamed step starts from the unit noise scaled by sigma_max (80) and, at
+# nb_steps 1, cancels x (80 |x0|) against x - D, so the packages' f32
+# rounding, which holds the flow's artifacts within 1.2e-5 x max|y| of
+# their Python host on the card (CARD_VS_CPU_TOL), stands up to 1.3e-4
+# there (2e-5 on the CPU)
+EDM_HOST_TOL = 1e-3
 # phase 19: the codec's and the encoders' alternatives at base widths
 CODEC_ALT_WARMUP = 2         # warm-up generator steps (no GAN terms)
 CODEC_ALT_STEPS = 3          # timed GAN generator and discriminator steps
@@ -2810,6 +2843,89 @@ def serve_phase(server: dict, sr: int, audio_chunk: int) -> dict:
     return ms
 
 
+def export_artifacts(on_export=None) -> dict:
+    """Phase 13's exports from phase 12's runs, and phase 15's other
+    artifacts (``write_native_runs``, ``native_artifacts``), each through
+    the commands; ``on_export(path)`` is called as each artifact is
+    written.  Returns each export's seconds."""
+    import os
+
+    import torch
+    from after_tpu_torch.cli.export import load_run
+    from after_tpu_torch.cli.main import main as cli_main
+
+    runs = os.path.join(CLI_DIR, "runs")
+    ae_run, diff_run = os.path.join(runs, "ae"), os.path.join(runs, "diff")
+    art = os.path.join(diff_run, "after.audio.diff")
+    art2 = os.path.join(CLI_DIR, "after.audio.diff.voices2")
+    codec_art = os.path.join(ae_run, "codec_export")
+    alt = native_artifacts()
+
+    def export(model, codec, *extra):
+        return ["export", "--model_path", model, "--emb_model_path", codec,
+                "--chunk_size", str(CHUNK), "--nb_steps", str(EXPORT_STEPS),
+                "--guidance_timbre", str(GUIDANCE_TIMBRE), "--device",
+                DEVICE, *extra]
+    seconds = {}
+
+    def run_export(label, path, argv):
+        gc.collect()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rc = cli_main(argv)
+        torch.cuda.synchronize()
+        seconds[label] = time.perf_counter() - t0
+        if rc != 0:
+            fail(f"{label} exited with {rc}")
+        if on_export is not None:
+            on_export(path)
+    run_export("export", art, export(diff_run, ae_run))
+    # phase 15's other runs: the cut-depth base model of the two voices,
+    # EDM with phase 12's codec and encoders, the cut v1 model, the cut
+    # noise codec (random weights from the seed, phase 18's and 19's
+    # configs at base widths)
+    t0 = time.perf_counter()
+    cut = write_native_runs(load_run(diff_run, ae_run, device=DEVICE)[1])
+    seconds["phase 15's runs"] = time.perf_counter() - t0
+    run_export("export --batch_size 2", art2, export(
+        cut["base"], cut["ae"], "--batch_size", "2", "--out", art2))
+    run_export("export_autoencoder", codec_art,
+               ["export_autoencoder", "--model_path", ae_run, "--chunk_size",
+                str(CHUNK), "--device", DEVICE])
+    run_export("export (edm)", alt["edm"],
+               export(cut["edm"], ae_run, "--out", alt["edm"]))
+    run_export("export (v1)", alt["v1"],
+               export(cut["v1"], cut["ae"], "--out", alt["v1"]))
+    run_export("export_autoencoder (noise)", alt["noise"],
+               ["export_autoencoder", "--model_path", cut["noise"],
+                "--chunk_size", str(CHUNK), "--device", DEVICE, "--out",
+                alt["noise"]])
+    return seconds
+
+
+def native_on_export(started: dict):
+    """The ``on_export`` of ``export_artifacts`` that starts each artifact's
+    package jobs (``package_in_background``): the main, codec, EDM, v1 and
+    noise codec artifacts for the card, the two-voice one for the card and
+    the CPU; the EDM one takes the main one's packages of the stages it
+    shares."""
+    import os
+
+    devices = {"after.audio.diff": ("cuda",),
+               "after.audio.diff.voices2": ("cuda", "cpu"),
+               "codec_export": ("cuda",), "after.audio.diff.edm": ("cuda",),
+               "after.audio.diff.v1": ("cuda",),
+               "codec_export.noise": ("cuda",)}
+    main_art = os.path.join(CLI_DIR, "runs", "diff", "after.audio.diff")
+
+    def on_export(path):
+        package_in_background(
+            started, path, *devices[os.path.basename(path.rstrip("/"))],
+            share_from=(main_art if path == native_artifacts()["edm"]
+                        else None))
+    return on_export
+
+
 def export_phase(row, a, b, attrs, on_export=None) -> dict:
     """Phase 13: export and serving (see the module docstring), from the
     runs phase 12 left; ``a`` and ``b`` are phase 6's request and
@@ -2822,7 +2938,6 @@ def export_phase(row, a, b, attrs, on_export=None) -> dict:
     import numpy as np
     import torch
     from after_tpu_torch.cli.export import load_run
-    from after_tpu_torch.cli.main import main as cli_main
     from after_tpu_torch.ops.kernels.fused_conv import (device_launches,
                                                         reset_device_launches)
     from after_tpu_torch.streaming import CrossfadeDecoder, Streamer
@@ -2839,27 +2954,7 @@ def export_phase(row, a, b, attrs, on_export=None) -> dict:
     codec_art = os.path.join(ae_run, "codec_export")
     per_buffer = row["launches_per_buffer"]
     per_sums = row["sum_splits_launches_per_buffer"]
-    export = ["export", "--model_path", diff_run, "--emb_model_path", ae_run,
-              "--chunk_size", str(CHUNK), "--nb_steps", str(EXPORT_STEPS),
-              "--guidance_timbre", str(GUIDANCE_TIMBRE), "--device", DEVICE]
-    seconds = {}
-    for label, path, argv in (
-            ("export", art, export),
-            ("export --batch_size 2", art2,
-             export + ["--batch_size", "2", "--out", art2]),
-            ("export_autoencoder", codec_art,
-             ["export_autoencoder", "--model_path", ae_run, "--chunk_size",
-              str(CHUNK), "--device", DEVICE])):
-        gc.collect()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        rc = cli_main(argv)
-        torch.cuda.synchronize()
-        seconds[label] = time.perf_counter() - t0
-        if rc != 0:
-            fail(f"{label} exited with {rc}")
-        if on_export is not None:
-            on_export(path)
+    seconds = export_artifacts(on_export)
     sizes = {}
     for label, path in (("artifact", art), ("codec artifact", codec_art)):
         files = _dir_bytes(path)
@@ -3047,9 +3142,10 @@ def export_phase(row, a, b, attrs, on_export=None) -> dict:
         f"on the card, counted on the device: {voice_launches}")
     if not (torch.isfinite(y_card).all() and err <= CARD_VS_CPU_TOL * scale):
         fail("artifact: card and CPU disagree")
-    if voice_launches != per_buffer * STREAM_VS_CPU_BUFFERS:
+    voice_blocks = artifact_conv_blocks(art2)
+    if voice_launches != voice_blocks * STREAM_VS_CPU_BUFFERS:
         fail(f"artifact: the two-voice buffers launched {voice_launches} "
-             f"kernels")
+             f"kernels, expected {voice_blocks} a buffer (its cut codec)")
 
     # the codec-only artifact against the live crossfade codec
     codec = ExportedCodec(codec_art, DEVICE)
@@ -3091,6 +3187,94 @@ def export_phase(row, a, b, attrs, on_export=None) -> dict:
     row["artifact_card_vs_cpu"] = err / scale
     row["serve_ms"] = serve_ms
     return {art: host, art2: card, codec_art: codec}
+
+
+def native_artifacts() -> dict:
+    """The paths of phase 15's artifacts besides phase 12's runs'."""
+    import os
+    return {"edm": os.path.join(CLI_DIR, "after.audio.diff.edm"),
+            "v1": os.path.join(CLI_DIR, "after.audio.diff.v1"),
+            "noise": os.path.join(CLI_DIR, "codec_export.noise")}
+
+
+def write_native_runs(pipe) -> dict:
+    """Runs of the port for phase 15's other artifacts, under
+    CLI_DIR/native_runs: "base", the base model at NATIVE_CUT's depth, and
+    "ae", its codec; "v1", Denoiser v1 at that depth on the same codec;
+    "edm", EDM at full depth with ``pipe``'s encoders (phase 12's; it is
+    exported with phase 12's codec run), so that its structure, timbre and
+    decode programs are the main artifact's; "noise", the base codec with the
+    NoiseGenerator at the cut depth.  Random weights from SEED; a
+    diffusion run's EMA is its denoiser."""
+    import os
+
+    import torch
+    from after_tpu_torch import TransferPipeline
+    from after_tpu_torch.config import (ae_to_json, get_ae_config, to_json,
+                                        with_overrides)
+    from after_tpu_torch.models.autoencoder import AudioCodec
+    from after_tpu_torch.utils.checkpoint import save_checkpoint
+    from after_tpu_torch.utils.init import init_weights
+
+    root = os.path.join(CLI_DIR, "native_runs")
+    out = {}
+
+    def save(name, cfg, p):
+        models = {"net": p.rf.net, "encoder": p.rf.encoder,
+                  "encoder_time": p.rf.encoder_time,
+                  "classifier": p.rf.classifier}
+        tree = {"variables": {k: m.state_dict() for k, m in models.items()
+                              if m is not None},
+                "ema_params": {n: t.detach() for n, t in
+                               p.rf.net.named_parameters()}, "step": 0}
+        out[name] = os.path.join(root, name)
+        save_checkpoint(out[name], 0, tree, config_json=to_json(cfg))
+
+    cut_cfg = with_overrides(pipe.cfg, NATIVE_CUT)
+    base = TransferPipeline(cut_cfg, device=DEVICE).init(SEED)
+    save("base", cut_cfg, base)
+    out["ae"] = os.path.join(root, "ae")
+    save_checkpoint(out["ae"], 0, {"codec_vars": base.codec.state_dict()},
+                    config_json=ae_to_json(cut_cfg.autoencoder))
+    overrides = dict(ALT_MODELS)
+    v1_cfg = with_overrides(cut_cfg, overrides["v1"])
+    v1 = TransferPipeline(v1_cfg, device=DEVICE).init(SEED)
+    save("v1", v1_cfg, v1)
+    edm_cfg = with_overrides(pipe.cfg, overrides["edm"])
+    edm = TransferPipeline(edm_cfg, device=DEVICE).init(SEED)
+    for name in ("encoder", "encoder_time", "classifier"):
+        module = getattr(edm.rf, name)
+        if module is not None:
+            module.load_state_dict(getattr(pipe.rf, name).state_dict())
+    save("edm", edm_cfg, edm)
+    noise_cfg = get_ae_config(use_noise=True, num_blocks_per_stage=1,
+                              dilations=(1,))
+    codec = AudioCodec(noise_cfg)
+    init_weights(codec, SEED)
+    out["noise"] = os.path.join(root, "noise")
+    save_checkpoint(out["noise"], 0, {"codec_vars": codec.state_dict()},
+                    config_json=ae_to_json(noise_cfg))
+    del base, v1, edm
+    torch.cuda.empty_cache()
+    return out
+
+
+def artifact_conv_blocks(path: str) -> int:
+    """The ConvBlock1d calls of one buffer of the artifact at ``path``, a
+    launch of the kernel each: two encodes and a decode of a crossfade
+    window, or a codec artifact forward's encode and decode."""
+    import os
+
+    from after_tpu_torch.config import ae_from_json
+    from after_tpu_torch.models.autoencoder import AudioCodec
+
+    with open(os.path.join(path, "manifest.json")) as f:
+        manifest = json.load(f)
+    cfg = manifest["config"]
+    codec_only = bool(manifest.get("codec_only"))
+    ae = ae_from_json(json.dumps(cfg if codec_only else cfg["autoencoder"]))
+    enc, dec = codec_conv_blocks(AudioCodec(ae), (N_FADE + CHUNK) * ae.ratio)
+    return len(enc + dec) if codec_only else len(enc + enc + dec)
 
 
 NATIVE_DIR = "build/native_phase"   # phase 15's WAVs, noise and outputs
@@ -3190,6 +3374,20 @@ def _signal_background(procs, sig) -> None:
             os.killpg(proc.pid, sig)
 
 
+def _running(proc) -> bool:
+    """Whether a process started beside the phases still runs, asked
+    without reaping it: phase 15 reaps a package job itself, to read its
+    CPU-seconds (``os.wait4``)."""
+    import os
+    if proc.returncode is not None:
+        return False
+    try:
+        return os.waitid(os.P_PID, proc.pid, os.WEXITED | os.WNOHANG
+                         | os.WNOWAIT) is None
+    except ChildProcessError:
+        return False
+
+
 def _stop_background() -> None:
     """Stops every process group started beside the phases that still
     runs (a failing phase exits while phase 15's packages compile)."""
@@ -3207,7 +3405,7 @@ def pause_background() -> None:
     failing section exits, and ``_stop_background`` kills them)."""
     import signal
     _PAUSED[1:] = [time.perf_counter(), [proc for proc in _BACKGROUND
-                                         if proc.poll() is None]]
+                                         if _running(proc)]]
     _signal_background(_PAUSED[2], signal.SIGSTOP)
 
 
@@ -3246,9 +3444,12 @@ def start_packaging() -> dict:
             "t0": time.perf_counter()}
 
 
-def package_in_background(started: dict, path: str, *devices: str) -> None:
+def package_in_background(started: dict, path: str, *devices: str,
+                          share_from: str = None) -> None:
     """Starts the packaging of the artifact at ``path`` for each of
-    ``devices``, a job each (see ``start_packaging``)."""
+    ``devices``, a job each (see ``start_packaging``); with ``share_from``
+    the stages whose programs are that artifact's take its packages
+    (``streaming.native.package_artifact``)."""
     import os
 
     from after_tpu_torch.streaming.native import PARENT_ENV
@@ -3268,7 +3469,8 @@ def package_in_background(started: dict, path: str, *devices: str) -> None:
                 open(log_path + ".err", "w") as err:
             proc = subprocess.Popen(
                 [sys.executable, "-m", "after_tpu_torch.streaming.native",
-                 path, "--device", dev],
+                 path, "--device", dev] + (
+                     ["--share_from", share_from] if share_from else []),
                 stdout=out, stderr=err, text=True, start_new_session=True,
                 env=env)
         os.setpriority(os.PRIO_PROCESS, proc.pid, 19)
@@ -3394,12 +3596,47 @@ def native_phase(row, a, b, attrs, started, hosts=None) -> None:
     gc.collect()
     torch.cuda.empty_cache()
 
+    # the EDM, v1 and noise codec artifacts through the Python host, timed
+    # with the compiles stopped: EDM at nb_steps 1 and 4 and with changing
+    # attributes, v1 at nb_steps 4, the noise codec's forward
+    alt = native_artifacts()
+    n_alt = NATIVE_ALT_BUFFERS
+    alt_refs = {}
+    for name, runs_of in (("edm", (1, 4, "changing")), ("v1", (4,))):
+        py = ExportedStreamer(alt[name], DEVICE)
+        pause_background()
+        py_stream(STREAM_STEPS[-1], n=STREAM_WARMUP)            # warm-up
+        for nb in runs_of:
+            py.reset()
+            alt_refs[name, nb] = (py_stream(None, attrs, n_alt)
+                                  if nb == "changing"
+                                  else py_stream(nb, n=n_alt))
+        resume_background()
+        del py
+    codec = ExportedCodec(alt["noise"], DEVICE)
+    pause_background()
+    times, ys = [], []
+    for i in range(n_alt):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        ys.append(codec.forward(a[:, i * A:(i + 1) * A]).cpu().numpy()
+                  .ravel())
+        times.append(time.perf_counter() - t)
+    resume_background()
+    alt_refs["noise"] = (times, np.concatenate(ys))
+    del codec
+    gc.collect()
+    torch.cuda.empty_cache()
+
     built, t0 = started["built"], started["t0"]
     t_wait = time.perf_counter()
-    packaging, job_s = {}, {}
+    packaging, job_s, job_cpu = {}, {}, {}
     for (path, dev), (proc, log_path) in zip(started["jobs"],
                                              started["procs"]):
-        proc.wait()
+        # the job's CPU-seconds with all it started, as the kernel counts
+        # them at its exit
+        _, status, usage = os.wait4(proc.pid, 0)
+        proc.returncode = os.waitstatus_to_exitcode(status)
         with open(log_path + ".out") as f:
             out = f.read()
         with open(log_path + ".err") as f:
@@ -3411,6 +3648,7 @@ def native_phase(row, a, b, attrs, started, hosts=None) -> None:
         name = f"{os.path.basename(path)} ({dev})"
         packaging[name] = json.loads(out.strip().splitlines()[-1])
         job_s[name] = time.perf_counter() - t0
+        job_cpu[name] = usage.ru_utime + usage.ru_stime
     started["thread"].join()
     if "host" not in built:
         fail("the native host did not build (see the error above)")
@@ -3418,15 +3656,27 @@ def native_phase(row, a, b, attrs, started, hosts=None) -> None:
     wall = time.perf_counter() - t0
     log(f"native: card {card_line()}; host built in {built['seconds']:.2f} "
         f"s ({host.name}, with nvcc's kernel); packages (AOTInductor, "
-        f"a job's stages at once, {len(packaging)} jobs, each started as "
-        f"its artifact was exported, niced, beside phases 13 and 16-18 and "
+        f"a job's stages in one process, {len(packaging)} jobs, each "
+        f"started as its artifact was exported, niced, beside phases 13 "
+        f"and 16-19 and "
         f"stopped for {_PAUSED[0]:.2f} s of their timed sections; "
         f"{wall:.2f} s wall from phase 13's start, of it "
         f"{time.perf_counter() - t_wait:.2f} s waited for after the "
         f"phases before and the Python hosts' references): "
         + "; ".join(
-            f"{k}: " + ", ".join(f"{s} {v:.1f} s" for s, v in d.items())
-            + f" (done at {job_s[k]:.1f} s)" for k, d in packaging.items()))
+            f"{k}: " + ", ".join(
+                f"{s} " + ("shared" if "shared_from" in v else
+                           f"{v['seconds']:.1f} s, {v['cpu_seconds']:.1f} "
+                           "CPU-s") for s, v in d.items() if s != "total")
+            + f", {d['total']['cpu_seconds']:.1f} CPU-s in all (done at "
+            f"{job_s[k]:.1f} s)" for k, d in packaging.items()))
+    stages = [v for d in packaging.values() for s, v in d.items()
+              if s != "total"]
+    compiled = sum("shared_from" not in v for v in stages)
+    log(f"native: packaging {sum(job_cpu.values()):.1f} CPU-s in all (the "
+        f"jobs' processes and all they started), {compiled} stages compiled "
+        f"and {len(stages) - compiled} shared")
+    row["native_package_cpu_seconds"] = sum(job_cpu.values())
     ldd = subprocess.run(["ldd", str(host)], capture_output=True,
                          text=True).stdout
     if "libpython" in ldd or "libtorch_cuda" not in ldd:
@@ -3522,7 +3772,13 @@ def native_phase(row, a, b, attrs, started, hosts=None) -> None:
         ys[dev] = np.stack([_read_f32_wav(f"{d}/o2_{dev}_{v}.wav")
                             for v in range(2)])
         if dev == "cuda":
-            total += launches("two voices", info, STREAM_VS_CPU_BUFFERS)
+            voice_blocks = artifact_conv_blocks(art2)
+            got = info.get("launches")
+            if got is None or got[0] != voice_blocks * STREAM_VS_CPU_BUFFERS:
+                fail(f"native host, two voices: the device counted {got} "
+                     f"{KERNEL_NAME} launches, expected {voice_blocks} a "
+                     "buffer (its cut codec)")
+            total += got[0]
     readings["voices"] = check(
         f"two voices, host vs Python host, {STREAM_VS_CPU_BUFFERS} buffers",
         ys["cuda"], voices_ref)
@@ -3545,6 +3801,52 @@ def native_phase(row, a, b, attrs, started, hosts=None) -> None:
     log(f"native: codec artifact, {n_buffers} forwards, median / p90 / max "
         f"ms {spread(info['ms'])}, {codec_launches // n_buffers} "
         f"{KERNEL_NAME} launches a forward, counted on the device")
+
+    # the EDM and v1 artifacts (each buffer 3 + nb_steps stage graphs; EDM's
+    # step scalars made by the host), the noise codec's forward
+    def alt_check(label, info, y, ref, blocks, n, tol):
+        got = info.get("launches")
+        if got is None or got[0] != blocks * n:
+            fail(f"native host, {label}: the device counted {got} "
+                 f"{KERNEL_NAME} launches in {n} buffers, expected {blocks} "
+                 "a buffer")
+        readings[label] = check(f"{label}, host vs Python host, {n} "
+                                "buffers", y, ref, tol)
+        return got[0]
+
+    alt_runs = {}
+    for name, nb in (("edm", 1), ("edm", 4), ("edm", "changing"),
+                     ("v1", 4)):
+        label = f"{name} nb_steps {nb}"
+        env = {"AFTER_NATIVE_PIPELINE": "1"}
+        args = [alt[name], f"{d}/s.wav", f"{d}/t.wav",
+                f"{d}/o_{name}_{nb}.wav", n_alt,
+                1 if nb == "changing" else nb, GUIDANCE_TIMBRE, 1.0,
+                "--x0", f"{d}/x0.f32"]
+        if nb == "changing":
+            env["AFTER_NATIVE_CTRL"] = f"{d}/ctrl.txt"
+        _, info = _host_run(label, host, args, env=env)
+        py_times, ref = alt_refs[name, nb]
+        total += alt_check(label, info, _read_f32_wav(
+            f"{d}/o_{name}_{nb}.wav"), ref, artifact_conv_blocks(alt[name]),
+            n_alt, EDM_HOST_TOL if name == "edm" else CARD_VS_CPU_TOL)
+        alt_runs[label] = (info["ms"], py_times)
+    _, info = _host_run("noise codec artifact", host, [
+        alt["noise"], f"{d}/s.wav", f"{d}/o_noise.wav", n_alt])
+    py_times, ref = alt_refs["noise"]
+    total += alt_check("noise codec artifact", info,
+                       _read_f32_wav(f"{d}/o_noise.wav"), ref,
+                       artifact_conv_blocks(alt["noise"]), n_alt,
+                       CARD_VS_CPU_TOL)
+    alt_runs["noise codec artifact"] = (info["ms"], py_times)
+    for label, (ms, py_times) in alt_runs.items():
+        log(f"native: {label}, {n_alt} buffers (readback depth 1): median "
+            f"/ p90 / max ms a buffer {spread(ms)}, the Python host's "
+            f"{spread(py_times)}")
+    row["native_alt_buffer_ms"] = {
+        label: {"native": [percentile(ms, q) * 1e3 for q in (0.5, 0.9, 1)],
+                "python": [percentile(t, q) * 1e3 for q in (0.5, 0.9, 1)]}
+        for label, (ms, t) in alt_runs.items()}
     log(f"native: card {card_line()}")
     # the codec artifact forward's bound: one encode and one decode of a
     # crossfade window, at the codec run's shapes
@@ -6206,12 +6508,7 @@ def main() -> None:
     # 13. export and serving, from phase 12's runs; phase 15's packages of
     # its artifacts compile from each export on, beside phases 13 and 16
     started = start_packaging()
-    devices = {"after.audio.diff": ("cuda",),
-               "after.audio.diff.voices2": ("cuda", "cpu"),
-               "codec_export": ("cuda",)}
-    hosts = export_phase(row, a, b, attrs, on_export=lambda path: (
-        package_in_background(started, path,
-                              *devices[path.rstrip("/").split("/")[-1]])))
+    hosts = export_phase(row, a, b, attrs, on_export=native_on_export(started))
 
     phase_time("phase 13 (export and serving)")
 

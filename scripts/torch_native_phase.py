@@ -1,8 +1,10 @@
 """``chip_smoke.py``'s phase 15 (the native streaming host) alone, on the
-card: base artifacts with port-native random weights (seed 0) exported
-where phase 13 leaves its artifacts (the streaming one at batch 1 and 2,
-the codec-only one, the codec run's config.json), then
-``chip_smoke.native_phase`` on them.  About 9 minutes, most of it the
+card: base runs with port-native random weights (seed 0) saved where
+phase 12 leaves its runs, every artifact of phase 13 and phase 15 exported
+from them as phase 13 exports them (``chip_smoke.export_artifacts``: the
+main one, the cut two-voice one, the codec one, EDM, v1 and the noise
+codec's), their packages started as each is written, then
+``chip_smoke.native_phase`` on them.  About 10-15 minutes, most of it the
 stages' packaging.
 
     python3 scripts/torch_native_phase.py
@@ -21,12 +23,11 @@ import torch  # noqa: E402
 
 import chip_smoke as cs  # noqa: E402
 from after_tpu_torch import TransferPipeline, get_config  # noqa: E402
-from after_tpu_torch.config import ae_to_json  # noqa: E402
+from after_tpu_torch.config import ae_to_json, to_json  # noqa: E402
 from after_tpu_torch.ops.kernels.fused_conv import (  # noqa: E402
     device_launches, reset_device_launches)
-from after_tpu_torch.streaming import Streamer  # noqa: E402
-from after_tpu_torch.streaming.export import (  # noqa: E402
-    ExportedStreamer, export_codec, export_streamer)
+from after_tpu_torch.streaming.export import ExportedStreamer  # noqa: E402
+from after_tpu_torch.utils.checkpoint import save_checkpoint  # noqa: E402
 
 
 def main() -> int:
@@ -39,23 +40,28 @@ def main() -> int:
     cfg = cfg.resolved(in_size=cfg.autoencoder.z_channels,
                        n_signal=cs.N_SAMPLES // cfg.autoencoder.ratio)
     pipe = TransferPipeline(cfg, device="cuda").init(cs.SEED)
-    streamer = Streamer(cfg, cs.CHUNK, cs.N_FADE, pipeline=pipe)
     runs = os.path.join(cs.CLI_DIR, "runs")
     art = os.path.join(runs, "diff", "after.audio.diff")
-    art2 = os.path.join(cs.CLI_DIR, "after.audio.diff.voices2")
-    codec_art = os.path.join(runs, "ae", "codec_export")
+    # phase 12's runs, from these weights: the diffusion run (its EMA the
+    # denoiser) and the codec run
+    save_checkpoint(os.path.join(runs, "diff"), 0, {
+        "variables": {k: m.state_dict() for k, m in (
+            ("net", pipe.rf.net), ("encoder", pipe.rf.encoder),
+            ("encoder_time", pipe.rf.encoder_time),
+            ("classifier", pipe.rf.classifier)) if m is not None},
+        "ema_params": {n: p.detach() for n, p in
+                       pipe.rf.net.named_parameters()}, "step": 0},
+        config_json=to_json(cfg))
+    save_checkpoint(os.path.join(runs, "ae"), 0,
+                    {"codec_vars": pipe.codec.state_dict()},
+                    config_json=ae_to_json(cfg.autoencoder))
     t0 = time.perf_counter()
-    export_streamer(streamer, art, nb_steps=cs.EXPORT_STEPS,
-                    guidance_timbre=cs.GUIDANCE_TIMBRE)
-    export_streamer(streamer, art2, nb_steps=cs.EXPORT_STEPS,
-                    guidance_timbre=cs.GUIDANCE_TIMBRE, batch_size=2)
-    export_codec(cfg.autoencoder, pipe.codec.state_dict(), codec_art,
-                 chunk_size=cs.CHUNK, n_fade=cs.N_FADE, device="cuda")
-    with open(os.path.join(runs, "ae", "config.json"), "w") as f:
-        f.write(ae_to_json(cfg.autoencoder))
-    cs.log(f"exports {time.perf_counter() - t0:.1f} s")
+    started = cs.start_packaging()
+    seconds = cs.export_artifacts(cs.native_on_export(started))
+    cs.log("exports (s): " + ", ".join(f"{k} {v:.1f}"
+                                       for k, v in seconds.items()))
     S = cfg.denoiser.max_diffusion_steps
-    del streamer, pipe
+    del pipe
     torch.cuda.empty_cache()
     rng = np.random.RandomState(cs.SEED)
     a = (0.1 * rng.randn(1, cs.N_SAMPLES, 1)).astype(np.float32)
@@ -76,11 +82,6 @@ def main() -> int:
     row = {"launches_per_buffer": launches,
            "sum_splits_launches_per_buffer": sums,
            "bound_ms_per_buffer": cs.path_bound(enc + enc + dec)[0]}
-    t0 = time.perf_counter()
-    started = cs.start_packaging()
-    for path, devices in ((art, ("cuda",)), (art2, ("cuda", "cpu")),
-                          (codec_art, ("cuda",))):
-        cs.package_in_background(started, path, *devices)
     cs.native_phase(row, a, b, attrs, started)
     cs.log(f"phase 15 {time.perf_counter() - t0:.1f} s")
     return 0

@@ -11,11 +11,10 @@ compiled), and the port's bf16 values finite and near its f32 ones.
   f32, so a bf16 decoder's output is f32 (and with the bottleneck's f32
   noise the whole decoder is, as in the trainer);
 - the VAE encoders: mean, scale and the KL at the type of the encoder's
-  last layer, the sample (the mean plus the f32 noise) f32.  Encoder1D's
-  last layer is bf16 in both packages; ECAPA's is f32 in the port, bf16
-  in JAX (its pooling's weakly-typed global context: ROADMAP C12, open),
-  so for ECAPA the sample's type is held to JAX's and the mean and the KL
-  are f32 with the port's timbre vector.
+  last layer, the sample (the mean plus the f32 noise) f32.  Both
+  encoders' last layers are bf16 in both packages (ECAPA's pooling takes
+  its global context at x's type, as the JAX package's weakly-typed
+  ``jnp.full`` does: tests/test_torch_ecapa_bf16.py).
 
 Tolerance of the port's bf16 values against its own f32 run in the type
 tests: within 0.1 x max |f32| (a few bf16 layers deep).
@@ -30,8 +29,7 @@ bf16 result within 2x the JAX bf16 result's distance from the JAX f32
 one, plus 1e-6 of its scale; a number a draw, such as a loss, with
 METRIC_FACTOR).  The JAX bf16 values come from a process of its own in
 which XLA rounds every bf16 value (--xla_allow_excess_precision=false),
-as the bf16 training tests run theirs.  ECAPA's mean and KL are compared
-by value only: their types part (C12, above).
+as the bf16 training tests run theirs.
 """
 
 import os
@@ -165,12 +163,8 @@ def test_vae_encoder_types():
         with torch.no_grad():
             out = cast_call(mod, BF16, xt.to(BF16), noise=noise)
             ref = mod(xt, noise=noise)
-        if isinstance(mod, ECAPAEncoder):
-            assert _port_dtypes(out)[0] == theirs[0] == "float32"
-            # the port's timbre vector is f32 (C12), its mean and KL too
-            assert out[1].dtype == out[2].dtype == torch.float32
-        else:
-            assert _port_dtypes(out) == theirs
+        assert _port_dtypes(out) == theirs == [
+            "float32", "bfloat16", "bfloat16"]
         _near(out[:2], ref[:2])
 
 
@@ -344,9 +338,7 @@ def test_noise_decoder_matches_jax_bf16(jax_pair):
 def test_vae_encoders_match_jax_bf16(jax_pair):
     """Encoder1D with the VAE and upscale_out, and ECAPA's VAE, from bf16
     features: the sample, the mean and the KL, with the JAX module's own
-    normal draw as the noise.  ECAPA's mean and KL are f32 in the port
-    and bf16 in JAX (C12, open; test_vae_encoder_types): their values are
-    held here, their types are not."""
+    normal draw as the noise."""
     x, encoders = _encoders()
     for (name, _, variables), mod, shape in zip(encoders, (
             Encoder1D(Encoder1DConfig(**EKW)).eval(),

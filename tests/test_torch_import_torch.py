@@ -402,6 +402,9 @@ def test_codec_with_group_norm(tmp_path):
 
 
 def test_a_checkpoint_without_config_gin_is_refused(tmp_path):
+    """Without a config.gin the default config and the geometry flags
+    build the modules (tests/test_torch_import_torch_nogin.py); a state
+    dict that does not fit them is refused, naming the config.gin."""
     pt = tmp_path / "checkpoint.pt"
     torch.save({}, str(pt))
     with pytest.raises(SystemExit, match="config.gin"):

@@ -172,8 +172,10 @@ def test_noise_codec_artifact_keeps_the_fixed_draw(tmp_path):
     """A crossfade streamer of a noise codec exported: the decode program
     holds the decoder's fixed draw as a constant, and the Python host's
     decode and forward give the live streamer's (1e-6 x max |y|, both run
-    the same ops), buffer after buffer; the native host's packaging
-    refuses the artifact (not ported yet)."""
+    the same ops), buffer after buffer; the decode stage's package for the
+    native host gives the program's output within 1e-5 x max |y| (the
+    native host's HOST_TOL; tests/test_torch_stream_host_noise.py plays the
+    whole artifact)."""
     import dataclasses
     import os
 
@@ -196,10 +198,23 @@ def test_noise_codec_artifact_keeps_the_fixed_draw(tmp_path):
     program = torch.export.load(os.path.join(out, "decode.pt2"))
     assert any(torch.equal(t, noise) for t in program.constants.values()
                if t.shape == noise.shape)
-    # the native host waits for a later port: packaging refuses the artifact
-    from after_tpu_torch.streaming.native import package_artifact
-    with pytest.raises(ValueError, match="use_noise"):
-        package_artifact(out, "cpu")
+    # the decode stage's AOTInductor package for the native host carries
+    # the draw: the package gives the program's output on the same state
+    from after_tpu_torch.streaming.native import package_stage
+    pkg_path = str(tmp_path / "decode_cpu.pt2")
+    writes = package_stage(os.path.join(out, "decode.pt2"), pkg_path,
+                           torch.device("cpu"))
+    z = np.random.RandomState(13).randn(1, 4, cfg.denoiser.n_channels)
+    z = torch.from_numpy(z.astype(np.float32))
+    # contiguous leaves, as the native host reads them (a package assumes
+    # the strides it was traced with)
+    leaves = [t.contiguous() for t in host.state]
+    y_pkg = torch._inductor.aoti_load_package(pkg_path)(
+        [t.clone() for t in leaves], z)
+    y_prog = host.programs["decode"]([t.clone() for t in leaves], z)
+    assert len(y_pkg) == len(writes) + 1
+    assert float((y_pkg[0] - y_prog).abs().max()) <= 1e-5 * float(
+        y_prog.abs().max())
     state = streamer.init_state(1)
     rng = np.random.RandomState(12)
     for i in range(3):

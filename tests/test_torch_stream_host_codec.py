@@ -5,9 +5,7 @@ crossfade path), written with ``after-tpu-torch export_autoencoder
 ``forward``).  In file mode over 8 buffers against the port's Python host
 (``ExportedCodec.forward``) within HOST_TOL x max|y|; with ``--pcm`` (mono
 f32 through pipes) equal to file mode within HOST_TOL x max|y| (two runs of
-the CPU packages part by rounding, tests/test_torch_stream_host.py).  And
-the host's refusal of an EDM artifact, whose step scalars it cannot make,
-reached from a manifest alone.
+the CPU packages part by rounding, tests/test_torch_stream_host.py).
 """
 
 import numpy as np
@@ -64,18 +62,3 @@ def test_codec_pcm_equals_file_mode(codec_artifact):
     out = np.frombuffer(proc.stdout, "<f4")
     assert "live PCM mode: 1ch" in proc.stderr.decode()
     close("--pcm vs file mode", out, y)
-
-
-def test_host_refuses_an_edm_artifact(tmp_path):
-    """An artifact whose manifest's config says ``diffusion_type`` "edm":
-    the host exits non-zero naming the gap before it reads anything
-    else."""
-    (tmp_path / "manifest.json").write_text(
-        '{"format_version": 2, "chunk_size": 4, "config": '
-        '{"diffusion_type": "edm", "edm": {"sigma_data": 0.5}}}')
-    proc = run_host([tmp_path, tmp_path / "s.wav", tmp_path / "t.wav",
-                     tmp_path / "o.wav"], check=False)
-    err = proc.stderr.decode()
-    assert proc.returncode != 0
-    assert 'diffusion_type "edm"' in err and "Karras" in err, err
-    assert not (tmp_path / "o.wav").exists()
